@@ -1,0 +1,497 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``tdax_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with a CUDA card and nvcc.
+It imports the port from this checkout (never ``jax``, never ``tdax``)
+and runs these phases, printing JSON lines:
+
+1. env      the card's name and power limit (nvidia-smi), torch/CUDA
+            versions; builds every kernel of the port from the sources
+            in the checkout (one nvcc per source, all started together).
+2. kernels  each kernel's wrapper against its plain PyTorch version on
+            the card: bf16 at the capture's three attention shapes
+            (decoder, ViT, resampler; batch 16) and f32 at the shapes
+            of tests/test_flash_attention.py.  Raises on a case outside
+            its tolerance.  Times the kernel, the plain version and one
+            PyTorch library call (scaled_dot_product_attention, used
+            nowhere in the port) with CUDA events, beside the least time
+            the card could take (H100 SXM peaks: 989 TFLOP/s bf16, 67
+            TFLOP/s f32 without tensor cores, 3.35 TB/s).
+3. capture  the port's main path at full width and depth: the 48-sample
+            dataset, the full QwenVLConfig() in bf16 with random weights
+            drawn on the card from a seed, extract_activations at batch
+            16.  Checks the [32, 48, 4096] capture, finiteness, the .pt
+            and .npz schemas, and that every attention went through the
+            kernel (launch counter = 3 batches x (48 + 1 + 32) = 243),
+            then times the same capture once more, warm, and each of
+            its host stages alone (tokenize, image decode, .npz, .pt).
+            Before that, a tiny f32 model's capture on the card is held
+            against the same capture on the CPU (plain attention).
+4. profile  one batch's forward alone (synchronised host clock), then
+            under torch.profiler: device busy time by kind (flash kernel,
+            GEMMs, other) and the idle share.
+5. the kernels line, the nvidia-smi line, then the last line
+            {"ok": true, "device": {...}}.
+
+Any failure raises, so the script exits non-zero and prints no result;
+it also exits non-zero when no CUDA card is present.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+
+BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
+F32_PEAK = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+
+# bf16: the kernel rounds the un-normalized p to bf16 where the plain
+# version rounds the normalized probabilities, and the two f32 results
+# may round to neighbouring bf16 outputs (one ulp is 2^-7 relative).
+BF16_ATOL, BF16_RTOL = 2e-2, 2e-2
+F32_TOL = 2e-5          # tests/test_flash_attention.py:65
+TINY_TOL = 1e-4         # tiny f32 capture, card vs CPU
+
+# (name, B, Tq, Tk, nh, hd, causal, calls per batch on the main path)
+MAIN_SHAPES = [
+    ("decoder", 16, 320, 320, 32, 128, True, 32),
+    ("vit", 16, 1024, 1024, 16, 104, False, 48),
+    ("resampler", 16, 256, 1024, 32, 128, False, 1),
+]
+F32_SHAPES = [  # tests/test_flash_attention.py:37-50, batch 2, plus hd 104
+    (40, 40, 2, 16, True), (40, 40, 2, 16, False), (8, 40, 2, 20, False),
+    (130, 130, 1, 128, True), (16, 260, 1, 32, False), (64, 192, 2, 128, False),
+    (256, 256, 2, 128, True), (1024, 1024, 1, 128, True), (128, 640, 2, 128, True),
+    (70, 70, 2, 104, True),
+]
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def import_port():
+    sys.path.insert(0, str(HERE))
+    import tdax_torch
+    where = Path(tdax_torch.__file__).resolve().parent
+    if where != HERE / "tdax_torch":
+        raise RuntimeError(f"tdax_torch imported from {where}, not from this checkout")
+    return tdax_torch
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(b, tq, tk, nh, hd, causal, itemsize):
+    """(ms, 'operations' | 'bytes'): the least time for one call."""
+    flops = 4.0 * b * nh * tq * tk * hd / (2 if causal else 1)
+    nbytes = (2 * b * tq + 2 * b * tk) * nh * hd * itemsize + 4 * b * tk  # q, o, k, v, bias
+    peak = BF16_PEAK if itemsize == 2 else F32_PEAK
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_env() -> dict:
+    import torch
+    smi = nvidia_smi()
+    from tdax_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.build()
+    build_s = time.perf_counter() - t0
+    ptxas = []
+    for log in sorted(_build.BUILD_DIR.glob("*.log")):
+        ptxas += [ln.strip() for ln in log.read_text().splitlines()
+                  if "registers" in ln or "spill" in ln]
+    info = {"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
+            "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
+            "build_s": round(build_s, 3), "built": sorted(_build.BUILD_SECONDS),
+            "ptxas": ptxas}
+    emit(info)
+    return info
+
+
+def _case_inputs(gen, b, tq, tk, nh, hd, dtype, device, strided_kv: bool, strided_q: bool):
+    """q/k/v as the model hands them over: views of a fused projection
+    where the model splits one (ViT: q, k, v; decoder: v)."""
+    import torch
+
+    def fused(t, n):
+        x = torch.randn((b, t, n * nh * hd), generator=gen, device=device, dtype=dtype)
+        return [c.reshape(b, t, nh, hd) for c in x.split(nh * hd, dim=-1)]
+
+    def plain(t):
+        return torch.randn((b, t, nh, hd), generator=gen, device=device, dtype=dtype)
+
+    if strided_q:
+        q, k, v = fused(tq, 3)
+    else:
+        q = plain(tq)
+        k, v = (fused(tk, 2) if strided_kv else (plain(tk), plain(tk)))
+    return q, k, v
+
+
+def _visible(valid, tq, tk, causal):
+    import torch
+    keyed = (valid > 0)[:, None, :].expand(valid.shape[0], tq, tk)
+    if causal:
+        keyed = keyed & torch.ones((tq, tk), dtype=torch.bool, device=valid.device).tril()
+    return keyed.any(-1)  # [B, Tq]
+
+
+def _check_case(fa, q, k, v, valid, causal, atol, rtol, label):
+    import torch
+    bias = torch.where(valid > 0, 0.0, fa.NEG_INF).to(torch.float32)
+    got = fa.flash_attention(q, k, v, bias, causal)
+    want = fa.flash_attention_plain(q, k, v, bias, causal)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != q.dtype:
+        raise AssertionError(f"{label}: shape/dtype {tuple(got.shape)} {got.dtype}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: non-finite kernel output")
+    rows = _visible(valid, q.shape[1], k.shape[1], causal)
+    g, w = got.float()[rows], want.float()[rows]
+    err = (g - w).abs()
+    max_abs = float(err.max())
+    excess = float((err - (atol + rtol * w.abs())).max())
+    if excess > 0:
+        raise AssertionError(f"{label}: max |kernel - plain| = {max_abs:.3e} exceeds "
+                             f"atol {atol} + rtol {rtol} * |plain|")
+    return bias, max_abs, int(rows.sum()), int(rows.numel())
+
+
+def phase_kernels() -> dict:
+    """Every kernel of the path against its plain version, on the card."""
+    import torch
+    import torch.nn.functional as F
+    import tdax_torch.ops.flash_attention as fa
+    from tdax_torch.runtime import get_device
+
+    device = get_device()
+    gen = torch.Generator(device=device).manual_seed(1234)
+    sites = []
+    for name, b, tq, tk, nh, hd, causal, calls in MAIN_SHAPES:
+        q, k, v = _case_inputs(gen, b, tq, tk, nh, hd, torch.bfloat16, device,
+                               strided_kv=name == "decoder", strided_q=name == "vit")
+        valid = torch.ones((b, tk), dtype=torch.int32, device=device)
+        if name == "decoder":  # right-padded rows of different lengths, one full
+            lengths = torch.randint(200, tk, (b,), generator=gen, device=device)
+            lengths[0] = tk
+            valid = (torch.arange(tk, device=device)[None] < lengths[:, None]).to(torch.int32)
+        bias, max_abs, n_rows, n_all = _check_case(fa, q, k, v, valid, causal,
+                                                   BF16_ATOL, BF16_RTOL, f"bf16 {name}")
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, bias, causal), iters=20)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, bias, causal), iters=5)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = None
+        if name == "decoder":
+            mask = (valid > 0)[:, None, None, :] & torch.ones(
+                (tq, tk), dtype=torch.bool, device=device).tril()
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+                             iters=20)
+        bound_ms, bound_by = bound(b, tq, tk, nh, hd, causal, 2)
+        site = {"site": name, "shape": [b, tq, tk, nh, hd], "causal": causal,
+                "dtype": "bfloat16", "calls_per_batch": calls, "max_abs_err": max_abs,
+                "rows_checked": n_rows, "rows": n_all, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        emit({"phase": "kernel_case", **site})
+        sites.append(site)
+        del q, k, v, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+
+    f32_errs = []
+    for tq, tk, nh, hd, causal in F32_SHAPES:
+        b = 2
+        q, k, v = _case_inputs(gen, b, tq, tk, nh, hd, torch.float32, device,
+                               strided_kv=False, strided_q=False)
+        valid = torch.ones((b, tk), dtype=torch.int32, device=device)
+        valid[0, tk - 7:] = 0
+        _, max_abs, _, _ = _check_case(fa, q, k, v, valid, causal, F32_TOL, F32_TOL,
+                                       f"f32 {(tq, tk, nh, hd, causal)}")
+        f32_errs.append(max_abs)
+    emit({"phase": "kernel_f32", "shapes": F32_SHAPES, "max_abs_err": f32_errs,
+          "tolerance": F32_TOL})
+
+    # all-masked rows: only finiteness is defined
+    q, k, v = _case_inputs(gen, 2, 64, 64, 2, 32, torch.bfloat16, device, False, False)
+    out = fa.flash_attention(q, k, v, torch.full((2, 64), fa.NEG_INF, device=device), True)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError("fully masked rows gave non-finite output")
+    return {"sites": sites, "f32_max_abs_err": max(f32_errs)}
+
+
+def phase_tiny_parity(tmp: Path) -> dict:
+    """A tiny f32 model's capture: the card (kernels) against the CPU
+    (plain attention), same parameters, same samples."""
+    import numpy as np
+    from tdax_torch.config import DatasetConfig, ExtractConfig
+    from tdax_torch.data.dataset import generate_dataset
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    from tdax_torch.models.qwen_vl.model import init_params
+    from tdax_torch.pipeline.extract import extract_activations
+
+    cfg = QwenVLConfig.tiny(dtype="float32")
+    metadata = generate_dataset(DatasetConfig(data_dir=str(tmp / "tiny_data")))
+    cpu_params = init_params(cfg, "cpu", seed=7)
+
+    def to_card(tree):
+        return {name: to_card(leaf) if isinstance(leaf, dict) else leaf.to("cuda")
+                for name, leaf in tree.items()}
+
+    card_params = to_card(cpu_params)
+    ecfg = ExtractConfig(batch_size=16)
+    runs = {}
+    for dev, params in (("cpu", cpu_params), ("cuda", card_params)):
+        res = extract_activations(metadata, str(tmp / f"tiny_{dev}.pt"), cfg, ecfg,
+                                  params=params, device=dev, verbose=False)
+        runs[dev] = np.stack([np.stack([res[m["id"]]["activations"][f"layer_{i}"]
+                                        for m in metadata]) for i in range(cfg.num_layers)])
+    err = float(np.abs(runs["cuda"] - runs["cpu"]).max())
+    scale = float(np.abs(runs["cpu"]).max())
+    info = {"phase": "tiny_parity", "shape": list(runs["cuda"].shape), "max_abs_err": err,
+            "max_abs_value": scale, "tolerance": TINY_TOL}
+    emit(info)
+    if not np.isfinite(runs["cuda"]).all() or err > TINY_TOL * max(1.0, scale):
+        raise AssertionError(f"tiny capture: card vs CPU max abs err {err:.3e}")
+    return info
+
+
+def phase_capture(tmp: Path, smi: str) -> dict:
+    """The port's main path at full width and depth."""
+    import numpy as np
+    import torch
+    import tdax_torch.ops.flash_attention as fa
+    from tdax_torch.config import DatasetConfig, ExtractConfig
+    from tdax_torch.data.dataset import generate_dataset
+    from tdax_torch.data.io import load_activations_npz, save_activations, save_activations_npz
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    from tdax_torch.models.qwen_vl.model import init_params
+    from tdax_torch.models.qwen_vl.preprocess import load_image_batch
+    from tdax_torch.models.qwen_vl.tokenizer import ToyTokenizer, batch_encode
+    from tdax_torch.pipeline.extract import extract_activations
+
+    cfg = QwenVLConfig()
+    ds = DatasetConfig(data_dir=str(tmp / "data"))
+    metadata = generate_dataset(ds)
+    if len(metadata) != 48:
+        raise AssertionError(f"dataset has {len(metadata)} samples, expected 48")
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, "cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = 0
+    stack = [params]
+    while stack:
+        for leaf in stack.pop().values():
+            if isinstance(leaf, dict):
+                stack.append(leaf)
+            else:
+                n_params += leaf.numel()
+
+    ecfg = ExtractConfig(batch_size=16)
+    out_path = str(tmp / "data" / "all_activations.pt")
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0
+    t0 = time.perf_counter()
+    results = extract_activations(metadata, out_path, cfg, ecfg, params=params,
+                                  device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = fa.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+
+    acts, ids, meta = load_activations_npz(out_path.rsplit(".", 1)[0] + ".npz")
+    if acts.shape != (32, 48, 4096):
+        raise AssertionError(f"capture shape {acts.shape}, expected (32, 48, 4096)")
+    if not np.isfinite(acts).all():
+        raise AssertionError("capture holds non-finite values")
+    if ids != [m["id"] for m in metadata] or meta != metadata:
+        raise AssertionError(".npz sample_ids / metadata_json do not match the dataset")
+    pt = torch.load(out_path, map_location="cpu", weights_only=False)
+    if list(pt) != ids:
+        raise AssertionError(".pt keys do not match the sample ids")
+    for j, sid in enumerate(ids):
+        entry = pt[sid]
+        if entry["metadata"] != metadata[j] or list(entry["activations"]) != [
+                f"layer_{i}" for i in range(32)]:
+            raise AssertionError(f".pt entry {sid} does not have the tdax schema")
+        if not np.array_equal(entry["activations"]["layer_31"].numpy(), acts[31, j]):
+            raise AssertionError(f".pt and .npz disagree for {sid}")
+    if set(results) != set(ids):
+        raise AssertionError("returned results do not cover the dataset")
+    n_batches = math.ceil(len(metadata) / ecfg.batch_size)
+    expected = n_batches * (cfg.visual.layers + 1 + cfg.num_layers)
+    if launches != expected:
+        raise AssertionError(f"flash kernel launched {launches} times, expected {expected}")
+    if np.abs(acts[:, 0] - acts[:, 1]).max() == 0:
+        raise AssertionError("two different samples gave identical activations")
+
+    # the same run again, warm: the difference is first-call set-up
+    t0 = time.perf_counter()
+    extract_activations(metadata, str(tmp / "data" / "again.pt"), cfg, ecfg, params=params,
+                        device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    # the host stages of the capture, each alone on the same data
+    host = {}
+    t0 = time.perf_counter()
+    encoded = batch_encode(ToyTokenizer(cfg), metadata, cfg)
+    host["tokenize_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_image_batch(encoded["image_paths"], cfg.visual.image_size)
+    host["images_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_activations_npz(str(tmp / "host.npz"), acts, ids, metadata)
+    host["npz_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_activations(str(tmp / "host.pt"), acts, ids, metadata)
+    host["pt_s"] = time.perf_counter() - t0
+    max_len = math.ceil((encoded["input_ids"].shape[1] + 1) / 64) * 64
+    tokens = n_batches * ecfg.batch_size * (max_len + cfg.visual.n_patches)
+    info = {"phase": "capture", "nvidia_smi": smi, "params": n_params,
+            "param_dtype": cfg.dtype, "init_s": init_s, "capture_shape": list(acts.shape),
+            "finite": True, "flash_launches": launches, "expected_launches": expected,
+            "wall_s": wall_s, "max_len": max_len, "tokens": tokens, "tokens_per_s": tokens / wall_s,
+            "wall_warm_s": warm_s, "tokens_per_s_warm": tokens / warm_s, "host": host,
+            "max_memory_allocated_bytes": peak, "image_path": "PIL"}
+    emit(info)
+    phase_profile(params, cfg, encoded, max_len, ecfg.batch_size, smi)
+    return info
+
+
+def phase_profile(params, cfg, encoded, max_len, bs, smi) -> dict:
+    """Where one batch's forward spends the card's time: the forward
+    alone (host clock, synchronised, median of 3 after one warm-up),
+    then one forward under torch.profiler, kernel time summed by kind."""
+    import numpy as np
+    import torch
+    from tdax_torch.models.qwen_vl.model import extract_layer_activations
+    from tdax_torch.models.qwen_vl.preprocess import load_image_batch
+
+    pad = max_len - encoded["input_ids"].shape[1]
+
+    def dev(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to("cuda", dtype)
+
+    batch = (dev(np.pad(encoded["input_ids"][:bs], ((0, 0), (0, pad))), torch.long),
+             dev(np.pad(encoded["attn_mask"][:bs], ((0, 0), (0, pad))), torch.int32),
+             dev(encoded["last_token_idx"][:bs], torch.long),
+             dev(load_image_batch(encoded["image_paths"][:bs], cfg.visual.image_size),
+                 torch.float32),
+             dev(encoded["image_positions"][:bs], torch.long))
+
+    def forward():
+        with torch.inference_mode():
+            return extract_layer_activations(params, cfg, *batch)
+
+    forward()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    forward_ms = 1e3 * sorted(times)[1]
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        forward()
+        torch.cuda.synchronize()
+    kinds = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+    top = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", 0.0)
+        name = ev.key.lower()
+        kind = ("flash" if "flash_fwd" in name else
+                "gemm" if any(w in name for w in ("gemm", "nvjet", "cutlass", "xmma")) else
+                "other")
+        kinds[kind] += us / 1e3
+        top.append((us / 1e3, ev.count, ev.key[:90]))
+    busy_ms = sum(kinds.values())
+    top.sort(reverse=True)
+    info = {"phase": "profile", "nvidia_smi": smi, "batch": bs, "forward_ms": forward_ms,
+            "forward_ms_runs": [1e3 * t for t in times],
+            "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
+            "flash_ms": kinds["flash"], "gemm_ms": kinds["gemm"], "other_ms": kinds["other"],
+            "idle_share": (1 - busy_ms / forward_ms) if busy_ms > 0 else "not measured",
+            "top_kernels_ms_count_name": top[:12]}
+    emit(info)
+    return info
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    import_port()
+    from tdax_torch.runtime import get_device
+    get_device()  # cuda, with TF32 off
+
+    env = phase_env()
+    kern = phase_kernels()
+    with tempfile.TemporaryDirectory(prefix="tdax_torch_smoke_") as tmp:
+        phase_tiny_parity(Path(tmp))
+        capture = phase_capture(Path(tmp), env["nvidia_smi"])
+
+    def total(key):
+        return sum(s[key] * s["calls_per_batch"] for s in kern["sites"])
+
+    by_ops = sum(s["bound_ms"] * s["calls_per_batch"] for s in kern["sites"]
+                 if s["bound_by"] == "operations")
+    by_bytes = total("bound_ms") - by_ops
+    emit({"kernels": [{
+        "name": "flash_fwd",
+        "route": "cuda",
+        "source": "tdax_torch/ops/csrc/flash_fwd.cu",
+        "replaces": "tdax/ops/flash_attention.py:164",
+        "launches": capture["flash_launches"],
+        "max_abs_err": max(s["max_abs_err"] for s in kern["sites"]),
+        "ms": total("ms"),
+        "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"),
+        "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+        "library_ms": total("library_ms"),
+        "per": "one batch of 16: 48 ViT + 1 resampler + 32 decoder calls, bf16",
+    }]})
+    print(env["nvidia_smi"], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

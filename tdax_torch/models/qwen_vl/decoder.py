@@ -1,0 +1,122 @@
+"""QWen decoder in PyTorch: RMSNorm, rotary, causal attention, SwiGLU.
+
+Counterpart of ``tdax/models/qwen_vl/decoder.py``: pre-RMSNorm, fused
+QKV with bias, rotary on the full head dim (base 10000, rotate-half),
+causal attention through ``mha``, output projection without bias, then
+pre-RMSNorm SwiGLU MLP (w1 * silu(w2) -> c_proj).
+
+Layer weights stay stacked [n_layers, ...] as in tdax; a Python loop
+over the layer index takes the place of ``lax.scan`` (indexing a
+stacked weight is a view, no copy).  Weights are [in, out] and
+multiplied as ``x @ w``: f32 accumulation, one cast to the working
+dtype, as tdax's ``qdot``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from tdax_torch.models.qwen_vl.config import QwenVLConfig
+from tdax_torch.ops.flash_attention import AttnSpec, mha
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """Normalize in f32, cast to x's dtype, then scale (tdax order)."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight
+
+
+def rotary_cos_sin(positions: torch.Tensor, head_dim: int,
+                   base: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions [B, T] -> cos/sin [B, T, head_dim/2], float32."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=positions.device) / head_dim
+    inv_freq = 1.0 / (base ** exponent)
+    angles = positions.float()[..., None] * inv_freq
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [B, T, n_heads, head_dim]; rotate-half, in f32, cast back."""
+    half = x.shape[-1] // 2
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    cos = cos[:, :, None, :]
+    sin = sin[:, :, None, :]
+    r1 = xf1 * cos - xf2 * sin
+    r2 = xf2 * cos + xf1 * sin
+    return torch.cat([r1, r2], dim=-1).to(x.dtype)
+
+
+def layer_at(stacked: dict, i: int) -> dict:
+    """Layer i's weights out of the stacked [n_layers, ...] tree (views)."""
+    return {name: w[i] for name, w in stacked.items()}
+
+
+def project_qkv(x: torch.Tensor, layer: dict, cfg: QwenVLConfig,
+                cos: torch.Tensor, sin: torch.Tensor):
+    """x [B, T, H] -> rotated (q, k, v) each [B, T, nh, hd].  v stays a
+    strided view of the fused projection; the kernel reads it as is."""
+    b, t, _ = x.shape
+    qkv = x @ layer["attn_qkv_w"] + layer["attn_qkv_b"]
+    q, k, v = qkv.split(cfg.hidden_size, dim=-1)
+    shape = (b, t, cfg.num_heads, cfg.head_dim)
+    q = apply_rotary(q.reshape(shape), cos, sin)
+    k = apply_rotary(k.reshape(shape), cos, sin)
+    return q, k, v.reshape(shape)
+
+
+def attend(q, k, v, spec: AttnSpec, layer: dict, cfg: QwenVLConfig) -> torch.Tensor:
+    """Attention + output projection: [B, Tq, nh, hd] -> [B, Tq, H]."""
+    b, tq = q.shape[0], q.shape[1]
+    out = mha(q, k, v, spec).reshape(b, tq, cfg.hidden_size)
+    return out @ layer["attn_proj_w"]
+
+
+def mlp(x: torch.Tensor, layer: dict) -> torch.Tensor:
+    """QWen SwiGLU: c_proj(w1(x) * silu(w2(x)))."""
+    a1 = x @ layer["mlp_w1"]
+    a2 = x @ layer["mlp_w2"]
+    inter = a1 * F.silu(a2.float()).to(x.dtype)
+    return inter @ layer["mlp_proj_w"]
+
+
+def block(x: torch.Tensor, layer: dict, cfg: QwenVLConfig,
+          cos: torch.Tensor, sin: torch.Tensor, spec: AttnSpec) -> torch.Tensor:
+    h1 = rms_norm(x, layer["ln_1"], cfg.layer_norm_eps)
+    q, k, v = project_qkv(h1, layer, cfg, cos, sin)
+    x = x + attend(q, k, v, spec, layer, cfg)
+    h2 = rms_norm(x, layer["ln_2"], cfg.layer_norm_eps)
+    return x + mlp(h2, layer)
+
+
+def _rotary_and_spec(x: torch.Tensor, cfg: QwenVLConfig, attn_mask: torch.Tensor):
+    b, t, _ = x.shape
+    positions = torch.arange(t, device=x.device)[None, :].expand(b, t)
+    cos, sin = rotary_cos_sin(positions, cfg.head_dim, cfg.rope_base)
+    return cos, sin, AttnSpec(kv_valid=attn_mask, causal=True)
+
+
+def decoder_capture(stacked_layers: dict, x: torch.Tensor, cfg: QwenVLConfig,
+                    attn_mask: torch.Tensor,
+                    last_token_idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run all blocks; return (final hidden [B, T, H], capture
+    [n_layers, B, H] of the last-token vector after each block).  The
+    gather of row ``last_token_idx`` equals tdax's one-hot contraction."""
+    cos, sin, spec = _rotary_and_spec(x, cfg, attn_mask)
+    rows = torch.arange(x.shape[0], device=x.device)
+    captures = []
+    for i in range(cfg.num_layers):
+        x = block(x, layer_at(stacked_layers, i), cfg, cos, sin, spec)
+        captures.append(x[rows, last_token_idx])
+    return x, torch.stack(captures)
+
+
+def decoder(stacked_layers: dict, x: torch.Tensor, cfg: QwenVLConfig,
+            attn_mask: torch.Tensor) -> torch.Tensor:
+    """Plain depth loop without capture."""
+    cos, sin, spec = _rotary_and_spec(x, cfg, attn_mask)
+    for i in range(cfg.num_layers):
+        x = block(x, layer_at(stacked_layers, i), cfg, cos, sin, spec)
+    return x

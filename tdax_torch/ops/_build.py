@@ -1,0 +1,87 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each source under ``tdax_torch/ops/csrc/`` is compiled by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, in
+``build/tdax_torch/`` at the repository root (``build/`` is gitignored).
+The library's file name carries a hash of its source, so an edited
+source is rebuilt and a built one is reused.  Only the sources in the
+repository are compiled; a failed build raises with nvcc's output.
+
+``build(names)`` starts one nvcc per source that still needs building,
+all at once, and waits for them together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tdax_torch"
+
+SOURCES = {"flash_fwd": "flash_fwd.cu"}
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+BUILD_SECONDS: dict[str, float] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("tdax_torch: nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                           "the port's CUDA kernels are built on the machine with the card")
+    return str(path)
+
+
+def _target(name: str) -> Path:
+    src = CSRC / SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build(names=None) -> dict[str, ctypes.CDLL]:
+    """Compile (where needed, in parallel) and load the named libraries."""
+    names = list(SOURCES) if names is None else list(names)
+    todo = [n for n in names if n not in _LOADED and not _target(n).exists()]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        start = time.perf_counter()
+        for n in todo:
+            out = _target(n)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                         text=True), tmp, out)
+        failed = []
+        for n, (proc, tmp, out) in procs.items():
+            stdout, stderr = proc.communicate()
+            (BUILD_DIR / f"{n}.log").write_text(stdout + stderr)
+            if proc.returncode != 0:
+                failed.append(f"--- {SOURCES[n]} (nvcc exit {proc.returncode}):\n{stderr}")
+                continue
+            os.replace(tmp, out)
+            BUILD_SECONDS[n] = time.perf_counter() - start
+        if failed:
+            raise RuntimeError("tdax_torch: kernel build failed\n" + "\n".join(failed))
+    for n in names:
+        if n not in _LOADED:
+            _LOADED[n] = ctypes.CDLL(str(_target(n)))
+    return {n: _LOADED[n] for n in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    return build([name])[name]
