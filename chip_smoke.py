@@ -9,16 +9,20 @@ and runs these phases, printing JSON lines:
 
 1. env      the card's name and power limit (nvidia-smi), torch/CUDA
             versions; builds every kernel of the port from the sources
-            in the checkout (one nvcc per source, all started together).
+            in the checkout (one nvcc per source, all started together,
+            and the native Rips engine's g++ beside them).
 2. kernels  each kernel's wrapper against its plain PyTorch version on
-            the card: bf16 at the capture's three attention shapes
-            (decoder, ViT, resampler; batch 16) and f32 at the shapes
-            of tests/test_flash_attention.py.  Raises on a case outside
-            its tolerance.  Times the kernel, the plain version and one
-            PyTorch library call (scaled_dot_product_attention, used
-            nowhere in the port) with CUDA events, beside the least time
-            the card could take (H100 SXM peaks: 989 TFLOP/s bf16, 67
-            TFLOP/s f32 without tensor cores, 3.35 TB/s).
+            the card.  flash_fwd: bf16 at the capture's three attention
+            shapes (decoder, ViT, resampler; batch 16) and f32 at the
+            shapes of tests/test_flash_attention.py.  sqdist: the
+            tests/test_scale_ops.py shapes, a ragged case with n and d
+            odd, and the scale path's [10000, 4096].  Raises on a case
+            outside its tolerance.  Times the kernel, the plain version
+            and one PyTorch library call (scaled_dot_product_attention;
+            torch.cdist against the Euclidean wrapper; used nowhere in
+            the port) with CUDA events, beside the least time the card
+            could take (H100 SXM peaks: 989 TFLOP/s bf16, 67 TFLOP/s f32
+            without tensor cores, 3.35 TB/s).
 3. capture  the port's main path at full width and depth: the 48-sample
             dataset, the full QwenVLConfig() in bf16 with random weights
             drawn on the card from a seed, extract_activations at batch
@@ -32,7 +36,27 @@ and runs these phases, printing JSON lines:
 4. profile  one batch's forward alone (synchronised host clock), then
             under torch.profiler: device busy time by kind (flash kernel,
             GEMMs, other) and the idle share.
-5. the kernels line, the nvidia-smi line, then the last line
+5. sweep    the port's run_tda_sweep on the activations the capture
+            wrote, read back through the port's load_activations: 32
+            layers x 36 bound samples x 4096, UMAP (cosine, k 6, 3-d,
+            500 epochs, spectral init), Rips H0/H1 in the native engine,
+            shape and colour silhouettes (diagram PNGs and the evolution
+            plot only where matplotlib is installed).  Checks
+            summary_stats.json (32 entries, tdax's keys in tdax's order,
+            finite) and the peak layer.  Then run_tda_sweep on bench.py's
+            make_clouds recipe (seed 42, layer 25 clustered) on the card
+            and, in the same process, on the CPU: the shape-silhouette
+            peak must be layer 25 on both, silhouettes and max-H1 must
+            agree within SWEEP_SIL_TOL / SWEEP_H1_TOL.  Times each stage.
+6. scale    rips_at_scale on bench_scale.py's seeded 3-sphere cloud,
+            10000 x 4096, threshold for ~40 neighbours, maxdim
+            SCALE_MAXDIM: the distance matrix through the sqdist kernel
+            (the launch counter must read exactly 1), H0 by Boruvka on
+            the card, H1+ in the native engine.  Boruvka's H0 must equal
+            the engine's dim-0 bars on the same matrix; a small
+            two-cluster cloud must give the CPU's diagrams (bottleneck
+            <= SMALL_BOTTLENECK_TOL per dimension).  Times each stage.
+7. the kernels line, the nvidia-smi line, then the last line
             {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero and prints no result;
@@ -61,6 +85,27 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_ATOL, BF16_RTOL = 2e-2, 2e-2
 F32_TOL = 2e-5          # tests/test_flash_attention.py:65
 TINY_TOL = 1e-4         # tiny f32 capture, card vs CPU
+# sqdist: kernel and plain version are expansion forms summed in other
+# orders (one f32 FMA chain per entry against a library product), so the
+# bound is relative to the cancelled terms: 1e-5 * (|x_i|^2 + |x_j|^2).
+SQDIST_REL_TOL = 1e-5
+SQDIST_SHAPES = [(36, 3), (100, 17), (130, 257), (1001, 333)]  # + the scale path's
+SCALE_N, SCALE_D, SCALE_DEGREE, SCALE_MAXDIM = 10_000, 4096, 40, 2
+# the card's matrix (kernel) and the CPU's (plain version) are both
+# expansion forms, so distances near 0.6 between points of norm ~11 may
+# differ by ~1e-5 relative (tests/test_scale_ops.py:91-95 allows 1e-4)
+SMALL_BOTTLENECK_TOL = 1e-4
+# the sweep on the card against the same sweep on the CPU: eigh may
+# return other signs (and another basis of a repeated eigenvalue) on the
+# card, and the 500-epoch layout amplifies rounding.  A CPU run with
+# flipped eigenvector signs moved silhouettes by 0.003 and max-H1 by
+# 0.006; on an H100 the widest gaps are 0.0144 (silhouette, layer 25,
+# whose graph has six components, so its init is any basis of a six-fold
+# eigenvalue) and 0.0160 (max-H1, of a mean max-H1 of 0.41), the same
+# in every run.  The limits leave under 2x room over those gaps.
+SWEEP_SIL_TOL, SWEEP_H1_TOL = 0.02, 0.03
+STATS_KEYS = ["layer", "n_h1_features", "max_h1_persistence", "all_h1_persistence_values",
+              "n_h0_features", "max_h0_persistence", "silhouette_shape", "silhouette_color"]
 
 # (name, B, Tq, Tk, nh, hd, causal, calls per batch on the main path)
 MAIN_SHAPES = [
@@ -120,12 +165,19 @@ def bound(b, tq, tk, nh, hd, causal, itemsize):
 
 
 def phase_env() -> dict:
+    import concurrent.futures
+    import importlib.util
+
     import torch
     smi = nvidia_smi()
     from tdax_torch.ops import _build
+    from tdax_torch.ops.rips import native
     t0 = time.perf_counter()
-    _build.build()
-    build_s = time.perf_counter() - t0
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        engine = pool.submit(lambda: (native.build(), time.perf_counter() - t0)[1])
+        _build.build()
+        build_s = time.perf_counter() - t0
+        engine_s = engine.result()
     ptxas = []
     for log in sorted(_build.BUILD_DIR.glob("*.log")):
         ptxas += [ln.strip() for ln in log.read_text().splitlines()
@@ -133,7 +185,8 @@ def phase_env() -> dict:
     info = {"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
             "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
             "build_s": round(build_s, 3), "built": sorted(_build.BUILD_SECONDS),
-            "ptxas": ptxas}
+            "engine_build_s": engine_s, "ptxas": ptxas,
+            "matplotlib": importlib.util.find_spec("matplotlib") is not None}
     emit(info)
     return info
 
@@ -246,6 +299,309 @@ def phase_kernels() -> dict:
     if not torch.isfinite(out).all():
         raise AssertionError("fully masked rows gave non-finite output")
     return {"sites": sites, "f32_max_abs_err": max(f32_errs)}
+
+
+def scale_cloud():
+    """bench_scale.py:36-40: n points on a 3-sphere embedded in 4096-d
+    (seed 42), and the generator, which then picks the threshold's rows."""
+    import numpy as np
+    rng = np.random.default_rng(42)
+    z = rng.normal(size=(SCALE_N, 4))
+    z /= np.linalg.norm(z, axis=1, keepdims=True)
+    proj = rng.normal(size=(4, SCALE_D)) / np.sqrt(4)
+    x = (z @ proj + rng.normal(0, 1e-3, (SCALE_N, SCALE_D))).astype(np.float32)
+    return x, rng
+
+
+def sqdist_bound(n, d):
+    """(ms, 'operations' | 'bytes'): 2 n^2 d f32 FMA flops; x read once,
+    the [n, n] output written once."""
+    t_ops = 2.0 * n * n * d / F32_PEAK
+    t_bytes = (4.0 * n * d + 4.0 * n * n) / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _sqdist_check(sqdist, x, label):
+    import torch
+    got = sqdist.sqdist(x)
+    want = sqdist.pairwise_sq_euclidean_plain(x)
+    torch.cuda.synchronize()
+    sq = (x.double() ** 2).sum(1)
+    err = (got.double() - want.double()).abs()
+    ratio = float((err / (sq[:, None] + sq[None, :]).clamp_min(1e-30)).max())
+    max_abs = float(err.max())
+    del err
+    if got.shape != want.shape or got.dtype != torch.float32:
+        raise AssertionError(f"sqdist {label}: shape/dtype {tuple(got.shape)} {got.dtype}")
+    if not torch.isfinite(got).all() or not (got >= 0).all():
+        raise AssertionError(f"sqdist {label}: non-finite or negative output")
+    if ratio > SQDIST_REL_TOL:
+        raise AssertionError(f"sqdist {label}: |kernel - plain| / (|x_i|^2 + |x_j|^2) = "
+                             f"{ratio:.3e} exceeds {SQDIST_REL_TOL}")
+    if not torch.equal(got, got.T):
+        raise AssertionError(f"sqdist {label}: output is not exactly symmetric")
+    return max_abs, ratio
+
+
+def phase_sqdist() -> dict:
+    """The sqdist kernel against its plain version, on the card."""
+    import torch
+    import tdax_torch.ops.sqdist as sqdist
+    from tdax_torch.runtime import get_device
+
+    device = get_device()
+    gen = torch.Generator(device=device).manual_seed(4321)
+    cases = []
+    for n, d in SQDIST_SHAPES:
+        x = torch.randn((n, d), generator=gen, device=device)
+        max_abs, ratio = _sqdist_check(sqdist, x, f"{(n, d)}")
+        cases.append({"shape": [n, d], "max_abs_err": max_abs, "max_err_over_scale": ratio})
+    emit({"phase": "kernel_sqdist_cases", "cases": cases, "tolerance": SQDIST_REL_TOL})
+
+    x_np, _ = scale_cloud()
+    x = torch.as_tensor(x_np, device=device)
+    max_abs, ratio = _sqdist_check(sqdist, x, "scale path")
+    ms = cuda_ms(lambda: sqdist.sqdist(x), iters=10)
+    plain_ms = cuda_ms(lambda: sqdist.pairwise_sq_euclidean_plain(x), iters=5)
+    euclid_ms = cuda_ms(lambda: sqdist.euclidean(x), iters=10)
+    library_ms = cuda_ms(lambda: torch.cdist(x, x, compute_mode="use_mm_for_euclid_dist"),
+                         iters=10)
+    bound_ms, bound_by = sqdist_bound(SCALE_N, SCALE_D)
+    site = {"site": "scale", "shape": [SCALE_N, SCALE_D], "dtype": "float32",
+            "max_abs_err": max_abs, "max_err_over_scale": ratio, "ms": ms,
+            "plain_ms": plain_ms, "euclid_ms": euclid_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "achieved_tflops": 2.0 * SCALE_N * SCALE_N * SCALE_D / (ms * 1e-3) / 1e12}
+    emit({"phase": "kernel_case", **site})
+    torch.cuda.empty_cache()
+    return {"site": site, "max_abs_err": max(max_abs, *(c["max_abs_err"] for c in cases))}
+
+
+def make_clouds(seed: int = 42):
+    """bench.py:31-43: 32 x 36 x 4096 synthetic activation clouds with
+    shape-clustered structure at layer 25, and their labels."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shapes = [f"s{i}" for i in range(6)]
+    colors = [f"c{i}" for i in range(6)]
+    shape_labels = [shapes[i // 6] for i in range(36)]
+    color_labels = [colors[i % 6] for i in range(36)]
+    clouds = rng.normal(size=(32, 36, 4096))
+    centers = rng.normal(size=(6, 4096)) * 3
+    for j in range(36):
+        clouds[25, j] = centers[j // 6] + rng.normal(0, 0.5, 4096)
+    return clouds, shape_labels, color_labels
+
+
+def profile_device(fn) -> dict:
+    """Wall time of fn() (synchronised host clock) and, from one more run
+    under torch.profiler, the device's busy time, kernel count and idle
+    share; the top kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_ms, n_kernels, top = 0.0, 0, []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(ev, "self_device_time_total", 0.0) / 1e3
+        busy_ms += ms
+        n_kernels += ev.count
+        top.append((ms, ev.count, ev.key[:80]))
+    top.sort(reverse=True)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
+            "device_ops": n_kernels,
+            "idle_share": (1 - busy_ms / wall_ms) if busy_ms > 0 else "not measured",
+            "top_ms_count_name": top[:6]}
+
+
+def synthetic_capture(root: Path):
+    """make_clouds() in the capture's nested-dict schema, with a
+    metadata.json beside it, so that run_tda_sweep reads it as it reads
+    a capture (sample ids sort in the clouds' order)."""
+    clouds, shape_labels, color_labels = make_clouds()
+    metadata = [{"id": f"synthetic_{j:02d}", "type": "bound", "shape": s, "color": c}
+                for j, (s, c) in enumerate(zip(shape_labels, color_labels))]
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "metadata.json").write_text(json.dumps(metadata))
+    all_data = {m["id"]: {"metadata": m, "activations": {f"layer_{i}": clouds[i, j]
+                                                         for i in range(clouds.shape[0])}}
+                for j, m in enumerate(metadata)}
+    labels = {"shape": shape_labels, "color": color_labels}
+    return all_data, str(root / "metadata.json"), clouds, labels
+
+
+def _check_stats(stats, n_layers, label):
+    import numpy as np
+    if len(stats) != n_layers:
+        raise AssertionError(f"{label}: {len(stats)} stats entries, expected {n_layers}")
+    for s in stats:
+        if list(s) != STATS_KEYS:
+            raise AssertionError(f"{label}: stats keys {list(s)} are not tdax's {STATS_KEYS}")
+        values = [v for k, v in s.items() if k != "all_h1_persistence_values"]
+        values += s["all_h1_persistence_values"]
+        if not np.isfinite(np.asarray(values, dtype=np.float64)).all():
+            raise AssertionError(f"{label}: non-finite stats at layer {s['layer']}")
+
+
+def _check_sweep(result, n_layers, label):
+    import numpy as np
+    _check_stats(result["stats"], n_layers, label)
+    if not np.isfinite(result["clouds_3d"]).all():
+        raise AssertionError(f"{label}: non-finite embedding")
+
+
+def phase_sweep(tmp: Path, smi: str) -> dict:
+    """The port's run_tda_sweep on its own capture, then on bench.py's
+    synthetic clouds on the card and on the CPU."""
+    import importlib.util
+
+    from tdax_torch.config import SweepConfig
+    from tdax_torch.data.io import load_activations
+    from tdax_torch.pipeline.tda_sweep import embed_and_silhouettes, peak, run_tda_sweep
+
+    rendered = importlib.util.find_spec("matplotlib") is not None
+    if not rendered:
+        print("chip_smoke: matplotlib is not installed on this machine: the sweep ran with "
+              "save_diagrams off, so its PNGs were not rendered on the card", flush=True)
+    data_dir = tmp / "data"
+    t0 = time.perf_counter()
+    all_data = load_activations(str(data_dir / "all_activations.npz"))
+    load_s = time.perf_counter() - t0
+    out_dir = tmp / "tda_debug_output"
+    cfg = SweepConfig(output_dir=str(out_dir), save_diagrams=rendered)
+    t0 = time.perf_counter()
+    result = run_tda_sweep(all_data, str(data_dir / "metadata.json"), cfg, verbose=False)
+    sweep_s = time.perf_counter() - t0
+    stats, peak_layer = result["stats"], result["peak_layer"]
+    _check_sweep(result, 32, "capture sweep")
+    if rendered:
+        n_png = len(list((out_dir / "diagrams").glob("*.png")))
+        if n_png != 32 or not (out_dir / "summary_evolution_plot.png").exists():
+            raise AssertionError(f"sweep wrote {n_png} diagram PNGs and no evolution plot")
+    written = json.loads((out_dir / "summary_stats.json").read_text())
+    if not 0 <= peak_layer < 32 or written != stats:
+        raise AssertionError(f"capture sweep: peak layer {peak_layer} / summary_stats.json "
+                             f"differs from the returned stats")
+    info = {"phase": "sweep", "nvidia_smi": smi, "clouds": [32, 36, 4096],
+            "load_s": load_s, "sweep_s": sweep_s, "png_rendered": rendered,
+            "peak_layer": peak_layer, "peak_rule": cfg.peak_rule,
+            "peak_silhouette_shape": stats[peak_layer]["silhouette_shape"],
+            "timings": result["timings"]}
+
+    # bench.py's synthetic clouds: the card twice (first and steady state),
+    # then the CPU
+    all_data, meta_path, clouds, labels = synthetic_capture(tmp / "synthetic")
+    runs = {}
+    for dev, repeats in (("cuda", 2), ("cpu", 1)):
+        for _ in range(repeats):
+            res = run_tda_sweep(all_data, meta_path,
+                                SweepConfig(output_dir=str(tmp / f"synthetic_{dev}"),
+                                            save_diagrams=False),
+                                verbose=False, device=dev)
+            _check_sweep(res, 32, f"synthetic sweep on {dev}")
+            runs.setdefault(dev, []).append(res)
+    card, cpu = runs["cuda"][0]["stats"], runs["cpu"][0]["stats"]
+    info["synthetic_embed_profile"] = profile_device(
+        lambda: embed_and_silhouettes(clouds, SweepConfig(), labels))
+    peaks = {dev: peak(r[0]["stats"], "shape_silhouette") for dev, r in runs.items()}
+    sil_err = max(abs(a[k] - b[k]) for a, b in zip(card, cpu)
+                  for k in ("silhouette_shape", "silhouette_color"))
+    h1_err = max(abs(a["max_h1_persistence"] - b["max_h1_persistence"])
+                 for a, b in zip(card, cpu))
+    info.update({"synthetic_peak_card": peaks["cuda"], "synthetic_peak_cpu": peaks["cpu"],
+                 "synthetic_peak_silhouette": card[25]["silhouette_shape"],
+                 "card_vs_cpu_max_silhouette_diff": sil_err,
+                 "card_vs_cpu_max_h1_diff": h1_err,
+                 "tolerances": [SWEEP_SIL_TOL, SWEEP_H1_TOL],
+                 "synthetic_card_first": runs["cuda"][0]["timings"],
+                 "synthetic_card_again": runs["cuda"][1]["timings"],
+                 "synthetic_cpu": runs["cpu"][0]["timings"],
+                 "mean_max_h1": [sum(s["max_h1_persistence"] for s in st) / len(st)
+                                 for st in (card, cpu)]})
+    emit(info)
+    if peaks["cuda"] != 25 or peaks["cpu"] != 25:
+        raise AssertionError(f"synthetic sweep: shape-silhouette peak {peaks}, expected 25")
+    if sil_err > SWEEP_SIL_TOL or h1_err > SWEEP_H1_TOL:
+        raise AssertionError(f"synthetic sweep: card vs CPU silhouettes {sil_err:.4f} "
+                             f"(limit {SWEEP_SIL_TOL}), max H1 {h1_err:.4f} "
+                             f"(limit {SWEEP_H1_TOL})")
+    return info
+
+
+def phase_scale(smi: str) -> dict:
+    """rips_at_scale at 10000 x 4096 on the card, and a small cloud against the CPU."""
+    import numpy as np
+    import torch
+    import tdax_torch.ops.sqdist as sqdist
+    from tdax_torch.metrics.persistence import bottleneck_distance
+    from tdax_torch.ops.rips import rips_from_distances
+    from tdax_torch.pipeline.scale import distance_matrix, rips_at_scale
+
+    x_np, rng = scale_cloud()
+    t0 = time.perf_counter()
+    x = torch.as_tensor(x_np).to("cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+
+    # the threshold as bench_scale.py:132-135 picks it: the median over 512
+    # rows of each row's 40th-smallest distance (rounded to f32, the
+    # precision both Boruvka and the f32 engine compare in)
+    t0 = time.perf_counter()
+    host = distance_matrix(x).cpu().numpy()
+    sample = rng.choice(SCALE_N, size=min(512, SCALE_N), replace=False)
+    kth = np.partition(host[sample], SCALE_DEGREE, axis=1)[:, SCALE_DEGREE]
+    thresh = float(np.float32(np.median(kth)))
+    thresh_s = time.perf_counter() - t0
+
+    sqdist.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = rips_at_scale(x, maxdim=SCALE_MAXDIM, thresh=thresh)
+    wall_s = time.perf_counter() - t0
+    launches = sqdist.LAUNCHES
+    if launches != 1:
+        raise AssertionError(f"rips_at_scale launched the sqdist kernel {launches} times, "
+                             f"expected 1")
+
+    profile = profile_device(lambda: rips_at_scale(x, maxdim=SCALE_MAXDIM, thresh=thresh))
+
+    # Boruvka's H0 against the engine's dim-0 bars on the same matrix
+    engine0 = rips_from_distances(host, maxdim=0, thresh=thresh)["dgms"][0]
+    mst0 = out["dgms"][0]
+    same = (np.array_equal(np.sort(mst0[np.isfinite(mst0[:, 1]), 1]),
+                           np.sort(engine0[np.isfinite(engine0[:, 1]), 1]))
+            and np.isinf(mst0[:, 1]).sum() == np.isinf(engine0[:, 1]).sum())
+    if not same:
+        raise AssertionError("Boruvka H0 differs from the engine's dim-0 bars")
+    bars = [int(len(g)) for g in out["dgms"]]
+    if len(bars) != SCALE_MAXDIM + 1 or not all(np.isfinite(g[:, 0]).all() for g in out["dgms"]):
+        raise AssertionError(f"rips_at_scale: diagrams {bars}")
+
+    # a small cloud: the card's diagrams against the CPU's
+    small_rng = np.random.default_rng(5)  # tests/test_scale_ops.py:78-95
+    small = np.concatenate([small_rng.normal(0, 0.5, (30, 8)),
+                            small_rng.normal(4, 0.5, (30, 8))]).astype(np.float32)
+    card = rips_at_scale(torch.as_tensor(small).to("cuda"), maxdim=1, thresh=2.5)["dgms"]
+    cpu = rips_at_scale(small, maxdim=1, thresh=2.5, device="cpu")["dgms"]
+    small_bn = [bottleneck_distance(a, b) for a, b in zip(card, cpu)]
+    info = {"phase": "scale", "nvidia_smi": smi, "n": SCALE_N, "dim": SCALE_D,
+            "maxdim": SCALE_MAXDIM, "target_degree": SCALE_DEGREE, "thresh": thresh,
+            "sqdist_launches": launches, "bars": bars, "h0_equals_engine": True,
+            "upload_s": upload_s, "thresh_select_s": thresh_s, "rips_at_scale_s": wall_s,
+            "timings": out["timings"], "profile": profile,
+            "small_cloud_bottleneck_card_vs_cpu": small_bn}
+    emit(info)
+    if max(small_bn) > SMALL_BOTTLENECK_TOL:
+        raise AssertionError(f"small cloud: card vs CPU bottleneck {small_bn}")
+    return info
 
 
 def phase_tiny_parity(tmp: Path) -> dict:
@@ -463,9 +819,12 @@ def main() -> int:
 
     env = phase_env()
     kern = phase_kernels()
+    sq = phase_sqdist()
     with tempfile.TemporaryDirectory(prefix="tdax_torch_smoke_") as tmp:
         phase_tiny_parity(Path(tmp))
         capture = phase_capture(Path(tmp), env["nvidia_smi"])
+        phase_sweep(Path(tmp), env["nvidia_smi"])
+    scale = phase_scale(env["nvidia_smi"])
 
     def total(key):
         return sum(s[key] * s["calls_per_batch"] for s in kern["sites"])
@@ -486,6 +845,21 @@ def main() -> int:
         "bound_by": "operations" if by_ops >= by_bytes else "bytes",
         "library_ms": total("library_ms"),
         "per": "one batch of 16: 48 ViT + 1 resampler + 32 decoder calls, bf16",
+    }, {
+        "name": "sqdist",
+        "route": "cuda",
+        "source": "tdax_torch/ops/csrc/sqdist.cu",
+        "replaces": "tdax/ops/pallas_distances.py:27",
+        "launches": scale["sqdist_launches"],
+        "max_abs_err": sq["max_abs_err"],
+        "ms": sq["site"]["ms"],
+        "plain_ms": sq["site"]["plain_ms"],
+        "bound_ms": sq["site"]["bound_ms"],
+        "bound_by": sq["site"]["bound_by"],
+        "library_ms": sq["site"]["library_ms"],
+        "per": "one call at the scale path's [10000, 4096] f32; library_ms is torch.cdist, "
+               "the Euclidean function, whose wrapper (kernel + sqrt + zero diagonal) takes "
+               f"{sq['site']['euclid_ms']:.4f} ms",
     }]})
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,11 +11,15 @@ pieces it needs.  Its entry points run on the card unless the caller
 passes ``device="cpu"`` (see ``tdax_torch.runtime.get_device``).
 
 Layout mirrors ``tdax/``:
-  - ``tdax_torch.config``          dataset / extraction configs
+  - ``tdax_torch.config``          dataset / extraction / UMAP / Rips / sweep configs
   - ``tdax_torch.data``            dataset generator, activation IO
   - ``tdax_torch.models.qwen_vl``  Qwen-VL-Chat forward and capture
-  - ``tdax_torch.ops``             flash attention (CUDA kernel + plain version)
-  - ``tdax_torch.pipeline``        batched activation extraction
+  - ``tdax_torch.ops``             flash attention and pairwise distances (CUDA
+                                   kernels + plain versions), dense UMAP, Rips
+                                   (native engine binding, Boruvka H0)
+  - ``tdax_torch.metrics``         silhouette, persistence summaries
+  - ``tdax_torch.viz``             diagram and evolution plots (matplotlib)
+  - ``tdax_torch.pipeline``        extraction, the per-layer sweep, the scale path
 """
 
 __version__ = "0.1.0"

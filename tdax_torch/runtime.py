@@ -15,6 +15,7 @@ without cuBLAS's reduced-precision split-K reductions (tdax's
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -23,6 +24,18 @@ def _set_precision() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def as_device_f32(x, device=None) -> torch.Tensor:
+    """``x`` as a float32 tensor on the device it runs on: a tensor stays
+    where it lies (a cloud born on the card makes no host round trip)
+    unless ``device`` says otherwise; anything else goes to
+    ``get_device(device)``, the card unless the caller asks for the CPU."""
+    if isinstance(x, torch.Tensor) and device is None:
+        return x.to(torch.float32)
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+    return torch.as_tensor(x, dtype=torch.float32).to(get_device(device))
 
 
 def get_device(device: str | torch.device | None = None) -> torch.device:

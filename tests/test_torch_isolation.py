@@ -16,18 +16,34 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 _CHILD = r"""
 import sys, tempfile, os
+import numpy as np
 import tdax_torch
-from tdax_torch.config import DatasetConfig, ExtractConfig
+from tdax_torch.config import DatasetConfig, ExtractConfig, SweepConfig, UMAPConfig
 from tdax_torch.data.dataset import generate_dataset
+from tdax_torch.data.io import load_activations
 from tdax_torch.models.qwen_vl.config import QwenVLConfig
 from tdax_torch.pipeline.extract import extract_activations
+from tdax_torch.pipeline.scale import rips_at_scale
+from tdax_torch.pipeline.tda_sweep import run_tda_sweep
 
 with tempfile.TemporaryDirectory() as tmp:
-    md = generate_dataset(DatasetConfig(data_dir=os.path.join(tmp, "d")))[:3]
-    res = extract_activations(md, os.path.join(tmp, "a.pt"), QwenVLConfig.tiny(dtype="float32"),
+    ds = DatasetConfig(data_dir=os.path.join(tmp, "d"))
+    md = generate_dataset(ds)
+    res = extract_activations(md[:3], os.path.join(tmp, "a.pt"),
+                              QwenVLConfig.tiny(dtype="float32"),
                               ExtractConfig(batch_size=2), device="cpu",
                               verbose=False)
     assert len(res) == 3
+    rng = np.random.default_rng(0)
+    data = {m["id"]: {"metadata": m, "activations": {f"layer_{i}": rng.normal(size=16)
+                                                     for i in range(2)}} for m in md}
+    out = run_tda_sweep(data, ds.metadata_path,
+                        SweepConfig(n_layers=2, output_dir=os.path.join(tmp, "sweep"),
+                                    umap=UMAPConfig(n_epochs=5), save_diagrams=False),
+                        verbose=False, device="cpu")
+    assert len(out["stats"]) == 2
+    dgms = rips_at_scale(rng.normal(size=(40, 6)), maxdim=1, device="cpu")["dgms"]
+    assert len(dgms) == 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib") or m == "tdax" or m.startswith("tdax."))
 print("LOADED:" + ",".join(bad))
@@ -83,3 +99,42 @@ def test_entry_point_refuses_to_run_without_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         extract_activations([], str(tmp_path / "a.pt"))
+
+
+def test_sweep_and_scale_refuse_to_run_without_a_card(monkeypatch, tmp_path):
+    """``python -m tdax_torch sweep``, ``run_tda_sweep`` and
+    ``rips_at_scale`` need a card unless they are asked for the CPU."""
+    import numpy as np
+    from tdax_torch.__main__ import main
+    from tdax_torch.pipeline.scale import rips_at_scale
+    from tdax_torch.pipeline.tda_sweep import run_tda_sweep
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["sweep"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_tda_sweep({}, str(tmp_path / "metadata.json"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rips_at_scale(np.zeros((5, 3), np.float32))
+    assert len(rips_at_scale(np.eye(5, dtype=np.float32), maxdim=1, device="cpu")["dgms"]) == 2
+
+
+def test_sweep_command_runs_on_the_cpu_when_asked(tmp_path, monkeypatch):
+    """``python -m tdax_torch sweep --device cpu`` on a captured .npz."""
+    import json
+
+    import numpy as np
+    from tdax_torch.__main__ import main
+    from tdax_torch.config import DatasetConfig
+    from tdax_torch.data.dataset import generate_dataset
+    from tdax_torch.data.io import save_activations_npz
+    monkeypatch.chdir(tmp_path)
+    ds = DatasetConfig()
+    md = generate_dataset(ds)
+    acts = np.random.default_rng(1).normal(size=(3, len(md), 16)).astype(np.float32)
+    save_activations_npz(ds.activations_path.replace(".pt", ".npz"), acts,
+                         [m["id"] for m in md], md)
+    main(["sweep", "--device", "cpu"])
+    stats = json.loads((tmp_path / "tda_debug_output" / "summary_stats.json").read_text())
+    assert [s["layer"] for s in stats] == [0, 1, 2]
+    assert (tmp_path / "tda_debug_output" / "diagrams" / "layer_2_diagram.png").exists()
