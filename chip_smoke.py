@@ -14,15 +14,19 @@ and runs these phases, printing JSON lines:
 2. kernels  each kernel's wrapper against its plain PyTorch version on
             the card.  flash_fwd: bf16 at the capture's three attention
             shapes (decoder, ViT, resampler; batch 16) and f32 at the
-            shapes of tests/test_flash_attention.py.  sqdist: the
-            tests/test_scale_ops.py shapes, a ragged case with n and d
-            odd, and the scale path's [10000, 4096].  Raises on a case
-            outside its tolerance.  Times the kernel, the plain version
-            and one PyTorch library call (scaled_dot_product_attention;
-            torch.cdist against the Euclidean wrapper; used nowhere in
-            the port) with CUDA events, beside the least time the card
-            could take (H100 SXM peaks: 989 TFLOP/s bf16, 67 TFLOP/s f32
-            without tensor cores, 3.35 TB/s).
+            shapes of tests/test_flash_attention.py, and the decode
+            step's [16, 1, 352, 32, 128] with ragged key validity.
+            sqdist: the tests/test_scale_ops.py shapes, a ragged case
+            with n and d odd, and the scale path's [10000, 4096].  qmm:
+            bf16 at every (M, K, N) of the int8 capture and of a decode
+            step (QMM_SITES), f32 at small ragged shapes.  Raises on a
+            case outside its tolerance.  Times the kernel, the plain
+            version and one PyTorch library call (SDPA; torch.cdist
+            against the Euclidean wrapper; torch.matmul on the weight
+            pre-converted to bf16; used nowhere in the port) with CUDA
+            events, beside the least time the card could take (H100 SXM
+            peaks: 989 TFLOP/s bf16, 67 TFLOP/s f32 without tensor
+            cores, 3.35 TB/s).
 3. capture  the port's main path at full width and depth: the 48-sample
             dataset, the full QwenVLConfig() in bf16 with random weights
             drawn on the card from a seed, extract_activations at batch
@@ -32,10 +36,29 @@ and runs these phases, printing JSON lines:
             then times the same capture once more, warm, and each of
             its host stages alone (tokenize, image decode, .npz, .pt).
             Before that, a tiny f32 model's capture on the card is held
-            against the same capture on the CPU (plain attention).
+            against the same capture on the CPU (plain attention), and
+            its int8 tree's capture and generate (8 new tokens, fp and
+            int8 caches) likewise: activations and logits within
+            TINY_TOL, greedy tokens identical.  The bf16 capture must
+            launch no qmm kernel.
 4. profile  one batch's forward alone (synchronised host clock), then
-            under torch.profiler: device busy time by kind (flash kernel,
-            GEMMs, other) and the idle share.
+            under torch.profiler: device busy time by kind (qmm kernel,
+            flash kernel, GEMMs, other) and the idle share.
+4b. int8     the capture's own bf16 weights quantized on the card, then
+            extract_activations with ExtractConfig(quantize_int8=True):
+            the [32, 48, 4096] capture, finite, tdax's schemas, qmm
+            launches 3 x (199 + 160) = 1077 and flash 243, minimum
+            cosine per captured vector > 0.98 against the bf16 capture;
+            the same profile of one batch.
+4c. generate init_params_quantized(QwenVLConfig(), "cuda", seed=0), the
+            first 16 samples' prompts (images, ToyTokenizer, padded to
+            320), greedy generate of 32 tokens with bf16 caches and with
+            kv_int8: ids in range, qmm launches 360 + 31 x 161 = 5351
+            and flash 81 + 31 x 32 = 1073 each; the prefill's and the
+            first two decode steps' logits against the uncached forward
+            (CACHE_TOL), kv_int8's first decode logits within 0.05 x
+            max|logit| of the bf16 cache's; a profile of one decode
+            step.
 5. sweep    the port's run_tda_sweep on the activations the capture
             wrote, read back through the port's load_activations: 32
             layers x 36 bound samples x 4096, UMAP (cosine, k 6, 3-d,
@@ -85,6 +108,49 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_ATOL, BF16_RTOL = 2e-2, 2e-2
 F32_TOL = 2e-5          # tests/test_flash_attention.py:65
 TINY_TOL = 1e-4         # tiny f32 capture, card vs CPU
+# tiny decode logits through int8 caches, card vs CPU: a cache value ~1e-6
+# from an int8 rounding edge may round the other way on the two devices,
+# which moves it by its scale (1/127 of its row's max)
+TINY_KV_INT8_TOL = 5e-3
+# qmm bf16: one bf16 rounding of the output (2^-7 relative) plus room for
+# the order of the f32 sum; f32: the sum's rounding is bounded by the sum
+# of the magnitudes of its terms, |x| @ |q| * s
+QMM_BF16_RTOL, QMM_BF16_ATOL_OF_MAX = 2.0 ** -7, 1e-3
+QMM_F32_REL_TOL = 1e-5
+QMM_F32_SHAPES = [(8, 256, 128), (130, 588, 384), (1, 33, 7)]
+# (site, M, K, N, calls per int8 capture batch, calls per decode step)
+QMM_SITES = [
+    ("vit.patch_w", 16 * 1024, 588, 1664, 1, 0),
+    ("vit.attn_qkv_w", 16 * 1024, 1664, 4992, 48, 0),
+    ("vit.attn_proj_w", 16 * 1024, 1664, 1664, 48, 0),
+    ("vit.mlp_fc_w", 16 * 1024, 1664, 8192, 48, 0),
+    ("vit.mlp_proj_w", 16 * 1024, 8192, 1664, 48, 0),
+    ("resampler.kv_proj_w", 16 * 1024, 1664, 4096, 1, 0),
+    ("resampler.attn_q_w", 16 * 256, 4096, 4096, 1, 0),
+    ("resampler.attn_k_w", 16 * 1024, 4096, 4096, 1, 0),
+    ("resampler.attn_v_w", 16 * 1024, 4096, 4096, 1, 0),
+    ("resampler.attn_out_w", 16 * 256, 4096, 4096, 1, 0),
+    ("visual.proj", 16 * 256, 4096, 4096, 1, 0),
+    ("decoder.attn_qkv_w", 16 * 320, 4096, 12288, 32, 0),
+    ("decoder.attn_proj_w", 16 * 320, 4096, 4096, 32, 0),
+    ("decoder.mlp_w1+w2", 16 * 320, 4096, 11008, 64, 0),
+    ("decoder.mlp_proj_w", 16 * 320, 11008, 4096, 32, 0),
+    ("decode.attn_qkv_w", 16, 4096, 12288, 0, 32),
+    ("decode.attn_proj_w", 16, 4096, 4096, 0, 32),
+    ("decode.mlp_w1+w2", 16, 4096, 11008, 0, 64),
+    ("decode.mlp_proj_w", 16, 11008, 4096, 0, 32),
+    ("decode.lm_head", 16, 4096, 151936, 0, 1),
+]
+QMM_PER_CAPTURE_BATCH, QMM_PER_DECODE_STEP = 359, 161
+# int8 capture against the bf16 capture of the same weights: tdax's gate
+# (tests/test_quantize.py:60)
+INT8_MIN_COSINE = 0.98
+# generate: cached logits against the uncached forward, relative to
+# max|logit| (bf16: the decode step's reductions run at other shapes, and
+# a one-ulp bf16 difference can grow through 32 random layers); kv_int8
+# against bf16 caches as tests/test_generate.py:94
+CACHE_TOL, KV_INT8_TOL = 3e-2, 5e-2
+GEN_BATCH, GEN_PROMPT_LEN, GEN_NEW_TOKENS = 16, 320, 32
 # sqdist: kernel and plain version are expansion forms summed in other
 # orders (one f32 FMA chain per entry against a library product), so the
 # bound is relative to the cancelled terms: 1e-5 * (|x_i|^2 + |x_j|^2).
@@ -113,6 +179,8 @@ MAIN_SHAPES = [
     ("vit", 16, 1024, 1024, 16, 104, False, 48),
     ("resampler", 16, 256, 1024, 32, 128, False, 1),
 ]
+# the decode step's attention: one query row over the 352-row cache
+DECODE_SHAPE = ("decode", 16, 1, 352, 32, 128, False)
 F32_SHAPES = [  # tests/test_flash_attention.py:37-50, batch 2, plus hd 104
     (40, 40, 2, 16, True), (40, 40, 2, 16, False), (8, 40, 2, 20, False),
     (130, 130, 1, 128, True), (16, 260, 1, 32, False), (64, 192, 2, 128, False),
@@ -279,6 +347,29 @@ def phase_kernels() -> dict:
         del q, k, v, qt, kt, vt, mask
         torch.cuda.empty_cache()
 
+    # the decode step: q of one row, k/v the layer's cache, valid keys up
+    # to each sample's own position (one sample at the cache's last row)
+    name, b, tq, tk, nh, hd, causal = DECODE_SHAPE
+    q, k, v = _case_inputs(gen, b, tq, tk, nh, hd, torch.bfloat16, device, False, False)
+    cur = torch.randint(200, tk, (b,), generator=gen, device=device)
+    cur[0] = tk - 1
+    valid = (torch.arange(tk, device=device)[None] <= cur[:, None]).to(torch.int32)
+    bias, max_abs, _, _ = _check_case(fa, q, k, v, valid, causal, BF16_ATOL, BF16_RTOL,
+                                      "bf16 decode")
+    mask = (valid > 0)[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    decode = {"site": name, "shape": [b, tq, tk, nh, hd], "causal": causal, "dtype": "bfloat16",
+              "calls_per_decode_step": 32, "max_abs_err": max_abs,
+              "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, bias, causal), iters=50),
+              "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, bias, causal),
+                                  iters=20),
+              "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                           attn_mask=mask),
+                                    iters=50)}
+    decode["bound_ms"], decode["bound_by"] = bound(b, tq, tk, nh, hd, causal, 2)
+    emit({"phase": "kernel_case", **decode})
+    del q, k, v, qt, kt, vt, mask
+
     f32_errs = []
     for tq, tk, nh, hd, causal in F32_SHAPES:
         b = 2
@@ -298,7 +389,80 @@ def phase_kernels() -> dict:
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
         raise AssertionError("fully masked rows gave non-finite output")
-    return {"sites": sites, "f32_max_abs_err": max(f32_errs)}
+    return {"sites": sites, "decode": decode, "f32_max_abs_err": max(f32_errs)}
+
+
+def qmm_bound(m, k, n, x_bytes):
+    """(ms, 'operations' | 'bytes'): 2MNK tensor-core flops; x, q, s read
+    once and the output written once."""
+    t_ops = 2.0 * m * n * k / BF16_PEAK
+    t_bytes = (m * k * x_bytes + k * n + 4 * n + m * n * x_bytes) / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _qmm_check(qm, x, w, label) -> float:
+    """The kernel against the plain version; max |kernel - plain|."""
+    import torch
+    got = qm.quant_matmul(x, w["q"], w["s"])
+    want = qm.quant_matmul_plain(x, w["q"], w["s"])
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != x.dtype:
+        raise AssertionError(f"qmm {label}: shape/dtype {tuple(got.shape)} {got.dtype}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"qmm {label}: non-finite kernel output")
+    err = (got.float() - want.float()).abs_()
+    if x.dtype == torch.bfloat16:
+        ref = want.float().abs_()
+        limit = ref.mul_(QMM_BF16_RTOL).add_(QMM_BF16_ATOL_OF_MAX * float(ref.max()))
+    else:
+        limit = (x.abs() @ w["q"].float().abs()) * w["s"] * QMM_F32_REL_TOL
+    excess = float((err - limit).max())
+    max_abs = float(err.max())
+    if excess > 0:
+        raise AssertionError(f"qmm {label}: max |kernel - plain| = {max_abs:.3e} is outside "
+                             f"the tolerance by {excess:.3e}")
+    return max_abs
+
+
+def phase_qmm() -> dict:
+    """The int8 matmul kernel against its plain version at every site of
+    the int8 capture and of a decode step, on the card."""
+    import torch
+    from tdax_torch.models.qwen_vl.quantize import quantize_weight
+    from tdax_torch.ops import quant_matmul as qm
+    from tdax_torch.runtime import get_device
+
+    device = get_device()
+    gen = torch.Generator(device=device).manual_seed(2468)
+    f32_errs = []
+    for m, k, n in QMM_F32_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=device)
+        w = quantize_weight(torch.randn((k, n), generator=gen, device=device) / math.sqrt(k))
+        f32_errs.append(_qmm_check(qm, x, w, f"f32 {(m, k, n)}"))
+    emit({"phase": "kernel_qmm_f32", "shapes": QMM_F32_SHAPES, "max_abs_err": f32_errs,
+          "tolerance": f"{QMM_F32_REL_TOL} * (|x| @ |q| * s)"})
+
+    sites = []
+    for name, m, k, n, per_batch, per_step in QMM_SITES:
+        x = torch.randn((m, k), generator=gen, device=device, dtype=torch.bfloat16)
+        w = quantize_weight(torch.randn((k, n), generator=gen, device=device) / math.sqrt(k))
+        max_abs = _qmm_check(qm, x, w, name)
+        dense = (w["q"].float() * w["s"]).to(torch.bfloat16)  # the library's operand
+        iters = 50 if m <= 64 else 10
+        site = {"site": name, "shape": [m, k, n], "dtype": "bfloat16",
+                "calls_per_capture_batch": per_batch, "calls_per_decode_step": per_step,
+                "max_abs_err": max_abs,
+                "ms": cuda_ms(lambda: qm.quant_matmul(x, w["q"], w["s"]), iters=iters),
+                "plain_ms": cuda_ms(lambda: qm.quant_matmul_plain(x, w["q"], w["s"]), iters=3),
+                "library_ms": cuda_ms(lambda: torch.matmul(x, dense), iters=iters)}
+        site["bound_ms"], site["bound_by"] = qmm_bound(m, k, n, 2)
+        site["achieved_tflops"] = 2.0 * m * n * k / (site["ms"] * 1e-3) / 1e12
+        site["achieved_weight_gb_per_s"] = k * n / (site["ms"] * 1e-3) / 1e9
+        emit({"phase": "kernel_case", "kernel": "qmm", **site})
+        sites.append(site)
+        del x, w, dense
+        torch.cuda.empty_cache()
+    return {"sites": sites, "max_abs_err": max(max(s["max_abs_err"] for s in sites), *f32_errs)}
 
 
 def scale_cloud():
@@ -396,7 +560,8 @@ def make_clouds(seed: int = 42):
 def profile_device(fn) -> dict:
     """Wall time of fn() (synchronised host clock) and, from one more run
     under torch.profiler, the device's busy time, kernel count and idle
-    share; the top kernels by device time."""
+    share; the device time by kind (qmm, flash, GEMMs, other) and the top
+    kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -408,19 +573,13 @@ def profile_device(fn) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    busy_ms, n_kernels, top = 0.0, 0, []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = getattr(ev, "self_device_time_total", 0.0) / 1e3
-        busy_ms += ms
-        n_kernels += ev.count
-        top.append((ms, ev.count, ev.key[:80]))
-    top.sort(reverse=True)
+    n_kernels = sum(ev.count for ev in prof.key_averages()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA)
+    kinds = _device_time_by_kind(prof)
+    busy_ms = kinds.pop("busy_ms")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
             "device_ops": n_kernels,
-            "idle_share": (1 - busy_ms / wall_ms) if busy_ms > 0 else "not measured",
-            "top_ms_count_name": top[:6]}
+            "idle_share": (1 - busy_ms / wall_ms) if busy_ms > 0 else "not measured", **kinds}
 
 
 def synthetic_capture(root: Path):
@@ -618,11 +777,7 @@ def phase_tiny_parity(tmp: Path) -> dict:
     metadata = generate_dataset(DatasetConfig(data_dir=str(tmp / "tiny_data")))
     cpu_params = init_params(cfg, "cpu", seed=7)
 
-    def to_card(tree):
-        return {name: to_card(leaf) if isinstance(leaf, dict) else leaf.to("cuda")
-                for name, leaf in tree.items()}
-
-    card_params = to_card(cpu_params)
+    card_params = _to_card(cpu_params)
     ecfg = ExtractConfig(batch_size=16)
     runs = {}
     for dev, params in (("cpu", cpu_params), ("cuda", card_params)):
@@ -640,14 +795,85 @@ def phase_tiny_parity(tmp: Path) -> dict:
     return info
 
 
-def phase_capture(tmp: Path, smi: str) -> dict:
-    """The port's main path at full width and depth."""
+def _to_card(tree):
+    return {name: _to_card(leaf) if isinstance(leaf, dict) else leaf.to("cuda")
+            for name, leaf in tree.items()}
+
+
+def phase_tiny_int8(tmp: Path) -> dict:
+    """A tiny f32 model's int8 tree: the int8 capture and generate on the
+    card (kernels) against the same on the CPU (plain versions)."""
     import numpy as np
     import torch
-    import tdax_torch.ops.flash_attention as fa
     from tdax_torch.config import DatasetConfig, ExtractConfig
     from tdax_torch.data.dataset import generate_dataset
-    from tdax_torch.data.io import load_activations_npz, save_activations, save_activations_npz
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    from tdax_torch.models.qwen_vl.generate import _decode_step, generate, prefill
+    from tdax_torch.models.qwen_vl.model import init_params
+    from tdax_torch.models.qwen_vl.preprocess import load_image_batch
+    from tdax_torch.models.qwen_vl.quantize import quantize_params
+    from tdax_torch.models.qwen_vl.tokenizer import ToyTokenizer, batch_encode
+    from tdax_torch.pipeline.extract import extract_activations
+
+    cfg = QwenVLConfig.tiny(dtype="float32")
+    metadata = generate_dataset(DatasetConfig(data_dir=str(tmp / "tiny_int8_data")))
+    cpu_params = quantize_params(init_params(cfg, "cpu", seed=7))
+    params = {"cpu": cpu_params, "cuda": _to_card(cpu_params)}
+    ecfg = ExtractConfig(batch_size=16, quantize_int8=True)
+    enc = batch_encode(ToyTokenizer(cfg), metadata[:6], cfg)
+    images = load_image_batch(enc["image_paths"], cfg.visual.image_size)
+    acts, logits, toks = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        res = extract_activations(metadata, str(tmp / f"tiny_int8_{dev}.pt"), cfg, ecfg,
+                                  params=params[dev], device=dev, verbose=False)
+        acts[dev] = np.stack([np.stack([res[m["id"]]["activations"][f"layer_{i}"]
+                                        for m in metadata]) for i in range(cfg.num_layers)])
+        batch = {"input_ids": torch.as_tensor(enc["input_ids"], device=dev).long(),
+                 "attn_mask": torch.as_tensor(enc["attn_mask"], device=dev),
+                 "images": torch.as_tensor(images, device=dev),
+                 "image_positions": torch.as_tensor(enc["image_positions"], device=dev).long()}
+        lengths = batch["attn_mask"].sum(1).long()
+        for kv_int8 in (False, True):
+            with torch.inference_mode():
+                _, ks, vs = prefill(params[dev], cfg, t_max=enc["input_ids"].shape[1] + 8,
+                                    kv_int8=kv_int8, **batch)
+                step, _, _ = _decode_step(params[dev], cfg, batch["input_ids"][:, 0], lengths,
+                                          ks, vs)
+            logits[dev, kv_int8] = step.cpu().numpy()
+            toks[dev, kv_int8] = generate(params[dev], cfg, max_new_tokens=8, kv_int8=kv_int8,
+                                          **batch).cpu().numpy()
+    err = float(np.abs(acts["cuda"] - acts["cpu"]).max())
+    scale = float(np.abs(acts["cpu"]).max())
+    logit_err = {str(k): float(np.abs(logits["cuda", k] - logits["cpu", k]).max())
+                 for k in (False, True)}
+    logit_scale = max(float(np.abs(v).max()) for v in logits.values())
+    same = {str(k): bool(np.array_equal(toks["cuda", k], toks["cpu", k])) for k in (False, True)}
+    info = {"phase": "tiny_int8_parity", "capture_shape": list(acts["cuda"].shape),
+            "capture_max_abs_err": err, "capture_max_abs_value": scale,
+            "decode_logits_max_abs_err_by_kv_int8": logit_err, "logits_max_abs": logit_scale,
+            "greedy_tokens_identical_by_kv_int8": same, "tokens": toks["cuda", False].tolist(),
+            "tolerance": TINY_TOL, "kv_int8_logits_tolerance": TINY_KV_INT8_TOL}
+    emit(info)
+    if not np.isfinite(acts["cuda"]).all() or err > TINY_TOL * max(1.0, scale):
+        raise AssertionError(f"tiny int8 capture: card vs CPU max abs err {err:.3e}")
+    if (logit_err["False"] > TINY_TOL * max(1.0, logit_scale)
+            or logit_err["True"] > TINY_KV_INT8_TOL * max(1.0, logit_scale)):
+        raise AssertionError(f"tiny int8 decode logits: card vs CPU {logit_err}")
+    if not all(same.values()):
+        raise AssertionError(f"tiny int8 generate: card and CPU tokens differ {same}")
+    return info
+
+
+def phase_capture(tmp: Path, smi: str):
+    """The port's main path at full width and depth; returns its record
+    and the state the int8 and generate phases reuse (the bf16 params,
+    the capture, the dataset and its encoding)."""
+    import torch
+    import tdax_torch.ops.flash_attention as fa
+    import tdax_torch.ops.quant_matmul as qm
+    from tdax_torch.config import DatasetConfig, ExtractConfig
+    from tdax_torch.data.dataset import generate_dataset
+    from tdax_torch.data.io import save_activations, save_activations_npz
     from tdax_torch.models.qwen_vl.config import QwenVLConfig
     from tdax_torch.models.qwen_vl.model import init_params
     from tdax_torch.models.qwen_vl.preprocess import load_image_batch
@@ -676,40 +902,21 @@ def phase_capture(tmp: Path, smi: str) -> dict:
     ecfg = ExtractConfig(batch_size=16)
     out_path = str(tmp / "data" / "all_activations.pt")
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = 0
+    fa.LAUNCHES = qm.LAUNCHES = 0
     t0 = time.perf_counter()
     results = extract_activations(metadata, out_path, cfg, ecfg, params=params,
                                   device="cuda", verbose=False)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = fa.LAUNCHES
+    launches, qmm_launches = fa.LAUNCHES, qm.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
 
-    acts, ids, meta = load_activations_npz(out_path.rsplit(".", 1)[0] + ".npz")
-    if acts.shape != (32, 48, 4096):
-        raise AssertionError(f"capture shape {acts.shape}, expected (32, 48, 4096)")
-    if not np.isfinite(acts).all():
-        raise AssertionError("capture holds non-finite values")
-    if ids != [m["id"] for m in metadata] or meta != metadata:
-        raise AssertionError(".npz sample_ids / metadata_json do not match the dataset")
-    pt = torch.load(out_path, map_location="cpu", weights_only=False)
-    if list(pt) != ids:
-        raise AssertionError(".pt keys do not match the sample ids")
-    for j, sid in enumerate(ids):
-        entry = pt[sid]
-        if entry["metadata"] != metadata[j] or list(entry["activations"]) != [
-                f"layer_{i}" for i in range(32)]:
-            raise AssertionError(f".pt entry {sid} does not have the tdax schema")
-        if not np.array_equal(entry["activations"]["layer_31"].numpy(), acts[31, j]):
-            raise AssertionError(f".pt and .npz disagree for {sid}")
-    if set(results) != set(ids):
-        raise AssertionError("returned results do not cover the dataset")
+    acts, ids = _check_capture(out_path, metadata, results, "bf16 capture")
     n_batches = math.ceil(len(metadata) / ecfg.batch_size)
     expected = n_batches * (cfg.visual.layers + 1 + cfg.num_layers)
-    if launches != expected:
-        raise AssertionError(f"flash kernel launched {launches} times, expected {expected}")
-    if np.abs(acts[:, 0] - acts[:, 1]).max() == 0:
-        raise AssertionError("two different samples gave identical activations")
+    if launches != expected or qmm_launches != 0:
+        raise AssertionError(f"flash kernel launched {launches} times, expected {expected}; "
+                             f"qmm {qmm_launches} times, expected 0 (fp weights)")
 
     # the same run again, warm: the difference is first-call set-up
     t0 = time.perf_counter()
@@ -737,15 +944,71 @@ def phase_capture(tmp: Path, smi: str) -> dict:
     info = {"phase": "capture", "nvidia_smi": smi, "params": n_params,
             "param_dtype": cfg.dtype, "init_s": init_s, "capture_shape": list(acts.shape),
             "finite": True, "flash_launches": launches, "expected_launches": expected,
+            "qmm_launches": qmm_launches,
             "wall_s": wall_s, "max_len": max_len, "tokens": tokens, "tokens_per_s": tokens / wall_s,
             "wall_warm_s": warm_s, "tokens_per_s_warm": tokens / warm_s, "host": host,
             "max_memory_allocated_bytes": peak, "image_path": "PIL"}
     emit(info)
-    phase_profile(params, cfg, encoded, max_len, ecfg.batch_size, smi)
-    return info
+    info["profile"] = phase_profile(params, cfg, encoded, max_len, ecfg.batch_size, smi, "bf16")
+    state = {"params": params, "acts": acts, "metadata": metadata, "encoded": encoded,
+             "max_len": max_len}
+    return info, state
 
 
-def phase_profile(params, cfg, encoded, max_len, bs, smi) -> dict:
+def _check_capture(out_path: str, metadata, results, label):
+    """The capture's files in tdax's schemas: [32, 48, 4096], finite, .npz
+    ids and metadata, .pt entries equal to the .npz."""
+    import numpy as np
+    import torch
+    from tdax_torch.data.io import load_activations_npz
+
+    acts, ids, meta = load_activations_npz(out_path.rsplit(".", 1)[0] + ".npz")
+    if acts.shape != (32, 48, 4096):
+        raise AssertionError(f"{label}: shape {acts.shape}, expected (32, 48, 4096)")
+    if not np.isfinite(acts).all():
+        raise AssertionError(f"{label}: non-finite values")
+    if ids != [m["id"] for m in metadata] or meta != metadata:
+        raise AssertionError(f"{label}: .npz sample_ids / metadata_json do not match the dataset")
+    pt = torch.load(out_path, map_location="cpu", weights_only=False)
+    if list(pt) != ids:
+        raise AssertionError(f"{label}: .pt keys do not match the sample ids")
+    for j, sid in enumerate(ids):
+        entry = pt[sid]
+        if entry["metadata"] != metadata[j] or list(entry["activations"]) != [
+                f"layer_{i}" for i in range(32)]:
+            raise AssertionError(f"{label}: .pt entry {sid} does not have the tdax schema")
+        if not np.array_equal(entry["activations"]["layer_31"].numpy(), acts[31, j]):
+            raise AssertionError(f"{label}: .pt and .npz disagree for {sid}")
+    if set(results) != set(ids):
+        raise AssertionError(f"{label}: returned results do not cover the dataset")
+    if np.abs(acts[:, 0] - acts[:, 1]).max() == 0:
+        raise AssertionError(f"{label}: two different samples gave identical activations")
+    return acts, ids
+
+
+def _device_time_by_kind(prof) -> dict:
+    """Device time (ms) of a profiled run, summed by kind, and the top
+    kernels."""
+    import torch
+    kinds = {"qmm": 0.0, "flash": 0.0, "gemm": 0.0, "other": 0.0}
+    top = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", 0.0)
+        name = ev.key.lower()
+        kind = ("qmm" if "qmm_" in name else
+                "flash" if "flash_fwd" in name else
+                "gemm" if any(w in name for w in ("gemm", "nvjet", "cutlass", "xmma")) else
+                "other")
+        kinds[kind] += us / 1e3
+        top.append((us / 1e3, ev.count, ev.key[:90]))
+    top.sort(reverse=True)
+    return {"busy_ms": sum(kinds.values()), **{f"{k}_ms": v for k, v in kinds.items()},
+            "top_kernels_ms_count_name": top[:12]}
+
+
+def phase_profile(params, cfg, encoded, max_len, bs, smi, label) -> dict:
     """Where one batch's forward spends the card's time: the forward
     alone (host clock, synchronised, median of 3 after one warm-up),
     then one forward under torch.profiler, kernel time summed by kind."""
@@ -784,28 +1047,232 @@ def phase_profile(params, cfg, encoded, max_len, bs, smi) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         forward()
         torch.cuda.synchronize()
-    kinds = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
-    top = []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", 0.0)
-        name = ev.key.lower()
-        kind = ("flash" if "flash_fwd" in name else
-                "gemm" if any(w in name for w in ("gemm", "nvjet", "cutlass", "xmma")) else
-                "other")
-        kinds[kind] += us / 1e3
-        top.append((us / 1e3, ev.count, ev.key[:90]))
-    busy_ms = sum(kinds.values())
-    top.sort(reverse=True)
-    info = {"phase": "profile", "nvidia_smi": smi, "batch": bs, "forward_ms": forward_ms,
-            "forward_ms_runs": [1e3 * t for t in times],
+    kinds = _device_time_by_kind(prof)
+    busy_ms = kinds.pop("busy_ms")
+    info = {"phase": "profile", "weights": label, "nvidia_smi": smi, "batch": bs,
+            "forward_ms": forward_ms, "forward_ms_runs": [1e3 * t for t in times],
             "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
-            "flash_ms": kinds["flash"], "gemm_ms": kinds["gemm"], "other_ms": kinds["other"],
             "idle_share": (1 - busy_ms / forward_ms) if busy_ms > 0 else "not measured",
-            "top_kernels_ms_count_name": top[:12]}
+            **kinds}
     emit(info)
     return info
+
+
+def _fingerprint(params) -> list:
+    """Slices of a few int8 leaves, to compare two int8 trees cheaply."""
+    return [params["layers"]["attn_qkv_w"]["q"][-1, :64].clone(),
+            params["layers"]["mlp_proj_w"]["s"][-1].clone(),
+            params["lm_head"]["q"][:64, -1024:].clone(),
+            params["visual"]["blocks"]["mlp_fc_w"]["q"][-1, :64].clone(),
+            params["wte"]["s"].clone()]
+
+
+def phase_int8_capture(tmp: Path, smi: str, state: dict, bf16_peak: int) -> dict:
+    """The capture with int8 weight-only matmuls: the bf16 capture's own
+    weights quantized on the card (the bf16 tree is then freed), then
+    extract_activations with quantize_int8."""
+    import numpy as np
+    import torch
+    import tdax_torch.ops.flash_attention as fa
+    import tdax_torch.ops.quant_matmul as qm
+    from tdax_torch.config import ExtractConfig
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    from tdax_torch.models.qwen_vl.quantize import quantize_params, quantized_bytes
+    from tdax_torch.pipeline.extract import extract_activations
+
+    cfg = QwenVLConfig()
+    metadata = state["metadata"]
+    bf16 = state.pop("params")
+    bf16_bytes = quantized_bytes(bf16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = quantize_params(bf16)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    del bf16
+    torch.cuda.empty_cache()
+    int8_bytes = quantized_bytes(params)
+
+    ecfg = ExtractConfig(batch_size=16, quantize_int8=True)
+    out_dir = tmp / "int8"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out_path = str(out_dir / "all_activations.pt")
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = qm.LAUNCHES = 0
+    t0 = time.perf_counter()
+    results = extract_activations(metadata, out_path, cfg, ecfg, params=params, device="cuda",
+                                  verbose=False)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"qmm": qm.LAUNCHES, "flash_fwd": fa.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+
+    acts, _ = _check_capture(out_path, metadata, results, "int8 capture")
+    n_batches = math.ceil(len(metadata) / ecfg.batch_size)
+    expected = {"qmm": n_batches * QMM_PER_CAPTURE_BATCH,
+                "flash_fwd": n_batches * (cfg.visual.layers + 1 + cfg.num_layers)}
+    ref = state["acts"].astype(np.float64)
+    got = acts.astype(np.float64)
+    cos = (ref * got).sum(-1) / (np.linalg.norm(ref, axis=-1) * np.linalg.norm(got, axis=-1))
+    tokens = n_batches * ecfg.batch_size * (state["max_len"] + cfg.visual.n_patches)
+    info = {"phase": "int8_capture", "nvidia_smi": smi, "quantize_s": quantize_s,
+            "weight_bytes_bf16": bf16_bytes, "weight_bytes_int8": int8_bytes,
+            "capture_shape": list(acts.shape), "finite": True, "launches": launches,
+            "expected_launches": expected, "wall_s": wall_s, "tokens": tokens,
+            "tokens_per_s": tokens / wall_s, "max_memory_allocated_bytes": peak,
+            "max_memory_allocated_bytes_bf16_capture": bf16_peak,
+            "cosine_vs_bf16_min": float(cos.min()), "cosine_vs_bf16_median": float(np.median(cos)),
+            "cosine_limit": INT8_MIN_COSINE}
+    emit(info)
+    if launches != expected:
+        raise AssertionError(f"int8 capture launches {launches}, expected {expected}")
+    if not cos.min() > INT8_MIN_COSINE:
+        raise AssertionError(f"int8 capture: min cosine {cos.min():.4f} against the bf16 capture")
+    info["profile"] = phase_profile(params, cfg, state["encoded"], state["max_len"],
+                                    ecfg.batch_size, smi, "int8")
+    info["fingerprint"] = _fingerprint(params)
+    return info
+
+
+def _cache_bytes(*caches) -> int:
+    tensors = [t for c in caches for t in (c.values() if isinstance(c, dict) else [c])]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_generate(smi: str, state: dict, fingerprint: list) -> dict:
+    """KV-cached greedy generation at full width from
+    init_params_quantized, with bf16 caches and with int8 caches."""
+    import numpy as np
+    import torch
+    import tdax_torch.ops.flash_attention as fa
+    import tdax_torch.ops.quant_matmul as qm
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    from tdax_torch.models.qwen_vl.decoder import rms_norm
+    from tdax_torch.models.qwen_vl.generate import _decode_step, generate, prefill
+    from tdax_torch.models.qwen_vl.model import forward
+    from tdax_torch.models.qwen_vl.preprocess import load_image_batch
+    from tdax_torch.models.qwen_vl.quantize import init_params_quantized, qdot, quantized_bytes
+    from tdax_torch.models.qwen_vl.tokenizer import ToyTokenizer
+
+    cfg = QwenVLConfig()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params_quantized(cfg, "cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if not all(torch.equal(a, b) for a, b in zip(_fingerprint(params), fingerprint)):
+        raise AssertionError("init_params_quantized differs from quantize_params(init_params)")
+
+    enc, b = state["encoded"], GEN_BATCH
+    pad = GEN_PROMPT_LEN - enc["input_ids"].shape[1]
+
+    def dev(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to("cuda", dtype)
+
+    ids = dev(np.pad(enc["input_ids"][:b], ((0, 0), (0, pad)),
+                     constant_values=ToyTokenizer(cfg).pad_id), torch.long)
+    mask = dev(np.pad(enc["attn_mask"][:b], ((0, 0), (0, pad))), torch.int32)
+    images = dev(load_image_batch(enc["image_paths"][:b], cfg.visual.image_size), torch.float32)
+    pos = dev(enc["image_positions"][:b], torch.long)
+    lengths = mask.sum(1).long()
+    rows = torch.arange(b, device="cuda")
+    t_max, n_steps = GEN_PROMPT_LEN + GEN_NEW_TOKENS, GEN_NEW_TOKENS - 1
+    expected = {"qmm": QMM_PER_CAPTURE_BATCH + 1 + n_steps * QMM_PER_DECODE_STEP,
+                "flash_fwd": cfg.visual.layers + 1 + cfg.num_layers + n_steps * cfg.num_layers}
+
+    runs = {}
+    for kv_int8 in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.LAUNCHES = qm.LAUNCHES = 0
+        t0 = time.perf_counter()
+        toks = generate(params, cfg, ids, mask, max_new_tokens=GEN_NEW_TOKENS, images=images,
+                        image_positions=pos, kv_int8=kv_int8)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {"qmm": qm.LAUNCHES, "flash_fwd": fa.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+        if toks.shape != (b, GEN_NEW_TOKENS) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"generate: ids {tuple(toks.shape)} out of shape or range")
+        if launches != expected:
+            raise AssertionError(f"generate (kv_int8={kv_int8}): launches {launches}, "
+                                 f"expected {expected}")
+
+        # the same steps by hand: the prefill alone (timed), two decode steps
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hidden, ks, vs = prefill(params, cfg, ids, mask, images, pos, t_max=t_max,
+                                     kv_int8=kv_int8)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            last = rms_norm(hidden[rows, lengths - 1], params["ln_f"], cfg.layer_norm_eps)
+            logits = [qdot(last, params["lm_head"]).float()]
+            tok = [logits[0].argmax(-1)]
+            del hidden
+            for i in range(2):
+                step, ks, vs = _decode_step(params, cfg, tok[-1], lengths + i, ks, vs)
+                logits.append(step)
+                tok.append(step.argmax(-1))
+            step_profile = profile_device(
+                lambda: _decode_step(params, cfg, tok[-1], lengths + 2, ks, vs))
+        runs[kv_int8] = {"tokens": toks, "logits": logits, "tok": tok, "info": {
+            "kv_int8": kv_int8, "wall_s": wall_s, "prefill_s": prefill_s,
+            "decode_ms_per_step": 1e3 * (wall_s - prefill_s) / n_steps,
+            "tokens_per_s": b * GEN_NEW_TOKENS / wall_s, "cache_bytes": _cache_bytes(ks, vs),
+            "max_memory_allocated_bytes": peak, "launches": launches,
+            "expected_launches": expected, "decode_step_profile": step_profile}}
+        del ks, vs
+        torch.cuda.empty_cache()
+
+    # the bf16-cache logits against the uncached forward on prompt + the
+    # generated prefix, at each sample's last real position
+    ref_run = runs[False]
+    ids2, mask2 = ids.clone(), mask.clone()
+    for j in range(2):
+        ids2[rows, lengths + j] = ref_run["tok"][j]
+        mask2[rows, lengths + j] = 1
+    with torch.inference_mode():
+        full = forward(params, cfg, ids2, mask2, images, pos)
+        ref = [full[rows, lengths - 1 + j] for j in range(3)]
+    del full
+    cache_err = [float((c - r).abs().max() / r.abs().max())
+                 for c, r in zip(ref_run["logits"], ref)]
+    cache_agree = [float((c.argmax(-1) == r.argmax(-1)).float().mean())
+                   for c, r in zip(ref_run["logits"], ref)]
+    l_bf16, l_int8 = runs[False]["logits"][1], runs[True]["logits"][1]
+    kv_err = float((l_int8 - l_bf16).abs().max() / l_bf16.abs().max())
+    token_agree = float((runs[True]["tokens"] == runs[False]["tokens"]).float().mean())
+    info = {"phase": "generate", "nvidia_smi": smi, "init_s": init_s,
+            "weight_bytes_int8": quantized_bytes(params), "batch": b,
+            "prompt_len": GEN_PROMPT_LEN, "prompt_lengths": lengths.tolist(),
+            "max_new_tokens": GEN_NEW_TOKENS, "t_max": t_max,
+            "runs": [runs[k]["info"] for k in (False, True)],
+            "cached_vs_uncached_max_err_over_max_logit": cache_err,
+            "cached_vs_uncached_argmax_agreement": cache_agree, "cache_tolerance": CACHE_TOL,
+            "kv_int8_vs_bf16_cache_max_err_over_max_logit": kv_err,
+            "kv_int8_tolerance": KV_INT8_TOL,
+            "kv_int8_vs_bf16_cache_token_agreement": token_agree,
+            "tokens_bf16_cache_first_rows": runs[False]["tokens"][:2].tolist()}
+    emit(info)
+    if max(cache_err) > CACHE_TOL:
+        raise AssertionError(f"generate: cached vs uncached logits {cache_err} over {CACHE_TOL}")
+    if kv_err > KV_INT8_TOL:
+        raise AssertionError(f"generate: kv_int8 vs bf16 cache logits {kv_err} over "
+                             f"{KV_INT8_TOL}")
+    if not torch.equal(ref_run["tokens"][:, :3], torch.stack(ref_run["tok"], 1)):
+        raise AssertionError("generate's first tokens differ from the same steps by hand")
+    return info
+
+
+def _qmm_totals(sites, calls_key) -> dict:
+    """Kernel, plain, library and bound ms summed over the sites of one
+    capture batch or one decode step, each weighted by its calls."""
+    out = {key: sum(s[key] * s[calls_key] for s in sites)
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    by_ops = sum(s["bound_ms"] * s[calls_key] for s in sites if s["bound_by"] == "operations")
+    out["bound_by"] = "operations" if by_ops >= out["bound_ms"] - by_ops else "bytes"
+    return out
 
 
 def main() -> int:
@@ -818,13 +1285,20 @@ def main() -> int:
     get_device()  # cuda, with TF32 off
 
     env = phase_env()
+    smi = env["nvidia_smi"]
     kern = phase_kernels()
     sq = phase_sqdist()
+    qmm = phase_qmm()
     with tempfile.TemporaryDirectory(prefix="tdax_torch_smoke_") as tmp:
         phase_tiny_parity(Path(tmp))
-        capture = phase_capture(Path(tmp), env["nvidia_smi"])
-        phase_sweep(Path(tmp), env["nvidia_smi"])
-    scale = phase_scale(env["nvidia_smi"])
+        phase_tiny_int8(Path(tmp))
+        capture, state = phase_capture(Path(tmp), smi)
+        int8 = phase_int8_capture(Path(tmp), smi, state, capture["max_memory_allocated_bytes"])
+        gen = phase_generate(smi, state, int8.pop("fingerprint"))
+        del state
+        torch.cuda.empty_cache()
+        phase_sweep(Path(tmp), smi)
+    scale = phase_scale(smi)
 
     def total(key):
         return sum(s[key] * s["calls_per_batch"] for s in kern["sites"])
@@ -845,6 +1319,9 @@ def main() -> int:
         "bound_by": "operations" if by_ops >= by_bytes else "bytes",
         "library_ms": total("library_ms"),
         "per": "one batch of 16: 48 ViT + 1 resampler + 32 decoder calls, bf16",
+        "decode_step": {k: kern["decode"][k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                                       "bound_by", "library_ms",
+                                                       "calls_per_decode_step")},
     }, {
         "name": "sqdist",
         "route": "cuda",
@@ -860,8 +1337,21 @@ def main() -> int:
         "per": "one call at the scale path's [10000, 4096] f32; library_ms is torch.cdist, "
                "the Euclidean function, whose wrapper (kernel + sqrt + zero diagonal) takes "
                f"{sq['site']['euclid_ms']:.4f} ms",
+    }, {
+        "name": "qmm",
+        "route": "cuda",
+        "source": "tdax_torch/ops/csrc/qmm.cu",
+        "replaces": "tdax/ops/quant_matmul.py:40",
+        "launches": int8["launches"]["qmm"],
+        "launches_generate": gen["runs"][0]["launches"]["qmm"],
+        "max_abs_err": qmm["max_abs_err"],
+        **_qmm_totals(qmm["sites"], "calls_per_capture_batch"),
+        "per": f"one int8 capture batch of 16 ({QMM_PER_CAPTURE_BATCH} calls); library_ms is "
+               "torch.matmul on the same weight pre-converted to bf16",
+        "decode_step": {"calls": QMM_PER_DECODE_STEP,
+                        **_qmm_totals(qmm["sites"], "calls_per_decode_step")},
     }]})
-    print(env["nvidia_smi"], flush=True)
+    print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -3,6 +3,7 @@
   python -m tdax_torch generate                 # 48 images + metadata.json
   python -m tdax_torch extract                  # full Qwen-VL capture on the card
   python -m tdax_torch extract --toy            # tiny random model
+  python -m tdax_torch extract --int8           # int8 weight-only matmuls
   python -m tdax_torch extract --device cpu     # on the CPU, when asked
   python -m tdax_torch sweep                    # per-layer UMAP + Rips + silhouettes
   python -m tdax_torch sweep --device cpu       # the sweep on the CPU
@@ -26,6 +27,8 @@ def main(argv=None) -> None:
     sub.add_parser("generate", help="write the 48-sample 6x6 dataset")
     ext = sub.add_parser("extract", help="capture per-layer last-token activations")
     ext.add_argument("--toy", action="store_true", help="tiny random-weights model")
+    ext.add_argument("--int8", action="store_true",
+                     help="int8 weight-only matmuls (weights drawn straight into int8)")
     ext.add_argument("--device", default=None, help="'cpu' to run on the CPU (default: cuda)")
     swp = sub.add_parser("sweep", help="per-layer UMAP + Rips + silhouette sweep")
     swp.add_argument("--device", default=None, help="'cpu' to run on the CPU (default: cuda)")
@@ -63,9 +66,10 @@ def main(argv=None) -> None:
     print(f"Loading metadata from {ds.metadata_path}...")
     metadata = load_metadata(ds.metadata_path)
     print(f"Extracting activations for {len(metadata)} samples "
-          f"({'toy model' if args.toy else 'full model'}, random weights)...")
-    results = extract_activations(metadata, ds.activations_path, cfg, ExtractConfig(),
-                                  device=args.device)
+          f"({'toy model' if args.toy else 'full model'}, random weights"
+          f"{', int8' if args.int8 else ''})...")
+    results = extract_activations(metadata, ds.activations_path, cfg,
+                                  ExtractConfig(quantize_int8=args.int8), device=args.device)
     print(f"\nExtracted activations for {len(results)} samples.")
 
 

@@ -98,7 +98,9 @@ class ExtractConfig:
     """Activation extraction (reference extract_activations.py:10-13).
 
     The model's dtype is ``QwenVLConfig.dtype``; ``model_dir`` returns
-    with the checkpoint loader."""
+    with the checkpoint loader.  ``quantize_int8`` runs the capture with
+    int8 weight-only matmuls (tdax's ``extract_activations.py --int8``)."""
 
     batch_size: int = 16
     save_interval: int = 50  # samples between incremental checkpoints
+    quantize_int8: bool = False

@@ -8,6 +8,11 @@ same tree of tensors on ``device`` in ``dtype``.  The port keeps tdax's
 layout, so this is a leaf-by-leaf copy and both packages compute the
 same function of the same numbers.
 
+An int8 tree (tdax's ``quantize_params`` or ``init_params_quantized``)
+crosses as it is: int8 leaves stay int8, and the scales of a
+``{"q", "s"}`` node stay f32 whatever the model dtype, as tdax keeps
+them.
+
 The Hugging Face checkpoint loader (tdax's ``convert.py``) waits until
 the checkpoint files are in the repository.
 """
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from tdax_torch.models.qwen_vl.model import torch_dtype
+from tdax_torch.models.qwen_vl.quantize import is_quantized
 
 
 def params_from_numpy(tree: dict, device, dtype) -> dict:
@@ -25,9 +31,18 @@ def params_from_numpy(tree: dict, device, dtype) -> dict:
     dtype = torch_dtype(dtype)
     out = {}
     for name, leaf in tree.items():
-        if isinstance(leaf, dict):
+        if is_quantized(leaf):
+            out[name] = {"q": _tensor(leaf["q"], np.int8, device, torch.int8),
+                         "s": _tensor(leaf["s"], np.float32, device, torch.float32)}
+        elif isinstance(leaf, dict):
             out[name] = params_from_numpy(leaf, device, dtype)
+        elif np.asarray(leaf).dtype == np.int8:
+            out[name] = _tensor(leaf, np.int8, device, torch.int8)
         else:
-            arr = np.asarray(leaf, dtype=np.float32)
-            out[name] = torch.from_numpy(arr.copy()).to(device=device, dtype=dtype)
+            out[name] = _tensor(leaf, np.float32, device, dtype)
     return out
+
+
+def _tensor(leaf, np_dtype, device, dtype: torch.dtype) -> torch.Tensor:
+    arr = np.array(leaf, dtype=np_dtype)  # a copy, writable
+    return torch.from_numpy(arr).to(device=device, dtype=dtype)

@@ -7,9 +7,10 @@ pre-RMSNorm SwiGLU MLP (w1 * silu(w2) -> c_proj).
 
 Layer weights stay stacked [n_layers, ...] as in tdax; a Python loop
 over the layer index takes the place of ``lax.scan`` (indexing a
-stacked weight is a view, no copy).  Weights are [in, out] and
-multiplied as ``x @ w``: f32 accumulation, one cast to the working
-dtype, as tdax's ``qdot``.
+stacked weight is a view, no copy).  Weights are [in, out] and every
+product goes through ``qdot``: ``x @ w`` for an fp weight (f32
+accumulation, one cast to the working dtype), the int8 kernel for a
+quantized one.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from tdax_torch.models.qwen_vl.config import QwenVLConfig
+from tdax_torch.models.qwen_vl.quantize import layer_at, qdot
 from tdax_torch.ops.flash_attention import AttnSpec, mha
 
 
@@ -49,17 +51,12 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch
     return torch.cat([r1, r2], dim=-1).to(x.dtype)
 
 
-def layer_at(stacked: dict, i: int) -> dict:
-    """Layer i's weights out of the stacked [n_layers, ...] tree (views)."""
-    return {name: w[i] for name, w in stacked.items()}
-
-
 def project_qkv(x: torch.Tensor, layer: dict, cfg: QwenVLConfig,
                 cos: torch.Tensor, sin: torch.Tensor):
     """x [B, T, H] -> rotated (q, k, v) each [B, T, nh, hd].  v stays a
     strided view of the fused projection; the kernel reads it as is."""
     b, t, _ = x.shape
-    qkv = x @ layer["attn_qkv_w"] + layer["attn_qkv_b"]
+    qkv = qdot(x, layer["attn_qkv_w"]) + layer["attn_qkv_b"]
     q, k, v = qkv.split(cfg.hidden_size, dim=-1)
     shape = (b, t, cfg.num_heads, cfg.head_dim)
     q = apply_rotary(q.reshape(shape), cos, sin)
@@ -71,24 +68,30 @@ def attend(q, k, v, spec: AttnSpec, layer: dict, cfg: QwenVLConfig) -> torch.Ten
     """Attention + output projection: [B, Tq, nh, hd] -> [B, Tq, H]."""
     b, tq = q.shape[0], q.shape[1]
     out = mha(q, k, v, spec).reshape(b, tq, cfg.hidden_size)
-    return out @ layer["attn_proj_w"]
+    return qdot(out, layer["attn_proj_w"])
 
 
 def mlp(x: torch.Tensor, layer: dict) -> torch.Tensor:
     """QWen SwiGLU: c_proj(w1(x) * silu(w2(x)))."""
-    a1 = x @ layer["mlp_w1"]
-    a2 = x @ layer["mlp_w2"]
+    a1 = qdot(x, layer["mlp_w1"])
+    a2 = qdot(x, layer["mlp_w2"])
     inter = a1 * F.silu(a2.float()).to(x.dtype)
-    return inter @ layer["mlp_proj_w"]
+    return qdot(inter, layer["mlp_proj_w"])
 
 
-def block(x: torch.Tensor, layer: dict, cfg: QwenVLConfig,
-          cos: torch.Tensor, sin: torch.Tensor, spec: AttnSpec) -> torch.Tensor:
+def block_kv(x: torch.Tensor, layer: dict, cfg: QwenVLConfig,
+             cos: torch.Tensor, sin: torch.Tensor, spec: AttnSpec):
+    """One block; returns (x, this layer's rotated k, v) for a KV cache."""
     h1 = rms_norm(x, layer["ln_1"], cfg.layer_norm_eps)
     q, k, v = project_qkv(h1, layer, cfg, cos, sin)
     x = x + attend(q, k, v, spec, layer, cfg)
     h2 = rms_norm(x, layer["ln_2"], cfg.layer_norm_eps)
-    return x + mlp(h2, layer)
+    return x + mlp(h2, layer), k, v
+
+
+def block(x: torch.Tensor, layer: dict, cfg: QwenVLConfig,
+          cos: torch.Tensor, sin: torch.Tensor, spec: AttnSpec) -> torch.Tensor:
+    return block_kv(x, layer, cfg, cos, sin, spec)[0]
 
 
 def _rotary_and_spec(x: torch.Tensor, cfg: QwenVLConfig, attn_mask: torch.Tensor):

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from tdax_torch.models.qwen_vl.config import VisualConfig
+from tdax_torch.models.qwen_vl.quantize import layer_at, qdot
 from tdax_torch.ops.flash_attention import AttnSpec, mha
 
 
@@ -40,7 +41,7 @@ def patch_embed(images: torch.Tensor, w: torch.Tensor, cfg: VisualConfig) -> tor
     b = images.shape[0]
     p, g = cfg.patch_size, cfg.grid_size
     x = images.reshape(b, 3, g, p, g, p).permute(0, 2, 4, 1, 3, 5).reshape(b, g * g, 3 * p * p)
-    return (x @ w).to(images.dtype)
+    return qdot(x, w).to(images.dtype)
 
 
 def _mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -56,15 +57,15 @@ def _mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int) -> tor
 
 def vit_block(x: torch.Tensor, layer: dict, cfg: VisualConfig) -> torch.Tensor:
     h = layer_norm(x, layer["ln_1_w"], layer["ln_1_b"], cfg.layer_norm_eps)
-    qkv = h @ layer["attn_qkv_w"] + layer["attn_qkv_b"]
+    qkv = qdot(h, layer["attn_qkv_w"]) + layer["attn_qkv_b"]
     q, k, v = qkv.split(cfg.width, dim=-1)
     attn = _mha(q, k, v, cfg.heads)
-    attn = attn @ layer["attn_proj_w"] + layer["attn_proj_b"]
+    attn = qdot(attn, layer["attn_proj_w"]) + layer["attn_proj_b"]
     x = x + attn
     h = layer_norm(x, layer["ln_2_w"], layer["ln_2_b"], cfg.layer_norm_eps)
-    h = h @ layer["mlp_fc_w"] + layer["mlp_fc_b"]
+    h = qdot(h, layer["mlp_fc_w"]) + layer["mlp_fc_b"]
     h = gelu_tanh(h)
-    h = h @ layer["mlp_proj_w"] + layer["mlp_proj_b"]
+    h = qdot(h, layer["mlp_proj_w"]) + layer["mlp_proj_b"]
     return x + h
 
 
@@ -101,17 +102,19 @@ def interp_pos_embed(pos: np.ndarray, dst_grid: int) -> np.ndarray:
 def resampler(x: torch.Tensor, params: dict, cfg: VisualConfig) -> torch.Tensor:
     """x [B, n_patches, width] -> [B, n_queries, output_dim]."""
     d = cfg.output_dim
-    kv = x @ params["kv_proj_w"]
+    kv = qdot(x, params["kv_proj_w"])
     kv = layer_norm(kv, params["ln_kv_w"], params["ln_kv_b"], cfg.layer_norm_eps)
     q = layer_norm(params["query"], params["ln_q_w"], params["ln_q_b"], cfg.layer_norm_eps)
     b = x.shape[0]
     qb = (q + params["q_pos"])[None].expand(b, cfg.n_queries, d).to(x.dtype)
     kb = kv + params["kv_pos"].to(x.dtype)
-    qh = qb @ params["attn_q_w"] + params["attn_q_b"]
-    kh = kb @ params["attn_k_w"] + params["attn_k_b"]
-    vh = kv @ params["attn_v_w"] + params["attn_v_b"]
+    # qb is a broadcast view (stride 0 over the batch): qdot's int8 path
+    # collapses it to rows, copying where it must
+    qh = qdot(qb, params["attn_q_w"]) + params["attn_q_b"]
+    kh = qdot(kb, params["attn_k_w"]) + params["attn_k_b"]
+    vh = qdot(kv, params["attn_v_w"]) + params["attn_v_b"]
     out = _mha(qh, kh, vh, cfg.resampler_heads)
-    return out @ params["attn_out_w"] + params["attn_out_b"]
+    return qdot(out, params["attn_out_w"]) + params["attn_out_b"]
 
 
 def visual_encode(images: torch.Tensor, params: dict, cfg: VisualConfig) -> torch.Tensor:
@@ -125,7 +128,7 @@ def visual_encode(images: torch.Tensor, params: dict, cfg: VisualConfig) -> torc
     x = layer_norm(x, params["ln_pre_w"], params["ln_pre_b"], cfg.layer_norm_eps)
     blocks = params["blocks"]
     for i in range(cfg.layers):
-        x = vit_block(x, {name: w[i] for name, w in blocks.items()}, cfg)
+        x = vit_block(x, layer_at(blocks, i), cfg)
     x = resampler(x, params["resampler"], cfg)
     x = layer_norm(x, params["ln_post_w"], params["ln_post_b"], cfg.layer_norm_eps)
-    return (x @ params["proj"]).to(dtype)
+    return qdot(x, params["proj"]).to(dtype)

@@ -31,6 +31,7 @@ from tdax_torch.config import ExtractConfig
 from tdax_torch.data.io import load_activations_npz, save_activations, save_activations_npz
 from tdax_torch.models.qwen_vl.config import QwenVLConfig
 from tdax_torch.models.qwen_vl.model import extract_layer_activations, init_params
+from tdax_torch.models.qwen_vl.quantize import init_params_quantized, quantize_params
 from tdax_torch.models.qwen_vl.preprocess import load_image_batch
 from tdax_torch.models.qwen_vl.tokenizer import batch_encode, get_tokenizer
 from tdax_torch.runtime import get_device
@@ -71,13 +72,18 @@ def extract_activations(metadata: list[dict], output_path: str,
     results and writes output_path (.pt) and its sibling .npz.
 
     ``params`` default to a random init (seed 0) on ``device`` (the
-    card unless ``device="cpu"``)."""
+    card unless ``device="cpu"``).  With ``extract_cfg.quantize_int8``
+    that init is drawn straight into int8, and given params are
+    quantized (a no-op on nodes that already are), as in tdax."""
     device = get_device(device)
     cfg = cfg or QwenVLConfig()
     extract_cfg = extract_cfg or ExtractConfig()
     tokenizer = tokenizer or get_tokenizer(cfg)
     if params is None:
-        params = init_params(cfg, device)
+        params = (init_params_quantized(cfg, device) if extract_cfg.quantize_int8
+                  else init_params(cfg, device))
+    elif extract_cfg.quantize_int8:
+        params = quantize_params(params)
 
     tmp_path = output_path + ".tmp.npz"
     done_acts, done_ids = _load_checkpoint(tmp_path, metadata)

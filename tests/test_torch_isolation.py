@@ -22,6 +22,9 @@ from tdax_torch.config import DatasetConfig, ExtractConfig, SweepConfig, UMAPCon
 from tdax_torch.data.dataset import generate_dataset
 from tdax_torch.data.io import load_activations
 from tdax_torch.models.qwen_vl.config import QwenVLConfig
+from tdax_torch.models.qwen_vl.generate import generate
+from tdax_torch.models.qwen_vl.model import init_params
+from tdax_torch.models.qwen_vl.quantize import quantize_params
 from tdax_torch.pipeline.extract import extract_activations
 from tdax_torch.pipeline.scale import rips_at_scale
 from tdax_torch.pipeline.tda_sweep import run_tda_sweep
@@ -34,6 +37,17 @@ with tempfile.TemporaryDirectory() as tmp:
                               ExtractConfig(batch_size=2), device="cpu",
                               verbose=False)
     assert len(res) == 3
+    res = extract_activations(md[:2], os.path.join(tmp, "q.pt"),
+                              QwenVLConfig.tiny(dtype="float32"),
+                              ExtractConfig(batch_size=2, quantize_int8=True), device="cpu",
+                              verbose=False)
+    assert len(res) == 2
+    import torch
+    cfg = QwenVLConfig.tiny(dtype="float32")
+    ids = torch.randint(1, cfg.vocab_size, (2, 6))
+    toks = generate(quantize_params(init_params(cfg, "cpu")), cfg, ids, torch.ones_like(ids),
+                    max_new_tokens=3, kv_int8=True)
+    assert toks.shape == (2, 3)
     rng = np.random.default_rng(0)
     data = {m["id"]: {"metadata": m, "activations": {f"layer_{i}": rng.normal(size=16)
                                                      for i in range(2)}} for m in md}
@@ -63,6 +77,9 @@ def test_port_never_loads_jax_or_tdax():
 def _sources():
     files = sorted((ROOT / "tdax_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {"tdax_torch/ops/quant_matmul.py", "tdax_torch/models/qwen_vl/quantize.py",
+            "tdax_torch/models/qwen_vl/generate.py"} <= names
     return files
 
 
@@ -138,3 +155,21 @@ def test_sweep_command_runs_on_the_cpu_when_asked(tmp_path, monkeypatch):
     stats = json.loads((tmp_path / "tda_debug_output" / "summary_stats.json").read_text())
     assert [s["layer"] for s in stats] == [0, 1, 2]
     assert (tmp_path / "tda_debug_output" / "diagrams" / "layer_2_diagram.png").exists()
+
+
+def test_extract_int8_command_runs_on_the_cpu_when_asked(tmp_path, monkeypatch):
+    """``python -m tdax_torch extract --int8 --toy --device cpu`` end to
+    end, after ``python -m tdax_torch generate``; without ``--device cpu``
+    and without a card it refuses."""
+    import numpy as np
+    from tdax_torch.__main__ import main
+    from tdax_torch.config import DatasetConfig
+    from tdax_torch.data.io import load_activations_npz
+    monkeypatch.chdir(tmp_path)
+    main(["generate"])
+    main(["extract", "--int8", "--toy", "--device", "cpu"])
+    acts, ids, _ = load_activations_npz(DatasetConfig().activations_path.replace(".pt", ".npz"))
+    assert acts.shape == (4, 48, 64) and len(ids) == 48 and np.isfinite(acts).all()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["extract", "--int8", "--toy"])
