@@ -79,15 +79,39 @@ and runs these phases, printing JSON lines:
             the engine's dim-0 bars on the same matrix; a small
             two-cluster cloud must give the CPU's diagrams (bottleneck
             <= SMALL_BOTTLENECK_TOL per dimension).  Times each stage.
-7. the kernels line, the nvidia-smi line, then the last line
+7. flash_bwd the flash backward kernels (dq; dk/dv) and the forward's
+            lse output against their plain versions, bf16 and f32, at the
+            decoder's training shape [4, 1024, 32, 128] (causal, the last
+            row's final 128 keys masked), the ViT's (4 x 1024, 16 heads,
+            hd 104), the resampler's (256 x 1024 keys, hd 128) and a
+            ragged one; kernel, bound, plain and library times (SDPA's
+            backward: autograd through scaled_dot_product_attention, minus
+            its forward).
+8. tiny_train the tiny f32 config trained on the card (kernels) and on the
+            CPU (plain versions): loss and every gradient, three
+            make_train_step steps, a with_images step, and train_loop
+            stopped at step 4 and resumed to 6 bitwise equal to the
+            uninterrupted run (checkpoint through tmp).
+9. train    the full decoder width (QwenVLConfig(), text-only, bf16,
+            7.72B params), default_optimizer(warmup_cosine_lr(1e-4, 2, 8)),
+            remat, a fixed 4 x 1024 batch from --seed's numpy generator
+            (the last row's final 128 positions masked): one warm step,
+            five timed steps (64 flash forwards, 32 dq and 32 dk/dv
+            launches each), losses finite and decreasing, peak memory,
+            the share of 989 TFLOP/s (bench_train.py's convention), and a
+            profiled step's device time by kind.
+10. the kernels line, the nvidia-smi line, then the last line
             {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits non-zero and prints no result;
-it also exits non-zero when no CUDA card is present.
+it also exits non-zero when no CUDA card is present.  ``--seed`` (default
+0) draws the training phase's batch.
 """
 
 from __future__ import annotations
 
+import argparse
+import gc
 import json
 import math
 import subprocess
@@ -187,6 +211,33 @@ F32_SHAPES = [  # tests/test_flash_attention.py:37-50, batch 2, plus hd 104
     (256, 256, 2, 128, True), (1024, 1024, 1, 128, True), (128, 640, 2, 128, True),
     (70, 70, 2, 104, True),
 ]
+
+
+# the flash backward: (name, B, Tq, Tk, nh, hd, causal, calls per training step)
+BWD_SHAPES = [
+    ("decoder", 4, 1024, 1024, 32, 128, True, 32),
+    ("vit", 4, 1024, 1024, 16, 104, False, 0),
+    ("resampler", 4, 256, 1024, 32, 128, False, 0),
+    ("ragged", 3, 77, 131, 3, 40, True, 0),
+]
+# f32: the kernel and the plain version sum in other orders; the bound is
+# relative to the magnitude of the summed terms (ds's size bound
+# p (|dO|.|v| + |delta|) scale times |k| or |q|; p |dO| for dv).  bf16:
+# 2^-7 |plain| + 1e-3 max|plain| for the output's rounding, plus 2^-8 of
+# the summed terms' magnitude (|ds| |k|, |ds| |q|, p |dO|): each ds or p
+# is rounded to bf16 before its product, and where the kernel's f32 value
+# and the plain version's lie on two sides of a rounding edge the term
+# moves by one bf16 step (2^-8 relative).  lse: 1e-5 relative to 1 + |lse|.
+BWD_F32_REL_TOL = 1e-5
+BWD_BF16_RTOL, BWD_BF16_ATOL_OF_MAX, BWD_BF16_TERMS = 2.0 ** -7, 1e-3, 2.0 ** -8
+LSE_TOL = 1e-5
+# tiny f32 training, card against CPU: gradients within 1e-4 of each
+# leaf's largest magnitude; params after three AdamW steps within 1e-4
+# relative + 3e-5 (Adam divides by the root of the second moment, so a
+# gradient rounding differently near zero moves its update more than its
+# own error; tests/test_torch_train_step.py holds tdax to the same)
+TINY_GRAD_TOL, TINY_PARAM_RTOL, TINY_PARAM_ATOL = 1e-4, 1e-4, 3e-5
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKED, TRAIN_TIMED_STEPS = 4, 1024, 128, 5
 
 
 def emit(obj) -> None:
@@ -990,15 +1041,22 @@ def _device_time_by_kind(prof) -> dict:
     """Device time (ms) of a profiled run, summed by kind, and the top
     kernels."""
     import torch
-    kinds = {"qmm": 0.0, "flash": 0.0, "gemm": 0.0, "other": 0.0}
+    kinds = {"qmm": 0.0, "flash": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
+             "gemm": 0.0, "other": 0.0}
     top = []
     for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        # a record_function range (torch.optim's "Optimizer.step#...") shows
+        # as a device event spanning its kernels: not a kernel of its own
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)
+                or ev.key.startswith("Optimizer.")):
             continue
         us = getattr(ev, "self_device_time_total", 0.0)
         name = ev.key.lower()
         kind = ("qmm" if "qmm_" in name else
                 "flash" if "flash_fwd" in name else
+                "flash_bwd_dq" if "bwd_dq_" in name else
+                "flash_bwd_dkv" if "bwd_dkv_" in name else
                 "gemm" if any(w in name for w in ("gemm", "nvjet", "cutlass", "xmma")) else
                 "other")
         kinds[kind] += us / 1e3
@@ -1265,6 +1323,405 @@ def phase_generate(smi: str, state: dict, fingerprint: list) -> dict:
     return info
 
 
+def _visible_pairs(tq, tk, causal) -> int:
+    """(query, key) pairs a causal or dense tile walk must compute."""
+    if not causal:
+        return tq * tk
+    return sum(min(i + 1, tk) for i in range(tq))
+
+
+def bwd_bound(b, tq, tk, nh, hd, causal, itemsize, products, out_rows):
+    """(ms, 'operations' | 'bytes') of one backward kernel: `products`
+    matrix products of 2 hd flops over the visible pairs; q, k, v, dO,
+    bias, lse and delta read once, `out_rows` rows of hd written once."""
+    flops = 2.0 * products * b * nh * _visible_pairs(tq, tk, causal) * hd
+    nbytes = ((2 * b * tq + 2 * b * tk + out_rows) * nh * hd * itemsize
+              + 4 * (b * tk + 2 * b * nh * tq))
+    peak = BF16_PEAK if itemsize == 2 else F32_PEAK
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _bwd_terms(fa, q, k, v, bias, lse, delta, do, causal):
+    """The magnitude of the terms each gradient sums: |ds| (in f32 its
+    size bound, as ds cancels dp against delta) times |k| or |q|; p |dO|."""
+    import torch
+    p, mag = fa._probs_and_ds(q, k, v, bias, lse, delta, do, causal)
+    if q.dtype == torch.float32:
+        dp_mag = torch.einsum("bqhd,bkhd->bhqk", do.float().abs(), v.float().abs())
+        mag = p * (dp_mag + delta.abs()[..., None]) / math.sqrt(q.shape[-1])
+        del dp_mag
+    mag = mag.abs_()
+    return {"dq": torch.einsum("bhqk,bkhd->bqhd", mag, k.float().abs()),
+            "dk": torch.einsum("bhqk,bqhd->bkhd", mag, q.float().abs()),
+            "dv": torch.einsum("bhqk,bqhd->bkhd", p, do.float().abs())}
+
+
+def _bwd_check(fa, q, k, v, do, bias, causal, label):
+    """The forward's lse and both backward kernels against their plain
+    versions; returns (max |kernel - plain| per output, lse, delta)."""
+    import torch
+    o, lse = fa.flash_attention(q, k, v, bias, causal, return_lse=True)
+    _, lse_plain = fa.flash_attention_plain(q, k, v, bias, causal, return_lse=True)
+    lse_excess = float(((lse - lse_plain).abs() - LSE_TOL * (1 + lse_plain.abs())).max())
+    if lse.shape != lse_plain.shape or lse_excess > 0:
+        raise AssertionError(f"{label}: lse differs from the plain version's")
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    got = {"dq": fa.flash_bwd_dq(q, k, v, bias, lse, delta, do, causal)}
+    got["dk"], got["dv"] = fa.flash_bwd_dkv(q, k, v, bias, lse, delta, do, causal)
+    torch.cuda.synchronize()
+    want = {"dq": fa.flash_bwd_dq_plain(q, k, v, bias, lse, delta, do, causal)}
+    want["dk"], want["dv"] = fa.flash_bwd_dkv_plain(q, k, v, bias, lse, delta, do, causal)
+    terms = _bwd_terms(fa, q, k, v, bias, lse, delta, do, causal)
+    errs = {"lse": float((lse - lse_plain).abs().max())}
+    for name in ("dq", "dk", "dv"):
+        g, w = got[name], want[name]
+        if g.shape != w.shape or g.dtype != q.dtype or not torch.isfinite(g).all():
+            raise AssertionError(f"{label} {name}: shape/dtype {tuple(g.shape)} {g.dtype} "
+                                 f"or non-finite")
+        err = (g.float() - w.float()).abs_()
+        if q.dtype == torch.bfloat16:
+            ref = w.float().abs_()
+            limit = ref.mul_(BWD_BF16_RTOL).add_(BWD_BF16_ATOL_OF_MAX * float(ref.max()))
+            limit.add_(terms[name], alpha=BWD_BF16_TERMS)
+        else:
+            limit = terms[name] * BWD_F32_REL_TOL
+        excess = float((err - limit).max())
+        errs[name] = float(err.max())
+        if excess > 0:
+            raise AssertionError(f"{label} {name}: max |kernel - plain| = {errs[name]:.3e} is "
+                                 f"outside the tolerance by {excess:.3e}")
+    return errs, lse, delta
+
+
+def phase_flash_bwd(smi: str) -> dict:
+    """The flash backward kernels and the forward's lse against their
+    plain versions at the training path's shapes, bf16 and f32; times."""
+    import torch
+    import torch.nn.functional as F
+    import tdax_torch.ops.flash_attention as fa
+    from tdax_torch.runtime import get_device
+
+    device = get_device()
+    gen = torch.Generator(device=device).manual_seed(97)
+    sites, f32_errs = [], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, b, tq, tk, nh, hd, causal, calls in BWD_SHAPES:
+            q, k, v = _case_inputs(gen, b, tq, tk, nh, hd, dtype, device,
+                                   strided_kv=name == "decoder", strided_q=name == "vit")
+            do = torch.randn((b, tq, nh, hd), generator=gen, device=device, dtype=dtype)
+            valid = torch.ones((b, tk), dtype=torch.int32, device=device)
+            if name == "decoder":
+                valid[-1, -TRAIN_MASKED:] = 0
+            elif name == "ragged":
+                valid[0, -20:] = 0
+            bias = torch.where(valid > 0, 0.0, fa.NEG_INF).to(torch.float32)
+            label = f"{str(dtype)[6:]} {name}"
+            errs, lse, delta = _bwd_check(fa, q, k, v, do, bias, causal, label)
+            if dtype == torch.float32:
+                f32_errs[name] = errs
+                continue
+            site = {"site": name, "shape": [b, tq, tk, nh, hd], "causal": causal,
+                    "dtype": "bfloat16", "key_mask": "last row's final 128 keys"
+                    if name == "decoder" else "first row's final 20 keys"
+                    if name == "ragged" else None,
+                    "calls_per_train_step": calls, "max_abs_err": errs,
+                    "dq_ms": cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, bias, lse, delta, do,
+                                                             causal), iters=10),
+                    "dkv_ms": cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, bias, lse, delta, do,
+                                                               causal), iters=10),
+                    "fwd_ms": cuda_ms(lambda: fa.flash_attention(q, k, v, bias, causal),
+                                      iters=10),
+                    "fwd_lse_ms": cuda_ms(lambda: fa.flash_attention(
+                        q, k, v, bias, causal, return_lse=True), iters=10),
+                    "plain_dq_ms": cuda_ms(lambda: fa.flash_bwd_dq_plain(
+                        q, k, v, bias, lse, delta, do, causal), iters=3),
+                    "plain_dkv_ms": cuda_ms(lambda: fa.flash_bwd_dkv_plain(
+                        q, k, v, bias, lse, delta, do, causal), iters=3)}
+            # SDPA: its whole backward (dq, dk, dv) = autograd through it
+            # minus its forward, is_causal without a key mask
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+            dot = do.transpose(1, 2)
+            sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                      is_causal=causal), 10)
+            sdpa_all = cuda_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal), (qt, kt, vt),
+                dot), iters=10)
+            site.update({"library_fwd_ms": sdpa_fwd, "library_fwd_bwd_ms": sdpa_all,
+                         "library_bwd_ms": sdpa_all - sdpa_fwd,
+                         "library_mask": f"is_causal={causal}, no key mask"})
+            site["dq_bound_ms"], site["dq_bound_by"] = bwd_bound(b, tq, tk, nh, hd, causal, 2,
+                                                                 3, b * tq)
+            site["dkv_bound_ms"], site["dkv_bound_by"] = bwd_bound(b, tq, tk, nh, hd, causal,
+                                                                   2, 4, 2 * b * tk)
+            emit({"phase": "kernel_case", "kernel": "flash_bwd", "nvidia_smi": smi, **site})
+            sites.append(site)
+            del q, k, v, do, qt, kt, vt, dot, lse, delta
+            torch.cuda.empty_cache()
+    emit({"phase": "kernel_flash_bwd_f32", "max_abs_err": f32_errs,
+          "tolerance": f"{BWD_F32_REL_TOL} x the summed terms' magnitude"})
+    return {"sites": sites, "f32_max_abs_err": f32_errs}
+
+
+def _tree_to(tree, device):
+    """A copy of a params tree on ``device`` (training updates in place)."""
+    return {name: _tree_to(leaf, device) if isinstance(leaf, dict)
+            else leaf.to(device, copy=True) for name, leaf in tree.items()}
+
+
+def _tree_err(got, want, path=""):
+    """{path: (max |got - want|, max |want|)} over two trees of tensors."""
+    out = {}
+    for name, w in want.items():
+        if isinstance(w, dict):
+            out.update(_tree_err(got[name], w, f"{path}{name}/"))
+        else:
+            g = got[name].detach().cpu().float()
+            w = w.detach().cpu().float()
+            out[path + name] = (float((g - w).abs().max()), float(w.abs().max()))
+    return out
+
+
+def _tiny_batch(cfg, seed, device, images=False):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    b, t = 2, 24
+    ids = rng.integers(1, 64, (b, t))
+    mask = np.ones((b, t), np.int32)
+    mask[-1, t - 5:] = 0
+    batch = {"input_ids": torch.as_tensor(ids, device=device).long(),
+             "attn_mask": torch.as_tensor(mask, device=device)}
+    if images:
+        nq, size = cfg.visual.n_queries, cfg.visual.image_size
+        pos = np.full((b, nq), -1)
+        pos[0] = np.arange(2, 2 + nq)
+        batch["image_positions"] = torch.as_tensor(pos, device=device).long()
+        batch["images"] = torch.as_tensor(
+            rng.normal(size=(b, 3, size, size)).astype(np.float32), device=device)
+    return batch
+
+
+def phase_tiny_train(tmp: Path) -> dict:
+    """The tiny f32 config trained on the card (kernels) and on the CPU
+    (plain versions), and a bitwise resume on the card."""
+    import torch
+    import tdax_torch.ops.flash_attention as fa
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    from tdax_torch.models.qwen_vl.model import init_params
+    from tdax_torch.parallel import (default_optimizer, lm_loss, make_train_step, train_loop,
+                                     warmup_cosine_lr)
+
+    cfg = QwenVLConfig.tiny(dtype="float32")
+    text_tree = init_params(cfg, "cpu", seed=11, with_visual=False)
+    info = {"phase": "tiny_train", "grad_tolerance": TINY_GRAD_TOL,
+            "param_tolerance": [TINY_PARAM_RTOL, TINY_PARAM_ATOL]}
+
+    # loss and every gradient
+    grads, losses = {}, {}
+    for dev in ("cpu", "cuda"):
+        state = default_optimizer().init(_tree_to(text_tree, dev))
+        batch = _tiny_batch(cfg, 1, dev)
+        loss = lm_loss(state.tree, cfg, batch["input_ids"], batch["attn_mask"])
+        grads[dev] = state.stack(torch.autograd.grad(loss, state.leaves))
+        losses[dev] = float(loss.detach())
+    grad_err = _tree_err(grads["cuda"], grads["cpu"])
+    info["loss_card_cpu"] = [losses["cuda"], losses["cpu"]]
+    info["grad_max_err_over_max"] = max(e / max(m, 1e-30) for e, m in grad_err.values())
+    if (abs(losses["cuda"] - losses["cpu"]) > 1e-5 * abs(losses["cpu"])
+            or info["grad_max_err_over_max"] > TINY_GRAD_TOL):
+        raise AssertionError(f"tiny train: card vs CPU loss {info['loss_card_cpu']} or "
+                             f"gradients {grad_err}")
+
+    # three make_train_step steps
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        opt = default_optimizer(warmup_cosine_lr(1e-3, 2, 6))
+        params = _tree_to(text_tree, dev)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, device=dev)
+        step_losses = []
+        for i in range(3):
+            params, state, loss = step(params, state, _tiny_batch(cfg, 10 + i, dev))
+            step_losses.append(float(loss))
+        runs[dev] = (params, state, step_losses)
+    param_err = _tree_err(runs["cuda"][0], runs["cpu"][0])
+    mu_err = _tree_err(runs["cuda"][1].mu, runs["cpu"][1].mu)
+    info["step_losses_card_cpu"] = [runs["cuda"][2], runs["cpu"][2]]
+    info["param_max_abs_err"] = max(e for e, _ in param_err.values())
+    info["mu_max_err_over_max"] = max(e / max(m, 1e-30) for e, m in mu_err.values())
+    bad = [k for k, (e, m) in param_err.items() if e > TINY_PARAM_ATOL + TINY_PARAM_RTOL * m]
+    if bad or info["mu_max_err_over_max"] > TINY_GRAD_TOL or any(
+            abs(a - b) > 1e-5 * abs(b) for a, b in zip(*info["step_losses_card_cpu"])):
+        raise AssertionError(f"tiny train steps: card vs CPU params {bad}, moments "
+                             f"{info['mu_max_err_over_max']:.3e}, losses "
+                             f"{info['step_losses_card_cpu']}")
+
+    # a with_images step: the ViT's and the resampler's backward
+    vis_tree = init_params(cfg, "cpu", seed=12)
+    img_losses = {}
+    for dev in ("cpu", "cuda"):
+        opt = default_optimizer(1e-3)
+        params = _tree_to(vis_tree, dev)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, with_images=True, device=dev)
+        fa.LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
+        _, _, loss = step(params, state, _tiny_batch(cfg, 20, dev, images=True))
+        img_losses[dev] = float(loss)
+        launches = [fa.LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES]
+    expected = cfg.num_layers + cfg.visual.layers + 1
+    info["images_step_loss_card_cpu"] = [img_losses["cuda"], img_losses["cpu"]]
+    info["images_step_launches_fwd_dq_dkv"] = launches
+    if launches != [expected] * 3 or abs(img_losses["cuda"] - img_losses["cpu"]) > 1e-5 * abs(
+            img_losses["cpu"]):
+        raise AssertionError(f"tiny with_images step: launches {launches} (expected "
+                             f"{expected} each), losses {info['images_step_loss_card_cpu']}")
+
+    # train_loop stopped at step 4 and resumed to 6, on the card
+    fixed = [_tiny_batch(cfg, 40 + i, "cuda") for i in range(6)]
+
+    def loop(n_steps, **kw):
+        return train_loop(_tree_to(text_tree, "cuda"), cfg, lambda i: fixed[i], n_steps,
+                          optimizer=default_optimizer(warmup_cosine_lr(1e-3, 2, 6)),
+                          device="cuda", **kw)
+
+    straight, s_state, all_losses = loop(6)
+    ck = str(tmp / "tiny_train_ck")
+    loop(4, checkpoint_path=ck, checkpoint_every=4)
+    resumed, r_state, rest = loop(6, checkpoint_path=ck, checkpoint_every=100)
+    same = (rest == all_losses[4:] and r_state.count == s_state.count == 6 and all(
+        e == 0 for tree_a, tree_b in ((straight, resumed), (s_state.mu, r_state.mu),
+                                      (s_state.nu, r_state.nu))
+        for e, _ in _tree_err(tree_a, tree_b).values()))
+    info["resume_bitwise"] = same
+    info["resume_losses"] = [all_losses, rest]
+    emit(info)
+    if not same:
+        raise AssertionError("tiny train_loop resumed from its checkpoint differs from the "
+                             "uninterrupted run")
+    return info
+
+
+def train_flops(cfg, b, t) -> float:
+    """bench_train.py's count for one step: 3 x the forward (decoder
+    matmuls, LM head, attention), remat's recompute not credited."""
+    h, ff = cfg.hidden_size, cfg.ff_half
+    per_token = cfg.num_layers * 2 * (h * 3 * h + h * h + 3 * h * ff)
+    fwd = b * t * (per_token + 2 * h * cfg.vocab_size) + cfg.num_layers * 4 * t * t * h * b
+    return 3.0 * fwd
+
+
+def phase_train(smi: str, seed: int) -> dict:
+    """The training step at the full decoder width on the card."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import tdax_torch.ops.flash_attention as fa
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    from tdax_torch.models.qwen_vl.model import init_params
+    from tdax_torch.parallel import default_optimizer, make_train_step, warmup_cosine_lr
+
+    cfg = QwenVLConfig()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, "cuda", seed=seed, with_visual=False)
+    opt = default_optimizer(warmup_cosine_lr(1e-4, 2, 8))
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(leaf.numel() for leaf in state.leaves)
+    step = make_train_step(cfg, opt, remat=True)
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    mask = np.ones((TRAIN_BATCH, TRAIN_SEQ), np.int32)
+    mask[-1, -TRAIN_MASKED:] = 0
+    batch = {"input_ids": torch.as_tensor(ids, device="cuda").long(),
+             "attn_mask": torch.as_tensor(mask, device="cuda")}
+
+    losses = []
+    t0 = time.perf_counter()
+    params, state, loss = step(params, state, batch)
+    losses.append(loss)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    fa.LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED_STEPS):
+        params, state, loss = step(params, state, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_TIMED_STEPS
+    launches = {"flash_fwd": fa.LAUNCHES, "flash_bwd_dq": fa.BWD_DQ_LAUNCHES,
+                "flash_bwd_dkv": fa.BWD_DKV_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+
+    # one more step split in two (host clock), then one profiled the same way
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = step.loss_and_grads(params, state, batch)
+    torch.cuda.synchronize()
+    parts = {"loss_and_grads_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    state.update(grads)
+    torch.cuda.synchronize()
+    parts["update_s"] = time.perf_counter() - t0
+    losses.append(float(loss))
+    del grads
+
+    profiled = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss, grads = step.loss_and_grads(params, state, batch)
+        torch.cuda.synchronize()
+        profiled["loss_and_grads_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+    kinds = _device_time_by_kind(prof)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state.update(grads)
+        torch.cuda.synchronize()
+        profiled["update_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+    opt_kinds = _device_time_by_kind(prof)
+    del grads
+    busy = kinds["busy_ms"] + opt_kinds["busy_ms"]
+    wall = profiled["loss_and_grads_wall_ms"] + profiled["update_wall_ms"]
+    profiled.update({
+        "gemm_ms": kinds["gemm_ms"], "flash_fwd_ms": kinds["flash_ms"],
+        "flash_bwd_dq_ms": kinds["flash_bwd_dq_ms"], "flash_bwd_dkv_ms": kinds["flash_bwd_dkv_ms"],
+        "elementwise_and_other_ms": kinds["other_ms"], "optimizer_ms": opt_kinds["busy_ms"],
+        "optimizer_gemm_ms": opt_kinds["gemm_ms"],
+        "device_busy_ms": busy if busy > 0 else "not measured",
+        "idle_share": (1 - busy / wall) if busy > 0 else "not measured",
+        "top_kernels_ms_count_name": kinds["top_kernels_ms_count_name"][:8],
+        "optimizer_top_kernels": opt_kinds["top_kernels_ms_count_name"][:5]})
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    expected = {"flash_fwd": 2 * cfg.num_layers * TRAIN_TIMED_STEPS,
+                "flash_bwd_dq": cfg.num_layers * TRAIN_TIMED_STEPS,
+                "flash_bwd_dkv": cfg.num_layers * TRAIN_TIMED_STEPS}
+    info = {"phase": "train", "nvidia_smi": smi, "params": n_params, "dtype": cfg.dtype,
+            "batch": [TRAIN_BATCH, TRAIN_SEQ], "masked_positions": TRAIN_MASKED,
+            "remat": True, "seed": seed, "init_s": init_s, "warm_step_s": warm_s,
+            "step_s": step_s, "tokens_per_s": tokens / step_s,
+            "flops_per_step": flops, "tflops": flops / step_s / 1e12,
+            "share_of_989_tflops": flops / step_s / BF16_PEAK,
+            "max_memory_allocated_bytes": peak, "launches": launches,
+            "expected_launches": expected, "losses": losses, "split_step": parts,
+            "profiled_step": profiled}
+    emit(info)
+    if n_params != 7_721_324_544:
+        raise AssertionError(f"train: {n_params} parameters, expected 7,721,324,544")
+    if launches != expected:
+        raise AssertionError(f"train: launches {launches}, expected {expected}")
+    if not np.isfinite(losses).all() or not losses[TRAIN_TIMED_STEPS] < losses[0]:
+        raise AssertionError(f"train: losses {losses} not finite or not decreasing")
+    return info
+
+
 def _qmm_totals(sites, calls_key) -> dict:
     """Kernel, plain, library and bound ms summed over the sites of one
     capture batch or one decode step, each weighted by its calls."""
@@ -1275,7 +1732,10 @@ def _qmm_totals(sites, calls_key) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=0, help="the training batch's seed")
+    args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1289,9 +1749,11 @@ def main() -> int:
     kern = phase_kernels()
     sq = phase_sqdist()
     qmm = phase_qmm()
+    fbwd = phase_flash_bwd(smi)
     with tempfile.TemporaryDirectory(prefix="tdax_torch_smoke_") as tmp:
         phase_tiny_parity(Path(tmp))
         phase_tiny_int8(Path(tmp))
+        phase_tiny_train(Path(tmp))
         capture, state = phase_capture(Path(tmp), smi)
         int8 = phase_int8_capture(Path(tmp), smi, state, capture["max_memory_allocated_bytes"])
         gen = phase_generate(smi, state, int8.pop("fingerprint"))
@@ -1299,10 +1761,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_sweep(Path(tmp), smi)
     scale = phase_scale(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(smi, args.seed)
 
     def total(key):
         return sum(s[key] * s["calls_per_batch"] for s in kern["sites"])
 
+    dec = next(s for s in fbwd["sites"] if s["site"] == "decoder")
+    calls = dec["calls_per_train_step"]
     by_ops = sum(s["bound_ms"] * s["calls_per_batch"] for s in kern["sites"]
                  if s["bound_by"] == "operations")
     by_bytes = total("bound_ms") - by_ops
@@ -1322,7 +1789,25 @@ def main() -> int:
         "decode_step": {k: kern["decode"][k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                                        "bound_by", "library_ms",
                                                        "calls_per_decode_step")},
-    }, {
+        "launches_train": train["launches"]["flash_fwd"],
+        "train_step_with_lse": {k: dec[k] for k in ("shape", "fwd_ms", "fwd_lse_ms")},
+    }, *({
+        "name": f"flash_bwd_{kind}",
+        "route": "cuda",
+        "source": "tdax_torch/ops/csrc/flash_bwd.cu",
+        "replaces": f"tdax/ops/flash_attention.py:{line}",
+        "launches": train["launches"][f"flash_bwd_{kind}"],
+        "max_abs_err": max(s["max_abs_err"][o] for s in fbwd["sites"] for o in outs),
+        "ms": dec[f"{kind}_ms"] * calls,
+        "plain_ms": dec[f"plain_{kind}_ms"] * calls,
+        "bound_ms": dec[f"{kind}_bound_ms"] * calls,
+        "bound_by": dec[f"{kind}_bound_by"],
+        "library_ms": dec["library_bwd_ms"] * calls,
+        "per": f"one training step ({TRAIN_TIMED_STEPS} timed steps' launches): {calls} calls "
+               "at [4, 1024, 32, 128] causal bf16; library_ms is SDPA's whole backward (dq, "
+               "dk and dv) at that shape, is_causal=True without the key mask, minus its "
+               "forward",
+    } for kind, line, outs in (("dq", 395, ("dq",)), ("dkv", 446, ("dk", "dv")))), {
         "name": "sqdist",
         "route": "cuda",
         "source": "tdax_torch/ops/csrc/sqdist.cu",

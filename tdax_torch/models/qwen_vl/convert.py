@@ -11,7 +11,11 @@ same function of the same numbers.
 An int8 tree (tdax's ``quantize_params`` or ``init_params_quantized``)
 crosses as it is: int8 leaves stay int8, and the scales of a
 ``{"q", "s"}`` node stay f32 whatever the model dtype, as tdax keeps
-them.
+them.  Every leaf owns its storage (a contiguous copy of the input), so
+it can be trained: the training step updates it in place.
+
+``params_to_numpy`` is the inverse, into tdax's layout: float leaves as
+float32 arrays (numpy has no bfloat16), int8 leaves as int8.
 
 The Hugging Face checkpoint loader (tdax's ``convert.py``) waits until
 the checkpoint files are in the repository.
@@ -45,4 +49,16 @@ def params_from_numpy(tree: dict, device, dtype) -> dict:
 
 def _tensor(leaf, np_dtype, device, dtype: torch.dtype) -> torch.Tensor:
     arr = np.array(leaf, dtype=np_dtype)  # a copy, writable
-    return torch.from_numpy(arr).to(device=device, dtype=dtype)
+    return torch.from_numpy(arr).to(device=device, dtype=dtype).contiguous()
+
+
+def params_to_numpy(tree: dict) -> dict:
+    """Nested dict of tensors -> the same nested dict of numpy arrays."""
+    out = {}
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            out[name] = params_to_numpy(leaf)
+        else:
+            t = leaf.detach().cpu()
+            out[name] = np.array((t if t.dtype == torch.int8 else t.float()).numpy())  # a copy
+    return out

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from tdax_torch.models.qwen_vl.config import QwenVLConfig
 from tdax_torch.models.qwen_vl.quantize import layer_at, qdot
@@ -116,10 +117,21 @@ def decoder_capture(stacked_layers: dict, x: torch.Tensor, cfg: QwenVLConfig,
     return x, torch.stack(captures)
 
 
-def decoder(stacked_layers: dict, x: torch.Tensor, cfg: QwenVLConfig,
-            attn_mask: torch.Tensor) -> torch.Tensor:
-    """Plain depth loop without capture."""
+def decoder(stacked_layers, x: torch.Tensor, cfg: QwenVLConfig,
+            attn_mask: torch.Tensor, remat: bool = False) -> torch.Tensor:
+    """Plain depth loop without capture (training / generation path).
+
+    ``remat=True`` wraps each block in ``torch.utils.checkpoint``
+    (non-reentrant): the backward keeps only each block's input and
+    replays the block, one more flash forward per layer included.  tdax
+    instead saves the dots and the flash residuals (``remat_policy``);
+    the values are the same, the recompute is not."""
     cos, sin, spec = _rotary_and_spec(x, cfg, attn_mask)
     for i in range(cfg.num_layers):
-        x = block(x, layer_at(stacked_layers, i), cfg, cos, sin, spec)
+        layer = layer_at(stacked_layers, i)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(block, x, layer, cfg, cos, sin, spec,
+                                                  use_reentrant=False)
+        else:
+            x = block(x, layer, cfg, cos, sin, spec)
     return x

@@ -94,11 +94,14 @@ def init_visual_params(init: _Init, cfg: VisualConfig) -> dict:
     }
 
 
-def init_params(cfg: QwenVLConfig, device, seed: int = 0, quantize: bool = False) -> dict:
+def init_params(cfg: QwenVLConfig, device, seed: int = 0, quantize: bool = False,
+                with_visual: bool = True) -> dict:
     """Random parameters, drawn on ``device`` in ``cfg.dtype`` from a
     ``torch.Generator`` on that device seeded with ``seed``; with
     ``quantize`` the large matmul weights come out int8, drawn one at a
-    time (``quantize.init_params_quantized``)."""
+    time (``quantize.init_params_quantized``).  ``with_visual=False``
+    leaves out the visual tree (text-only training, as tdax's flag); the
+    visual tree is drawn last, so the other leaves do not change."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     init = _Init(gen, device, torch_dtype(cfg.dtype), quantize)
@@ -113,13 +116,15 @@ def init_params(cfg: QwenVLConfig, device, seed: int = 0, quantize: bool = False
         "mlp_w2": init.dense("mlp_w2", (l, h, cfg.ff_half)),
         "mlp_proj_w": init.dense("mlp_proj_w", (l, cfg.ff_half, h)),
     }
-    return {
+    params = {
         "wte": init.dense("wte", (cfg.vocab_size, h), scale=0.02),
         "layers": layers,
         "ln_f": init.ones((h,)),
         "lm_head": init.dense("lm_head", (h, cfg.vocab_size)),
-        "visual": init_visual_params(init, cfg.visual),
     }
+    if with_visual:
+        params["visual"] = init_visual_params(init, cfg.visual)
+    return params
 
 
 def embed_inputs(params: dict, cfg: QwenVLConfig, input_ids: torch.Tensor,
@@ -160,11 +165,13 @@ def extract_layer_activations(params: dict, cfg: QwenVLConfig,
 def forward(params: dict, cfg: QwenVLConfig, input_ids: torch.Tensor,
             attn_mask: torch.Tensor | None = None,
             images: torch.Tensor | None = None,
-            image_positions: torch.Tensor | None = None) -> torch.Tensor:
-    """Logits [B, T, vocab] in f32."""
+            image_positions: torch.Tensor | None = None,
+            remat: bool = False) -> torch.Tensor:
+    """Logits [B, T, vocab] in f32.  ``remat`` rematerializes decoder
+    blocks in the backward pass (see ``decoder``)."""
     if attn_mask is None:
         attn_mask = torch.ones_like(input_ids)
     x = embed_inputs(params, cfg, input_ids, images, image_positions)
-    x = decoder(params["layers"], x, cfg, attn_mask)
+    x = decoder(params["layers"], x, cfg, attn_mask, remat=remat)
     x = rms_norm(x, params["ln_f"], cfg.layer_norm_eps)
     return qdot(x, params["lm_head"]).float()

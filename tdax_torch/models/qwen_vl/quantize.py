@@ -62,17 +62,50 @@ def qdot(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
+class _Embed(torch.autograd.Function):
+    """``wte[ids]`` whose gradient is summed in a fixed order: the
+    backward scatter-adds under ``torch.use_deterministic_algorithms``,
+    so repeated ids give the same bits on every run (the card's default
+    index backward adds with atomics), as a bitwise training resume
+    needs."""
+
+    @staticmethod
+    def forward(ctx, wte, ids):
+        ctx.save_for_backward(ids)
+        ctx.table_shape = wte.shape
+        return wte[ids]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        out = grad.new_zeros(ctx.table_shape)
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            out.index_put_((ids,), grad, accumulate=True)
+        finally:
+            torch.use_deterministic_algorithms(was)
+        return out, None
+
+
 def embed_lookup(wte, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Token-embedding gather for fp or int8 tables; an int8 row is
-    scaled in the model dtype, as tdax does."""
+    scaled in the model dtype, as tdax does.  A table that needs its
+    gradient goes through ``_Embed``."""
     if is_quantized(wte):
         return wte["q"][ids].to(dtype) * wte["s"].to(dtype)
+    if torch.is_grad_enabled() and wte.requires_grad:
+        return _Embed.apply(wte, ids)
     return wte[ids]
 
 
-def layer_at(stacked: dict, i: int) -> dict:
+def layer_at(stacked, i: int) -> dict:
     """Layer i's weights out of a stacked [n_layers, ...] tree (views);
-    a quantized node gives its q [in, out] and s [out] of that layer."""
+    a quantized node gives its q [in, out] and s [out] of that layer.
+    A list of per-layer trees (the training view of a stacked tree,
+    ``tdax_torch.parallel.train``) gives its i-th entry."""
+    if isinstance(stacked, list):
+        return stacked[i]
     return {name: {"q": w["q"][i], "s": w["s"][i]} if is_quantized(w) else w[i]
             for name, w in stacked.items()}
 

@@ -38,6 +38,14 @@
 //
 // f32 inputs run as true f32 on the CUDA cores (FMA, never TF32): a
 // straightforward tiled kernel used by the parity checks.
+//
+// With a non-null lse (training: tdax's with_lse, flash_attention.py:
+// 229-235) the kernel also writes each row's log-normalizer m + log(l)
+// into lse [B, nh, Tq] f32, for the backward kernels (flash_bwd.cu).  A
+// row that sees no key gets lse = 0: l == 0 (as in tdax), or every score
+// masked (m still at the finite NEG_INF floor), so that the backward's
+// exp(s - lse) is 0 across the row and its gradient is zero whatever the
+// tiling.  With lse null nothing else changes.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -47,12 +55,18 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 
+// log-normalizer of a finished row; 0 for a row that saw no key
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return (l == 0.f || m <= NEG_INF) ? 0.f : m + logf(l);
+}
+
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   const float* bias;
   void* o;
+  float* lse;  // [B, nh, Tq] or null
   int B, Tq, Tk, nh, hd;
   long long q_sb, q_st, q_sh;
   long long k_sb, k_st, k_sh;
@@ -258,6 +272,8 @@ flash_fwd_bf16_kernel(Params p) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (rows[i] >= p.Tq) continue;
+    if (p.lse && tig == 0)  // the quad's four threads hold the same m and l
+      p.lse[((long long)b * p.nh + h) * p.Tq + rows[i]] = row_lse(m_run[i], l_run[i]);
     const float l = l_run[i] == 0.f ? 1.f : l_run[i];
     __nv_bfloat16* orow = og + rows[i] * p.o_st;
 #pragma unroll
@@ -368,6 +384,8 @@ flash_fwd_f32_kernel(Params p) {
   __syncthreads();
 
   float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
+  if (p.lse && tid < FBM && q0 + tid < p.Tq)
+    p.lse[((long long)b * p.nh + h) * p.Tq + q0 + tid] = row_lse(m_s[tid], l_s[tid]);
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int e = tid + i * FTHREADS;
@@ -411,6 +429,7 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  vec (bf16 only): 1 when hd and every
 // q/k/v row stride are multiples of 8 and the bases are 16-byte aligned.
+// lse: null, or [B, nh, Tq] f32 for the per-row log-normalizer.
 // Returns the cudaError_t of the launch (0 = success).
 int tdax_flash_fwd(const void* q, const void* k, const void* v, const float* bias, void* o,
                    int B, int Tq, int Tk, int nh, int hd,
@@ -419,8 +438,8 @@ int tdax_flash_fwd(const void* q, const void* k, const void* v, const float* bia
                    long long v_sb, long long v_st, long long v_sh,
                    long long o_sb, long long o_st, long long o_sh,
                    long long bias_sb, int causal, float scale, int dtype, int vec,
-                   void* stream) {
-  Params p{q, k, v, bias, o, B, Tq, Tk, nh, hd,
+                   float* lse, void* stream) {
+  Params p{q, k, v, bias, o, lse, B, Tq, Tk, nh, hd,
            q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh,
            bias_sb, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

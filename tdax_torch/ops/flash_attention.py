@@ -1,6 +1,6 @@
-"""Flash attention: the hand-written CUDA kernel and its plain version.
+"""Flash attention: the hand-written CUDA kernels and their plain versions.
 
-Counterpart of ``tdax/ops/flash_attention.py``.  The kernel
+Counterpart of ``tdax/ops/flash_attention.py``.  The forward kernel
 (``csrc/flash_fwd.cu``) replaces the Pallas TPU kernel
 ``tdax/ops/flash_attention.py::_kernel`` (reached there as ``mha`` ->
 ``_get_flash`` -> ``_build_flash`` -> ``_flash_impl`` -> ``_kernel``):
@@ -11,15 +11,28 @@ memory.  On an H100 the tensor cores bound it at the ViT's shape and
 memory at the decoder's and resampler's (see the note at the top of the
 CUDA source for the bound and the design).
 
-``mha`` is what the model calls.  On CPU tensors it takes the plain
-PyTorch version (``flash_attention_plain``, which materializes the
-[B, nh, Tq, Tk] f32 logits like tdax's ``_reference_mha``); on CUDA
-tensors it launches the kernel through ``flash_attention`` or raises.
-There is no fallback from one to the other.
+The backward kernels (``csrc/flash_bwd.cu``) replace tdax's
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (driven by ``_flash_bwd_impl``):
+each recomputes p = exp(s - lse) per tile from the forward's per-row
+log-normalizer, and gives dq, or dk and dv.  ``FlashAttention`` is the
+``torch.autograd.Function`` around them, the counterpart of tdax's
+``custom_vjp`` in ``_build_flash``: its forward asks the forward kernel
+for lse too, its backward computes delta = rowsum(dO * O) in f32 (tdax
+does this outside the kernels, ``flash_attention.py:748-753``), then
+launches the dq kernel, then the dk/dv kernel.
 
-``LAUNCHES`` counts kernel launches (one per successful launch, and
-nowhere else), so a run can show that its attention went through the
-kernel.
+``mha`` is what the model calls.  On CPU tensors it takes the plain
+PyTorch versions (``flash_attention_plain``, which materializes the
+[B, nh, Tq, Tk] f32 logits like tdax's ``_reference_mha``, and
+``flash_bwd_dq_plain`` / ``flash_bwd_dkv_plain``); on CUDA tensors it
+launches the kernels or raises.  There is no fallback from one to the
+other.  It goes through ``FlashAttention`` only when autograd needs it
+(grad mode on and q, k or v requiring grad); under ``inference_mode``
+the call is the plain forward launch.
+
+``LAUNCHES``, ``BWD_DQ_LAUNCHES`` and ``BWD_DKV_LAUNCHES`` count kernel
+launches (one per successful launch, and nowhere else), so a run can
+show that its attention and its gradients went through the kernels.
 """
 
 from __future__ import annotations
@@ -33,9 +46,16 @@ import torch
 NEG_INF = -1e30  # finite: a fully masked tile must not produce NaN
 
 LAUNCHES = 0
+BWD_DQ_LAUNCHES = 0
+BWD_DKV_LAUNCHES = 0
 
+_C_TAIL = [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int]  # causal, scale, dtype, vec
 _C_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 13
-               + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+               + _C_TAIL + [ctypes.c_void_p, ctypes.c_void_p])  # lse, stream
+_C_BWD_DQ_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 16
+                      + _C_TAIL + [ctypes.c_void_p])
+_C_BWD_DKV_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 16
+                       + _C_TAIL + [ctypes.c_void_p])
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -58,26 +78,73 @@ class AttnSpec:
         return torch.where(self.kv_valid > 0, 0.0, NEG_INF).to(torch.float32)
 
 
+def _logits(q, k, additive) -> torch.Tensor:
+    """[B, nh, Tq, Tk] f32: (q . k) * scale, then the additive mask."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    return logits + additive
+
+
 def _reference_mha(q, k, v, additive) -> torch.Tensor:
     """Full [B, nh, Tq, Tk] f32 logits + softmax (tdax ``_reference_mha``):
     products accumulate in f32, the probabilities are cast to q's type
     before the PV product, the output is in q's type."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    logits = logits + additive
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    probs = torch.softmax(_logits(q, k, additive), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(q.dtype)
 
 
-def flash_attention_plain(q, k, v, bias, causal: bool) -> torch.Tensor:
-    """Plain PyTorch version of the kernel's function: q [B, Tq, nh, hd],
-    k/v [B, Tk, nh, hd], bias [B, Tk] f32 -> [B, Tq, nh, hd] in q.dtype."""
-    tq, tk = q.shape[1], k.shape[1]
+def _additive(bias, causal: bool, tq: int, tk: int) -> torch.Tensor:
     additive = bias.to(torch.float32)[:, None, None, :]
     if causal:
-        tril = torch.ones((tq, tk), dtype=torch.bool, device=q.device).tril()
+        tril = torch.ones((tq, tk), dtype=torch.bool, device=bias.device).tril()
         additive = additive + torch.where(tril, 0.0, NEG_INF)
-    return _reference_mha(q, k, v, additive)
+    return additive
+
+
+def flash_attention_plain(q, k, v, bias, causal: bool, return_lse: bool = False):
+    """Plain PyTorch version of the forward kernel's function: q [B, Tq,
+    nh, hd], k/v [B, Tk, nh, hd], bias [B, Tk] f32 -> [B, Tq, nh, hd] in
+    q.dtype; with ``return_lse`` also the per-row log-normalizer [B, nh,
+    Tq] f32, m + log(l) as tdax's kernel writes it, 0 on a row that sees
+    no key (l == 0, or every score masked), whose output is then 0 where
+    l == 0."""
+    additive = _additive(bias, causal, q.shape[1], k.shape[1])
+    if not return_lse:
+        return _reference_mha(q, k, v, additive)
+    logits = _logits(q, k, additive)
+    m = logits.amax(dim=-1).clamp_min(NEG_INF)
+    l = torch.exp(logits - m[..., None]).sum(dim=-1)
+    empty = (l == 0) | (m <= NEG_INF)
+    lse = torch.where(empty, 0.0, m + torch.log(torch.where(l == 0, 1.0, l)))
+    probs = torch.softmax(logits, dim=-1).masked_fill((l == 0)[..., None], 0.0).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(q.dtype)
+    return out, lse
+
+
+def _probs_and_ds(q, k, v, bias, lse, delta, do, causal: bool):
+    """p = exp(s - lse) and ds = p * (dO . v - delta) * scale, [B, nh, Tq,
+    Tk] f32, as tdax's backward kernels compute them per tile."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(_logits(q, k, _additive(bias, causal, q.shape[1], k.shape[1]))
+                  - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def flash_bwd_dq_plain(q, k, v, bias, lse, delta, do, causal: bool) -> torch.Tensor:
+    """Plain version of the dq kernel (tdax ``_bwd_dq_kernel``): dq =
+    bf16(ds) @ k summed in f32, in q.dtype."""
+    _, ds = _probs_and_ds(q, k, v, bias, lse, delta, do, causal)
+    return torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float()).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, bias, lse, delta, do, causal: bool):
+    """Plain version of the dk/dv kernel (tdax ``_bwd_dkv_kernel``): dv =
+    bf16(p)^T @ dO and dk = bf16(ds)^T @ q, summed in f32, in q.dtype."""
+    p, ds = _probs_and_ds(q, k, v, bias, lse, delta, do, causal)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float()).to(q.dtype)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float()).to(q.dtype)
+    return dk, dv
 
 
 def _check(q, k, v, bias) -> None:
@@ -112,12 +179,29 @@ def _check(q, k, v, bias) -> None:
                          f"{q.device}, {k.device}, {v.device}, {bias.device}")
 
 
-def _vectorizable(q, k, v) -> bool:
+def _check_bwd(q, k, v, bias, lse, delta, do) -> None:
+    """Input checks first, then ``_check`` (whose device check is last)."""
+    if do.dtype != q.dtype or do.shape != q.shape:
+        raise ValueError(f"flash_attention backward: dO {tuple(do.shape)} {do.dtype} does not "
+                         f"match q {tuple(q.shape)} {q.dtype}")
+    if do.stride(-1) != 1:
+        raise ValueError("flash_attention backward: dO's last dimension must be contiguous")
+    rows = (q.shape[0], q.shape[2], q.shape[1])
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.dtype != torch.float32 or tuple(x.shape) != rows or not x.is_contiguous():
+            raise ValueError(f"flash_attention backward: {name} must be contiguous float32 "
+                             f"[B, nh, Tq] = {rows}, got {tuple(x.shape)} {x.dtype}")
+        if x.device != q.device or do.device != q.device:
+            raise ValueError(f"flash_attention backward: {name} and dO must lie on q's device")
+    _check(q, k, v, bias)
+
+
+def _vectorizable(*tensors) -> bool:
     """16-byte loads need hd, every stride and every base aligned to 8
     bf16 elements."""
-    if q.dtype != torch.bfloat16:
+    if tensors[0].dtype != torch.bfloat16:
         return False
-    for x in (q, k, v):
+    for x in tensors:
         if x.shape[-1] % 8 or x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:3]):
             return False
     return True
@@ -136,19 +220,48 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def flash_attention(q, k, v, bias, causal: bool) -> torch.Tensor:
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    """The built backward library, with its C signatures declared."""
+    from tdax_torch.ops._build import load
+
+    lib = load("flash_bwd")
+    lib.tdax_flash_bwd_dq.argtypes = _C_BWD_DQ_ARGTYPES
+    lib.tdax_flash_bwd_dq.restype = ctypes.c_int
+    lib.tdax_flash_bwd_dkv.argtypes = _C_BWD_DKV_ARGTYPES
+    lib.tdax_flash_bwd_dkv.restype = ctypes.c_int
+    lib.tdax_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.tdax_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(rc: int, lib, what: str) -> None:
+    if rc != 0:
+        msg = lib.tdax_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: kernel launch failed: {msg} (cudaError {rc})")
+
+
+def _strides(*tensors) -> list:
+    return [s for x in tensors for s in x.stride()[:3]]
+
+
+def flash_attention(q, k, v, bias, causal: bool, return_lse: bool = False):
     """Launch the CUDA flash-attention forward on CUDA tensors.
 
     q [B, Tq, nh, hd], k/v [B, Tk, nh, hd] (bf16 or f32, any strides
     with a contiguous last dimension), bias [B, Tk] f32 ->
-    [B, Tq, nh, hd] in q.dtype, on the current stream.  Raises on any
-    input the kernel does not take."""
+    [B, Tq, nh, hd] in q.dtype, on the current stream; with
+    ``return_lse`` also lse [B, nh, Tq] f32 (see
+    ``flash_attention_plain``).  Raises on any input the kernel does not
+    take."""
     global LAUNCHES
     _check(q, k, v, bias)
     lib = _library()
     b, tq, nh, hd = q.shape
     tk = k.shape[1]
     out = torch.empty((b, tq, nh, hd), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, nh, tq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.tdax_flash_fwd(
@@ -159,24 +272,100 @@ def flash_attention(q, k, v, bias, causal: bool) -> torch.Tensor:
             v.stride(0), v.stride(1), v.stride(2),
             out.stride(0), out.stride(1), out.stride(2),
             bias.stride(0), int(causal), 1.0 / math.sqrt(hd),
-            _DTYPE_CODE[q.dtype], int(_vectorizable(q, k, v)), stream)
-    if rc != 0:
-        msg = lib.tdax_cuda_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention: kernel launch failed: {msg} (cudaError {rc})")
+            _DTYPE_CODE[q.dtype], int(_vectorizable(q, k, v)),
+            None if lse is None else lse.data_ptr(), stream)
+    _raise_on(rc, lib, "flash_attention")
     LAUNCHES += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_bwd_dq(q, k, v, bias, lse, delta, do, causal: bool) -> torch.Tensor:
+    """Launch the CUDA dq kernel: dq [B, Tq, nh, hd] in q.dtype, from q,
+    k, v, bias as the forward took them, lse and delta [B, nh, Tq] f32
+    and dO like q.  Raises on any input the kernel does not take."""
+    global BWD_DQ_LAUNCHES
+    _check_bwd(q, k, v, bias, lse, delta, do)
+    lib = _bwd_library()
+    b, tq, nh, hd = q.shape
+    dq = torch.empty((b, tq, nh, hd), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.tdax_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), bias.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            b, tq, k.shape[1], nh, hd, *_strides(q, k, v, do, dq),
+            bias.stride(0), int(causal), 1.0 / math.sqrt(hd),
+            _DTYPE_CODE[q.dtype], int(_vectorizable(q, k, v, do)), stream)
+    _raise_on(rc, lib, "flash_bwd_dq")
+    BWD_DQ_LAUNCHES += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, bias, lse, delta, do, causal: bool):
+    """Launch the CUDA dk/dv kernel: (dk, dv), each [B, Tk, nh, hd] in
+    q.dtype.  Inputs as ``flash_bwd_dq``."""
+    global BWD_DKV_LAUNCHES
+    _check_bwd(q, k, v, bias, lse, delta, do)
+    lib = _bwd_library()
+    b, tq, nh, hd = q.shape
+    tk = k.shape[1]
+    dk = torch.empty((b, tk, nh, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.tdax_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), bias.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, tq, tk, nh, hd, *_strides(q, k, v, do, dk),
+            bias.stride(0), int(causal), 1.0 / math.sqrt(hd),
+            _DTYPE_CODE[q.dtype], int(_vectorizable(q, k, v, do)), stream)
+    _raise_on(rc, lib, "flash_bwd_dkv")
+    BWD_DKV_LAUNCHES += 1
+    return dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the forward kernel with lse, the
+    dq and dk/dv kernels in the backward (plain versions on CPU
+    tensors).  No gradient flows to the bias."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal: bool):
+        fwd = flash_attention if q.device.type == "cuda" else flash_attention_plain
+        o, lse = fwd(q, k, v, bias, causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
+        if q.device.type == "cuda":
+            dq = flash_bwd_dq(q, k, v, bias, lse, delta, do, ctx.causal)
+            dk, dv = flash_bwd_dkv(q, k, v, bias, lse, delta, do, ctx.causal)
+        else:
+            dq = flash_bwd_dq_plain(q, k, v, bias, lse, delta, do, ctx.causal)
+            dk, dv = flash_bwd_dkv_plain(q, k, v, bias, lse, delta, do, ctx.causal)
+        return dq, dk, dv, None, None
 
 
 def mha(q, k, v, spec: AttnSpec) -> torch.Tensor:
     """Multi-head attention used by the decoder, the ViT and the resampler.
 
     q [B, Tq, nh, hd], k/v [B, Tk, nh, hd] -> [B, Tq, nh, hd].  CPU
-    tensors take the plain version; CUDA tensors take the kernel."""
+    tensors take the plain versions; CUDA tensors take the kernels.
+    ``FlashAttention`` carries the call when autograd will need its
+    gradient."""
     if not isinstance(spec, AttnSpec):
         raise TypeError("mha: the mask must be an AttnSpec")
     bias = spec.bias(q.shape[0], k.shape[1], q.device)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mha: unsupported device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, bias, spec.causal)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, bias, spec.causal)
-    if q.device.type == "cuda":
-        return flash_attention(q, k, v, bias, spec.causal)
-    raise ValueError(f"mha: unsupported device {q.device}")
+    return flash_attention(q, k, v, bias, spec.causal)

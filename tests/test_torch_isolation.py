@@ -58,6 +58,14 @@ with tempfile.TemporaryDirectory() as tmp:
     assert len(out["stats"]) == 2
     dgms = rips_at_scale(rng.normal(size=(40, 6)), maxdim=1, device="cpu")["dgms"]
     assert len(dgms) == 2
+    from tdax_torch.parallel import default_optimizer, train_loop, warmup_cosine_lr
+    ids = torch.randint(1, 64, (2, 8))
+    ck = os.path.join(tmp, "train_ck")
+    _, st, losses = train_loop(init_params(cfg, "cpu", with_visual=False), cfg,
+                               lambda i: {"input_ids": ids, "attn_mask": torch.ones_like(ids)},
+                               2, default_optimizer(warmup_cosine_lr(1e-3, 1, 4)),
+                               checkpoint_path=ck, checkpoint_every=1, device="cpu")
+    assert len(losses) == 2 and st.count == 2 and os.path.exists(ck + ".npz")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib") or m == "tdax" or m.startswith("tdax."))
 print("LOADED:" + ",".join(bad))
@@ -79,7 +87,8 @@ def _sources():
     assert len(files) > 10
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {"tdax_torch/ops/quant_matmul.py", "tdax_torch/models/qwen_vl/quantize.py",
-            "tdax_torch/models/qwen_vl/generate.py"} <= names
+            "tdax_torch/models/qwen_vl/generate.py", "tdax_torch/parallel/train.py",
+            "tdax_torch/utils/checkpoint.py"} <= names
     return files
 
 
@@ -173,3 +182,18 @@ def test_extract_int8_command_runs_on_the_cpu_when_asked(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["extract", "--int8", "--toy"])
+
+
+def test_train_step_refuses_to_run_without_a_card(monkeypatch):
+    """make_train_step and train_loop run on the card unless asked for
+    the CPU: asked for CUDA, or for nothing, with no card they raise."""
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    from tdax_torch.parallel import default_optimizer, make_train_step, train_loop
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = QwenVLConfig.tiny(dtype="float32")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_train_step(cfg, default_optimizer(), device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(cfg, default_optimizer())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_loop({}, cfg, lambda i: {}, 1)
