@@ -10,12 +10,22 @@ and runs these phases, printing JSON lines:
 1. env      the card's name and power limit (nvidia-smi), torch/CUDA
             versions; builds every kernel of the port from the sources
             in the checkout (one nvcc per source, all started together,
-            and the native Rips engine's g++ beside them).
+            and the native Rips engine's g++ beside them); prints ptxas's
+            register, spill, C7508 and setmaxnreg lines and fails if
+            flash_fwd_sm90.cu spills or has setmaxnreg ignored (C7508).
 2. kernels  each kernel's wrapper against its plain PyTorch version on
-            the card.  flash_fwd: bf16 at the capture's three attention
-            shapes (decoder, ViT, resampler; batch 16) and f32 at the
-            shapes of tests/test_flash_attention.py, and the decode
-            step's [16, 1, 352, 32, 128] with ragged key validity.
+            the card.  flash_fwd, both kernels: the route must send the
+            capture's three attention shapes (decoder, ViT, resampler;
+            batch 16, bf16, the model's strided views) and the training
+            shape [4, 1024, 32, 128] (causal, with lse) to the Hopper
+            kernel (flash_fwd_sm90.cu); each is checked on it and on the
+            mma kernel (flash_fwd.cu, forced by the private _kernel="mma")
+            and both are timed beside SDPA, the plain version and the
+            bound (kernel_case lines: ms, ms_mma, library_ms, bound_ms);
+            the launch counters must move as the route says.  The mma
+            kernel alone: f32 at the shapes of tests/test_flash_attention.py
+            and the decode step's [16, 1, 352, 32, 128] with ragged key
+            validity; fully masked rows on both (finite, lse 0).
             sqdist: the tests/test_scale_ops.py shapes, a ragged case
             with n and d odd, and the scale path's [10000, 4096].  qmm:
             bf16 at every (M, K, N) of the int8 capture and of a decode
@@ -32,7 +42,7 @@ and runs these phases, printing JSON lines:
             drawn on the card from a seed, extract_activations at batch
             16.  Checks the [32, 48, 4096] capture, finiteness, the .pt
             and .npz schemas, and that every attention went through the
-            kernel (launch counter = 3 batches x (48 + 1 + 32) = 243),
+            sm90 kernel (both counters = 3 batches x (48 + 1 + 32) = 243),
             then times the same capture once more, warm, and each of
             its host stages alone (tokenize, image decode, .npz, .pt).
             Before that, a tiny f32 model's capture on the card is held
@@ -47,14 +57,16 @@ and runs these phases, printing JSON lines:
 4b. int8     the capture's own bf16 weights quantized on the card, then
             extract_activations with ExtractConfig(quantize_int8=True):
             the [32, 48, 4096] capture, finite, tdax's schemas, qmm
-            launches 3 x (199 + 160) = 1077 and flash 243, minimum
+            launches 3 x (199 + 160) = 1077 and flash 243, all sm90, minimum
             cosine per captured vector > 0.98 against the bf16 capture;
             the same profile of one batch.
 4c. generate init_params_quantized(QwenVLConfig(), "cuda", seed=0), the
             first 16 samples' prompts (images, ToyTokenizer, padded to
             320), greedy generate of 32 tokens with bf16 caches and with
             kv_int8: ids in range, qmm launches 360 + 31 x 161 = 5351
-            and flash 81 + 31 x 32 = 1073 each; the prefill's and the
+            and flash 81 + 31 x 32 = 1073 each, the prefill's 81 on the
+            sm90 kernel and the decode steps' 992 on the mma kernel
+            (Tq = 1); the prefill's and the
             first two decode steps' logits against the uncached forward
             (CACHE_TOL), kv_int8's first decode logits within 0.05 x
             max|logit| of the bf16 cache's; a profile of one decode
@@ -96,12 +108,15 @@ and runs these phases, printing JSON lines:
             7.72B params), default_optimizer(warmup_cosine_lr(1e-4, 2, 8)),
             remat, a fixed 4 x 1024 batch from --seed's numpy generator
             (the last row's final 128 positions masked): one warm step,
-            five timed steps (64 flash forwards, 32 dq and 32 dk/dv
-            launches each), losses finite and decreasing, peak memory,
+            five timed steps (64 flash forwards, all sm90, 32 dq and 32
+            dk/dv launches each), losses finite and decreasing, peak memory,
             the share of 989 TFLOP/s (bench_train.py's convention), and a
             profiled step's device time by kind.
-10. the kernels line, the nvidia-smi line, then the last line
-            {"ok": true, "device": {...}}.
+10. the kernels line (flash_fwd names both sources and the launches of
+            each kernel on each path), the nvidia-smi line, then the last
+            line {"ok": true, "device": {...}}.  Kernel times are
+            reported, never gated: only correctness and launch counts
+            fail the run.
 
 Any failure raises, so the script exits non-zero and prints no result;
 it also exits non-zero when no CUDA card is present.  ``--seed`` (default
@@ -114,6 +129,7 @@ import argparse
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -203,6 +219,9 @@ MAIN_SHAPES = [
     ("vit", 16, 1024, 1024, 16, 104, False, 48),
     ("resampler", 16, 256, 1024, 32, 128, False, 1),
 ]
+# the training step's attention: causal, with lse, 2 x 32 calls a step
+# (forward and remat replay)
+TRAIN_SHAPE = ("train", 4, 1024, 1024, 32, 128, True, 64)
 # the decode step's attention: one query row over the 352-row cache
 DECODE_SHAPE = ("decode", 16, 1, 352, 32, 128, False)
 F32_SHAPES = [  # tests/test_flash_attention.py:37-50, batch 2, plus hd 104
@@ -300,10 +319,17 @@ def phase_env() -> dict:
     ptxas = []
     for log in sorted(_build.BUILD_DIR.glob("*.log")):
         ptxas += [ln.strip() for ln in log.read_text().splitlines()
-                  if "registers" in ln or "spill" in ln]
+                  if any(w in ln for w in ("registers", "spill", "C7508", "setmaxnreg"))]
+    # the Hopper forward: setmaxnreg ignored (C7508) or any spill is a fault
+    sm90_log = (_build.BUILD_DIR / "flash_fwd_sm90.log").read_text()
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", sm90_log)]
+    if "C7508" in sm90_log or "setmaxnreg ignored" in sm90_log or any(spills):
+        raise AssertionError("flash_fwd_sm90.cu: ptxas ignored setmaxnreg or spilled:\n"
+                             + sm90_log[-4000:])
     info = {"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
             "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
             "build_s": round(build_s, 3), "built": sorted(_build.BUILD_SECONDS),
+            "build_s_by_source": {n: round(t, 3) for n, t in _build.BUILD_SECONDS.items()},
             "engine_build_s": engine_s, "ptxas": ptxas,
             "matplotlib": importlib.util.find_spec("matplotlib") is not None}
     emit(info)
@@ -338,12 +364,22 @@ def _visible(valid, tq, tk, causal):
     return keyed.any(-1)  # [B, Tq]
 
 
-def _check_case(fa, q, k, v, valid, causal, atol, rtol, label):
+def _check_case(fa, q, k, v, valid, causal, atol, rtol, label, kernel=None, with_lse=False):
+    """One forward kernel (the routed one, or ``kernel="mma"``) against
+    the plain version on the rows that see a key; with ``with_lse`` the
+    lse on every row within LSE_TOL * (1 + |lse|).  Returns (bias,
+    max |kernel - plain|, rows checked, rows, max |lse - plain lse|)."""
     import torch
     bias = torch.where(valid > 0, 0.0, fa.NEG_INF).to(torch.float32)
-    got = fa.flash_attention(q, k, v, bias, causal)
-    want = fa.flash_attention_plain(q, k, v, bias, causal)
+    got = fa.flash_attention(q, k, v, bias, causal, with_lse, _kernel=kernel)
+    want = fa.flash_attention_plain(q, k, v, bias, causal, with_lse)
     torch.cuda.synchronize()
+    lse_err = None
+    if with_lse:
+        (got, lse), (want, lse_want) = got, want
+        lse_err = float((lse - lse_want).abs().max())
+        if float(((lse - lse_want).abs() - LSE_TOL * (1 + lse_want.abs())).max()) > 0:
+            raise AssertionError(f"{label}: lse differs from the plain version's by {lse_err:.3e}")
     if got.shape != want.shape or got.dtype != q.dtype:
         raise AssertionError(f"{label}: shape/dtype {tuple(got.shape)} {got.dtype}")
     if not torch.isfinite(got).all():
@@ -356,7 +392,7 @@ def _check_case(fa, q, k, v, valid, causal, atol, rtol, label):
     if excess > 0:
         raise AssertionError(f"{label}: max |kernel - plain| = {max_abs:.3e} exceeds "
                              f"atol {atol} + rtol {rtol} * |plain|")
-    return bias, max_abs, int(rows.sum()), int(rows.numel())
+    return bias, max_abs, int(rows.sum()), int(rows.numel()), lse_err
 
 
 def phase_kernels() -> dict:
@@ -368,33 +404,59 @@ def phase_kernels() -> dict:
 
     device = get_device()
     gen = torch.Generator(device=device).manual_seed(1234)
-    sites = []
-    for name, b, tq, tk, nh, hd, causal, calls in MAIN_SHAPES:
+    sites, train = [], None
+    for name, b, tq, tk, nh, hd, causal, calls in MAIN_SHAPES + [TRAIN_SHAPE]:
+        with_lse = name == "train"
         q, k, v = _case_inputs(gen, b, tq, tk, nh, hd, torch.bfloat16, device,
-                               strided_kv=name == "decoder", strided_q=name == "vit")
+                               strided_kv=name in ("decoder", "train"), strided_q=name == "vit")
         valid = torch.ones((b, tk), dtype=torch.int32, device=device)
         if name == "decoder":  # right-padded rows of different lengths, one full
             lengths = torch.randint(200, tk, (b,), generator=gen, device=device)
             lengths[0] = tk
             valid = (torch.arange(tk, device=device)[None] < lengths[:, None]).to(torch.int32)
-        bias, max_abs, n_rows, n_all = _check_case(fa, q, k, v, valid, causal,
-                                                   BF16_ATOL, BF16_RTOL, f"bf16 {name}")
-        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, bias, causal), iters=20)
-        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, bias, causal), iters=5)
+        elif name == "train":  # the training batch's mask
+            valid[-1, -TRAIN_MASKED:] = 0
+        route = fa._route(q, k, v)
+        if route != "sm90":
+            raise AssertionError(f"bf16 {name}: routed to the {route} kernel, not sm90")
+        err = {}
+        for kernel in ("sm90", "mma"):
+            before = (fa.LAUNCHES, fa.LAUNCHES_SM90)
+            bias, err[kernel], n_rows, n_all, err[kernel + "_lse"] = _check_case(
+                fa, q, k, v, valid, causal, BF16_ATOL, BF16_RTOL, f"bf16 {name} ({kernel})",
+                kernel=None if kernel == "sm90" else "mma", with_lse=with_lse)
+            moved = (fa.LAUNCHES - before[0], fa.LAUNCHES_SM90 - before[1])
+            if moved != (1, int(kernel == "sm90")):
+                raise AssertionError(f"bf16 {name} ({kernel}): launch counters moved {moved}")
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, bias, causal, with_lse), iters=20)
+        ms_mma = cuda_ms(lambda: fa.flash_attention(q, k, v, bias, causal, with_lse,
+                                                    _kernel="mma"), iters=10)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, bias, causal, with_lse),
+                           iters=3)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         mask = None
         if name == "decoder":
             mask = (valid > 0)[:, None, None, :] & torch.ones(
                 (tq, tk), dtype=torch.bool, device=device).tril()
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
-                             iters=20)
+        # the training shape: SDPA's forward with is_causal and no key mask,
+        # as PR 4 timed it
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=name == "train"), iters=20)
         bound_ms, bound_by = bound(b, tq, tk, nh, hd, causal, 2)
         site = {"site": name, "shape": [b, tq, tk, nh, hd], "causal": causal,
-                "dtype": "bfloat16", "calls_per_batch": calls, "max_abs_err": max_abs,
-                "rows_checked": n_rows, "rows": n_all, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+                "dtype": "bfloat16", "route": route, "lse": with_lse,
+                "max_abs_err": err["sm90"], "max_abs_err_mma": err["mma"],
+                "lse_max_abs_err": err["sm90_lse"], "lse_max_abs_err_mma": err["mma_lse"],
+                "rows_checked": n_rows, "rows": n_all, "ms": ms, "ms_mma": ms_mma,
+                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+                "share_of_bound_mma": bound_ms / ms_mma,
+                ("calls_per_train_step" if with_lse else "calls_per_batch"): calls}
         emit({"phase": "kernel_case", **site})
-        sites.append(site)
+        if with_lse:
+            train = site
+        else:
+            sites.append(site)
         del q, k, v, qt, kt, vt, mask
         torch.cuda.empty_cache()
 
@@ -405,8 +467,10 @@ def phase_kernels() -> dict:
     cur = torch.randint(200, tk, (b,), generator=gen, device=device)
     cur[0] = tk - 1
     valid = (torch.arange(tk, device=device)[None] <= cur[:, None]).to(torch.int32)
-    bias, max_abs, _, _ = _check_case(fa, q, k, v, valid, causal, BF16_ATOL, BF16_RTOL,
-                                      "bf16 decode")
+    if fa._route(q, k, v) != "mma":
+        raise AssertionError("the decode step is not routed to the mma kernel")
+    bias, max_abs, _, _, _ = _check_case(fa, q, k, v, valid, causal, BF16_ATOL, BF16_RTOL,
+                                         "bf16 decode")
     mask = (valid > 0)[:, None, None, :]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     decode = {"site": name, "shape": [b, tq, tk, nh, hd], "causal": causal, "dtype": "bfloat16",
@@ -428,19 +492,22 @@ def phase_kernels() -> dict:
                                strided_kv=False, strided_q=False)
         valid = torch.ones((b, tk), dtype=torch.int32, device=device)
         valid[0, tk - 7:] = 0
-        _, max_abs, _, _ = _check_case(fa, q, k, v, valid, causal, F32_TOL, F32_TOL,
-                                       f"f32 {(tq, tk, nh, hd, causal)}")
+        _, max_abs, _, _, _ = _check_case(fa, q, k, v, valid, causal, F32_TOL, F32_TOL,
+                                          f"f32 {(tq, tk, nh, hd, causal)}")
         f32_errs.append(max_abs)
     emit({"phase": "kernel_f32", "shapes": F32_SHAPES, "max_abs_err": f32_errs,
           "tolerance": F32_TOL})
 
-    # all-masked rows: only finiteness is defined
+    # all-masked rows: the output must be finite and lse 0 (both kernels)
     q, k, v = _case_inputs(gen, 2, 64, 64, 2, 32, torch.bfloat16, device, False, False)
-    out = fa.flash_attention(q, k, v, torch.full((2, 64), fa.NEG_INF, device=device), True)
-    torch.cuda.synchronize()
-    if not torch.isfinite(out).all():
-        raise AssertionError("fully masked rows gave non-finite output")
-    return {"sites": sites, "decode": decode, "f32_max_abs_err": max(f32_errs)}
+    for kernel in (None, "mma"):
+        out, lse = fa.flash_attention(q, k, v, torch.full((2, 64), fa.NEG_INF, device=device),
+                                      True, True, _kernel=kernel)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all() or not (lse == 0).all():
+            raise AssertionError(f"fully masked rows ({kernel or 'sm90'}): non-finite output "
+                                 "or lse not 0")
+    return {"sites": sites, "train": train, "decode": decode, "f32_max_abs_err": max(f32_errs)}
 
 
 def qmm_bound(m, k, n, x_bytes):
@@ -953,21 +1020,22 @@ def phase_capture(tmp: Path, smi: str):
     ecfg = ExtractConfig(batch_size=16)
     out_path = str(tmp / "data" / "all_activations.pt")
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = qm.LAUNCHES = 0
+    fa.LAUNCHES = fa.LAUNCHES_SM90 = qm.LAUNCHES = 0
     t0 = time.perf_counter()
     results = extract_activations(metadata, out_path, cfg, ecfg, params=params,
                                   device="cuda", verbose=False)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches, qmm_launches = fa.LAUNCHES, qm.LAUNCHES
+    launches, sm90_launches, qmm_launches = fa.LAUNCHES, fa.LAUNCHES_SM90, qm.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
 
     acts, ids = _check_capture(out_path, metadata, results, "bf16 capture")
     n_batches = math.ceil(len(metadata) / ecfg.batch_size)
     expected = n_batches * (cfg.visual.layers + 1 + cfg.num_layers)
-    if launches != expected or qmm_launches != 0:
-        raise AssertionError(f"flash kernel launched {launches} times, expected {expected}; "
-                             f"qmm {qmm_launches} times, expected 0 (fp weights)")
+    if launches != expected or sm90_launches != expected or qmm_launches != 0:
+        raise AssertionError(f"flash kernels launched {launches} times ({sm90_launches} sm90), "
+                             f"expected {expected}, all sm90; qmm {qmm_launches} times, "
+                             "expected 0 (fp weights)")
 
     # the same run again, warm: the difference is first-call set-up
     t0 = time.perf_counter()
@@ -994,7 +1062,8 @@ def phase_capture(tmp: Path, smi: str):
     tokens = n_batches * ecfg.batch_size * (max_len + cfg.visual.n_patches)
     info = {"phase": "capture", "nvidia_smi": smi, "params": n_params,
             "param_dtype": cfg.dtype, "init_s": init_s, "capture_shape": list(acts.shape),
-            "finite": True, "flash_launches": launches, "expected_launches": expected,
+            "finite": True, "flash_launches": launches, "flash_launches_sm90": sm90_launches,
+            "expected_launches": expected,
             "qmm_launches": qmm_launches,
             "wall_s": wall_s, "max_len": max_len, "tokens": tokens, "tokens_per_s": tokens / wall_s,
             "wall_warm_s": warm_s, "tokens_per_s_warm": tokens / warm_s, "host": host,
@@ -1156,19 +1225,20 @@ def phase_int8_capture(tmp: Path, smi: str, state: dict, bf16_peak: int) -> dict
     out_dir.mkdir(parents=True, exist_ok=True)
     out_path = str(out_dir / "all_activations.pt")
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = qm.LAUNCHES = 0
+    fa.LAUNCHES = fa.LAUNCHES_SM90 = qm.LAUNCHES = 0
     t0 = time.perf_counter()
     results = extract_activations(metadata, out_path, cfg, ecfg, params=params, device="cuda",
                                   verbose=False)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"qmm": qm.LAUNCHES, "flash_fwd": fa.LAUNCHES}
+    launches = {"qmm": qm.LAUNCHES, "flash_fwd": fa.LAUNCHES, "flash_fwd_sm90": fa.LAUNCHES_SM90}
     peak = torch.cuda.max_memory_allocated()
 
     acts, _ = _check_capture(out_path, metadata, results, "int8 capture")
     n_batches = math.ceil(len(metadata) / ecfg.batch_size)
     expected = {"qmm": n_batches * QMM_PER_CAPTURE_BATCH,
-                "flash_fwd": n_batches * (cfg.visual.layers + 1 + cfg.num_layers)}
+                "flash_fwd": n_batches * (cfg.visual.layers + 1 + cfg.num_layers),
+                "flash_fwd_sm90": n_batches * (cfg.visual.layers + 1 + cfg.num_layers)}
     ref = state["acts"].astype(np.float64)
     got = acts.astype(np.float64)
     cos = (ref * got).sum(-1) / (np.linalg.norm(ref, axis=-1) * np.linalg.norm(got, axis=-1))
@@ -1235,20 +1305,24 @@ def phase_generate(smi: str, state: dict, fingerprint: list) -> dict:
     lengths = mask.sum(1).long()
     rows = torch.arange(b, device="cuda")
     t_max, n_steps = GEN_PROMPT_LEN + GEN_NEW_TOKENS, GEN_NEW_TOKENS - 1
+    # the prefill's attention on the sm90 kernel, the decode steps' (Tq = 1)
+    # on the mma kernel
     expected = {"qmm": QMM_PER_CAPTURE_BATCH + 1 + n_steps * QMM_PER_DECODE_STEP,
-                "flash_fwd": cfg.visual.layers + 1 + cfg.num_layers + n_steps * cfg.num_layers}
+                "flash_fwd": cfg.visual.layers + 1 + cfg.num_layers + n_steps * cfg.num_layers,
+                "flash_fwd_sm90": cfg.visual.layers + 1 + cfg.num_layers}
 
     runs = {}
     for kv_int8 in (False, True):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.LAUNCHES = qm.LAUNCHES = 0
+        fa.LAUNCHES = fa.LAUNCHES_SM90 = qm.LAUNCHES = 0
         t0 = time.perf_counter()
         toks = generate(params, cfg, ids, mask, max_new_tokens=GEN_NEW_TOKENS, images=images,
                         image_positions=pos, kv_int8=kv_int8)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = {"qmm": qm.LAUNCHES, "flash_fwd": fa.LAUNCHES}
+        launches = {"qmm": qm.LAUNCHES, "flash_fwd": fa.LAUNCHES,
+                    "flash_fwd_sm90": fa.LAUNCHES_SM90}
         peak = torch.cuda.max_memory_allocated()
         if toks.shape != (b, GEN_NEW_TOKENS) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
             raise AssertionError(f"generate: ids {tuple(toks.shape)} out of shape or range")
@@ -1647,15 +1721,15 @@ def phase_train(smi: str, seed: int) -> dict:
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
-    fa.LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
+    fa.LAUNCHES = fa.LAUNCHES_SM90 = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
     t0 = time.perf_counter()
     for _ in range(TRAIN_TIMED_STEPS):
         params, state, loss = step(params, state, batch)
         losses.append(loss)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / TRAIN_TIMED_STEPS
-    launches = {"flash_fwd": fa.LAUNCHES, "flash_bwd_dq": fa.BWD_DQ_LAUNCHES,
-                "flash_bwd_dkv": fa.BWD_DKV_LAUNCHES}
+    launches = {"flash_fwd": fa.LAUNCHES, "flash_fwd_sm90": fa.LAUNCHES_SM90,
+                "flash_bwd_dq": fa.BWD_DQ_LAUNCHES, "flash_bwd_dkv": fa.BWD_DKV_LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
 
@@ -1701,6 +1775,7 @@ def phase_train(smi: str, seed: int) -> dict:
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     expected = {"flash_fwd": 2 * cfg.num_layers * TRAIN_TIMED_STEPS,
+                "flash_fwd_sm90": 2 * cfg.num_layers * TRAIN_TIMED_STEPS,
                 "flash_bwd_dq": cfg.num_layers * TRAIN_TIMED_STEPS,
                 "flash_bwd_dkv": cfg.num_layers * TRAIN_TIMED_STEPS}
     info = {"phase": "train", "nvidia_smi": smi, "params": n_params, "dtype": cfg.dtype,
@@ -1773,24 +1848,42 @@ def main(argv=None) -> int:
     by_ops = sum(s["bound_ms"] * s["calls_per_batch"] for s in kern["sites"]
                  if s["bound_by"] == "operations")
     by_bytes = total("bound_ms") - by_ops
+    tr = kern["train"]
     emit({"kernels": [{
         "name": "flash_fwd",
         "route": "cuda",
-        "source": "tdax_torch/ops/csrc/flash_fwd.cu",
+        "source": "tdax_torch/ops/csrc/flash_fwd_sm90.cu",
+        "sources": {"sm90": "tdax_torch/ops/csrc/flash_fwd_sm90.cu",
+                    "mma": "tdax_torch/ops/csrc/flash_fwd.cu"},
         "replaces": "tdax/ops/flash_attention.py:164",
-        "launches": capture["flash_launches"],
-        "max_abs_err": max(s["max_abs_err"] for s in kern["sites"]),
+        "launches": capture["flash_launches_sm90"],
+        "launches_by_kernel": {
+            "capture": {"sm90": capture["flash_launches_sm90"],
+                        "mma": capture["flash_launches"] - capture["flash_launches_sm90"]},
+            "int8_capture": {"sm90": int8["launches"]["flash_fwd_sm90"],
+                             "mma": int8["launches"]["flash_fwd"]
+                             - int8["launches"]["flash_fwd_sm90"]},
+            "generate": {"sm90": gen["runs"][0]["launches"]["flash_fwd_sm90"],
+                         "mma": gen["runs"][0]["launches"]["flash_fwd"]
+                         - gen["runs"][0]["launches"]["flash_fwd_sm90"]},
+            "train": {"sm90": train["launches"]["flash_fwd_sm90"],
+                      "mma": train["launches"]["flash_fwd"]
+                      - train["launches"]["flash_fwd_sm90"]}},
+        "max_abs_err": max(s["max_abs_err"] for s in kern["sites"] + [tr]),
         "ms": total("ms"),
+        "ms_mma": total("ms_mma"),
         "plain_ms": total("plain_ms"),
         "bound_ms": total("bound_ms"),
         "bound_by": "operations" if by_ops >= by_bytes else "bytes",
         "library_ms": total("library_ms"),
-        "per": "one batch of 16: 48 ViT + 1 resampler + 32 decoder calls, bf16",
-        "decode_step": {k: kern["decode"][k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                                       "bound_by", "library_ms",
-                                                       "calls_per_decode_step")},
-        "launches_train": train["launches"]["flash_fwd"],
-        "train_step_with_lse": {k: dec[k] for k in ("shape", "fwd_ms", "fwd_lse_ms")},
+        "per": "one batch of 16: 48 ViT + 1 resampler + 32 decoder calls, bf16, on the sm90 "
+               "kernel the route picks; ms_mma is flash_fwd.cu at the same calls",
+        "decode_step": {"kernel": "mma", **{k: kern["decode"][k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "calls_per_decode_step")}},
+        "train_step_with_lse": {k: tr[k] for k in ("shape", "ms", "ms_mma", "plain_ms",
+                                                   "bound_ms", "bound_by", "library_ms",
+                                                   "lse_max_abs_err", "calls_per_train_step")},
     }, *({
         "name": f"flash_bwd_{kind}",
         "route": "cuda",

@@ -3,8 +3,9 @@
 Each source under ``tdax_torch/ops/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, in
 ``build/tdax_torch/`` at the repository root (``build/`` is gitignored).
-The library's file name carries a hash of its source, so an edited
-source is rebuilt and a built one is reused.  Only the sources in the
+The library's file name carries a hash of its source and of the
+``csrc/`` headers it includes, so an edited source or header is rebuilt
+and a built one is reused.  Only the sources in the
 repository are compiled; a failed build raises with nvcc's output.
 
 ``build(names)`` starts one nvcc per source that still needs building,
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,8 +26,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tdax_torch"
 
-SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu", "sqdist": "sqdist.cu",
-           "qmm": "qmm.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_fwd_sm90": "flash_fwd_sm90.cu",
+           "flash_bwd": "flash_bwd.cu", "sqdist": "sqdist.cu", "qmm": "qmm.cu"}
+_INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -47,9 +50,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """The library's path; its name hashes the source and every header of
+    ``CSRC`` that the source includes (``#include "x.cuh"``)."""
+    src = (CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src)
+    for header in _INCLUDE.findall(src.decode()):
+        digest.update((CSRC / header).read_bytes())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict[str, ctypes.CDLL]:

@@ -1,15 +1,20 @@
 """Flash attention: the hand-written CUDA kernels and their plain versions.
 
-Counterpart of ``tdax/ops/flash_attention.py``.  The forward kernel
-(``csrc/flash_fwd.cu``) replaces the Pallas TPU kernel
-``tdax/ops/flash_attention.py::_kernel`` (reached there as ``mha`` ->
-``_get_flash`` -> ``_build_flash`` -> ``_flash_impl`` -> ``_kernel``):
-a tiled online-softmax forward with an additive key bias, an optional
-causal mask with the tiles above the diagonal skipped, f32 running
-max / denominator / accumulator, and no [Tq, Tk] tensor in device
-memory.  On an H100 the tensor cores bound it at the ViT's shape and
-memory at the decoder's and resampler's (see the note at the top of the
-CUDA source for the bound and the design).
+Counterpart of ``tdax/ops/flash_attention.py``.  Two forward kernels
+replace the Pallas TPU kernel ``tdax/ops/flash_attention.py::_kernel``
+(reached there as ``mha`` -> ``_get_flash`` -> ``_build_flash`` ->
+``_flash_impl`` -> ``_kernel``): a tiled online-softmax forward with an
+additive key bias, an optional causal mask with the tiles above the
+diagonal skipped, f32 running max / denominator / accumulator, and no
+[Tq, Tk] tensor in device memory.  ``csrc/flash_fwd_sm90.cu`` (TMA, an
+mbarrier ring, wgmma, a producer warp and two consumer warpgroups) takes
+bf16 inputs that TMA can read with at least ``SM90_MIN_TQ`` query rows;
+``csrc/flash_fwd.cu`` (``mma.sync``) takes the rest: f32, the decode
+step, hd not a multiple of 8, misaligned views.  ``_route`` decides from
+the shapes, strides and type alone, before any launch; a failed launch
+raises.  On an H100 the tensor cores bound the forward at the ViT's
+shape and memory at the decoder's and resampler's (the notes at the top
+of the CUDA sources give the bound and the designs).
 
 The backward kernels (``csrc/flash_bwd.cu``) replace tdax's
 ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (driven by ``_flash_bwd_impl``):
@@ -30,9 +35,11 @@ other.  It goes through ``FlashAttention`` only when autograd needs it
 (grad mode on and q, k or v requiring grad); under ``inference_mode``
 the call is the plain forward launch.
 
-``LAUNCHES``, ``BWD_DQ_LAUNCHES`` and ``BWD_DKV_LAUNCHES`` count kernel
+``LAUNCHES`` (both forward kernels), ``LAUNCHES_SM90`` (the Hopper one
+alone), ``BWD_DQ_LAUNCHES`` and ``BWD_DKV_LAUNCHES`` count kernel
 launches (one per successful launch, and nowhere else), so a run can
-show that its attention and its gradients went through the kernels.
+show that its attention and its gradients went through the kernels, and
+which forward kernel carried each path.
 """
 
 from __future__ import annotations
@@ -46,17 +53,23 @@ import torch
 NEG_INF = -1e30  # finite: a fully masked tile must not produce NaN
 
 LAUNCHES = 0
+LAUNCHES_SM90 = 0
 BWD_DQ_LAUNCHES = 0
 BWD_DKV_LAUNCHES = 0
 
 _C_TAIL = [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int]  # causal, scale, dtype, vec
 _C_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 13
                + _C_TAIL + [ctypes.c_void_p, ctypes.c_void_p])  # lse, stream
+_C_SM90_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 10
+                    + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
 _C_BWD_DQ_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 16
                       + _C_TAIL + [ctypes.c_void_p])
 _C_BWD_DKV_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 16
                        + _C_TAIL + [ctypes.c_void_p])
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# fewest query rows for the Hopper kernel: below it a 128-row q tile is
+# mostly padding (the decode step has one row)
+SM90_MIN_TQ = 64
 
 
 class AttnSpec:
@@ -207,6 +220,18 @@ def _vectorizable(*tensors) -> bool:
     return True
 
 
+def _route(q, k, v) -> str:
+    """Which forward kernel takes these inputs: ``"sm90"`` for bf16 q/k/v
+    that TMA can read (``_vectorizable``: hd, the bases and the strides
+    16-byte aligned; no stride 0) with at least ``SM90_MIN_TQ`` query
+    rows, ``"mma"`` for everything else."""
+    if q.shape[1] < SM90_MIN_TQ or not _vectorizable(q, k, v):
+        return "mma"
+    if any(s == 0 for x in (q, k, v) for s in x.stride()[:3]):
+        return "mma"
+    return "sm90"
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The built kernel library, with its C signatures declared."""
@@ -215,6 +240,19 @@ def _library() -> ctypes.CDLL:
     lib = load("flash_fwd")
     lib.tdax_flash_fwd.argtypes = _C_ARGTYPES
     lib.tdax_flash_fwd.restype = ctypes.c_int
+    lib.tdax_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.tdax_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _sm90_library() -> ctypes.CDLL:
+    """The built Hopper forward library, with its C signatures declared."""
+    from tdax_torch.ops._build import load
+
+    lib = load("flash_fwd_sm90")
+    lib.tdax_flash_fwd_sm90.argtypes = _C_SM90_ARGTYPES
+    lib.tdax_flash_fwd_sm90.restype = ctypes.c_int
     lib.tdax_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tdax_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -245,23 +283,43 @@ def _strides(*tensors) -> list:
     return [s for x in tensors for s in x.stride()[:3]]
 
 
-def flash_attention(q, k, v, bias, causal: bool, return_lse: bool = False):
+def flash_attention(q, k, v, bias, causal: bool, return_lse: bool = False, *,
+                    _kernel: str | None = None):
     """Launch the CUDA flash-attention forward on CUDA tensors.
 
     q [B, Tq, nh, hd], k/v [B, Tk, nh, hd] (bf16 or f32, any strides
     with a contiguous last dimension), bias [B, Tk] f32 ->
     [B, Tq, nh, hd] in q.dtype, on the current stream; with
     ``return_lse`` also lse [B, nh, Tq] f32 (see
-    ``flash_attention_plain``).  Raises on any input the kernel does not
-    take."""
-    global LAUNCHES
+    ``flash_attention_plain``).  ``_route`` picks the kernel; the private
+    ``_kernel="mma"`` forces ``flash_fwd.cu`` (to time and check it at
+    the shapes the Hopper kernel takes).  Raises on any input the kernel
+    does not take."""
+    global LAUNCHES, LAUNCHES_SM90
     _check(q, k, v, bias)
-    lib = _library()
+    route = _route(q, k, v)
+    if _kernel not in (None, "mma", route):
+        raise ValueError(f"flash_attention: the {_kernel} kernel does not take these inputs")
+    route = _kernel or route
     b, tq, nh, hd = q.shape
     tk = k.shape[1]
     out = torch.empty((b, tq, nh, hd), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, nh, tq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    lse_ptr = None if lse is None else lse.data_ptr()
+    if route == "sm90":
+        lib = _sm90_library()
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            rc = lib.tdax_flash_fwd_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                b, tq, tk, nh, hd, *_strides(q, k, v), bias.stride(0), int(causal),
+                1.0 / math.sqrt(hd), lse_ptr, stream)
+        _raise_on(rc, lib, "flash_attention (sm90)")
+        LAUNCHES += 1
+        LAUNCHES_SM90 += 1
+        return (out, lse) if return_lse else out
+    lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.tdax_flash_fwd(
@@ -272,8 +330,7 @@ def flash_attention(q, k, v, bias, causal: bool, return_lse: bool = False):
             v.stride(0), v.stride(1), v.stride(2),
             out.stride(0), out.stride(1), out.stride(2),
             bias.stride(0), int(causal), 1.0 / math.sqrt(hd),
-            _DTYPE_CODE[q.dtype], int(_vectorizable(q, k, v)),
-            None if lse is None else lse.data_ptr(), stream)
+            _DTYPE_CODE[q.dtype], int(_vectorizable(q, k, v)), lse_ptr, stream)
     _raise_on(rc, lib, "flash_attention")
     LAUNCHES += 1
     return (out, lse) if return_lse else out

@@ -1,4 +1,4 @@
-"""The CUDA flash-attention kernel against its plain version, on the card.
+"""The CUDA flash-attention forward kernels against their plain version, on the card.
 
 Marked ``cuda``: these skip where no card is present.  This file imports
 neither ``jax`` nor ``tdax``, so on the machine with the card it runs
@@ -57,6 +57,88 @@ def test_kernel_reads_strided_views(device):
     got = fa.flash_attention(q, k, v, bias, False)
     want = fa.flash_attention_plain(q, k, v, bias, False)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+def _inputs(gen, device, b, tq, tk, nh, hd, fused_q=False, fused_kv=False):
+    """bf16 q/k/v, as views of one fused projection where the model makes
+    them so (the ViT: q, k and v; the decoder: k and v)."""
+    def fused(t, n):
+        x = torch.randn((b, t, n * nh * hd), generator=gen, device=device, dtype=torch.bfloat16)
+        return [c.reshape(b, t, nh, hd) for c in x.split(nh * hd, dim=-1)]
+
+    def plain(t):
+        return torch.randn((b, t, nh, hd), generator=gen, device=device, dtype=torch.bfloat16)
+
+    if fused_q:
+        return fused(tq, 3)
+    return (plain(tq), *(fused(tk, 2) if fused_kv else (plain(tk), plain(tk))))
+
+
+# (name, B, Tq, Tk, nh, hd, causal, fused q, fused k/v, padded keys)
+KERNEL_CASES = [
+    ("decoder", 2, 320, 320, 32, 128, True, False, True, True),
+    ("vit", 2, 1024, 1024, 16, 104, False, True, False, False),
+    ("resampler", 2, 256, 1024, 32, 128, False, False, False, False),
+    ("train", 2, 1024, 1024, 32, 128, True, False, True, True),
+    ("ragged", 3, 77, 131, 3, 40, False, False, False, True),
+    ("hd64", 2, 200, 333, 4, 64, True, False, False, True),
+    ("hd104_causal", 2, 130, 130, 2, 104, True, False, False, True),
+]
+
+
+@pytest.mark.parametrize("kernel", ["sm90", "mma"])
+@pytest.mark.parametrize("case", KERNEL_CASES, ids=[c[0] for c in KERNEL_CASES])
+def test_both_forward_kernels_match_plain(device, case, kernel):
+    """Both forward kernels at the main path's shapes (batch cut), ragged
+    Tq/Tk, hd 40, 64 and 104, with lse: the output within the bf16
+    tolerance and lse within 1e-5 of 1 + |lse| on every row that sees a
+    key; the route sends each case to the Hopper kernel."""
+    name, b, tq, tk, nh, hd, causal, fused_q, fused_kv, padded = case
+    gen = torch.Generator(device=device).manual_seed(7)
+    q, k, v = _inputs(gen, device, b, tq, tk, nh, hd, fused_q, fused_kv)
+    assert fa._route(q, k, v) == "sm90"
+    valid = torch.ones((b, tk), dtype=torch.int32, device=device)
+    if padded:  # right-padded rows of other lengths, the first one full
+        valid[1:, tk - tk // 4:] = 0
+    bias = torch.where(valid > 0, 0.0, fa.NEG_INF).to(torch.float32)
+    total, sm90 = fa.LAUNCHES, fa.LAUNCHES_SM90
+    got, lse = fa.flash_attention(q, k, v, bias, causal, return_lse=True,
+                                  _kernel=None if kernel == "sm90" else "mma")
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == total + 1
+    assert fa.LAUNCHES_SM90 == sm90 + (kernel == "sm90")
+    want, lse_want = fa.flash_attention_plain(q, k, v, bias, causal, return_lse=True)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    assert ((lse - lse_want).abs() <= 1e-5 * (1 + lse_want.abs())).all()
+
+
+@pytest.mark.parametrize("kernel", ["sm90", "mma"])
+def test_rows_that_see_no_key_are_finite_with_lse_zero(device, kernel):
+    gen = torch.Generator(device=device).manual_seed(3)
+    q, k, v = _inputs(gen, device, 2, 192, 192, 2, 128)
+    bias = torch.full((2, 192), fa.NEG_INF, device=device)
+    bias[1, 100:] = 0.0  # batch 1: rows below 100 see no key under the causal mask
+    out, lse = fa.flash_attention(q, k, v, bias, True, return_lse=True,
+                                  _kernel=None if kernel == "sm90" else "mma")
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (lse[0] == 0).all() and (lse[1, :, :100] == 0).all()
+    assert (lse[1, :, 100:] != 0).all()
+
+
+def test_route_sends_decode_f32_and_odd_views_to_the_mma_kernel(device):
+    gen = torch.Generator(device=device).manual_seed(5)
+    q, k, v = _inputs(gen, device, 2, 1, 352, 4, 128)
+    bias = torch.zeros((2, 352), device=device)
+    sm90 = fa.LAUNCHES_SM90
+    out = fa.flash_attention(q, k, v, bias, False)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_SM90 == sm90
+    torch.testing.assert_close(out.float(), fa.flash_attention_plain(q, k, v, bias, False).float(),
+                               rtol=2e-2, atol=2e-2)
+    with pytest.raises(ValueError, match="sm90"):
+        fa.flash_attention(q, k, v, bias, False, _kernel="sm90")
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take(device):
