@@ -12,7 +12,8 @@ and runs these phases, printing JSON lines:
             in the checkout (one nvcc per source, all started together,
             and the native Rips engine's g++ beside them); prints ptxas's
             register, spill, C7508 and setmaxnreg lines and fails if
-            flash_fwd_sm90.cu spills or has setmaxnreg ignored (C7508).
+            flash_fwd_sm90.cu or flash_bwd_sm90.cu spills or has
+            setmaxnreg ignored (C7508).
 2. kernels  each kernel's wrapper against its plain PyTorch version on
             the card.  flash_fwd, both kernels: the route must send the
             capture's three attention shapes (decoder, ViT, resampler;
@@ -96,9 +97,15 @@ and runs these phases, printing JSON lines:
             decoder's training shape [4, 1024, 32, 128] (causal, the last
             row's final 128 keys masked), the ViT's (4 x 1024, 16 heads,
             hd 104), the resampler's (256 x 1024 keys, hd 128) and a
-            ragged one; kernel, bound, plain and library times (SDPA's
-            backward: autograd through scaled_dot_product_attention, minus
-            its forward).
+            ragged one.  bf16 goes to flash_bwd_sm90.cu (the route must
+            say so) and is checked there and on flash_bwd.cu (forced by
+            the private _kernel="mma"), the counters moving as the choice
+            says; f32 stays on flash_bwd.cu.  At the training shape two
+            runs of the sm90 pair must agree bitwise.  Kernel times of
+            both pairs and SDPA's backward alone (autograd.grad over a
+            retained graph; medians and spreads of 5 x 10 calls, and
+            the profiler's device time, SDPA's yardstick), bound and
+            plain times.
 8. tiny_train the tiny f32 config trained on the card (kernels) and on the
             CPU (plain versions): loss and every gradient, three
             make_train_step steps, a with_images step, and train_loop
@@ -109,11 +116,14 @@ and runs these phases, printing JSON lines:
             remat, a fixed 4 x 1024 batch from --seed's numpy generator
             (the last row's final 128 positions masked): one warm step,
             five timed steps (64 flash forwards, all sm90, 32 dq and 32
-            dk/dv launches each), losses finite and decreasing, peak memory,
+            dk/dv launches each, all sm90), losses finite, decreasing
+            and, at --seed 0, within TRAIN_LOSS_TOL of the reference
+            trajectory, peak memory,
             the share of 989 TFLOP/s (bench_train.py's convention), and a
             profiled step's device time by kind.
-10. the kernels line (flash_fwd names both sources and the launches of
-            each kernel on each path), the nvidia-smi line, then the last
+10. the kernels line (flash_fwd and flash_bwd_* name both sources and
+            the launches of each kernel on each path), the nvidia-smi
+            line, then the last
             line {"ok": true, "device": {...}}.  Kernel times are
             reported, never gated: only correctness and launch counts
             fail the run.
@@ -250,6 +260,10 @@ BWD_SHAPES = [
 BWD_F32_REL_TOL = 1e-5
 BWD_BF16_RTOL, BWD_BF16_ATOL_OF_MAX, BWD_BF16_TERMS = 2.0 ** -7, 1e-3, 2.0 ** -8
 LSE_TOL = 1e-5
+# flash_bwd_sm90.cu is held to the same bf16 bound: its p = 2^(s log2 e -
+# lse log2 e) on the MUFU ex2 differs from flash_bwd.cu's expf by ~2^-22
+# relative, far inside one bf16 step (2^-8) of the rounded p and ds
+BWD_REPEATS = 5         # timed repeats of each backward: median and spread
 # tiny f32 training, card against CPU: gradients within 1e-4 of each
 # leaf's largest magnitude; params after three AdamW steps within 1e-4
 # relative + 3e-5 (Adam divides by the root of the second moment, so a
@@ -257,6 +271,16 @@ LSE_TOL = 1e-5
 # own error; tests/test_torch_train_step.py holds tdax to the same)
 TINY_GRAD_TOL, TINY_PARAM_RTOL, TINY_PARAM_ATOL = 1e-4, 1e-4, 3e-5
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MASKED, TRAIN_TIMED_STEPS = 4, 1024, 128, 5
+# the training phase's seven losses at --seed 0 through flash_bwd.cu (an
+# H100 80GB HBM3 at 700 W); two runs of equal math but other kernels' sum
+# orders (flash_fwd.cu and flash_fwd_sm90.cu) moved them by at most 0.016,
+# bf16 noise.  A wrong gradient moves the descent far more.
+TRAIN_REF_LOSSES_SEED0 = [12.400, 12.400, 11.078, 9.922, 8.478, 7.562, 6.211]
+TRAIN_LOSS_TOL = 0.1
+
+
+# the sources ptxas must compile without a spill and with setmaxnreg kept
+SM90_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90")
 
 
 def emit(obj) -> None:
@@ -320,17 +344,21 @@ def phase_env() -> dict:
     for log in sorted(_build.BUILD_DIR.glob("*.log")):
         ptxas += [ln.strip() for ln in log.read_text().splitlines()
                   if any(w in ln for w in ("registers", "spill", "C7508", "setmaxnreg"))]
-    # the Hopper forward: setmaxnreg ignored (C7508) or any spill is a fault
-    sm90_log = (_build.BUILD_DIR / "flash_fwd_sm90.log").read_text()
-    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", sm90_log)]
-    if "C7508" in sm90_log or "setmaxnreg ignored" in sm90_log or any(spills):
-        raise AssertionError("flash_fwd_sm90.cu: ptxas ignored setmaxnreg or spilled:\n"
-                             + sm90_log[-4000:])
+    # the Hopper kernels: setmaxnreg ignored (C7508) or any spill is a fault
+    sm90_regs = {}
+    for name in SM90_SOURCES:
+        sm90_log = (_build.BUILD_DIR / f"{name}.log").read_text()
+        sm90_regs[name] = [ln.strip() for ln in sm90_log.splitlines()
+                           if any(w in ln for w in ("registers", "spill", "C7508", "setmaxnreg"))]
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", sm90_log)]
+        if "C7508" in sm90_log or "setmaxnreg ignored" in sm90_log or any(spills):
+            raise AssertionError(f"{_build.SOURCES[name]}: ptxas ignored setmaxnreg or "
+                                 f"spilled:\n" + sm90_log[-4000:])
     info = {"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
             "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
             "build_s": round(build_s, 3), "built": sorted(_build.BUILD_SECONDS),
             "build_s_by_source": {n: round(t, 3) for n, t in _build.BUILD_SECONDS.items()},
-            "engine_build_s": engine_s, "ptxas": ptxas,
+            "engine_build_s": engine_s, "ptxas": ptxas, "ptxas_sm90": sm90_regs,
             "matplotlib": importlib.util.find_spec("matplotlib") is not None}
     emit(info)
     return info
@@ -1431,9 +1459,16 @@ def _bwd_terms(fa, q, k, v, bias, lse, delta, do, causal):
             "dv": torch.einsum("bhqk,bqhd->bkhd", p, do.float().abs())}
 
 
-def _bwd_check(fa, q, k, v, do, bias, causal, label):
-    """The forward's lse and both backward kernels against their plain
-    versions; returns (max |kernel - plain| per output, lse, delta)."""
+def _bwd_counts(fa) -> list:
+    return [fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES, fa.BWD_DQ_LAUNCHES_SM90,
+            fa.BWD_DKV_LAUNCHES_SM90]
+
+
+def _bwd_check(fa, q, k, v, do, bias, causal, label, kernel=None):
+    """The forward's lse and one backward kernel pair (the routed one, or
+    ``kernel="mma"``) against their plain versions; the launch counters
+    must move as the choice says.  Returns (max |kernel - plain| per
+    output, lse, delta)."""
     import torch
     o, lse = fa.flash_attention(q, k, v, bias, causal, return_lse=True)
     _, lse_plain = fa.flash_attention_plain(q, k, v, bias, causal, return_lse=True)
@@ -1441,9 +1476,15 @@ def _bwd_check(fa, q, k, v, do, bias, causal, label):
     if lse.shape != lse_plain.shape or lse_excess > 0:
         raise AssertionError(f"{label}: lse differs from the plain version's")
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    got = {"dq": fa.flash_bwd_dq(q, k, v, bias, lse, delta, do, causal)}
-    got["dk"], got["dv"] = fa.flash_bwd_dkv(q, k, v, bias, lse, delta, do, causal)
+    sm90 = int((kernel or fa._bwd_route(q, k, v, do)) == "sm90")
+    before = _bwd_counts(fa)
+    got = {"dq": fa.flash_bwd_dq(q, k, v, bias, lse, delta, do, causal, _kernel=kernel)}
+    got["dk"], got["dv"] = fa.flash_bwd_dkv(q, k, v, bias, lse, delta, do, causal,
+                                            _kernel=kernel)
     torch.cuda.synchronize()
+    moved = [a - b for a, b in zip(_bwd_counts(fa), before)]
+    if moved != [1, 1, sm90, sm90]:
+        raise AssertionError(f"{label}: backward launch counters moved {moved}")
     want = {"dq": fa.flash_bwd_dq_plain(q, k, v, bias, lse, delta, do, causal)}
     want["dk"], want["dv"] = fa.flash_bwd_dkv_plain(q, k, v, bias, lse, delta, do, causal)
     terms = _bwd_terms(fa, q, k, v, bias, lse, delta, do, causal)
@@ -1468,9 +1509,34 @@ def _bwd_check(fa, q, k, v, do, bias, causal, label):
     return errs, lse, delta
 
 
+def _device_ms(fn, iters: int) -> float:
+    """The card's kernel time per call of ``fn`` (torch.profiler, summed
+    over every kernel it launches): free of host gaps between launches,
+    such as autograd's hand-off to its device thread."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total", 0.0) for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters if us > 0 else "not measured"
+
+
+def _median_spread(fn, iters: int) -> tuple:
+    """(median, max - min) ms of BWD_REPEATS timings of ``iters`` calls."""
+    runs = sorted(cuda_ms(fn, iters) for _ in range(BWD_REPEATS))
+    return runs[len(runs) // 2], runs[-1] - runs[0]
+
+
 def phase_flash_bwd(smi: str) -> dict:
     """The flash backward kernels and the forward's lse against their
-    plain versions at the training path's shapes, bf16 and f32; times."""
+    plain versions at the training path's shapes, bf16 and f32; at each
+    site the route sends to flash_bwd_sm90.cu, that pair and flash_bwd.cu
+    (forced) both, bitwise repeats at the training shape; times."""
     import torch
     import torch.nn.functional as F
     import tdax_torch.ops.flash_attention as fa
@@ -1491,46 +1557,67 @@ def phase_flash_bwd(smi: str) -> dict:
                 valid[0, -20:] = 0
             bias = torch.where(valid > 0, 0.0, fa.NEG_INF).to(torch.float32)
             label = f"{str(dtype)[6:]} {name}"
-            errs, lse, delta = _bwd_check(fa, q, k, v, do, bias, causal, label)
+            route = fa._bwd_route(q, k, v, do)
+            if route != ("sm90" if dtype == torch.bfloat16 else "mma"):
+                raise AssertionError(f"{label}: the backward is routed to the {route} kernels")
+            errs, lse, delta = _bwd_check(fa, q, k, v, do, bias, causal, f"{label} ({route})")
             if dtype == torch.float32:
                 f32_errs[name] = errs
                 continue
+            errs_mma, _, _ = _bwd_check(fa, q, k, v, do, bias, causal, f"{label} (mma)", "mma")
+            args = (q, k, v, bias, lse, delta, do, causal)
+            if name == "decoder":  # no atomics: the same inputs give the same bits
+                first, again = ([fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args)]
+                                for _ in range(2))
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(first, again)):
+                    raise AssertionError(f"{label}: two runs of the sm90 backward differ")
+                del first, again
             site = {"site": name, "shape": [b, tq, tk, nh, hd], "causal": causal,
-                    "dtype": "bfloat16", "key_mask": "last row's final 128 keys"
+                    "dtype": "bfloat16", "route": route, "key_mask": "last row's final 128 keys"
                     if name == "decoder" else "first row's final 20 keys"
                     if name == "ragged" else None,
                     "calls_per_train_step": calls, "max_abs_err": errs,
-                    "dq_ms": cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, bias, lse, delta, do,
-                                                             causal), iters=10),
-                    "dkv_ms": cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, bias, lse, delta, do,
-                                                               causal), iters=10),
-                    "fwd_ms": cuda_ms(lambda: fa.flash_attention(q, k, v, bias, causal),
-                                      iters=10),
-                    "fwd_lse_ms": cuda_ms(lambda: fa.flash_attention(
-                        q, k, v, bias, causal, return_lse=True), iters=10),
-                    "plain_dq_ms": cuda_ms(lambda: fa.flash_bwd_dq_plain(
-                        q, k, v, bias, lse, delta, do, causal), iters=3),
-                    "plain_dkv_ms": cuda_ms(lambda: fa.flash_bwd_dkv_plain(
-                        q, k, v, bias, lse, delta, do, causal), iters=3)}
-            # SDPA: its whole backward (dq, dk, dv) = autograd through it
-            # minus its forward, is_causal without a key mask
+                    "max_abs_err_mma": errs_mma, "bitwise_repeat": name == "decoder" or None,
+                    "timing": f"median and spread of {BWD_REPEATS} x 10 calls; *_device_ms: "
+                              "profiled kernel time per call over 10"}
+            for kind, fn in (("dq", fa.flash_bwd_dq), ("dkv", fa.flash_bwd_dkv)):
+                site[f"{kind}_ms"], site[f"{kind}_spread_ms"] = _median_spread(
+                    lambda: fn(*args), 10)
+                site[f"{kind}_ms_mma"], site[f"{kind}_spread_ms_mma"] = _median_spread(
+                    lambda: fn(*args, _kernel="mma"), 10)
+            site.update({
+                "fwd_lse_ms": cuda_ms(lambda: fa.flash_attention(
+                    q, k, v, bias, causal, return_lse=True), iters=10),
+                "plain_dq_ms": cuda_ms(lambda: fa.flash_bwd_dq_plain(*args), iters=3),
+                "plain_dkv_ms": cuda_ms(lambda: fa.flash_bwd_dkv_plain(*args), iters=3)})
+            # SDPA (is_causal, no key mask): its whole backward (dq, dk, dv)
+            # alone, autograd.grad over a retained graph
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
             dot = do.transpose(1, 2)
-            sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                                      is_causal=causal), 10)
-            sdpa_all = cuda_ms(lambda: torch.autograd.grad(
-                F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal), (qt, kt, vt),
-                dot), iters=10)
-            site.update({"library_fwd_ms": sdpa_fwd, "library_fwd_bwd_ms": sdpa_all,
-                         "library_bwd_ms": sdpa_all - sdpa_fwd,
-                         "library_mask": f"is_causal={causal}, no key mask"})
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+            site["library_bwd_ms"], site["library_bwd_spread_ms"] = _median_spread(
+                lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), 10)
+            for key, fn in (("library_bwd_device_ms", lambda: torch.autograd.grad(
+                    out, (qt, kt, vt), dot, retain_graph=True)),
+                    ("dq_device_ms", lambda: fa.flash_bwd_dq(*args)),
+                    ("dkv_device_ms", lambda: fa.flash_bwd_dkv(*args))):
+                site[key] = _device_ms(fn, 10)
+            site["library_mask"] = f"is_causal={causal}, no key mask"
             site["dq_bound_ms"], site["dq_bound_by"] = bwd_bound(b, tq, tk, nh, hd, causal, 2,
                                                                  3, b * tq)
             site["dkv_bound_ms"], site["dkv_bound_by"] = bwd_bound(b, tq, tk, nh, hd, causal,
                                                                    2, 4, 2 * b * tk)
+            # the yardstick: SDPA's profiled device time (its CUDA-event time
+            # carries autograd's host hand-off and spread 0.4 ms in one run)
+            profiled = isinstance(site["library_bwd_device_ms"], float)
+            site["library_ms"] = site["library_bwd_device_ms" if profiled else "library_bwd_ms"]
+            site["library_timed_by"] = "torch.profiler device time" if profiled else "CUDA events"
+            site["pair_ms"] = site["dq_ms"] + site["dkv_ms"]
+            site["pair_over_library"] = site["pair_ms"] / site["library_ms"]
             emit({"phase": "kernel_case", "kernel": "flash_bwd", "nvidia_smi": smi, **site})
             sites.append(site)
-            del q, k, v, do, qt, kt, vt, dot, lse, delta
+            del q, k, v, do, qt, kt, vt, dot, out, lse, delta, args
             torch.cuda.empty_cache()
     emit({"phase": "kernel_flash_bwd_f32", "max_abs_err": f32_errs,
           "tolerance": f"{BWD_F32_REL_TOL} x the summed terms' magnitude"})
@@ -1722,6 +1809,7 @@ def phase_train(smi: str, seed: int) -> dict:
     warm_s = time.perf_counter() - t0
 
     fa.LAUNCHES = fa.LAUNCHES_SM90 = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
+    fa.BWD_DQ_LAUNCHES_SM90 = fa.BWD_DKV_LAUNCHES_SM90 = 0
     t0 = time.perf_counter()
     for _ in range(TRAIN_TIMED_STEPS):
         params, state, loss = step(params, state, batch)
@@ -1729,7 +1817,9 @@ def phase_train(smi: str, seed: int) -> dict:
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / TRAIN_TIMED_STEPS
     launches = {"flash_fwd": fa.LAUNCHES, "flash_fwd_sm90": fa.LAUNCHES_SM90,
-                "flash_bwd_dq": fa.BWD_DQ_LAUNCHES, "flash_bwd_dkv": fa.BWD_DKV_LAUNCHES}
+                "flash_bwd_dq": fa.BWD_DQ_LAUNCHES, "flash_bwd_dkv": fa.BWD_DKV_LAUNCHES,
+                "flash_bwd_dq_sm90": fa.BWD_DQ_LAUNCHES_SM90,
+                "flash_bwd_dkv_sm90": fa.BWD_DKV_LAUNCHES_SM90}
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
 
@@ -1777,7 +1867,11 @@ def phase_train(smi: str, seed: int) -> dict:
     expected = {"flash_fwd": 2 * cfg.num_layers * TRAIN_TIMED_STEPS,
                 "flash_fwd_sm90": 2 * cfg.num_layers * TRAIN_TIMED_STEPS,
                 "flash_bwd_dq": cfg.num_layers * TRAIN_TIMED_STEPS,
-                "flash_bwd_dkv": cfg.num_layers * TRAIN_TIMED_STEPS}
+                "flash_bwd_dkv": cfg.num_layers * TRAIN_TIMED_STEPS,
+                "flash_bwd_dq_sm90": cfg.num_layers * TRAIN_TIMED_STEPS,
+                "flash_bwd_dkv_sm90": cfg.num_layers * TRAIN_TIMED_STEPS}
+    ref_gap = (max(abs(a - b) for a, b in zip(losses, TRAIN_REF_LOSSES_SEED0))
+               if seed == 0 else None)
     info = {"phase": "train", "nvidia_smi": smi, "params": n_params, "dtype": cfg.dtype,
             "batch": [TRAIN_BATCH, TRAIN_SEQ], "masked_positions": TRAIN_MASKED,
             "remat": True, "seed": seed, "init_s": init_s, "warm_step_s": warm_s,
@@ -1785,7 +1879,8 @@ def phase_train(smi: str, seed: int) -> dict:
             "flops_per_step": flops, "tflops": flops / step_s / 1e12,
             "share_of_989_tflops": flops / step_s / BF16_PEAK,
             "max_memory_allocated_bytes": peak, "launches": launches,
-            "expected_launches": expected, "losses": losses, "split_step": parts,
+            "expected_launches": expected, "losses": losses,
+            "max_gap_to_reference_losses": ref_gap, "split_step": parts,
             "profiled_step": profiled}
     emit(info)
     if n_params != 7_721_324_544:
@@ -1794,6 +1889,9 @@ def phase_train(smi: str, seed: int) -> dict:
         raise AssertionError(f"train: launches {launches}, expected {expected}")
     if not np.isfinite(losses).all() or not losses[TRAIN_TIMED_STEPS] < losses[0]:
         raise AssertionError(f"train: losses {losses} not finite or not decreasing")
+    if ref_gap is not None and ref_gap > TRAIN_LOSS_TOL:
+        raise AssertionError(f"train: losses {losses} leave the reference trajectory "
+                             f"{TRAIN_REF_LOSSES_SEED0} by {ref_gap:.4f}")
     return info
 
 
@@ -1887,19 +1985,28 @@ def main(argv=None) -> int:
     }, *({
         "name": f"flash_bwd_{kind}",
         "route": "cuda",
-        "source": "tdax_torch/ops/csrc/flash_bwd.cu",
+        "source": "tdax_torch/ops/csrc/flash_bwd_sm90.cu",
+        "sources": {"sm90": "tdax_torch/ops/csrc/flash_bwd_sm90.cu",
+                    "mma": "tdax_torch/ops/csrc/flash_bwd.cu"},
         "replaces": f"tdax/ops/flash_attention.py:{line}",
         "launches": train["launches"][f"flash_bwd_{kind}"],
+        "launches_by_kernel": {"train": {
+            "sm90": train["launches"][f"flash_bwd_{kind}_sm90"],
+            "mma": train["launches"][f"flash_bwd_{kind}"]
+            - train["launches"][f"flash_bwd_{kind}_sm90"]}},
         "max_abs_err": max(s["max_abs_err"][o] for s in fbwd["sites"] for o in outs),
+        "max_abs_err_mma": max(s["max_abs_err_mma"][o] for s in fbwd["sites"] for o in outs),
         "ms": dec[f"{kind}_ms"] * calls,
+        "ms_mma": dec[f"{kind}_ms_mma"] * calls,
         "plain_ms": dec[f"plain_{kind}_ms"] * calls,
         "bound_ms": dec[f"{kind}_bound_ms"] * calls,
         "bound_by": dec[f"{kind}_bound_by"],
-        "library_ms": dec["library_bwd_ms"] * calls,
+        "library_ms": dec["library_ms"] * calls,
         "per": f"one training step ({TRAIN_TIMED_STEPS} timed steps' launches): {calls} calls "
-               "at [4, 1024, 32, 128] causal bf16; library_ms is SDPA's whole backward (dq, "
-               "dk and dv) at that shape, is_causal=True without the key mask, minus its "
-               "forward",
+               "at [4, 1024, 32, 128] causal bf16 on the sm90 kernels the route picks (medians "
+               f"of {BWD_REPEATS} x 10 calls); ms_mma is flash_bwd.cu at the same calls; "
+               "library_ms is SDPA's whole backward (dq, dk and dv) alone at that shape, "
+               f"is_causal=True without the key mask, by {dec['library_timed_by']}",
     } for kind, line, outs in (("dq", 395, ("dq",)), ("dkv", 446, ("dk", "dv")))), {
         "name": "sqdist",
         "route": "cuda",

@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tdax_torch"
 
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_fwd_sm90": "flash_fwd_sm90.cu",
-           "flash_bwd": "flash_bwd.cu", "sqdist": "sqdist.cu", "qmm": "qmm.cu"}
+           "flash_bwd": "flash_bwd.cu", "flash_bwd_sm90": "flash_bwd_sm90.cu",
+           "sqdist": "sqdist.cu", "qmm": "qmm.cu"}
 _INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

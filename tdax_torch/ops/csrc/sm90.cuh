@@ -206,6 +206,34 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
 }
 
 #undef SM90_M64N128K16_SS
+
+#define SM90_M64N64K16_SS(acc, zero)                                                       \
+  asm volatile(                                                                            \
+      "{\n"                                                                                \
+      ".reg .pred p;\n"                                                                    \
+      "setp.ne.b32 p, %34, 0;\n"                                                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "                              \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "            \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "  \
+      "%32, %33, p, 1, 1, 0, 0;\n"                                                         \
+      "}\n"                                                                                \
+      : acc(d, 0), acc(d, 8), acc(d, 16), acc(d, 24)                                       \
+      : "l"(da), "l"(db), "r"(zero ? 0 : 1))
+
+// d[32] = A[64 x 16] B[16 x 64]: A and B from shared memory, both K-major
+// (the backward's S = Q K^T and dP = dO V^T over 64-key or 64-row tiles).
+// Writes d without reading it.
+__device__ __forceinline__ void wgmma_m64n64k16_ss_first(float (&d)[32], uint64_t da,
+                                                         uint64_t db) {
+  SM90_M64N64K16_SS(SM90_OUT8, true);
+}
+
+// d[32] += A[64 x 16] B[16 x 64], as above
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db) {
+  SM90_M64N64K16_SS(SM90_ACC8, false);
+}
+
+#undef SM90_M64N64K16_SS
 #undef SM90_OUT8
 
 // d[64] += A[64 x 16] B[16 x 128]: A from registers (the bf16 fragments

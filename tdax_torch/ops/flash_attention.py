@@ -16,10 +16,14 @@ raises.  On an H100 the tensor cores bound the forward at the ViT's
 shape and memory at the decoder's and resampler's (the notes at the top
 of the CUDA sources give the bound and the designs).
 
-The backward kernels (``csrc/flash_bwd.cu``) replace tdax's
-``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (driven by ``_flash_bwd_impl``):
-each recomputes p = exp(s - lse) per tile from the forward's per-row
-log-normalizer, and gives dq, or dk and dv.  ``FlashAttention`` is the
+Two pairs of backward kernels replace tdax's ``_bwd_dq_kernel`` and
+``_bwd_dkv_kernel`` (driven by ``_flash_bwd_impl``): each recomputes p =
+exp(s - lse) per tile from the forward's per-row log-normalizer, and
+gives dq, or dk and dv.  ``csrc/flash_bwd_sm90.cu`` (TMA, an mbarrier
+ring, wgmma, a producer warp and two consumer warpgroups) takes bf16
+inputs that TMA can read with at least ``SM90_MIN_TQ`` query rows and
+keys; ``csrc/flash_bwd.cu`` (``mma.sync`` bf16, FMA f32) the rest.
+``_bwd_route`` decides as ``_route`` does.  ``FlashAttention`` is the
 ``torch.autograd.Function`` around them, the counterpart of tdax's
 ``custom_vjp`` in ``_build_flash``: its forward asks the forward kernel
 for lse too, its backward computes delta = rowsum(dO * O) in f32 (tdax
@@ -36,10 +40,12 @@ other.  It goes through ``FlashAttention`` only when autograd needs it
 the call is the plain forward launch.
 
 ``LAUNCHES`` (both forward kernels), ``LAUNCHES_SM90`` (the Hopper one
-alone), ``BWD_DQ_LAUNCHES`` and ``BWD_DKV_LAUNCHES`` count kernel
-launches (one per successful launch, and nowhere else), so a run can
-show that its attention and its gradients went through the kernels, and
-which forward kernel carried each path.
+alone), ``BWD_DQ_LAUNCHES`` and ``BWD_DKV_LAUNCHES`` (both backward
+kernels of each pair) and ``BWD_DQ_LAUNCHES_SM90`` and
+``BWD_DKV_LAUNCHES_SM90`` (the Hopper ones alone) count kernel launches
+(one per successful launch, and nowhere else), so a run can show that
+its attention and its gradients went through the kernels, and which
+kernel carried each path.
 """
 
 from __future__ import annotations
@@ -56,6 +62,8 @@ LAUNCHES = 0
 LAUNCHES_SM90 = 0
 BWD_DQ_LAUNCHES = 0
 BWD_DKV_LAUNCHES = 0
+BWD_DQ_LAUNCHES_SM90 = 0
+BWD_DKV_LAUNCHES_SM90 = 0
 
 _C_TAIL = [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int]  # causal, scale, dtype, vec
 _C_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 13
@@ -66,9 +74,13 @@ _C_BWD_DQ_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_lon
                       + _C_TAIL + [ctypes.c_void_p])
 _C_BWD_DKV_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 16
                        + _C_TAIL + [ctypes.c_void_p])
+_C_BWD_SM90_TAIL = [ctypes.c_longlong] * 13 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+_C_BWD_SM90_DQ_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + _C_BWD_SM90_TAIL
+_C_BWD_SM90_DKV_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + _C_BWD_SM90_TAIL
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# fewest query rows for the Hopper kernel: below it a 128-row q tile is
-# mostly padding (the decode step has one row)
+# fewest query rows for the Hopper kernels (and, in the backward, fewest
+# keys): below it a 128-row block is mostly padding (the decode step has
+# one row)
 SM90_MIN_TQ = 64
 
 
@@ -232,6 +244,28 @@ def _route(q, k, v) -> str:
     return "sm90"
 
 
+def _bwd_route(q, k, v, do) -> str:
+    """Which backward kernels take these inputs: ``"sm90"`` for bf16 q, k,
+    v and dO that TMA can read (``_vectorizable``; no stride 0) with at
+    least ``SM90_MIN_TQ`` query rows and keys, ``"mma"`` for everything
+    else.  hd 104 (the ViT's) takes the Hopper kernels, zero-filled to 128
+    columns."""
+    if min(q.shape[1], k.shape[1]) < SM90_MIN_TQ or not _vectorizable(q, k, v, do):
+        return "mma"
+    if any(s == 0 for x in (q, k, v, do) for s in x.stride()[:3]):
+        return "mma"
+    return "sm90"
+
+
+def _bwd_kernel(q, k, v, do, forced: str | None) -> str:
+    """The route, or the private ``_kernel`` choice of the wrappers:
+    ``"mma"`` always takes, ``"sm90"`` only inputs the route sends there."""
+    route = _bwd_route(q, k, v, do)
+    if forced not in (None, "mma", route):
+        raise ValueError(f"flash backward: the {forced} kernel does not take these inputs")
+    return forced or route
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The built kernel library, with its C signatures declared."""
@@ -268,6 +302,21 @@ def _bwd_library() -> ctypes.CDLL:
     lib.tdax_flash_bwd_dq.restype = ctypes.c_int
     lib.tdax_flash_bwd_dkv.argtypes = _C_BWD_DKV_ARGTYPES
     lib.tdax_flash_bwd_dkv.restype = ctypes.c_int
+    lib.tdax_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.tdax_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _bwd_sm90_library() -> ctypes.CDLL:
+    """The built Hopper backward library, with its C signatures declared."""
+    from tdax_torch.ops._build import load
+
+    lib = load("flash_bwd_sm90")
+    lib.tdax_flash_bwd_dq_sm90.argtypes = _C_BWD_SM90_DQ_ARGTYPES
+    lib.tdax_flash_bwd_dq_sm90.restype = ctypes.c_int
+    lib.tdax_flash_bwd_dkv_sm90.argtypes = _C_BWD_SM90_DKV_ARGTYPES
+    lib.tdax_flash_bwd_dkv_sm90.restype = ctypes.c_int
     lib.tdax_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tdax_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -336,48 +385,64 @@ def flash_attention(q, k, v, bias, causal: bool, return_lse: bool = False, *,
     return (out, lse) if return_lse else out
 
 
-def flash_bwd_dq(q, k, v, bias, lse, delta, do, causal: bool) -> torch.Tensor:
+def flash_bwd_dq(q, k, v, bias, lse, delta, do, causal: bool, *,
+                 _kernel: str | None = None) -> torch.Tensor:
     """Launch the CUDA dq kernel: dq [B, Tq, nh, hd] in q.dtype, from q,
     k, v, bias as the forward took them, lse and delta [B, nh, Tq] f32
-    and dO like q.  Raises on any input the kernel does not take."""
-    global BWD_DQ_LAUNCHES
+    and dO like q.  ``_bwd_route`` picks the kernel; the private
+    ``_kernel="mma"`` forces ``flash_bwd.cu``.  Raises on any input the
+    kernel does not take."""
+    global BWD_DQ_LAUNCHES, BWD_DQ_LAUNCHES_SM90
     _check_bwd(q, k, v, bias, lse, delta, do)
-    lib = _bwd_library()
+    route = _bwd_kernel(q, k, v, do, _kernel)
     b, tq, nh, hd = q.shape
     dq = torch.empty((b, tq, nh, hd), dtype=q.dtype, device=q.device)
+    sm90 = route == "sm90"
+    lib = _bwd_sm90_library() if sm90 else _bwd_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.tdax_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), bias.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            b, tq, k.shape[1], nh, hd, *_strides(q, k, v, do, dq),
-            bias.stride(0), int(causal), 1.0 / math.sqrt(hd),
-            _DTYPE_CODE[q.dtype], int(_vectorizable(q, k, v, do)), stream)
-    _raise_on(rc, lib, "flash_bwd_dq")
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), bias.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, tq, k.shape[1], nh, hd)
+        if sm90:
+            rc = lib.tdax_flash_bwd_dq_sm90(*args, *_strides(q, k, v, do), bias.stride(0),
+                                            int(causal), 1.0 / math.sqrt(hd), stream)
+        else:
+            rc = lib.tdax_flash_bwd_dq(*args, *_strides(q, k, v, do, dq), bias.stride(0),
+                                       int(causal), 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype],
+                                       int(_vectorizable(q, k, v, do)), stream)
+    _raise_on(rc, lib, f"flash_bwd_dq ({route})")
     BWD_DQ_LAUNCHES += 1
+    BWD_DQ_LAUNCHES_SM90 += int(sm90)
     return dq
 
 
-def flash_bwd_dkv(q, k, v, bias, lse, delta, do, causal: bool):
+def flash_bwd_dkv(q, k, v, bias, lse, delta, do, causal: bool, *, _kernel: str | None = None):
     """Launch the CUDA dk/dv kernel: (dk, dv), each [B, Tk, nh, hd] in
-    q.dtype.  Inputs as ``flash_bwd_dq``."""
-    global BWD_DKV_LAUNCHES
+    q.dtype.  Inputs and ``_kernel`` as ``flash_bwd_dq``."""
+    global BWD_DKV_LAUNCHES, BWD_DKV_LAUNCHES_SM90
     _check_bwd(q, k, v, bias, lse, delta, do)
-    lib = _bwd_library()
+    route = _bwd_kernel(q, k, v, do, _kernel)
     b, tq, nh, hd = q.shape
     tk = k.shape[1]
     dk = torch.empty((b, tk, nh, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
+    sm90 = route == "sm90"
+    lib = _bwd_sm90_library() if sm90 else _bwd_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.tdax_flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), bias.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, tq, tk, nh, hd, *_strides(q, k, v, do, dk),
-            bias.stride(0), int(causal), 1.0 / math.sqrt(hd),
-            _DTYPE_CODE[q.dtype], int(_vectorizable(q, k, v, do)), stream)
-    _raise_on(rc, lib, "flash_bwd_dkv")
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), bias.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                b, tq, tk, nh, hd)
+        if sm90:
+            rc = lib.tdax_flash_bwd_dkv_sm90(*args, *_strides(q, k, v, do), bias.stride(0),
+                                             int(causal), 1.0 / math.sqrt(hd), stream)
+        else:
+            rc = lib.tdax_flash_bwd_dkv(*args, *_strides(q, k, v, do, dk), bias.stride(0),
+                                        int(causal), 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype],
+                                        int(_vectorizable(q, k, v, do)), stream)
+    _raise_on(rc, lib, f"flash_bwd_dkv ({route})")
     BWD_DKV_LAUNCHES += 1
+    BWD_DKV_LAUNCHES_SM90 += int(sm90)
     return dk, dv
 
 

@@ -11,7 +11,9 @@ Tolerances: f32 within 1e-5 of the magnitude of the summed terms
 (``fa_terms``); bf16 within 2^-7 |plain| + 1e-3 max|plain| (the output's
 rounding) plus 2^-8 of the summed terms' magnitude (each ds or p is
 rounded to bf16 before its product, and may land one bf16 step from the
-plain version's where the two f32 values straddle a rounding edge).
+plain version's where the two f32 values straddle a rounding edge).  The
+Hopper kernels (``flash_bwd_sm90.cu``) are held to the same bf16 bound:
+their ex2 on (s - lse) log2 e is ~2^-22 from expf, far inside a bf16 step.
 """
 
 import pytest
@@ -63,6 +65,25 @@ def _limit(want, dtype, terms):
     return terms * 1e-5 + 1e-30
 
 
+def _assert_matches_plain(q, k, v, bias, lse, delta, do, causal, got):
+    want_dq = fa.flash_bwd_dq_plain(q, k, v, bias, lse, delta, do, causal)
+    want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, bias, lse, delta, do, causal)
+    terms = fa_terms(q, k, v, bias, lse, delta, do, causal)
+    for name, g, want in zip(("dq", "dk", "dv"), got, (want_dq, want_dk, want_dv)):
+        assert g.dtype == q.dtype and g.shape == want.shape
+        err = (g.float() - want.float()).abs()
+        excess = float((err - _limit(want, q.dtype, terms[name])).max())
+        assert excess <= 0, f"{name}: max |kernel - plain| {float(err.max()):.3e}"
+
+
+_COUNTERS = ("BWD_DQ_LAUNCHES", "BWD_DKV_LAUNCHES", "BWD_DQ_LAUNCHES_SM90",
+             "BWD_DKV_LAUNCHES_SM90")
+
+
+def _counts():
+    return [getattr(fa, n) for n in _COUNTERS]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tq,tk,nh,hd,causal", [
     (40, 40, 2, 16, True),
@@ -83,14 +104,74 @@ def test_kernels_match_plain(device, dtype, tq, tk, nh, hd, causal):
     torch.cuda.synchronize()
     assert (fa.LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES) == tuple(
         c + 1 for c in counts)
-    want_dq = fa.flash_bwd_dq_plain(q, k, v, bias, lse, delta, do, causal)
-    want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, bias, lse, delta, do, causal)
-    terms = fa_terms(q, k, v, bias, lse, delta, do, causal)
-    for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv)):
-        assert got.dtype == dtype and got.shape == want.shape
-        err = (got.float() - want.float()).abs()
-        excess = float((err - _limit(want, dtype, terms[name])).max())
-        assert excess <= 0, f"{name}: max |kernel - plain| {float(err.max()):.3e}"
+    _assert_matches_plain(q, k, v, bias, lse, delta, do, causal, (dq, dk, dv))
+
+
+# (Tq, Tk, nh, hd, causal, v a view of a fused kv projection): the shapes
+# the route sends to flash_bwd_sm90.cu, hd 64 and 128, causal and not,
+# Tq and Tk off the 64- and 128-row tiles, hd 40 and 104 zero-filled
+SM90_CASES = [
+    (128, 128, 2, 128, True, True),
+    (200, 333, 2, 128, False, False),
+    (333, 200, 2, 128, True, False),
+    (257, 190, 2, 64, True, True),
+    (64, 64, 1, 64, False, False),
+    (77, 131, 3, 40, True, False),
+    (130, 70, 2, 104, True, False),
+]
+
+
+def _sm90_inputs(device, tq, tk, nh, hd, fused_v, seed):
+    q, k, v, do, bias = _inputs(device, torch.bfloat16, 2, tq, tk, nh, hd, seed=seed)
+    if fused_v:
+        kv = torch.cat([k.reshape(2, tk, nh * hd), v.reshape(2, tk, nh * hd)], dim=-1)
+        v = kv[..., nh * hd:].view(2, tk, nh, hd)
+        assert not v.is_contiguous()
+    return q, k, v, do, bias
+
+
+@pytest.mark.parametrize("kernel", ["sm90", "mma"])
+@pytest.mark.parametrize("tq,tk,nh,hd,causal,fused_v", SM90_CASES)
+def test_bf16_backward_at_hopper_shapes_matches_plain(device, kernel, tq, tk, nh, hd, causal,
+                                                      fused_v):
+    """Each kernel pair the route or ``_kernel="mma"`` picks, against the
+    plain versions; the counters move as the choice says."""
+    q, k, v, do, bias = _sm90_inputs(device, tq, tk, nh, hd, fused_v, seed=3)
+    assert fa._bwd_route(q, k, v, do) == "sm90"
+    o, lse = fa.flash_attention(q, k, v, bias, causal, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    forced = None if kernel == "sm90" else "mma"
+    before = _counts()
+    dq = fa.flash_bwd_dq(q, k, v, bias, lse, delta, do, causal, _kernel=forced)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, bias, lse, delta, do, causal, _kernel=forced)
+    torch.cuda.synchronize()
+    sm90 = int(kernel == "sm90")
+    assert [a - b for a, b in zip(_counts(), before)] == [1, 1, sm90, sm90]
+    _assert_matches_plain(q, k, v, bias, lse, delta, do, causal, (dq, dk, dv))
+
+
+def test_sm90_backward_is_bitwise_deterministic(device):
+    """No atomics: the same inputs give the same bits (train_loop's
+    bitwise resume depends on it)."""
+    q, k, v, do, bias = _sm90_inputs(device, 512, 512, 4, 128, True, seed=4)
+    o, lse = fa.flash_attention(q, k, v, bias, True, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    runs = [(fa.flash_bwd_dq(q, k, v, bias, lse, delta, do, True),
+             *fa.flash_bwd_dkv(q, k, v, bias, lse, delta, do, True)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_forcing_sm90_on_inputs_it_does_not_take_raises(device):
+    q, k, v, do, bias = _inputs(device, torch.float32, 1, 128, 128, 2, 64)
+    rows = torch.zeros((1, 2, 128), device=device)
+    before = _counts()
+    with pytest.raises(ValueError, match="does not take"):
+        fa.flash_bwd_dq(q, k, v, bias, rows, rows, do, False, _kernel="sm90")
+    with pytest.raises(ValueError, match="does not take"):
+        fa.flash_bwd_dkv(q, k, v, bias, rows, rows, do, False, _kernel="sm90")
+    assert _counts() == before
 
 
 def test_function_through_the_kernels_matches_the_cpu(device):

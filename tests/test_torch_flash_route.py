@@ -87,14 +87,16 @@ def test_a_stride_of_zero_takes_the_mma_kernel():
 
 
 def test_library_hash_covers_the_headers_a_source_includes(tmp_path, monkeypatch):
-    """An edit to sm90.cuh must give the sm90 library a new name (else a
+    """An edit to sm90.cuh must give the sm90 libraries new names (else a
     stale build would load); an edit to a header the source does not
     include must not."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     before = {name: _build._target(name) for name in _build.SOURCES}
-    assert '#include "sm90.cuh"' in (csrc / "flash_fwd_sm90.cu").read_text()
+    users = {n for n, src in _build.SOURCES.items()
+             if '#include "sm90.cuh"' in (csrc / src).read_text()}
+    assert {"flash_fwd_sm90", "flash_bwd_sm90"} <= users
 
     (csrc / "other.cuh").write_text("// not included\n")
     assert {name: _build._target(name) for name in _build.SOURCES} == before
@@ -102,9 +104,9 @@ def test_library_hash_covers_the_headers_a_source_includes(tmp_path, monkeypatch
     header = csrc / "sm90.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {name: _build._target(name) for name in _build.SOURCES}
-    assert after["flash_fwd_sm90"] != before["flash_fwd_sm90"]
-    assert {n: p for n, p in after.items() if n != "flash_fwd_sm90"} == {
-        n: p for n, p in before.items() if n != "flash_fwd_sm90"}
+    assert all(after[n] != before[n] for n in users)
+    assert {n: p for n, p in after.items() if n not in users} == {
+        n: p for n, p in before.items() if n not in users}
 
 
 def test_library_hash_covers_the_source(tmp_path, monkeypatch):
