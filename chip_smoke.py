@@ -11,9 +11,10 @@ and runs these phases, printing JSON lines:
             versions; builds every kernel of the port from the sources
             in the checkout (one nvcc per source, all started together,
             and the native Rips engine's g++ beside them); prints ptxas's
-            register, spill, C7508 and setmaxnreg lines and fails if
-            flash_fwd_sm90.cu or flash_bwd_sm90.cu spills or has
-            setmaxnreg ignored (C7508).
+            register, spill, C7508 and setmaxnreg lines (and, for the
+            Hopper sources, ptxas's wgmma warnings C75xx) and fails if
+            flash_fwd_sm90.cu, flash_bwd_sm90.cu or qmm_sm90.cu spills
+            or has setmaxnreg ignored (C7508).
 2. kernels  each kernel's wrapper against its plain PyTorch version on
             the card.  flash_fwd, both kernels: the route must send the
             capture's three attention shapes (decoder, ViT, resampler;
@@ -30,7 +31,14 @@ and runs these phases, printing JSON lines:
             sqdist: the tests/test_scale_ops.py shapes, a ragged case
             with n and d odd, and the scale path's [10000, 4096].  qmm:
             bf16 at every (M, K, N) of the int8 capture and of a decode
-            step (QMM_SITES), f32 at small ragged shapes.  Raises on a
+            step (QMM_SITES); the route must send every capture site but
+            vit.patch_w (K = 588) to qmm_sm90.cu, which is checked and
+            timed there and on qmm.cu (forced by the private
+            _kernel="mma"), the counters moving as the choice says; the
+            decode sites and vit.patch_w stay on qmm.cu.  Ragged bf16
+            shapes (QMM_RAGGED_SHAPES: M, N, K off the 256 x 128 x 64
+            tile) on both kernels, untimed; f32 at small ragged shapes on
+            qmm.cu.  Raises on a
             case outside its tolerance.  Times the kernel, the plain
             version and one PyTorch library call (SDPA; torch.cdist
             against the Euclidean wrapper; torch.matmul on the weight
@@ -58,13 +66,17 @@ and runs these phases, printing JSON lines:
 4b. int8     the capture's own bf16 weights quantized on the card, then
             extract_activations with ExtractConfig(quantize_int8=True):
             the [32, 48, 4096] capture, finite, tdax's schemas, qmm
-            launches 3 x (199 + 160) = 1077 and flash 243, all sm90, minimum
+            launches 3 x (199 + 160) = 1077, 3 x 358 = 1074 of them on
+            qmm_sm90.cu and the 3 vit.patch_w on qmm.cu, and flash 243,
+            all sm90, minimum
             cosine per captured vector > 0.98 against the bf16 capture;
             the same profile of one batch.
 4c. generate init_params_quantized(QwenVLConfig(), "cuda", seed=0), the
             first 16 samples' prompts (images, ToyTokenizer, padded to
             320), greedy generate of 32 tokens with bf16 caches and with
             kv_int8: ids in range, qmm launches 360 + 31 x 161 = 5351
+            (the prefill's 358 on qmm_sm90.cu, its lm_head and every
+            decode step's on qmm.cu)
             and flash 81 + 31 x 32 = 1073 each, the prefill's 81 on the
             sm90 kernel and the decode steps' 992 on the mma kernel
             (Tq = 1); the prefill's and the
@@ -121,8 +133,8 @@ and runs these phases, printing JSON lines:
             trajectory, peak memory,
             the share of 989 TFLOP/s (bench_train.py's convention), and a
             profiled step's device time by kind.
-10. the kernels line (flash_fwd and flash_bwd_* name both sources and
-            the launches of each kernel on each path), the nvidia-smi
+10. the kernels line (flash_fwd, flash_bwd_* and qmm name both sources
+            and the launches of each kernel on each path), the nvidia-smi
             line, then the last
             line {"ok": true, "device": {...}}.  Kernel times are
             reported, never gated: only correctness and launch counts
@@ -192,6 +204,12 @@ QMM_SITES = [
     ("decode.lm_head", 16, 4096, 151936, 0, 1),
 ]
 QMM_PER_CAPTURE_BATCH, QMM_PER_DECODE_STEP = 359, 161
+# of a capture batch's (and of generate's prefill's) 359 products, all but
+# vit.patch_w (K = 588, rows TMA cannot read) take qmm_sm90.cu
+QMM_SM90_PER_CAPTURE_BATCH = 358
+# ragged bf16 products held on both kernels (not timed): M, N and K not
+# multiples of the Hopper kernel's 256 x 128 x 64 tile
+QMM_RAGGED_SHAPES = [(200, 1000, 1664), (129, 72, 272), (1000, 4104, 4112)]
 # int8 capture against the bf16 capture of the same weights: tdax's gate
 # (tests/test_quantize.py:60)
 INT8_MIN_COSINE = 0.98
@@ -280,7 +298,7 @@ TRAIN_LOSS_TOL = 0.1
 
 
 # the sources ptxas must compile without a spill and with setmaxnreg kept
-SM90_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90")
+SM90_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "qmm_sm90")
 
 
 def emit(obj) -> None:
@@ -349,7 +367,7 @@ def phase_env() -> dict:
     for name in SM90_SOURCES:
         sm90_log = (_build.BUILD_DIR / f"{name}.log").read_text()
         sm90_regs[name] = [ln.strip() for ln in sm90_log.splitlines()
-                           if any(w in ln for w in ("registers", "spill", "C7508", "setmaxnreg"))]
+                           if any(w in ln for w in ("registers", "spill", "C75", "setmaxnreg"))]
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", sm90_log)]
         if "C7508" in sm90_log or "setmaxnreg ignored" in sm90_log or any(spills):
             raise AssertionError(f"{_build.SOURCES[name]}: ptxas ignored setmaxnreg or "
@@ -546,10 +564,18 @@ def qmm_bound(m, k, n, x_bytes):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _qmm_check(qm, x, w, label) -> float:
-    """The kernel against the plain version; max |kernel - plain|."""
+def _qmm_check(qm, x, w, label, kernel=None) -> float:
+    """The kernel the route picks (or ``kernel``, forced) against the
+    plain version; max |kernel - plain|.  The launch counters must move
+    as the choice says."""
     import torch
-    got = qm.quant_matmul(x, w["q"], w["s"])
+    x2 = x.reshape(-1, x.shape[-1])
+    route = kernel or qm._route(x2, w["q"], w["s"])
+    before = (qm.LAUNCHES, qm.LAUNCHES_SM90)
+    got = qm.quant_matmul(x, w["q"], w["s"], _kernel=kernel)
+    if (qm.LAUNCHES, qm.LAUNCHES_SM90) != (before[0] + 1, before[1] + (route == "sm90")):
+        raise AssertionError(f"qmm {label}: the launch counters did not move as the {route} "
+                             "kernel says")
     want = qm.quant_matmul_plain(x, w["q"], w["s"])
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != x.dtype:
@@ -571,8 +597,10 @@ def _qmm_check(qm, x, w, label) -> float:
 
 
 def phase_qmm() -> dict:
-    """The int8 matmul kernel against its plain version at every site of
-    the int8 capture and of a decode step, on the card."""
+    """The int8 matmul kernels against their plain version at every site of
+    the int8 capture and of a decode step, on the card: the kernel the
+    route picks, and qmm.cu (forced) where that is qmm_sm90.cu, both
+    timed; ragged shapes on both, untimed; f32 on qmm.cu."""
     import torch
     from tdax_torch.models.qwen_vl.quantize import quantize_weight
     from tdax_torch.ops import quant_matmul as qm
@@ -588,19 +616,43 @@ def phase_qmm() -> dict:
     emit({"phase": "kernel_qmm_f32", "shapes": QMM_F32_SHAPES, "max_abs_err": f32_errs,
           "tolerance": f"{QMM_F32_REL_TOL} * (|x| @ |q| * s)"})
 
+    ragged = []
+    for m, k, n in QMM_RAGGED_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=device, dtype=torch.bfloat16)
+        w = quantize_weight(torch.randn((k, n), generator=gen, device=device) / math.sqrt(k))
+        route = qm._route(x, w["q"], w["s"])
+        if route != "sm90":
+            raise AssertionError(f"qmm ragged {(m, k, n)}: routed to {route}, not sm90")
+        ragged.append({"shape": [m, k, n], "route": route,
+                       "max_abs_err": _qmm_check(qm, x, w, f"ragged {(m, k, n)}"),
+                       "max_abs_err_mma": _qmm_check(qm, x, w, f"ragged {(m, k, n)} (mma)",
+                                                     kernel="mma")})
+    emit({"phase": "kernel_qmm_ragged", "cases": ragged,
+          "tolerance": f"{QMM_BF16_RTOL} |plain| + {QMM_BF16_ATOL_OF_MAX} max|plain|"})
+
     sites = []
     for name, m, k, n, per_batch, per_step in QMM_SITES:
         x = torch.randn((m, k), generator=gen, device=device, dtype=torch.bfloat16)
         w = quantize_weight(torch.randn((k, n), generator=gen, device=device) / math.sqrt(k))
+        route = qm._route(x, w["q"], w["s"])
+        want_route = "sm90" if m >= qm.SM90_MIN_M and name != "vit.patch_w" else "mma"
+        if route != want_route:
+            raise AssertionError(f"qmm {name}: routed to {route}, expected {want_route}")
         max_abs = _qmm_check(qm, x, w, name)
         dense = (w["q"].float() * w["s"]).to(torch.bfloat16)  # the library's operand
         iters = 50 if m <= 64 else 10
-        site = {"site": name, "shape": [m, k, n], "dtype": "bfloat16",
+        site = {"site": name, "shape": [m, k, n], "dtype": "bfloat16", "route": route,
                 "calls_per_capture_batch": per_batch, "calls_per_decode_step": per_step,
                 "max_abs_err": max_abs,
-                "ms": cuda_ms(lambda: qm.quant_matmul(x, w["q"], w["s"]), iters=iters),
-                "plain_ms": cuda_ms(lambda: qm.quant_matmul_plain(x, w["q"], w["s"]), iters=3),
-                "library_ms": cuda_ms(lambda: torch.matmul(x, dense), iters=iters)}
+                "ms": cuda_ms(lambda: qm.quant_matmul(x, w["q"], w["s"]), iters=iters)}
+        if route == "sm90":
+            site["max_abs_err_mma"] = _qmm_check(qm, x, w, f"{name} (mma)", kernel="mma")
+            site["ms_mma"] = cuda_ms(lambda: qm.quant_matmul(x, w["q"], w["s"], _kernel="mma"),
+                                     iters=iters)
+        else:
+            site["max_abs_err_mma"], site["ms_mma"] = max_abs, site["ms"]
+        site["plain_ms"] = cuda_ms(lambda: qm.quant_matmul_plain(x, w["q"], w["s"]), iters=3)
+        site["library_ms"] = cuda_ms(lambda: torch.matmul(x, dense), iters=iters)
         site["bound_ms"], site["bound_by"] = qmm_bound(m, k, n, 2)
         site["achieved_tflops"] = 2.0 * m * n * k / (site["ms"] * 1e-3) / 1e12
         site["achieved_weight_gb_per_s"] = k * n / (site["ms"] * 1e-3) / 1e9
@@ -608,7 +660,10 @@ def phase_qmm() -> dict:
         sites.append(site)
         del x, w, dense
         torch.cuda.empty_cache()
-    return {"sites": sites, "max_abs_err": max(max(s["max_abs_err"] for s in sites), *f32_errs)}
+    errs = [s["max_abs_err"] for s in sites] + [r["max_abs_err"] for r in ragged]
+    errs_mma = [s["max_abs_err_mma"] for s in sites] + [r["max_abs_err_mma"] for r in ragged]
+    return {"sites": sites, "ragged": ragged, "max_abs_err": max(*errs, *f32_errs),
+            "max_abs_err_mma": max(*errs_mma, *f32_errs)}
 
 
 def scale_cloud():
@@ -1048,7 +1103,7 @@ def phase_capture(tmp: Path, smi: str):
     ecfg = ExtractConfig(batch_size=16)
     out_path = str(tmp / "data" / "all_activations.pt")
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = fa.LAUNCHES_SM90 = qm.LAUNCHES = 0
+    fa.LAUNCHES = fa.LAUNCHES_SM90 = qm.LAUNCHES = qm.LAUNCHES_SM90 = 0
     t0 = time.perf_counter()
     results = extract_activations(metadata, out_path, cfg, ecfg, params=params,
                                   device="cuda", verbose=False)
@@ -1141,6 +1196,7 @@ def _device_time_by_kind(prof) -> dict:
     kinds = {"qmm": 0.0, "flash": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
              "gemm": 0.0, "other": 0.0}
     top = []
+    qmm_sm90_us = 0.0
     for ev in prof.key_averages():
         # a record_function range (torch.optim's "Optimizer.step#...") shows
         # as a device event spanning its kernels: not a kernel of its own
@@ -1157,10 +1213,12 @@ def _device_time_by_kind(prof) -> dict:
                 "gemm" if any(w in name for w in ("gemm", "nvjet", "cutlass", "xmma")) else
                 "other")
         kinds[kind] += us / 1e3
+        qmm_sm90_us += us if "qmm_sm90" in name else 0.0
         top.append((us / 1e3, ev.count, ev.key[:90]))
     top.sort(reverse=True)
+    # qmm_ms holds both qmm kernels; qmm_sm90_ms the Hopper one's share of it
     return {"busy_ms": sum(kinds.values()), **{f"{k}_ms": v for k, v in kinds.items()},
-            "top_kernels_ms_count_name": top[:12]}
+            "qmm_sm90_ms": qmm_sm90_us / 1e3, "top_kernels_ms_count_name": top[:12]}
 
 
 def phase_profile(params, cfg, encoded, max_len, bs, smi, label) -> dict:
@@ -1253,18 +1311,20 @@ def phase_int8_capture(tmp: Path, smi: str, state: dict, bf16_peak: int) -> dict
     out_dir.mkdir(parents=True, exist_ok=True)
     out_path = str(out_dir / "all_activations.pt")
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = fa.LAUNCHES_SM90 = qm.LAUNCHES = 0
+    fa.LAUNCHES = fa.LAUNCHES_SM90 = qm.LAUNCHES = qm.LAUNCHES_SM90 = 0
     t0 = time.perf_counter()
     results = extract_activations(metadata, out_path, cfg, ecfg, params=params, device="cuda",
                                   verbose=False)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"qmm": qm.LAUNCHES, "flash_fwd": fa.LAUNCHES, "flash_fwd_sm90": fa.LAUNCHES_SM90}
+    launches = {"qmm": qm.LAUNCHES, "qmm_sm90": qm.LAUNCHES_SM90, "flash_fwd": fa.LAUNCHES,
+                "flash_fwd_sm90": fa.LAUNCHES_SM90}
     peak = torch.cuda.max_memory_allocated()
 
     acts, _ = _check_capture(out_path, metadata, results, "int8 capture")
     n_batches = math.ceil(len(metadata) / ecfg.batch_size)
     expected = {"qmm": n_batches * QMM_PER_CAPTURE_BATCH,
+                "qmm_sm90": n_batches * QMM_SM90_PER_CAPTURE_BATCH,
                 "flash_fwd": n_batches * (cfg.visual.layers + 1 + cfg.num_layers),
                 "flash_fwd_sm90": n_batches * (cfg.visual.layers + 1 + cfg.num_layers)}
     ref = state["acts"].astype(np.float64)
@@ -1334,8 +1394,11 @@ def phase_generate(smi: str, state: dict, fingerprint: list) -> dict:
     rows = torch.arange(b, device="cuda")
     t_max, n_steps = GEN_PROMPT_LEN + GEN_NEW_TOKENS, GEN_NEW_TOKENS - 1
     # the prefill's attention on the sm90 kernel, the decode steps' (Tq = 1)
-    # on the mma kernel
+    # on the mma kernel; the prefill's int8 products as a capture batch's
+    # (358 on qmm_sm90.cu), its lm_head on the 16 last rows and every decode
+    # step's (M = 16) on qmm.cu
     expected = {"qmm": QMM_PER_CAPTURE_BATCH + 1 + n_steps * QMM_PER_DECODE_STEP,
+                "qmm_sm90": QMM_SM90_PER_CAPTURE_BATCH,
                 "flash_fwd": cfg.visual.layers + 1 + cfg.num_layers + n_steps * cfg.num_layers,
                 "flash_fwd_sm90": cfg.visual.layers + 1 + cfg.num_layers}
 
@@ -1343,13 +1406,13 @@ def phase_generate(smi: str, state: dict, fingerprint: list) -> dict:
     for kv_int8 in (False, True):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.LAUNCHES = fa.LAUNCHES_SM90 = qm.LAUNCHES = 0
+        fa.LAUNCHES = fa.LAUNCHES_SM90 = qm.LAUNCHES = qm.LAUNCHES_SM90 = 0
         t0 = time.perf_counter()
         toks = generate(params, cfg, ids, mask, max_new_tokens=GEN_NEW_TOKENS, images=images,
                         image_positions=pos, kv_int8=kv_int8)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = {"qmm": qm.LAUNCHES, "flash_fwd": fa.LAUNCHES,
+        launches = {"qmm": qm.LAUNCHES, "qmm_sm90": qm.LAUNCHES_SM90, "flash_fwd": fa.LAUNCHES,
                     "flash_fwd_sm90": fa.LAUNCHES_SM90}
         peak = torch.cuda.max_memory_allocated()
         if toks.shape != (b, GEN_NEW_TOKENS) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
@@ -1896,10 +1959,11 @@ def phase_train(smi: str, seed: int) -> dict:
 
 
 def _qmm_totals(sites, calls_key) -> dict:
-    """Kernel, plain, library and bound ms summed over the sites of one
-    capture batch or one decode step, each weighted by its calls."""
+    """Kernel (as routed, and all on qmm.cu), plain, library and bound ms
+    summed over the sites of one capture batch or one decode step, each
+    weighted by its calls."""
     out = {key: sum(s[key] * s[calls_key] for s in sites)
-           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+           for key in ("ms", "ms_mma", "plain_ms", "bound_ms", "library_ms")}
     by_ops = sum(s["bound_ms"] * s[calls_key] for s in sites if s["bound_by"] == "operations")
     out["bound_by"] = "operations" if by_ops >= out["bound_ms"] - by_ops else "bytes"
     return out
@@ -2025,14 +2089,25 @@ def main(argv=None) -> int:
     }, {
         "name": "qmm",
         "route": "cuda",
-        "source": "tdax_torch/ops/csrc/qmm.cu",
+        "source": "tdax_torch/ops/csrc/qmm_sm90.cu",
+        "sources": {"sm90": "tdax_torch/ops/csrc/qmm_sm90.cu",
+                    "mma": "tdax_torch/ops/csrc/qmm.cu"},
         "replaces": "tdax/ops/quant_matmul.py:40",
         "launches": int8["launches"]["qmm"],
         "launches_generate": gen["runs"][0]["launches"]["qmm"],
+        "launches_by_kernel": {
+            "int8_capture": {"sm90": int8["launches"]["qmm_sm90"],
+                             "mma": int8["launches"]["qmm"] - int8["launches"]["qmm_sm90"]},
+            "generate": {"sm90": gen["runs"][0]["launches"]["qmm_sm90"],
+                         "mma": gen["runs"][0]["launches"]["qmm"]
+                         - gen["runs"][0]["launches"]["qmm_sm90"]}},
         "max_abs_err": qmm["max_abs_err"],
+        "max_abs_err_mma": qmm["max_abs_err_mma"],
         **_qmm_totals(qmm["sites"], "calls_per_capture_batch"),
-        "per": f"one int8 capture batch of 16 ({QMM_PER_CAPTURE_BATCH} calls); library_ms is "
-               "torch.matmul on the same weight pre-converted to bf16",
+        "per": f"one int8 capture batch of 16 ({QMM_PER_CAPTURE_BATCH} calls: "
+               f"{QMM_SM90_PER_CAPTURE_BATCH} on qmm_sm90.cu and vit.patch_w on qmm.cu, as "
+               "the route picks); ms_mma is every call on qmm.cu; library_ms is torch.matmul "
+               "on the same weight pre-converted to bf16",
         "decode_step": {"calls": QMM_PER_DECODE_STEP,
                         **_qmm_totals(qmm["sites"], "calls_per_decode_step")},
     }]})

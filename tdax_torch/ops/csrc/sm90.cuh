@@ -2,11 +2,12 @@
 //
 // - mbarrier: init, arrive, arrive with an expected transaction count,
 //   wait on a phase parity;
-// - TMA: a 4-D tiled load into shared memory that completes on an
-//   mbarrier, a 4-D tiled store from shared memory, and the host-side
-//   encoding of a bf16 tensor map (cuTensorMapEncodeTiled, fetched from
-//   the driver through the runtime's cudaGetDriverEntryPointByVersion, so
-//   the library links no -lcuda);
+// - TMA: 2-D and 4-D tiled loads into shared memory that complete on an
+//   mbarrier, 2-D and 4-D tiled stores from shared memory, and the host-side
+//   encoding of tensor maps (a 4-D bf16 one and a 2-D one of any element
+//   type; cuTensorMapEncodeTiled, fetched from the driver through the
+//   runtime's cudaGetDriverEntryPointByVersion, so the library links no
+//   -lcuda);
 // - wgmma: the shared-memory matrix descriptor for 128-byte swizzled
 //   tiles, fence / commit / wait, and the bf16 products with f32
 //   accumulators that the kernels use;
@@ -82,6 +83,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// box at coordinates (c0 innermost, c1) into shared memory; completes its
+// bytes on `bar`.  Out-of-bounds elements arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // fetch a tensor map into the cache before its first use
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
@@ -96,6 +108,16 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// shared memory to the box at (c0 innermost, c1), as tma_store_4d
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -206,6 +228,37 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
 }
 
 #undef SM90_M64N128K16_SS
+
+#define SM90_M64N128K16_SS_TB(acc, zero)                                                   \
+  asm volatile(                                                                            \
+      "{\n"                                                                                \
+      ".reg .pred p;\n"                                                                    \
+      "setp.ne.b32 p, %66, 0;\n"                                                           \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "                             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "            \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "   \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "   \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "  \
+      "%64, %65, p, 1, 1, 0, 1;\n"                                                         \
+      "}\n"                                                                                \
+      : acc(d, 0), acc(d, 8), acc(d, 16), acc(d, 24), acc(d, 32), acc(d, 40), acc(d, 48),  \
+        acc(d, 56)                                                                         \
+      : "l"(da), "l"(db), "r"(zero ? 0 : 1))
+
+// d[64] = A[64 x 16] B[16 x 128]: A and B from shared memory, A K-major,
+// B MN-major (the transpose bit; qmm_sm90.cu's bf16 weight tile [K rows,
+// N contiguous]).  Writes d without reading it.
+__device__ __forceinline__ void wgmma_m64n128k16_ss_tb_first(float (&d)[64], uint64_t da,
+                                                             uint64_t db) {
+  SM90_M64N128K16_SS_TB(SM90_OUT8, true);
+}
+
+// d[64] += A[64 x 16] B[16 x 128], as above
+__device__ __forceinline__ void wgmma_m64n128k16_ss_tb(float (&d)[64], uint64_t da, uint64_t db) {
+  SM90_M64N128K16_SS_TB(SM90_ACC8, false);
+}
+
+#undef SM90_M64N128K16_SS_TB
 
 #define SM90_M64N64K16_SS(acc, zero)                                                       \
   asm volatile(                                                                            \
@@ -329,6 +382,26 @@ inline cudaError_t encode_bf16_4d(CUtensorMap* map, const void* base, const uint
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), gdim, gstride,
                   box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 2-D tensor map of `type` over dim0 (innermost, contiguous) x dim1, dim1
+// `stride1` bytes apart, boxes of box0 x box1 elements, zeros out of
+// bounds.  TMA needs the base and stride1 16-byte aligned, box0 times the
+// element size a multiple of 16 bytes (at most 128 with the 128-byte
+// swizzle) and each box side at most 256.
+inline cudaError_t encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                             uint64_t dim0, uint64_t dim1, uint64_t stride1, uint32_t box0,
+                             uint32_t box1, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t gdim[2] = {dim0, dim1};
+  const cuuint64_t gstride[1] = {stride1};
+  const cuuint32_t box[2] = {box0, box1};
+  const cuuint32_t estride[2] = {1, 1};
+  CUresult r = fn(map, type, 2, const_cast<void*>(base), gdim, gstride, box, estride,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

@@ -1,26 +1,34 @@
-"""Weight-only int8 matrix product: the hand-written CUDA kernel and its
+"""Weight-only int8 matrix product: the hand-written CUDA kernels and their
 plain version.
 
-Counterpart of ``tdax/ops/quant_matmul.py``.  The kernel
-(``csrc/qmm.cu``) replaces the Pallas TPU kernel ``_qmm_kernel``
-(reached there as ``qdot`` -> ``quant_matmul`` -> ``_qmm_2d`` ->
-``_qmm_kernel``): x [M, K] bf16 or f32 times an int8 weight q [K, N],
-the int8 -> x-type convert inside the K loop, f32 accumulation, the
-per-output-channel scale s [N] f32 applied at the single write, one
-cast to x's type.  On an H100 the tensor cores bound it at the
-capture's row counts and reading the int8 weight bounds it at decode
-(see the note at the top of the CUDA source).
+Counterpart of ``tdax/ops/quant_matmul.py``.  Two kernels replace the
+Pallas TPU kernel ``_qmm_kernel`` (reached there as ``qdot`` ->
+``quant_matmul`` -> ``_qmm_2d`` -> ``_qmm_kernel``): x [M, K] bf16 or f32
+times an int8 weight q [K, N], the int8 -> x-type convert on chip, f32
+accumulation, the per-output-channel scale s [N] f32 applied at the
+single write, one cast to x's type.  ``csrc/qmm_sm90.cu`` (TMA, an
+mbarrier ring, the conversion in shared memory, wgmma, a producer
+warpgroup and two consumer warpgroups) takes bf16 products of at least
+``SM90_MIN_M`` rows that TMA can read: every int8 product of the capture
+and of ``generate``'s prefill but the ViT's patch embedding (K = 588).
+``csrc/qmm.cu`` (``mma.sync``) takes the rest: f32, the decode step,
+views TMA cannot read.  ``_route`` decides from the type, shapes, strides
+and alignment alone, before any launch.  On an H100 the tensor cores
+bound the product at the capture's row counts and reading the int8
+weight bounds it at decode (see the notes at the top of the CUDA
+sources).
 
 Where tdax takes the Pallas kernel only when asked (``TDAX_QMM=1`` on a
-TPU, bf16, K and N multiples of 128), the port takes its kernel for
-every int8 product on the card, at every shape: a shape it does not
-take raises, and nothing reroutes it.
+TPU, bf16, K and N multiples of 128), the port takes a kernel for every
+int8 product on the card, at every shape: a shape neither takes raises,
+a failed build or launch raises, and nothing reroutes it.
 
 ``quant_matmul_plain`` is the plain PyTorch version (tdax's XLA dequant
 path and the Pallas kernel's function), used for CPU tensors only;
-``quant_matmul`` launches the kernel on CUDA tensors or raises; ``qmm``
-dispatches on the device.  ``LAUNCHES`` counts kernel launches (one per
-successful launch, and nowhere else).
+``quant_matmul`` launches a kernel on CUDA tensors or raises; ``qmm``
+dispatches on the device.  ``LAUNCHES`` counts launches of both kernels
+and ``LAUNCHES_SM90`` of the Hopper one alone (one per successful
+launch, and nowhere else).
 """
 
 from __future__ import annotations
@@ -31,6 +39,12 @@ import functools
 import torch
 
 LAUNCHES = 0
+LAUNCHES_SM90 = 0
+
+# the fewest rows qmm_sm90.cu takes (its blocks have 256); below it
+# (decode, M = 16) qmm.cu's 16 x 32 tiling spreads the weight stream over
+# more SMs
+SM90_MIN_M = 128
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -52,6 +66,20 @@ def _library() -> ctypes.CDLL:
     lib.tdax_qmm.restype = ctypes.c_int
     lib.tdax_qmm_error_string.argtypes = [ctypes.c_int]
     lib.tdax_qmm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _sm90_library() -> ctypes.CDLL:
+    """The built Hopper kernel library, with its C signatures declared."""
+    from tdax_torch.ops._build import load
+
+    lib = load("qmm_sm90")
+    lib.tdax_qmm_sm90.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                                  + [ctypes.c_longlong, ctypes.c_void_p])
+    lib.tdax_qmm_sm90.restype = ctypes.c_int
+    lib.tdax_qmm_sm90_error_string.argtypes = [ctypes.c_int]
+    lib.tdax_qmm_sm90_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -79,32 +107,68 @@ def _check(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> None:
                          f"{x2.device}, {q.device}, {s.device}")
 
 
-def quant_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel: x [..., K] (bf16 or f32) @ q [K, N] int8
+def _route(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> str:
+    """Which kernel takes x2 [M, K] @ q [K, N] * s: ``"sm90"`` for bf16
+    with at least ``SM90_MIN_M`` rows that TMA can read (K, x2's row
+    stride and N giving 16-byte strides: K % 8, ldx % 8, N % 16, no
+    stride 0; the x2, q and s bases 16-byte aligned), ``"mma"`` for
+    everything else."""
+    if x2.dtype != torch.bfloat16 or x2.shape[0] < SM90_MIN_M or x2.stride(1) != 1:
+        return "mma"
+    k, n = q.shape
+    if k % 8 or n % 16 or x2.stride(0) % 8 or x2.stride(0) < k:
+        return "mma"
+    if any(t.data_ptr() % 16 for t in (x2, q, s)):
+        return "mma"
+    return "sm90"
+
+
+def _pick(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor, forced: str | None) -> str:
+    """The route, or the private ``_kernel`` choice of the wrapper:
+    ``"mma"`` always takes, ``"sm90"`` only inputs the route sends there."""
+    route = _route(x2, q, s)
+    if forced not in (None, "mma", route):
+        raise ValueError(f"quant_matmul: the {forced} kernel does not take these inputs")
+    return forced or route
+
+
+def quant_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, *,
+                 _kernel: str | None = None) -> torch.Tensor:
+    """Launch a CUDA kernel: x [..., K] (bf16 or f32) @ q [K, N] int8
     * s [N] f32 -> [..., N] in x.dtype, on the current stream.  The
     leading dimensions of x collapse to M rows (a view where the strides
-    allow, a copy where they do not, as for a broadcast view).  Raises on
+    allow, a copy where they do not, as for a broadcast view).  ``_route``
+    picks the kernel; the private ``_kernel="mma"`` forces ``qmm.cu`` (to
+    time and check it at the shapes the Hopper kernel takes).  Raises on
     any input the kernel does not take."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_SM90
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.stride(-1) != 1:
         x2 = x2.contiguous()
     _check(x2, q, s)
-    lib = _library()
+    route = _pick(x2, q, s, _kernel)
     m, k = x2.shape
     n = q.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    vec = (x2.dtype == torch.bfloat16 and k % 8 == 0 and x2.stride(0) % 8 == 0 and n % 16 == 0
-           and x2.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0)
+    sm90 = route == "sm90"
+    lib = _sm90_library() if sm90 else _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.tdax_qmm(x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, n, k,
-                          x2.stride(0), _DTYPE_CODE[x2.dtype], int(vec), stream)
+        args = (x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, n, k, x2.stride(0))
+        if sm90:
+            rc = lib.tdax_qmm_sm90(*args, stream)
+            errors = lib.tdax_qmm_sm90_error_string
+        else:
+            vec = (x2.dtype == torch.bfloat16 and k % 8 == 0 and x2.stride(0) % 8 == 0
+                   and n % 16 == 0 and x2.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0)
+            rc = lib.tdax_qmm(*args, _DTYPE_CODE[x2.dtype], int(vec), stream)
+            errors = lib.tdax_qmm_error_string
     if rc != 0:
-        msg = lib.tdax_qmm_error_string(rc).decode()
-        raise RuntimeError(f"quant_matmul: kernel launch failed: {msg} (cudaError {rc})")
+        raise RuntimeError(f"quant_matmul ({route}): kernel launch failed: "
+                           f"{errors(rc).decode()} (cudaError {rc})")
     LAUNCHES += 1
+    LAUNCHES_SM90 += int(sm90)
     return out.reshape(*lead, n)
 
 

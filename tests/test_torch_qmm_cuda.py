@@ -1,4 +1,6 @@
-"""The CUDA int8 matmul kernel against its plain version, on the card.
+"""The CUDA int8 matmul kernels against their plain version, on the card:
+``qmm_sm90.cu`` where the route sends a product, and ``qmm.cu`` as routed
+or forced by the private ``_kernel="mma"``.
 
 Marked ``cuda``: these skip where no card is present.  This file imports
 neither ``jax`` nor ``tdax``, so on the machine with the card it runs
@@ -8,7 +10,8 @@ without the JAX conftest:
 
 Tolerances: bf16 ``|kernel - plain| <= 2^-7 |plain| + 1e-3 max|plain|``
 (one bf16 rounding of the output, plus room for the order of the f32
-sum); f32 ``<= 1e-5 (|x| @ |q| s)`` entrywise (the sum's rounding is
+sum; both kernels convert the int8 exactly and differ from the plain
+version in the order of the sum alone); f32 ``<= 1e-5 (|x| @ |q| s)`` entrywise (the sum's rounding is
 bounded by the sum of the magnitudes of its terms).
 """
 
@@ -34,8 +37,8 @@ def _weight(gen, k, n, device):
     return quantize_weight(w)
 
 
-def _check(x, w):
-    got = qm.quant_matmul(x, w["q"], w["s"])
+def _check(x, w, kernel=None):
+    got = qm.quant_matmul(x, w["q"], w["s"], _kernel=kernel)
     want = qm.quant_matmul_plain(x, w["q"], w["s"])
     assert got.dtype == x.dtype and got.shape == want.shape
     err = (got.float() - want.float()).abs()
@@ -89,3 +92,47 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(device):
         qm.quant_matmul(torch.zeros((2, 9), device=device), w["q"], w["s"])
     with pytest.raises(ValueError, match="CUDA device"):
         qm.quant_matmul(torch.zeros((2, 8), device=device), w["q"].cpu(), w["s"])
+
+
+@pytest.mark.parametrize("m,k,n", [(16384, 1664, 4992), (5120, 4096, 12288), (200, 1000, 1664)],
+                         ids=["vit_qkv", "decoder_qkv", "ragged"])
+@pytest.mark.parametrize("kernel", [None, "mma"], ids=["sm90", "mma_forced"])
+def test_hopper_shapes_on_both_kernels(device, m, k, n, kernel):
+    """A ViT and a decoder site of the capture and a ragged product (M, N
+    and K off the 256 x 128 x 64 tile): the route sends each to
+    qmm_sm90.cu; both kernels match the plain version and the counters
+    move as the choice says."""
+    gen = torch.Generator(device=device).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+    w = _weight(gen, k, n, device)
+    assert qm._route(x, w["q"], w["s"]) == "sm90"
+    before = (qm.LAUNCHES, qm.LAUNCHES_SM90)
+    _check(x, w, kernel)
+    assert (qm.LAUNCHES, qm.LAUNCHES_SM90) == (before[0] + 1, before[1] + (kernel is None))
+
+
+def test_hopper_kernel_is_deterministic_and_reads_a_column_slice(device):
+    """Two runs agree bitwise (one owner per output, a fixed sum order); a
+    16-byte aligned column slice of a fused projection is read in place."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    w = _weight(gen, 1664, 1664, device)
+    fused = torch.randn((300, 3 * 1664), generator=gen, device=device).to(torch.bfloat16)
+    x = fused[:, 1664:2 * 1664]
+    assert qm._route(x, w["q"], w["s"]) == "sm90"
+    _check(x, w)
+    assert torch.equal(qm.quant_matmul(x, w["q"], w["s"]), qm.quant_matmul(x, w["q"], w["s"]))
+
+
+def test_decode_and_f32_stay_on_the_mma_kernel(device):
+    gen = torch.Generator(device=device).manual_seed(12)
+    w = _weight(gen, 4096, 4096, device)
+    sm90 = qm.LAUNCHES_SM90
+    for x in (torch.randn((16, 4096), generator=gen, device=device).to(torch.bfloat16),
+              torch.randn((512, 4096), generator=gen, device=device)):
+        launches = qm.LAUNCHES
+        _check(x, w)
+        assert qm.LAUNCHES == launches + 1
+    assert qm.LAUNCHES_SM90 == sm90
+    with pytest.raises(ValueError, match="sm90 kernel does not take"):
+        qm.quant_matmul(x[:16].to(torch.bfloat16), w["q"], w["s"], _kernel="sm90")
+    assert qm.LAUNCHES_SM90 == sm90
