@@ -13,8 +13,8 @@ and runs these phases, printing JSON lines:
             and the native Rips engine's g++ beside them); prints ptxas's
             register, spill, C7508 and setmaxnreg lines (and, for the
             Hopper sources, ptxas's wgmma warnings C75xx) and fails if
-            flash_fwd_sm90.cu, flash_bwd_sm90.cu or qmm_sm90.cu spills
-            or has setmaxnreg ignored (C7508).
+            flash_fwd_sm90.cu, flash_bwd_sm90.cu, qmm_sm90.cu or
+            sqdist_sm90.cu spills or has setmaxnreg ignored (C7508).
 2. kernels  each kernel's wrapper against its plain PyTorch version on
             the card.  flash_fwd, both kernels: the route must send the
             capture's three attention shapes (decoder, ViT, resampler;
@@ -28,8 +28,17 @@ and runs these phases, printing JSON lines:
             kernel alone: f32 at the shapes of tests/test_flash_attention.py
             and the decode step's [16, 1, 352, 32, 128] with ragged key
             validity; fully masked rows on both (finite, lse 0).
-            sqdist: the tests/test_scale_ops.py shapes, a ragged case
-            with n and d odd, and the scale path's [10000, 4096].  qmm:
+            sqdist (SQDIST_SHAPES, an aligned strided view and the scale
+            path's [10000, 4096]): sqdist.cu (forced by the private
+            _kernel="fma") at every case, sqdist_sm90.cu (3xTF32) where
+            TMA can read x; the route must send the scale path's x to
+            sqdist_sm90.cu; both within 1e-5 (|x_i|^2 + |x_j|^2) of the
+            plain version, exactly symmetric, the counters moving as the
+            choice says; the split pass bitwise equal to
+            tf32_split_plain; two sm90 runs at the scale shape bitwise
+            equal; each kernel's error against f64 reported; the routed
+            call, the product and the split alone, sqdist.cu and
+            torch.cdist timed.  qmm:
             bf16 at every (M, K, N) of the int8 capture and of a decode
             step (QMM_SITES); the route must send every capture site but
             vit.patch_w (K = 588) to qmm_sm90.cu, which is checked and
@@ -98,12 +107,16 @@ and runs these phases, printing JSON lines:
             agree within SWEEP_SIL_TOL / SWEEP_H1_TOL.  Times each stage.
 6. scale    rips_at_scale on bench_scale.py's seeded 3-sphere cloud,
             10000 x 4096, threshold for ~40 neighbours, maxdim
-            SCALE_MAXDIM: the distance matrix through the sqdist kernel
-            (the launch counter must read exactly 1), H0 by Boruvka on
+            SCALE_MAXDIM: the distance matrix through sqdist_sm90.cu (its
+            counters and its split pass's must read exactly 1; the
+            stages of distance_matrix timed apart; Boruvka's H0 deaths
+            from sqdist.cu's matrix beside, reported), H0 by Boruvka on
             the card, H1+ in the native engine.  Boruvka's H0 must equal
             the engine's dim-0 bars on the same matrix; a small
-            two-cluster cloud must give the CPU's diagrams (bottleneck
-            <= SMALL_BOTTLENECK_TOL per dimension).  Times each stage.
+            two-cluster cloud (60 points, sqdist.cu) and the same recipe
+            at 160 points (sqdist_sm90.cu) must give the CPU's diagrams
+            (bottleneck <= SMALL_BOTTLENECK_TOL per dimension).  Times
+            each stage.
 7. flash_bwd the flash backward kernels (dq; dk/dv) and the forward's
             lse output against their plain versions, bf16 and f32, at the
             decoder's training shape [4, 1024, 32, 128] (causal, the last
@@ -133,7 +146,7 @@ and runs these phases, printing JSON lines:
             trajectory, peak memory,
             the share of 989 TFLOP/s (bench_train.py's convention), and a
             profiled step's device time by kind.
-10. the kernels line (flash_fwd, flash_bwd_* and qmm name both sources
+10. the kernels line (flash_fwd, flash_bwd_*, sqdist and qmm name both sources
             and the launches of each kernel on each path), the nvidia-smi
             line, then the last
             line {"ok": true, "device": {...}}.  Kernel times are
@@ -162,6 +175,7 @@ HERE = Path(__file__).resolve().parent
 
 BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 F32_PEAK = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores
+TF32_PEAK = 495e12      # H100 SXM dense TF32 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 
 # bf16: the kernel rounds the un-normalized p to bf16 where the plain
@@ -220,10 +234,14 @@ INT8_MIN_COSINE = 0.98
 CACHE_TOL, KV_INT8_TOL = 3e-2, 5e-2
 GEN_BATCH, GEN_PROMPT_LEN, GEN_NEW_TOKENS = 16, 320, 32
 # sqdist: kernel and plain version are expansion forms summed in other
-# orders (one f32 FMA chain per entry against a library product), so the
-# bound is relative to the cancelled terms: 1e-5 * (|x_i|^2 + |x_j|^2).
+# orders (one f32 FMA chain per entry in sqdist.cu, 3xTF32 on the tensor
+# cores in sqdist_sm90.cu, against a library product), so the bound is
+# relative to the cancelled terms: 1e-5 * (|x_i|^2 + |x_j|^2).
 SQDIST_REL_TOL = 1e-5
-SQDIST_SHAPES = [(36, 3), (100, 17), (130, 257), (1001, 333)]  # + the scale path's
+# + the scale path's and a strided view; sqdist.cu runs every case,
+# sqdist_sm90.cu those TMA can read (d % 4; n and d off its 128 x 32 tile)
+SQDIST_SHAPES = [(36, 3), (100, 17), (130, 257), (1001, 333), (128, 4096), (129, 4096),
+                 (1000, 4100), (1001, 332)]
 SCALE_N, SCALE_D, SCALE_DEGREE, SCALE_MAXDIM = 10_000, 4096, 40, 2
 # the card's matrix (kernel) and the CPU's (plain version) are both
 # expansion forms, so distances near 0.6 between points of norm ~11 may
@@ -298,7 +316,7 @@ TRAIN_LOSS_TOL = 0.1
 
 
 # the sources ptxas must compile without a spill and with setmaxnreg kept
-SM90_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "qmm_sm90")
+SM90_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "qmm_sm90", "sqdist_sm90")
 
 
 def emit(obj) -> None:
@@ -679,37 +697,78 @@ def scale_cloud():
 
 
 def sqdist_bound(n, d):
-    """(ms, 'operations' | 'bytes'): 2 n^2 d f32 FMA flops; x read once,
-    the [n, n] output written once."""
+    """(ms, 'operations' | 'bytes') of sqdist_sm90.cu's work: the
+    symmetric half, n (n + 1) / 2 pairs of 2 d flops, in three TF32
+    passes; x read once, the [n, n] output written once."""
+    t_ops = 3 * 2.0 * d * n * (n + 1) / 2 / TF32_PEAK
+    t_bytes = (4.0 * n * d + 4.0 * n * n) / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def sqdist_f32_bound(n, d):
+    """(ms, 'operations' | 'bytes') of sqdist.cu's work: the full 2 n^2 d
+    product in f32 FMA on the CUDA cores; the same bytes."""
     t_ops = 2.0 * n * n * d / F32_PEAK
     t_bytes = (4.0 * n * d + 4.0 * n * n) / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _sqdist_check(sqdist, x, label):
+def _sqdist_counts(sqdist) -> tuple:
+    return sqdist.LAUNCHES, sqdist.LAUNCHES_SM90, sqdist.SPLIT_LAUNCHES
+
+
+def _sqdist_check(sqdist, x, label, kernel=None):
+    """One kernel (the routed one, or ``kernel``) against the plain
+    version: the bound, exact symmetry, and the counters moving as the
+    choice says.  Returns (output, max |kernel - plain|, max error over
+    the scale, the kernel)."""
     import torch
-    got = sqdist.sqdist(x)
+    picked = sqdist._pick(x, kernel)
+    before = _sqdist_counts(sqdist)
+    got = sqdist.pairwise_sq_euclidean_cuda(x, _kernel=kernel)
     want = sqdist.pairwise_sq_euclidean_plain(x)
     torch.cuda.synchronize()
+    sm90 = int(picked == "sm90")
+    if _sqdist_counts(sqdist) != (before[0] + 1, before[1] + sm90, before[2] + sm90):
+        raise AssertionError(f"sqdist {label} ({picked}): counters {before} -> "
+                             f"{_sqdist_counts(sqdist)}")
     sq = (x.double() ** 2).sum(1)
     err = (got.double() - want.double()).abs()
     ratio = float((err / (sq[:, None] + sq[None, :]).clamp_min(1e-30)).max())
     max_abs = float(err.max())
-    del err
-    if got.shape != want.shape or got.dtype != torch.float32:
+    del err, want
+    if got.shape != (x.shape[0], x.shape[0]) or got.dtype != torch.float32:
         raise AssertionError(f"sqdist {label}: shape/dtype {tuple(got.shape)} {got.dtype}")
     if not torch.isfinite(got).all() or not (got >= 0).all():
-        raise AssertionError(f"sqdist {label}: non-finite or negative output")
+        raise AssertionError(f"sqdist {label} ({picked}): non-finite or negative output")
     if ratio > SQDIST_REL_TOL:
-        raise AssertionError(f"sqdist {label}: |kernel - plain| / (|x_i|^2 + |x_j|^2) = "
-                             f"{ratio:.3e} exceeds {SQDIST_REL_TOL}")
+        raise AssertionError(f"sqdist {label} ({picked}): |kernel - plain| / (|x_i|^2 + "
+                             f"|x_j|^2) = {ratio:.3e} exceeds {SQDIST_REL_TOL}")
     if not torch.equal(got, got.T):
-        raise AssertionError(f"sqdist {label}: output is not exactly symmetric")
-    return max_abs, ratio
+        raise AssertionError(f"sqdist {label} ({picked}): output is not exactly symmetric")
+    return got, max_abs, ratio, picked
+
+
+def _split_check(sqdist, x, label):
+    """The split pass against tf32_split_plain: hi and lo bitwise, the
+    norms within 1e-6 relative (f32 sums in other orders)."""
+    import torch
+    hi, lo, sq = sqdist.tf32_split_cuda(x)
+    p_hi, p_lo, p_sq = sqdist.tf32_split_plain(x)
+    torch.cuda.synchronize()
+    if not (torch.equal(hi.view(torch.int32), p_hi.view(torch.int32))
+            and torch.equal(lo.view(torch.int32), p_lo.view(torch.int32))):
+        raise AssertionError(f"sqdist split {label}: hi/lo differ from tf32_split_plain")
+    sq_err = float(((sq - p_sq).abs() / p_sq.abs().clamp_min(1e-30)).max())
+    if sq_err > 1e-6:
+        raise AssertionError(f"sqdist split {label}: norms differ by {sq_err:.3e} relative")
+    return sq_err
 
 
 def phase_sqdist() -> dict:
-    """The sqdist kernel against its plain version, on the card."""
+    """Both sqdist kernels against the plain version, on the card; the
+    split pass bitwise against its plain version; times at the scale
+    path's shape."""
     import torch
     import tdax_torch.ops.sqdist as sqdist
     from tdax_torch.runtime import get_device
@@ -717,29 +776,82 @@ def phase_sqdist() -> dict:
     device = get_device()
     gen = torch.Generator(device=device).manual_seed(4321)
     cases = []
-    for n, d in SQDIST_SHAPES:
-        x = torch.randn((n, d), generator=gen, device=device)
-        max_abs, ratio = _sqdist_check(sqdist, x, f"{(n, d)}")
-        cases.append({"shape": [n, d], "max_abs_err": max_abs, "max_err_over_scale": ratio})
+    inputs = [((n, d), torch.randn((n, d), generator=gen, device=device))
+              for n, d in SQDIST_SHAPES]
+    # a view with a row stride of 4104 (a multiple of 4) and a 16-byte base
+    wide = torch.randn((300, 4104), generator=gen, device=device)
+    inputs.append(("strided [300, 4096] of [300, 4104]", wide[:, 4:4100]))
+    for label, x in inputs:
+        case = {"shape": list(x.shape), "stride": x.stride(0), "route": sqdist._route(x)}
+        for kernel in ("fma", "sm90") if sqdist._tma_readable(x) else ("fma",):
+            _, max_abs, ratio, _ = _sqdist_check(sqdist, x, f"{label}", kernel)
+            case[f"max_abs_err_{kernel}"] = max_abs
+            case[f"max_err_over_scale_{kernel}"] = ratio
+        if sqdist._tma_readable(x):
+            case["split_sq_rel_err"] = _split_check(sqdist, x, f"{label}")
+        cases.append(case)
+    del inputs, wide
     emit({"phase": "kernel_sqdist_cases", "cases": cases, "tolerance": SQDIST_REL_TOL})
 
     x_np, _ = scale_cloud()
     x = torch.as_tensor(x_np, device=device)
-    max_abs, ratio = _sqdist_check(sqdist, x, "scale path")
+    if sqdist._route(x) != "sm90":
+        raise AssertionError(f"sqdist: the scale path's x routes to {sqdist._route(x)}")
+    got, max_abs, ratio, _ = _sqdist_check(sqdist, x, "scale path")
+    again = sqdist.sqdist(x)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("sqdist scale path: two sm90 runs differ")
+    del again
+    # each kernel's and the plain version's error against the same
+    # expansion form in f64 (reported, not gated)
+    x64 = x.double()
+    sq64 = (x64 ** 2).sum(1)
+    scale = sq64[:, None] + sq64[None, :]
+    exact = (scale - 2.0 * (x64 @ x64.T)).clamp_min_(0.0)
+    del x64
+
+    def f64_ratio(m):
+        return float((m.double() - exact).abs_().div_(scale).max())
+
+    vs_f64 = {"sm90": f64_ratio(got)}
+    del got
+    fma_out, max_abs_fma, ratio_fma, _ = _sqdist_check(sqdist, x, "scale path", "fma")
+    vs_f64["fma"] = f64_ratio(fma_out)
+    vs_f64["plain"] = f64_ratio(sqdist.pairwise_sq_euclidean_plain(x))
+    del fma_out, exact, scale
+    split_err = _split_check(sqdist, x, "scale path")
+    torch.cuda.empty_cache()
+    hi, lo, sq = sqdist.tf32_split_cuda(x)
     ms = cuda_ms(lambda: sqdist.sqdist(x), iters=10)
+    kernel_ms = cuda_ms(lambda: sqdist.sm90_product(hi, lo, sq), iters=10)
+    split_ms = cuda_ms(lambda: sqdist.tf32_split_cuda(x), iters=10)
+    ms_fma = cuda_ms(lambda: sqdist.pairwise_sq_euclidean_cuda(x, _kernel="fma"), iters=10)
     plain_ms = cuda_ms(lambda: sqdist.pairwise_sq_euclidean_plain(x), iters=5)
     euclid_ms = cuda_ms(lambda: sqdist.euclidean(x), iters=10)
     library_ms = cuda_ms(lambda: torch.cdist(x, x, compute_mode="use_mm_for_euclid_dist"),
                          iters=10)
+    del hi, lo, sq
     bound_ms, bound_by = sqdist_bound(SCALE_N, SCALE_D)
-    site = {"site": "scale", "shape": [SCALE_N, SCALE_D], "dtype": "float32",
-            "max_abs_err": max_abs, "max_err_over_scale": ratio, "ms": ms,
-            "plain_ms": plain_ms, "euclid_ms": euclid_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "achieved_tflops": 2.0 * SCALE_N * SCALE_N * SCALE_D / (ms * 1e-3) / 1e12}
+    f32_bound_ms, _ = sqdist_f32_bound(SCALE_N, SCALE_D)
+    site = {"site": "scale", "shape": [SCALE_N, SCALE_D], "dtype": "float32", "route": "sm90",
+            "max_abs_err": max_abs, "max_err_over_scale": ratio,
+            "max_abs_err_fma": max_abs_fma, "max_err_over_scale_fma": ratio_fma,
+            "max_err_over_scale_vs_f64": vs_f64,
+            "split_sq_rel_err": split_err, "ms": ms, "kernel_ms": kernel_ms,
+            "split_ms": split_ms, "ms_fma": ms_fma, "plain_ms": plain_ms,
+            "euclid_ms": euclid_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms / ms,
+            "kernel_bound_share": bound_ms / kernel_ms,
+            "f32_full_product_bound_ms": f32_bound_ms,
+            "fma_f32_bound_share": f32_bound_ms / ms_fma,
+            "achieved_tflops": 3 * 2.0 * SCALE_D * SCALE_N * (SCALE_N + 1) / 2
+            / (kernel_ms * 1e-3) / 1e12}
     emit({"phase": "kernel_case", **site})
     torch.cuda.empty_cache()
-    return {"site": site, "max_abs_err": max(max_abs, *(c["max_abs_err"] for c in cases))}
+    errs = [max_abs, max_abs_fma] + [v for c in cases for k, v in c.items()
+                                     if k.startswith("max_abs_err")]
+    return {"site": site, "max_abs_err": max(errs)}
 
 
 def make_clouds(seed: int = 42):
@@ -897,6 +1009,48 @@ def phase_sweep(tmp: Path, smi: str) -> dict:
     return info
 
 
+def _distance_parts(sqdist, x) -> dict:
+    """distance_matrix's stages one by one on x (CUDA events; the copy to
+    the host on the host clock): the kernel (split pass and product as
+    routed), the square root and zeroed diagonal, tdax's exact
+    symmetrising (d + d^T) / 2, and the copy to the host."""
+    import torch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    d = sqdist.sqdist(x)
+    ev[1].record()
+    d.sqrt_().fill_diagonal_(0.0)
+    ev[2].record()
+    d = (d + d.T).mul_(0.5)
+    ev[3].record()
+    ev[3].synchronize()
+    t0 = time.perf_counter()
+    d.cpu()
+    to_host_s = time.perf_counter() - t0
+    return {"kernel_ms": ev[0].elapsed_time(ev[1]), "sqrt_diag_ms": ev[1].elapsed_time(ev[2]),
+            "symmetrise_ms": ev[2].elapsed_time(ev[3]), "to_host_ms": 1e3 * to_host_s}
+
+
+def _h0_deaths_delta(sqdist, x, thresh, dgm0) -> dict:
+    """Boruvka's H0 deaths from sqdist.cu's matrix (the same stages as
+    distance_matrix, the kernel forced) against those rips_at_scale gave
+    through sqdist_sm90.cu: reported, not gated."""
+    import numpy as np
+    from tdax_torch.ops.rips.mst import h0_diagram_device
+    d = sqdist.pairwise_sq_euclidean_cuda(x, _kernel="fma").sqrt_().fill_diagonal_(0.0)
+    d = (d + d.T).mul_(0.5)
+    fma0 = h0_diagram_device(d, thresh)
+    del d
+    a = np.sort(dgm0[np.isfinite(dgm0[:, 1]), 1])
+    b = np.sort(fma0[np.isfinite(fma0[:, 1]), 1])
+    info = {"finite_deaths": [int(len(a)), int(len(b))]}
+    if len(a) == len(b) and len(a):
+        info["max_abs_delta"] = float(np.abs(a - b).max())
+        info["max_rel_delta"] = float((np.abs(a - b) / np.maximum(np.abs(b), 1e-30)).max())
+    return info
+
+
 def phase_scale(smi: str) -> dict:
     """rips_at_scale at 10000 x 4096 on the card, and a small cloud against the CPU."""
     import numpy as np
@@ -922,14 +1076,17 @@ def phase_scale(smi: str) -> dict:
     thresh = float(np.float32(np.median(kth)))
     thresh_s = time.perf_counter() - t0
 
-    sqdist.LAUNCHES = 0
+    sqdist.LAUNCHES = sqdist.LAUNCHES_SM90 = sqdist.SPLIT_LAUNCHES = 0
     t0 = time.perf_counter()
     out = rips_at_scale(x, maxdim=SCALE_MAXDIM, thresh=thresh)
     wall_s = time.perf_counter() - t0
-    launches = sqdist.LAUNCHES
-    if launches != 1:
-        raise AssertionError(f"rips_at_scale launched the sqdist kernel {launches} times, "
-                             f"expected 1")
+    launches = {"sqdist": sqdist.LAUNCHES, "sqdist_sm90": sqdist.LAUNCHES_SM90,
+                "split": sqdist.SPLIT_LAUNCHES}
+    if launches != {"sqdist": 1, "sqdist_sm90": 1, "split": 1}:
+        raise AssertionError(f"rips_at_scale launched the sqdist kernels {launches}, expected "
+                             f"one launch of sqdist_sm90.cu (and its split pass)")
+    parts = _distance_parts(sqdist, x)
+    h0_delta = _h0_deaths_delta(sqdist, x, thresh, out["dgms"][0])
 
     profile = profile_device(lambda: rips_at_scale(x, maxdim=SCALE_MAXDIM, thresh=thresh))
 
@@ -952,15 +1109,32 @@ def phase_scale(smi: str) -> dict:
     card = rips_at_scale(torch.as_tensor(small).to("cuda"), maxdim=1, thresh=2.5)["dgms"]
     cpu = rips_at_scale(small, maxdim=1, thresh=2.5, device="cpu")["dgms"]
     small_bn = [bottleneck_distance(a, b) for a, b in zip(card, cpu)]
+    # the same recipe at 2 x 80 points, past SM90_MIN_N: through the main
+    # path's kernel, sqdist_sm90.cu
+    wide_rng = np.random.default_rng(5)
+    wide = np.concatenate([wide_rng.normal(0, 0.5, (80, 8)),
+                           wide_rng.normal(4, 0.5, (80, 8))]).astype(np.float32)
+    before = sqdist.LAUNCHES_SM90
+    card = rips_at_scale(torch.as_tensor(wide).to("cuda"), maxdim=1, thresh=2.5)["dgms"]
+    if sqdist.LAUNCHES_SM90 != before + 1:
+        raise AssertionError("the 160-point cloud did not go through sqdist_sm90.cu")
+    cpu = rips_at_scale(wide, maxdim=1, thresh=2.5, device="cpu")["dgms"]
+    wide_bn = [bottleneck_distance(a, b) for a, b in zip(card, cpu)]
     info = {"phase": "scale", "nvidia_smi": smi, "n": SCALE_N, "dim": SCALE_D,
             "maxdim": SCALE_MAXDIM, "target_degree": SCALE_DEGREE, "thresh": thresh,
-            "sqdist_launches": launches, "bars": bars, "h0_equals_engine": True,
+            "launches": launches, "bars": bars,
+            "h0_equals_engine": True, "distance_parts_ms": parts,
+            "h0_deaths_sm90_vs_fma": h0_delta,
             "upload_s": upload_s, "thresh_select_s": thresh_s, "rips_at_scale_s": wall_s,
             "timings": out["timings"], "profile": profile,
-            "small_cloud_bottleneck_card_vs_cpu": small_bn}
+            "small_cloud_bottleneck_card_vs_cpu": small_bn,
+            "sm90_cloud_bottleneck_card_vs_cpu": wide_bn}
     emit(info)
     if max(small_bn) > SMALL_BOTTLENECK_TOL:
         raise AssertionError(f"small cloud: card vs CPU bottleneck {small_bn}")
+    if max(wide_bn) > SMALL_BOTTLENECK_TOL:
+        raise AssertionError(f"160-point cloud (sqdist_sm90.cu): card vs CPU bottleneck "
+                             f"{wide_bn}")
     return info
 
 
@@ -2074,17 +2248,24 @@ def main(argv=None) -> int:
     } for kind, line, outs in (("dq", 395, ("dq",)), ("dkv", 446, ("dk", "dv")))), {
         "name": "sqdist",
         "route": "cuda",
-        "source": "tdax_torch/ops/csrc/sqdist.cu",
+        "source": "tdax_torch/ops/csrc/sqdist_sm90.cu",
+        "sources": {"sm90": "tdax_torch/ops/csrc/sqdist_sm90.cu",
+                    "fma": "tdax_torch/ops/csrc/sqdist.cu"},
         "replaces": "tdax/ops/pallas_distances.py:27",
-        "launches": scale["sqdist_launches"],
+        "launches": scale["launches"]["sqdist"],
+        "launches_by_kernel": {"scale": {
+            "sm90": scale["launches"]["sqdist_sm90"],
+            "fma": scale["launches"]["sqdist"] - scale["launches"]["sqdist_sm90"],
+            "split": scale["launches"]["split"]}},
         "max_abs_err": sq["max_abs_err"],
-        "ms": sq["site"]["ms"],
-        "plain_ms": sq["site"]["plain_ms"],
-        "bound_ms": sq["site"]["bound_ms"],
-        "bound_by": sq["site"]["bound_by"],
-        "library_ms": sq["site"]["library_ms"],
-        "per": "one call at the scale path's [10000, 4096] f32; library_ms is torch.cdist, "
-               "the Euclidean function, whose wrapper (kernel + sqrt + zero diagonal) takes "
+        **{k: sq["site"][k] for k in ("ms", "kernel_ms", "split_ms", "ms_fma", "plain_ms",
+                                      "bound_ms", "bound_by", "bound_share", "library_ms",
+                                      "f32_full_product_bound_ms")},
+        "per": "one call at the scale path's [10000, 4096] f32 as routed (sqdist_sm90.cu: "
+               "split pass + 3xTF32 product over the symmetric half; kernel_ms the product "
+               "alone, split_ms the split alone, ms_fma sqdist.cu); bound_ms the symmetric "
+               "half in three TF32 passes; library_ms is torch.cdist, the Euclidean "
+               "function, whose wrapper (kernel + sqrt + zero diagonal) takes "
                f"{sq['site']['euclid_ms']:.4f} ms",
     }, {
         "name": "qmm",

@@ -25,7 +25,6 @@ import argparse
 import ctypes
 import json
 import math
-import subprocess
 import sys
 from pathlib import Path
 
@@ -118,13 +117,10 @@ VARIANTS = {
 }
 
 
-def _variant_source(name, text):
-    for old, new in VARIANTS[name][0]:
-        n = text.count(old)
-        if n != 1:
-            raise RuntimeError(f"variant {name}: substitution found {n} times: {old[:60]!r}")
-        text = text.replace(old, new)
-    return text
+def _declare(lib):
+    lib.tdax_qmm_sm90.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                                  + [ctypes.c_longlong, ctypes.c_void_p])
+    lib.tdax_qmm_sm90.restype = ctypes.c_int
 
 
 def build(names, sources):
@@ -132,32 +128,12 @@ def build(names, sources):
     other source file) at once; load them."""
     sys.path.insert(0, str(HERE))
     from tdax_torch.ops import _build
-    OUT.mkdir(parents=True, exist_ok=True)
     text = SOURCE.read_text()
-    procs = {}
-    for name in names:
-        src = Path(sources[name]).read_text() if name in sources else _variant_source(name, text)
-        path = OUT / f"{name}.cu"
-        path.write_text(src)
-        lib = OUT / f"lib{name}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(SOURCE.parent), "-o", str(lib),
-               str(path)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                        text=True), path, lib)
-    libs = {}
-    for name, (proc, path, lib) in procs.items():
-        out, err = proc.communicate()
-        regs = [ln.strip() for ln in (out + err).splitlines()
-                if any(w in ln for w in ("registers", "spill", "C75", "error"))]
-        print(json.dumps({"variant": name, "ptxas": regs, "built": proc.returncode == 0}),
-              flush=True)
-        if proc.returncode != 0:  # reported above; the other variants go on
-            continue
-        cdll = ctypes.CDLL(str(lib))
-        cdll.tdax_qmm_sm90.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                                       + [ctypes.c_longlong, ctypes.c_void_p])
-        cdll.tdax_qmm_sm90.restype = ctypes.c_int
-        libs[name] = cdll
+    texts = {name: Path(sources[name]).read_text() if name in sources
+             else _build.substitute(text, VARIANTS[name][0]) for name in names}
+    libs, reports = _build.build_variants(texts, OUT, _declare)
+    for name, report in reports.items():
+        print(json.dumps({"variant": name, **report}), flush=True)
     return libs
 
 

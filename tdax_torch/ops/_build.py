@@ -9,7 +9,8 @@ and a built one is reused.  Only the sources in the
 repository are compiled; a failed build raises with nvcc's output.
 
 ``build(names)`` starts one nvcc per source that still needs building,
-all at once, and waits for them together.
+all at once, and waits for them together.  ``build_variants`` does the
+same for edited copies of a source (the probe scripts' variants).
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tdax_torch"
 
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_fwd_sm90": "flash_fwd_sm90.cu",
            "flash_bwd": "flash_bwd.cu", "flash_bwd_sm90": "flash_bwd_sm90.cu",
-           "sqdist": "sqdist.cu", "qmm": "qmm.cu", "qmm_sm90": "qmm_sm90.cu"}
+           "sqdist": "sqdist.cu", "sqdist_sm90": "sqdist_sm90.cu", "qmm": "qmm.cu",
+           "qmm_sm90": "qmm_sm90.cu"}
 _INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -94,3 +96,44 @@ def build(names=None) -> dict[str, ctypes.CDLL]:
 
 def load(name: str) -> ctypes.CDLL:
     return build([name])[name]
+
+
+def substitute(text: str, subs) -> str:
+    """``text`` with each (old, new) of ``subs`` replaced; each old must
+    occur exactly once."""
+    for old, new in subs:
+        n = text.count(old)
+        if n != 1:
+            raise ValueError(f"substitution found {n} times: {old[:60]!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def build_variants(texts: dict[str, str], out_dir: Path, declare) -> tuple[dict, dict]:
+    """Compile each named source text (a variant of a source of ``CSRC``,
+    whose headers it includes) with the port's flags into ``out_dir``, all
+    at once; load those that built, ``declare(lib)`` setting each one's C
+    signatures.  Returns ({name: library}, {name: {"built": bool,
+    "ptxas": ptxas's register, spill and error lines}}); a variant that
+    fails to build is reported there and left out."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name, text in texts.items():
+        path = out_dir / f"{name}.cu"
+        path.write_text(text)
+        lib = out_dir / f"lib{name}.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(lib), str(path)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True), lib)
+    libs, reports = {}, {}
+    for name, (proc, lib) in procs.items():
+        stdout, stderr = proc.communicate()
+        reports[name] = {"built": proc.returncode == 0,
+                         "ptxas": [ln.strip() for ln in (stdout + stderr).splitlines()
+                                   if any(w in ln for w in ("registers", "spill", "C75",
+                                                            "error"))]}
+        if proc.returncode == 0:
+            libs[name] = ctypes.CDLL(str(lib))
+            declare(libs[name])
+    return libs, reports

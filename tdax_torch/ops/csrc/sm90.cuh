@@ -9,7 +9,7 @@
 //   runtime's cudaGetDriverEntryPointByVersion, so the library links no
 //   -lcuda);
 // - wgmma: the shared-memory matrix descriptor for 128-byte swizzled
-//   tiles, fence / commit / wait, and the bf16 products with f32
+//   tiles, fence / commit / wait, and the bf16 and tf32 products with f32
 //   accumulators that the kernels use;
 // - setmaxnreg, named barriers and the async-proxy fence.
 //
@@ -287,6 +287,40 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, 
 }
 
 #undef SM90_M64N64K16_SS
+
+// tf32 takes no transpose bits: both operands are K-major.
+#define SM90_M64N128K8_TF32_SS(acc, zero)                                                  \
+  asm volatile(                                                                            \
+      "{\n"                                                                                \
+      ".reg .pred p;\n"                                                                    \
+      "setp.ne.b32 p, %66, 0;\n"                                                           \
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "                              \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "            \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "   \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "   \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "  \
+      "%64, %65, p, 1, 1;\n"                                                               \
+      "}\n"                                                                                \
+      : acc(d, 0), acc(d, 8), acc(d, 16), acc(d, 24), acc(d, 32), acc(d, 40), acc(d, 48),  \
+        acc(d, 56)                                                                         \
+      : "l"(da), "l"(db), "r"(zero ? 0 : 1))
+
+// d[64] = A[64 x 8] B[8 x 128] in tf32 (the low 13 bits of each f32
+// operand are ignored): A and B from shared memory, both K-major, as f32
+// rows of 128 bytes in the 128-byte swizzle (a k8 step is 32 bytes).
+// Writes d without reading it.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_ss_first(float (&d)[64], uint64_t da,
+                                                              uint64_t db) {
+  SM90_M64N128K8_TF32_SS(SM90_OUT8, true);
+}
+
+// d[64] += A[64 x 8] B[8 x 128] in tf32, as above
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_ss(float (&d)[64], uint64_t da,
+                                                        uint64_t db) {
+  SM90_M64N128K8_TF32_SS(SM90_ACC8, false);
+}
+
+#undef SM90_M64N128K8_TF32_SS
 #undef SM90_OUT8
 
 // d[64] += A[64 x 16] B[16 x 128]: A from registers (the bf16 fragments

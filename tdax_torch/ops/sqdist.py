@@ -1,25 +1,36 @@
-"""Pairwise squared Euclidean distances: the hand-written CUDA kernel and
-its plain version.
+"""Pairwise squared Euclidean distances: the hand-written CUDA kernels and
+their plain version.
 
-Counterpart of ``tdax/ops/pallas_distances.py``.  The kernel
-(``csrc/sqdist.cu``) replaces the Pallas TPU kernel ``_sqdist_kernel``
-(reached there as ``pairwise_euclidean_pallas`` ->
-``pairwise_sq_euclidean_pallas`` -> ``_sqdist_kernel``): x [n, d] f32
--> [n, n] f32 ``max(|x_i|^2 + |x_j|^2 - 2 x_i.x_j, 0)``, the product
-accumulated in true f32, the norms, clamp and store fused into the
-epilogue.  The row norms are computed outside the kernel, as tdax
-computes them outside its Pallas body.
+Counterpart of ``tdax/ops/pallas_distances.py``.  Two kernels replace the
+Pallas TPU kernel ``_sqdist_kernel`` (reached there as
+``pairwise_euclidean_pallas`` -> ``pairwise_sq_euclidean_pallas`` ->
+``_sqdist_kernel``): x [n, d] f32 -> [n, n] f32
+``max(|x_i|^2 + |x_j|^2 - 2 x_i.x_j, 0)``, the norms, clamp and store
+fused into the epilogue.
 
+- ``csrc/sqdist_sm90.cu`` takes f32 x that TMA can read with at least
+  ``SM90_MIN_N`` rows: a split pass (x -> tf32 hi and lo, and the row
+  norms in true f32) and a product on the tensor cores in 3xTF32 (hi.hi^T
+  + hi.lo^T + lo.hi^T, f32 accumulators) over the tiles on and above the
+  diagonal, each written to both places, so the output is exactly
+  symmetric.  3xTF32 stands for tdax's ``Precision.HIGHEST`` within the
+  port's unchanged bound, 1e-5 (|x_i|^2 + |x_j|^2).
+- ``csrc/sqdist.cu`` takes the rest (odd d or row stride, an unaligned
+  base, few rows): the product accumulated in true f32 on the CUDA cores,
+  the row norms computed by the wrapper.
+
+``_route`` decides from the type, shapes, strides and alignment alone.
 ``sqdist`` dispatches: CPU tensors take the plain PyTorch version
 (``pairwise_sq_euclidean_plain``, the expansion form of
-``ops/distances.py``), CUDA tensors launch the kernel
+``ops/distances.py``), CUDA tensors launch the routed kernel
 (``pairwise_sq_euclidean_cuda``) or raise.  There is no path from one to
 the other.  ``euclidean`` is tdax's Euclidean wrapper on top: square
 root, diagonal exactly 0.
 
-``LAUNCHES`` counts kernel launches (one per successful launch, and
-nowhere else), so a run can show that its distances went through the
-kernel.
+``LAUNCHES`` counts launches of both product kernels, ``LAUNCHES_SM90``
+of the Hopper one alone and ``SPLIT_LAUNCHES`` of its split pass (one per
+successful launch, and nowhere else), so a run can show that its
+distances went through the kernels.
 """
 
 from __future__ import annotations
@@ -32,17 +43,47 @@ import torch
 from tdax_torch.ops import distances
 
 LAUNCHES = 0
+LAUNCHES_SM90 = 0
+SPLIT_LAUNCHES = 0
+
+# the fewest rows sqdist_sm90.cu takes: one full 128 x 128 tile.  Below
+# it both kernels run a single block, and sqdist.cu needs neither the
+# split pass nor tensor maps
+SM90_MIN_N = 128
+
+_TF32_HALF, _TF32_MASK = 0x1000, ~0x1FFF  # half of tf32's last place; its 13 dropped bits
 
 
 def pairwise_sq_euclidean_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel's function: ``x @ x.T`` in
+    """Plain PyTorch version of the kernels' function: ``x @ x.T`` in
     f32 (TF32 off) plus the row norms, clamped at 0."""
     return distances.pairwise_sq_euclidean(x.to(torch.float32))
 
 
+def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """f32 -> tf32 as ``cvt.rna.tf32.f32`` rounds (to nearest, ties away
+    from zero), on the bit patterns: add half of tf32's last place to the
+    magnitude (a carry runs on into the exponent), clear the 13 dropped
+    bits.  NaN stays NaN."""
+    bits = v.contiguous().view(torch.int32)
+    out = ((bits + _TF32_HALF) & _TF32_MASK).view(torch.float32)
+    return torch.where(torch.isnan(v), v, out)
+
+
+def tf32_split_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the split pass: x [n, d] f32 -> (hi, lo, sq) with
+    hi = tf32(x), lo = tf32(x - hi) (the difference is exact), both
+    contiguous f32 with the low 13 bits zero, and sq [n] = |x_i|^2 in
+    f32.  |x - hi - lo| <= 2^-22 |x| for normal x."""
+    x = x.to(torch.float32)
+    hi = _tf32_rna(x)
+    lo = _tf32_rna(x - hi)
+    return hi, lo, (x * x).sum(1)
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
-    """The built kernel library, with its C signatures declared."""
+    """The built FMA kernel library, with its C signatures declared."""
     from tdax_torch.ops._build import load
 
     lib = load("sqdist")
@@ -51,6 +92,24 @@ def _library() -> ctypes.CDLL:
     lib.tdax_sqdist.restype = ctypes.c_int
     lib.tdax_sqdist_error_string.argtypes = [ctypes.c_int]
     lib.tdax_sqdist_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _sm90_library() -> ctypes.CDLL:
+    """The built Hopper kernel library (split pass and product), with its
+    C signatures declared."""
+    from tdax_torch.ops._build import load
+
+    lib = load("sqdist_sm90")
+    lib.tdax_sqdist_split.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                                       ctypes.c_int] + [ctypes.c_void_p] * 4)
+    lib.tdax_sqdist_split.restype = ctypes.c_int
+    lib.tdax_sqdist_sm90.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                                     + [ctypes.c_longlong, ctypes.c_void_p])
+    lib.tdax_sqdist_sm90.restype = ctypes.c_int
+    lib.tdax_sqdist_sm90_error_string.argtypes = [ctypes.c_int]
+    lib.tdax_sqdist_sm90_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -68,12 +127,87 @@ def _check(x: torch.Tensor) -> None:
         raise ValueError(f"pairwise_sq_euclidean_cuda: x must lie on a CUDA device, got {x.device}")
 
 
-def pairwise_sq_euclidean_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on x [n, d] f32 (any row stride, contiguous
-    last dimension) -> [n, n] f32 on the current stream.  Raises on any
-    input the kernel does not take."""
-    global LAUNCHES
+def _tma_readable(x: torch.Tensor) -> bool:
+    """f32 [n, d] rows that TMA (and the split pass's 16-byte loads) can
+    read: d % 4, a row stride % 4 (no stride 0), a 16-byte base."""
+    return (x.dtype == torch.float32 and x.dim() == 2 and x.stride(1) == 1
+            and x.shape[1] % 4 == 0 and x.stride(0) % 4 == 0 and x.stride(0) >= x.shape[1]
+            and x.data_ptr() % 16 == 0)
+
+
+def _route(x: torch.Tensor) -> str:
+    """Which kernel takes x [n, d]: ``"sm90"`` for f32 that TMA can read
+    with n >= ``SM90_MIN_N``, ``"fma"`` for everything else."""
+    return "sm90" if _tma_readable(x) and x.shape[0] >= SM90_MIN_N else "fma"
+
+
+def _pick(x: torch.Tensor, forced: str | None) -> str:
+    """The route, or the private ``_kernel`` choice of the wrapper:
+    ``"fma"`` always takes, ``"sm90"`` any input TMA can read."""
+    if forced not in (None, "fma", "sm90"):
+        raise ValueError(f"pairwise_sq_euclidean_cuda: unknown kernel {forced!r}")
+    if forced == "sm90" and not _tma_readable(x):
+        raise ValueError("pairwise_sq_euclidean_cuda: the sm90 kernel does not take these "
+                         "inputs (TMA needs d % 4, a row stride % 4 and a 16-byte base)")
+    return forced or _route(x)
+
+
+def _raise(lib_errors, rc: int, what: str) -> None:
+    raise RuntimeError(f"pairwise_sq_euclidean_cuda ({what}): kernel launch failed: "
+                       f"{lib_errors(rc).decode()} (cudaError {rc})")
+
+
+def tf32_split_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the split pass of ``sqdist_sm90.cu`` on x [n, d] f32 that TMA
+    can read -> (hi, lo, sq), as ``tf32_split_plain``; hi and lo are the
+    two halves of one [2, n, d] allocation."""
+    global SPLIT_LAUNCHES
     _check(x)
+    if not _tma_readable(x):
+        raise ValueError("tf32_split_cuda: x needs d % 4, a row stride % 4 and a 16-byte base")
+    lib = _sm90_library()
+    n, d = x.shape
+    hl = torch.empty((2, n, d), dtype=torch.float32, device=x.device)
+    sq = torch.empty((n,), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.tdax_sqdist_split(x.data_ptr(), x.stride(0), n, d, hl[0].data_ptr(),
+                                   hl[1].data_ptr(), sq.data_ptr(), stream)
+    if rc != 0:
+        _raise(lib.tdax_sqdist_sm90_error_string, rc, "split")
+    SPLIT_LAUNCHES += 1
+    return hl[0], hl[1], sq
+
+
+def sm90_product(hi: torch.Tensor, lo: torch.Tensor, sq: torch.Tensor) -> torch.Tensor:
+    """Launch the product of ``sqdist_sm90.cu`` on the split pass's output
+    -> [n, n] f32, contiguous.  The output's rows are padded to a multiple
+    of 4 floats for TMA's 16-byte strides; where n % 4 != 0 the padded
+    result is copied out."""
+    global LAUNCHES, LAUNCHES_SM90
+    if not (hi.dtype == lo.dtype == sq.dtype == torch.float32 and hi.dim() == 2
+            and lo.shape == hi.shape and sq.shape == hi.shape[:1]
+            and all(t.is_cuda and t.device == hi.device and t.is_contiguous()
+                    for t in (hi, lo, sq))):
+        raise ValueError("sm90_product: expected tf32_split_cuda's hi, lo [n, d] and sq [n], "
+                         "contiguous f32 on one CUDA device")
+    lib = _sm90_library()
+    n, d = hi.shape
+    ldo = -(-n // 4) * 4
+    out = torch.empty((n, ldo), dtype=torch.float32, device=hi.device)
+    with torch.cuda.device(hi.device):
+        stream = torch.cuda.current_stream(hi.device).cuda_stream
+        rc = lib.tdax_sqdist_sm90(hi.data_ptr(), lo.data_ptr(), sq.data_ptr(), out.data_ptr(),
+                                  n, d, ldo, stream)
+    if rc != 0:
+        _raise(lib.tdax_sqdist_sm90_error_string, rc, "sm90")
+    LAUNCHES += 1
+    LAUNCHES_SM90 += 1
+    return out if ldo == n else out[:, :n].contiguous()
+
+
+def _fma(x: torch.Tensor) -> torch.Tensor:
+    global LAUNCHES
     lib = _library()
     n, d = x.shape
     sq = (x * x).sum(1)
@@ -84,16 +218,26 @@ def pairwise_sq_euclidean_cuda(x: torch.Tensor) -> torch.Tensor:
         rc = lib.tdax_sqdist(x.data_ptr(), sq.data_ptr(), out.data_ptr(), n, d,
                              x.stride(0), out.stride(0), int(vec), stream)
     if rc != 0:
-        msg = lib.tdax_sqdist_error_string(rc).decode()
-        raise RuntimeError(f"pairwise_sq_euclidean_cuda: kernel launch failed: {msg} "
-                           f"(cudaError {rc})")
+        _raise(lib.tdax_sqdist_error_string, rc, "fma")
     LAUNCHES += 1
     return out
 
 
+def pairwise_sq_euclidean_cuda(x: torch.Tensor, *, _kernel: str | None = None) -> torch.Tensor:
+    """Launch a CUDA kernel on x [n, d] f32 (any row stride, contiguous
+    last dimension) -> [n, n] f32 on the current stream.  ``_route``
+    picks the kernel; the private ``_kernel="fma"`` forces ``sqdist.cu``
+    and ``"sm90"`` the Hopper kernel (to check and time both on the same
+    inputs).  Raises on any input the kernel does not take."""
+    _check(x)
+    if _pick(x, _kernel) == "sm90":
+        return sm90_product(*tf32_split_cuda(x))
+    return _fma(x)
+
+
 def sqdist(x: torch.Tensor) -> torch.Tensor:
     """x [n, d] -> [n, n] squared distances: the plain version for CPU
-    tensors, the kernel for CUDA tensors."""
+    tensors, the routed kernel for CUDA tensors."""
     if x.device.type == "cpu":
         return pairwise_sq_euclidean_plain(x)
     if x.device.type == "cuda":

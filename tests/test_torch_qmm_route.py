@@ -20,6 +20,10 @@ _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
+_spec = importlib.util.spec_from_file_location(
+    "probe_qmm", Path(__file__).resolve().parents[1] / "probe_qmm.py")
+probe_qmm = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(probe_qmm)
 
 # (site, M, K, N) of the int8 capture and of generate's prefill (the same
 # products), and of a decode step
@@ -168,3 +172,11 @@ def test_library_hash_covers_sm90_header(tmp_path, monkeypatch):
     moved = _build._target("qmm_sm90")
     src.write_text(src.read_text() + "\n// edited\n")
     assert _build._target("qmm_sm90") != moved
+
+
+@pytest.mark.parametrize("name", list(probe_qmm.VARIANTS))
+def test_every_probe_variant_applies_to_the_hopper_source(name):
+    """Each substitution of probe_qmm.py still finds its text once."""
+    text = probe_qmm.SOURCE.read_text()
+    subs, _ = probe_qmm.VARIANTS[name]
+    assert (_build.substitute(text, subs) == text) == (name == "base")
