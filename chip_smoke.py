@@ -105,6 +105,41 @@ and runs these phases, printing JSON lines:
             and, in the same process, on the CPU: the shape-silhouette
             peak must be layer 25 on both, silhouettes and max-H1 must
             agree within SWEEP_SIL_TOL / SWEEP_H1_TOL.  Times each stage.
+5b. checkpoint  an HF-named bf16 state (hf_state: the values of tdax's
+            random_hf_state and random_hf_visual_state) at the full
+            widths of QwenVLConfig(), cut to SNAPSHOT_LAYERS decoder
+            layers and ViT blocks, drawn on the card from seed 0 and
+            written as the reference snapshot's pytorch_model-*.bin
+            shards plus index under the run's temp dir; load_qwen_checkpoint
+            must give a tree bitwise equal to convert_hf_state_dict of
+            the same state (write and load seconds, the load's GB/s, the
+            host's peak RSS during the load, peak device memory).  Then
+            extract_activations over the 48 samples with
+            ExtractConfig(model_dir=snapshot): [8, 48, 4096], finite,
+            bitwise equal to the capture from the in-memory tree, 51
+            flash launches all sm90; and with quantize_int8 (the weights
+            quantized as read): qmm_sm90.cu on all but the patch
+            embedding (237 launches, 234 sm90), bitwise equal to the
+            int8 capture from quantize_params of the in-memory tree, its
+            cosine against the bf16 capture reported (these N(0, 0.05)
+            weights are far from a trained model's: see the phase's
+            record).
+5c. adversarial  on the same loaded weights: the 720 adversarial pairs
+            (36/180/180/324), their capture with save_interval 50
+            through the .tmp.npz checkpointing path ([8, 720, 4096],
+            finite, tdax's schemas, 765 flash launches all sm90, the
+            forward's device time and the file writes timed apart), the
+            4-condition run_adversarial_sweep of it on the card
+            (summary.json in tdax's schema, every stat finite), and
+            run_adversarial_sweep on structured synthetic clouds of the
+            720 samples (adversarial_clouds, --seed) on the card and on
+            the CPU: layer ADV_CLUSTERED_LAYER the img_shape silhouette
+            peak of every condition on both, silhouettes and max-H1
+            within SWEEP_SIL_TOL / SWEEP_H1_TOL at every other layer, the
+            clustered layer's silhouettes within ADV_CLUSTERED_SIL_TOL
+            (its max-H1 reported: see the constant's note).
+            (phase_adversarial_full_depth, run alone, measures the same
+            capture at the full depth.)
 6. scale    rips_at_scale on bench_scale.py's seeded 3-sphere cloud,
             10000 x 4096, threshold for ~40 neighbours, maxdim
             SCALE_MAXDIM: the distance matrix through sqdist_sm90.cu (its
@@ -147,7 +182,8 @@ and runs these phases, printing JSON lines:
             the share of 989 TFLOP/s (bench_train.py's convention), and a
             profiled step's device time by kind.
 10. the kernels line (flash_fwd, flash_bwd_*, sqdist and qmm name both sources
-            and the launches of each kernel on each path), the nvidia-smi
+            and the launches of each kernel on each path, the checkpoint
+            and adversarial captures' included), the nvidia-smi
             line, then the last
             line {"ok": true, "device": {...}}.  Kernel times are
             reported, never gated: only correctness and launch counts
@@ -258,6 +294,31 @@ SMALL_BOTTLENECK_TOL = 1e-4
 SWEEP_SIL_TOL, SWEEP_H1_TOL = 0.02, 0.03
 STATS_KEYS = ["layer", "n_h1_features", "max_h1_persistence", "all_h1_persistence_values",
               "n_h0_features", "max_h0_persistence", "silhouette_shape", "silhouette_color"]
+
+# the checkpoint and adversarial phases: the full widths of QwenVLConfig()
+# at SNAPSHOT_LAYERS decoder layers and ViT blocks, written in shards of
+# about SNAPSHOT_SHARD_BYTES (the reference snapshot's ten .bin shards
+# hold ~1.9 GB each)
+SNAPSHOT_LAYERS = 8
+SNAPSHOT_SHARD_BYTES = 2 << 30
+ADV_COUNTS = {"matched": 36, "color_mismatch": 180, "shape_mismatch": 180,
+              "both_mismatch": 324}
+ADV_SAVE_INTERVAL = 50  # extract_adversarial_activations.py:58
+ADV_STATS_KEYS = ["layer", "n_h1_features", "max_h1_persistence", "max_h0_persistence",
+                  "silhouette_img_color", "silhouette_img_shape", "silhouette_txt_color",
+                  "silhouette_txt_shape"]
+# the synthetic adversarial clouds' layer clustered by image shape
+ADV_CLUSTERED_LAYER = 5
+# card against CPU at that layer: its fuzzy graph has six components (one
+# per shape), so the spectral init is any basis of a six-fold zero
+# eigenvalue, and rounding rotates it.  On the CPU alone, inputs changed
+# by 1e-7 relative moved its silhouettes by up to 0.0134 and its max-H1 by
+# up to 1.17 (shape_mismatch), the connected layers' by 1e-4 and 0.0073.
+# So the clustered layer's silhouettes get a limit of their own (an H100
+# read 0.0477, matched; its silhouette_img_shape is 0.86-0.94 against
+# -0.2 to -0.05 elsewhere) and its max-H1 is reported, not compared; the
+# other layers are held to SWEEP_SIL_TOL / SWEEP_H1_TOL.
+ADV_CLUSTERED_SIL_TOL = 0.1
 
 # (name, B, Tq, Tk, nh, hd, causal, calls per batch on the main path)
 MAIN_SHAPES = [
@@ -1009,6 +1070,534 @@ def phase_sweep(tmp: Path, smi: str) -> dict:
     return info
 
 
+def snapshot_config():
+    """QwenVLConfig()'s widths at SNAPSHOT_LAYERS decoder layers and ViT blocks."""
+    import dataclasses
+
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    full = QwenVLConfig()
+    return dataclasses.replace(full, num_layers=SNAPSHOT_LAYERS,
+                               visual=dataclasses.replace(full.visual, layers=SNAPSHOT_LAYERS))
+
+
+def hf_state(cfg, device, seed: int = 0) -> dict:
+    """A Qwen-VL-Chat state dict with the checkpoint's names, bf16, on
+    ``device``, with the values of tests/test_model.py::random_hf_state and
+    tests/test_checkpoint_convert.py::random_hf_visual_state: N(0, 0.05)
+    weights and biases, 1 + N(0, 0.01) norm weights, N(0, 0.01) norm
+    biases, N(0, 0.02) positions and queries, and the query-grid sincos
+    table as attn_pool.pos_embed; drawn in f32 from a torch.Generator on
+    ``device`` seeded with ``seed``."""
+    import torch
+    from tdax_torch.models.qwen_vl.vit import sincos_2d
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*shape, s=0.05):
+        return (torch.randn(shape, generator=gen, device=device) * s).to(torch.bfloat16)
+
+    def norm(n):
+        return 1 + r(n, s=0.01).float()
+
+    def ln(prefix, n):
+        return {prefix + "weight": norm(n).to(torch.bfloat16), prefix + "bias": r(n, s=0.01)}
+
+    h, f2 = cfg.hidden_size, cfg.ff_half
+    state = {"transformer.wte.weight": r(cfg.vocab_size, h),
+             "transformer.ln_f.weight": norm(h).to(torch.bfloat16),
+             "lm_head.weight": r(cfg.vocab_size, h)}
+    for i in range(cfg.num_layers):
+        p = f"transformer.h.{i}."
+        state.update({p + "ln_1.weight": norm(h).to(torch.bfloat16),
+                      p + "ln_2.weight": norm(h).to(torch.bfloat16),
+                      p + "attn.c_attn.weight": r(3 * h, h), p + "attn.c_attn.bias": r(3 * h),
+                      p + "attn.c_proj.weight": r(h, h),
+                      p + "mlp.w1.weight": r(f2, h), p + "mlp.w2.weight": r(f2, h),
+                      p + "mlp.c_proj.weight": r(h, f2)})
+    v = cfg.visual
+    w, d = v.width, v.output_dim
+    pv = "transformer.visual."
+    state.update({pv + "conv1.weight": r(w, 3, v.patch_size, v.patch_size),
+                  pv + "positional_embedding": r(v.n_patches, w, s=0.02),
+                  **ln(pv + "ln_pre.", w), **ln(pv + "ln_post.", d),
+                  pv + "proj": r(d, d)})
+    for i in range(v.layers):
+        pb = f"{pv}transformer.resblocks.{i}."
+        state.update({**ln(pb + "ln_1.", w), **ln(pb + "ln_2.", w),
+                      pb + "attn.in_proj_weight": r(3 * w, w),
+                      pb + "attn.in_proj_bias": r(3 * w),
+                      pb + "attn.out_proj.weight": r(w, w), pb + "attn.out_proj.bias": r(w),
+                      pb + "mlp.c_fc.weight": r(v.mlp_dim, w), pb + "mlp.c_fc.bias": r(v.mlp_dim),
+                      pb + "mlp.c_proj.weight": r(w, v.mlp_dim), pb + "mlp.c_proj.bias": r(w)})
+    rp = pv + "attn_pool."
+    q_pos = sincos_2d(math.isqrt(v.n_queries), d)
+    state.update({rp + "query": r(v.n_queries, d, s=0.02),
+                  rp + "pos_embed": torch.from_numpy(q_pos).to(device, torch.bfloat16),
+                  rp + "kv_proj.weight": r(d, w), **ln(rp + "ln_q.", d), **ln(rp + "ln_kv.", d),
+                  rp + "attn.in_proj_weight": r(3 * d, d), rp + "attn.in_proj_bias": r(3 * d),
+                  rp + "attn.out_proj.weight": r(d, d), rp + "attn.out_proj.bias": r(d)})
+    return state
+
+
+def write_bin_snapshot(state: dict, out_dir: Path,
+                       shard_bytes: int = SNAPSHOT_SHARD_BYTES) -> int:
+    """``state`` in the layout of the snapshot the reference downloads:
+    ``pytorch_model-0000k-of-0000N.bin`` shards of at most about
+    ``shard_bytes`` (a tensor is never split), in the state's key order,
+    and ``pytorch_model.bin.index.json``.  Each shard is copied to the
+    host alone.  Returns the bytes written."""
+    import torch
+
+    shards, size = [[]], 0
+    for key, t in state.items():
+        nbytes = t.numel() * t.element_size()
+        if shards[-1] and size + nbytes > shard_bytes:
+            shards.append([])
+            size = 0
+        shards[-1].append(key)
+        size += nbytes
+    out_dir.mkdir(parents=True, exist_ok=True)
+    weight_map, total = {}, 0
+    for k, keys in enumerate(shards):
+        name = f"pytorch_model-{k + 1:05d}-of-{len(shards):05d}.bin"
+        torch.save({key: state[key].cpu() for key in keys}, out_dir / name)
+        weight_map.update(dict.fromkeys(keys, name))
+        total += (out_dir / name).stat().st_size
+    (out_dir / "pytorch_model.bin.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    return total
+
+
+def _rss() -> int:
+    """The process's resident set now (VmRSS of /proc/self/status), bytes."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) * 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+class PeakRSS:
+    """The largest resident set seen while the block runs: VmRSS sampled
+    every ``period`` seconds by a thread (the process's lifetime peak,
+    getrusage's ru_maxrss, cannot be reset to time one stage)."""
+
+    def __init__(self, period: float = 0.002):
+        import threading
+        self.period, self.peak, self._stop = period, 0, threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.peak = max(self.peak, _rss())
+            self._stop.wait(self.period)
+
+    def __enter__(self):
+        self.before = self.peak = _rss()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.peak = max(self.peak, _rss())
+
+
+def _tree_diff(got: dict, want: dict, path: str = "") -> list:
+    """Paths of the leaves of two parameter trees that differ in keys,
+    dtype, shape or any bit."""
+    import torch
+    if list(got) != list(want):
+        return [f"{path}: keys {list(got)} against {list(want)}"]
+    bad = []
+    for k, leaf in want.items():
+        if isinstance(leaf, dict):
+            bad += _tree_diff(got[k], leaf, f"{path}.{k}")
+        elif got[k].dtype != leaf.dtype or not torch.equal(got[k], leaf):
+            bad.append(f"{path}.{k}")
+    return bad
+
+
+def _stack(results, metadata, n_layers):
+    import numpy as np
+    return np.stack([np.stack([results[m["id"]]["activations"][f"layer_{i}"] for m in metadata])
+                     for i in range(n_layers)])
+
+
+def _cosines(ref, got) -> dict:
+    """Cosine of each captured vector [L, n, H] against its reference:
+    the minimum, the median, and the minimum at each layer."""
+    import numpy as np
+    ref, got = ref.astype(np.float64), got.astype(np.float64)
+    cos = (ref * got).sum(-1) / (np.linalg.norm(ref, axis=-1) * np.linalg.norm(got, axis=-1))
+    return {"min": float(cos.min()), "median": float(np.median(cos)),
+            "min_by_layer": cos.min(axis=1).tolist()}
+
+
+def qmm_per_capture_batch(cfg) -> int:
+    """The int8 products of one capture batch: 4 per ViT block and 5 per
+    decoder layer (mlp w1 and w2 apart), the patch embedding, the
+    resampler's five and the visual projection."""
+    return 4 * cfg.visual.layers + 5 * cfg.num_layers + 7
+
+
+def _checkpoint_writes(batches, save_interval: int) -> int:
+    """The .tmp.npz writes of a capture: one whenever save_interval
+    samples have accumulated, at batch granularity."""
+    writes = since = 0
+    for n in batches:
+        since += n
+        if since >= save_interval:
+            writes, since = writes + 1, 0
+    return writes
+
+
+def capture_timed(metadata, out_path: str, cfg, ecfg, params=None):
+    """extract_activations on the card with each batch's forward timed by
+    CUDA events and each file write by the host clock (the extract
+    module's functions wrapped for the run), launch counters set to 0
+    just before and read just after.  Returns (results, record)."""
+    import statistics
+
+    import torch
+    import tdax_torch.ops.flash_attention as fa
+    import tdax_torch.ops.quant_matmul as qm
+    import tdax_torch.pipeline.extract as ex
+
+    names = ("extract_layer_activations", "save_activations_npz", "save_activations")
+    orig = {n: getattr(ex, n) for n in names}
+    events = []
+    writes = {"tmp_npz_s": 0.0, "tmp_npz_writes": 0, "npz_s": 0.0, "pt_s": 0.0}
+
+    def forward(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig["extract_layer_activations"](*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    def npz(path, *args):
+        t0 = time.perf_counter()
+        orig["save_activations_npz"](path, *args)
+        key = "tmp_npz" if path.endswith(".tmp.npz") else "npz"
+        writes[f"{key}_s"] += time.perf_counter() - t0
+        writes["tmp_npz_writes"] += key == "tmp_npz"
+
+    def pt(*args):
+        t0 = time.perf_counter()
+        orig["save_activations"](*args)
+        writes["pt_s"] += time.perf_counter() - t0
+
+    ex.extract_layer_activations, ex.save_activations_npz, ex.save_activations = forward, npz, pt
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = fa.LAUNCHES_SM90 = qm.LAUNCHES = qm.LAUNCHES_SM90 = 0
+    try:
+        t0 = time.perf_counter()
+        results = ex.extract_activations(metadata, out_path, cfg, ecfg, params=params,
+                                         device="cuda", verbose=False)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        for n in names:
+            setattr(ex, n, orig[n])
+    launches = {"flash_fwd": fa.LAUNCHES, "flash_fwd_sm90": fa.LAUNCHES_SM90,
+                "qmm": qm.LAUNCHES, "qmm_sm90": qm.LAUNCHES_SM90}
+    forward_ms = [start.elapsed_time(end) for start, end in events]
+    record = {"wall_s": wall_s, "batches": len(events), "forward_s": sum(forward_ms) / 1e3,
+              "forward_ms_median": statistics.median(forward_ms), **writes,
+              "writes_s": writes["tmp_npz_s"] + writes["npz_s"] + writes["pt_s"],
+              "launches": launches, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    record["rest_s"] = wall_s - record["forward_s"] - record["writes_s"]
+    return results, record
+
+
+def phase_checkpoint(tmp: Path, smi: str):
+    """An HF-named state at the full widths (SNAPSHOT_LAYERS deep) written
+    as the reference snapshot's .bin shards, loaded back through
+    load_qwen_checkpoint and captured from through extract_activations
+    (bf16 and int8); returns its record and what the adversarial phase
+    reuses."""
+    import resource
+
+    import torch
+    from tdax_torch.config import DatasetConfig, ExtractConfig
+    from tdax_torch.data.dataset import generate_dataset
+    from tdax_torch.models.qwen_vl.convert import convert_hf_state_dict, load_qwen_checkpoint
+    from tdax_torch.models.qwen_vl.quantize import quantize_params
+    from tdax_torch.models.qwen_vl.tokenizer import get_tokenizer
+
+    cfg = snapshot_config()
+    data_dir = tmp / "snapshot_data"
+    metadata = generate_dataset(DatasetConfig(data_dir=str(data_dir)))
+    snap = tmp / "snapshot"
+
+    t0 = time.perf_counter()
+    state = hf_state(cfg, "cuda", seed=0)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in state.values())
+    t0 = time.perf_counter()
+    snapshot_bytes = write_bin_snapshot(state, snap)
+    write_s = time.perf_counter() - t0
+    n_shards = len(list(snap.glob("pytorch_model-*.bin")))
+
+    gc.collect()
+    torch.cuda.synchronize()
+    with PeakRSS() as rss:
+        t0 = time.perf_counter()
+        loaded = load_qwen_checkpoint(str(snap), cfg, "cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    ru_maxrss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    in_memory = convert_hf_state_dict(state, cfg, "cuda")
+    tree_diff = _tree_diff(loaded, in_memory)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    sites = cfg.visual.layers + 1 + cfg.num_layers
+    n_batches = math.ceil(len(metadata) / 16)
+    ecfg = ExtractConfig(model_dir=str(snap), batch_size=16)
+    results, bf16 = capture_timed(metadata, str(data_dir / "all_activations.pt"), cfg, ecfg)
+    acts, _ = _check_capture(str(data_dir / "all_activations.pt"), metadata, results,
+                             "snapshot capture", cfg.num_layers, cfg.hidden_size)
+    mem = capture_timed(metadata, str(data_dir / "in_memory.pt"), cfg,
+                        ExtractConfig(model_dir=None, batch_size=16), params=in_memory)[0]
+    bitwise = bool((acts == _stack(mem, metadata, cfg.num_layers)).all())
+    # bf16 shards: the weights as read are the bf16 tree's, so quantizing
+    # as read equals quantize_params of the in-memory tree
+    in_memory_int8 = quantize_params(in_memory)
+    del in_memory, mem
+    torch.cuda.empty_cache()
+
+    ecfg8 = ExtractConfig(model_dir=str(snap), batch_size=16, quantize_int8=True)
+    results8, int8 = capture_timed(metadata, str(data_dir / "int8.pt"), cfg, ecfg8)
+    acts8, _ = _check_capture(str(data_dir / "int8.pt"), metadata, results8,
+                              "snapshot int8 capture", cfg.num_layers, cfg.hidden_size)
+    mem8 = capture_timed(metadata, str(data_dir / "in_memory_int8.pt"), cfg,
+                         ExtractConfig(model_dir=None, batch_size=16, quantize_int8=True),
+                         params=in_memory_int8)[0]
+    bitwise8 = bool((acts8 == _stack(mem8, metadata, cfg.num_layers)).all())
+    del in_memory_int8, mem8
+    torch.cuda.empty_cache()
+    cosine = _cosines(acts, acts8)
+
+    expected = {"flash_fwd": n_batches * sites, "flash_fwd_sm90": n_batches * sites,
+                "qmm": 0, "qmm_sm90": 0}
+    expected8 = {**expected, "qmm": n_batches * qmm_per_capture_batch(cfg),
+                 "qmm_sm90": n_batches * (qmm_per_capture_batch(cfg) - 1)}
+    info = {"phase": "checkpoint", "nvidia_smi": smi,
+            "config": {"hidden": cfg.hidden_size, "ff": cfg.intermediate_size,
+                       "vocab": cfg.vocab_size, "vit_width": cfg.visual.width,
+                       "vit_mlp": cfg.visual.mlp_dim, "resampler": [cfg.visual.n_queries,
+                                                                    cfg.visual.output_dim]},
+            "cut": f"depth: {cfg.num_layers} of 32 decoder layers, {cfg.visual.layers} of 48 "
+                   "ViT blocks; widths those of QwenVLConfig()",
+            "params": n_params, "layout": "pytorch_model-*.bin + index, bf16",
+            "shards": n_shards, "snapshot_bytes": snapshot_bytes, "draw_s": draw_s,
+            "write_s": write_s, "write_GB_per_s": snapshot_bytes / write_s / 1e9,
+            "load_s": load_s, "load_GB_per_s": snapshot_bytes / load_s / 1e9,
+            "rss_before_load_bytes": rss.before, "peak_rss_during_load_bytes": rss.peak,
+            "peak_rss_above_before_bytes": rss.peak - rss.before,
+            "ru_maxrss_bytes": ru_maxrss, "largest_shard_bytes": max(
+                f.stat().st_size for f in snap.glob("pytorch_model-*.bin")),
+            "loaded_tree_bitwise_equal_in_memory": not tree_diff, "tree_diff": tree_diff[:5],
+            "tokenizer": type(get_tokenizer(str(snap), cfg)).__name__,
+            "capture_shape": list(acts.shape), "capture_bitwise_equal_in_memory": bitwise,
+            "capture": bf16, "expected_launches": expected,
+            "int8_capture": int8, "expected_launches_int8": expected8,
+            "int8_capture_bitwise_equal_in_memory_quantized": bitwise8,
+            "int8_cosine_vs_bf16": cosine}
+    emit(info)
+    if tree_diff:
+        raise AssertionError(f"checkpoint: loaded leaves differ from the in-memory conversion: "
+                             f"{tree_diff[:5]}")
+    if not bitwise:
+        raise AssertionError("checkpoint: the capture from the snapshot differs from the "
+                             "capture from the in-memory tree")
+    if bf16["launches"] != expected or int8["launches"] != expected8:
+        raise AssertionError(f"checkpoint captures launched {bf16['launches']} and "
+                             f"{int8['launches']}, expected {expected} and {expected8}")
+    if not bitwise8:
+        raise AssertionError("checkpoint int8 capture: the capture from the snapshot differs "
+                             "from the capture from quantize_params of the in-memory tree")
+    return info, {"cfg": cfg, "params": loaded, "snapshot": str(snap), "data_dir": data_dir,
+                  "base_metadata": metadata}
+
+
+def adversarial_clouds(metadata, seed: int, n_layers: int = SNAPSHOT_LAYERS) -> dict:
+    """Structured synthetic activations of the adversarial samples in the
+    capture's nested-dict schema: N(0, 1) vectors of width 4096 at every
+    layer but ADV_CLUSTERED_LAYER, where each sample's vector is the
+    centre of its image shape (N(0, 1) x 3) plus N(0, 0.5) noise."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shapes = sorted({m["img_shape"] for m in metadata})
+    clouds = rng.normal(size=(n_layers, len(metadata), 4096))
+    centers = rng.normal(size=(len(shapes), 4096)) * 3
+    for j, m in enumerate(metadata):
+        clouds[ADV_CLUSTERED_LAYER, j] = (centers[shapes.index(m["img_shape"])]
+                                          + rng.normal(0, 0.5, 4096))
+    return {m["id"]: {"metadata": m, "activations": {f"layer_{i}": clouds[i, j]
+                                                     for i in range(n_layers)}}
+            for j, m in enumerate(metadata)}
+
+
+def _check_adversarial_summary(summary, out_dir: Path, n_layers: int, label: str) -> None:
+    """summary.json and the artifact tree in tdax's schema, every stat finite."""
+    import numpy as np
+    written = json.loads((out_dir / "summary.json").read_text())
+    if list(written) != ["condition_stats", "n_samples_per_condition"] or written != summary:
+        raise AssertionError(f"{label}: summary.json keys {list(written)} are not tdax's, or "
+                             "it differs from the returned summary")
+    counts = written["n_samples_per_condition"]
+    if counts != ADV_COUNTS or list(counts) != list(ADV_COUNTS):
+        raise AssertionError(f"{label}: n_samples_per_condition {counts}, expected {ADV_COUNTS}")
+    for condition, stats in written["condition_stats"].items():
+        if len(stats) != n_layers or any(list(s) != ADV_STATS_KEYS for s in stats):
+            raise AssertionError(f"{label}: {condition} stats are not tdax's "
+                                 f"{n_layers} x {ADV_STATS_KEYS}")
+        if not np.isfinite([[v for v in s.values()] for s in stats]).all():
+            raise AssertionError(f"{label}: non-finite stats for {condition}")
+        if json.loads((out_dir / condition / "layer_stats.json").read_text()) != stats:
+            raise AssertionError(f"{label}: {condition}/layer_stats.json differs")
+        if len(list((out_dir / condition / "point_clouds").glob("*.npy"))) != n_layers:
+            raise AssertionError(f"{label}: {condition}/point_clouds is incomplete")
+
+
+def phase_adversarial(tmp: Path, smi: str, ckpt: dict, seed: int) -> dict:
+    """The adversarial workflow on the snapshot's weights: the 720 pairs,
+    their capture through the checkpointing path, the 4-condition sweep
+    of it on the card, then the sweep of structured synthetic clouds of
+    the same samples on the card and on the CPU."""
+    import importlib.util
+
+    from tdax_torch.config import DatasetConfig, ExtractConfig, SweepConfig
+    from tdax_torch.data.adversarial import condition_counts, generate_adversarial_metadata
+    from tdax_torch.data.io import load_activations
+    from tdax_torch.pipeline.adversarial import run_adversarial_sweep
+
+    cfg = ckpt["cfg"]
+    ds = DatasetConfig(data_dir=str(ckpt["data_dir"]))
+    metadata = generate_adversarial_metadata(ckpt["base_metadata"], ds, save=True)
+    counts = condition_counts(metadata)
+    if counts != ADV_COUNTS or len(metadata) != 720:
+        raise AssertionError(f"adversarial metadata: {len(metadata)} samples, {counts}")
+
+    ecfg = ExtractConfig(model_dir=ckpt["snapshot"], batch_size=16,
+                         save_interval=ADV_SAVE_INTERVAL)
+    out_path = ds.adversarial_activations_path
+    results, capture = capture_timed(metadata, out_path, cfg, ecfg, params=ckpt["params"])
+    _check_capture(out_path, metadata, results, "adversarial capture", cfg.num_layers,
+                   cfg.hidden_size)
+    batches = [min(16, len(metadata) - s) for s in range(0, len(metadata), 16)]
+    sites = cfg.visual.layers + 1 + cfg.num_layers
+    expected = {"flash_fwd": len(batches) * sites, "flash_fwd_sm90": len(batches) * sites,
+                "qmm": 0, "qmm_sm90": 0}
+    expected_writes = _checkpoint_writes(batches, ADV_SAVE_INTERVAL)
+
+    rendered = importlib.util.find_spec("matplotlib") is not None
+    out_dir = tmp / "tda_adversarial_output"
+    t0 = time.perf_counter()
+    all_data = load_activations(out_path.replace(".pt", ".npz"))
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary = run_adversarial_sweep(all_data, str(out_dir), SweepConfig(save_diagrams=rendered),
+                                    verbose=False)
+    sweep_s = time.perf_counter() - t0
+    _check_adversarial_summary(summary, out_dir, cfg.num_layers, "adversarial sweep")
+    if rendered and not (out_dir / "comparison" / "all_conditions_comparison.png").exists():
+        raise AssertionError("adversarial sweep: no comparison figure with diagrams on")
+
+    synthetic = adversarial_clouds(metadata, seed)
+    runs, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        out = tmp / f"adversarial_synthetic_{dev}"
+        t0 = time.perf_counter()
+        runs[dev] = run_adversarial_sweep(synthetic, str(out), SweepConfig(save_diagrams=False),
+                                          verbose=False, device=dev)
+        walls[dev] = time.perf_counter() - t0
+        _check_adversarial_summary(runs[dev], out, SNAPSHOT_LAYERS, f"synthetic sweep on {dev}")
+    peaks, gaps = {}, {}
+    for condition in ADV_COUNTS:
+        card, cpu = (runs[d]["condition_stats"][condition] for d in ("cuda", "cpu"))
+        peaks[condition] = [max(range(len(st)), key=lambda i: st[i]["silhouette_img_shape"])
+                            for st in (card, cpu)]
+        gaps[condition] = {
+            "silhouette_by_layer": [max(abs(a[k] - b[k]) for k in ADV_STATS_KEYS[4:])
+                                    for a, b in zip(card, cpu)],
+            "max_h1_by_layer": [abs(a["max_h1_persistence"] - b["max_h1_persistence"])
+                                for a, b in zip(card, cpu)],
+            "clustered_silhouette_img_shape": [st[ADV_CLUSTERED_LAYER]["silhouette_img_shape"]
+                                               for st in (card, cpu)]}
+    others = [i for i in range(SNAPSHOT_LAYERS) if i != ADV_CLUSTERED_LAYER]
+    sil_gap = max(g["silhouette_by_layer"][i] for g in gaps.values() for i in others)
+    h1_gap = max(g["max_h1_by_layer"][i] for g in gaps.values() for i in others)
+    clustered_gap = max(g["silhouette_by_layer"][ADV_CLUSTERED_LAYER] for g in gaps.values())
+    info = {"phase": "adversarial", "nvidia_smi": smi, "samples": len(metadata),
+            "conditions": counts, "capture": capture, "expected_launches": expected,
+            "expected_tmp_npz_writes": expected_writes, "capture_shape": [
+                cfg.num_layers, len(metadata), cfg.hidden_size],
+            "sweep_load_s": load_s, "sweep_s": sweep_s, "png_rendered": rendered,
+            "synthetic_clustered_layer": ADV_CLUSTERED_LAYER,
+            "synthetic_peak_layer_card_cpu": peaks, "card_vs_cpu_gaps": gaps,
+            "card_vs_cpu_max_silhouette_diff": sil_gap, "card_vs_cpu_max_h1_diff": h1_gap,
+            "tolerances": [SWEEP_SIL_TOL, SWEEP_H1_TOL],
+            "card_vs_cpu_clustered_silhouette_diff": clustered_gap,
+            "clustered_tolerance": ADV_CLUSTERED_SIL_TOL,
+            "synthetic_sweep_s": walls}
+    emit(info)
+    if capture["launches"] != expected or capture["tmp_npz_writes"] != expected_writes:
+        raise AssertionError(f"adversarial capture launched {capture['launches']} and wrote "
+                             f"{capture['tmp_npz_writes']} checkpoints, expected {expected} "
+                             f"and {expected_writes}")
+    if any(p != [ADV_CLUSTERED_LAYER] * 2 for p in peaks.values()):
+        raise AssertionError(f"synthetic adversarial sweep: img_shape silhouette peaks "
+                             f"{peaks}, expected layer {ADV_CLUSTERED_LAYER} on card and CPU")
+    if (sil_gap > SWEEP_SIL_TOL or h1_gap > SWEEP_H1_TOL
+            or clustered_gap > ADV_CLUSTERED_SIL_TOL):
+        raise AssertionError(f"synthetic adversarial sweep: card vs CPU silhouettes "
+                             f"{sil_gap:.4f} (limit {SWEEP_SIL_TOL}), max H1 {h1_gap:.4f} "
+                             f"(limit {SWEEP_H1_TOL}) off the clustered layer; its "
+                             f"silhouettes {clustered_gap:.4f} (limit {ADV_CLUSTERED_SIL_TOL})")
+    return info
+
+
+def phase_adversarial_full_depth(smi: str) -> dict:
+    """The adversarial capture at the full QwenVLConfig() (bf16, random
+    weights drawn on the card from seed 0, save_interval 50), its wall
+    split into the forward and the file writes.  Not part of the smoke
+    run; measured alone:
+
+        python3 -c 'import chip_smoke as c; c.import_port();
+                    c.phase_adversarial_full_depth(c.nvidia_smi())'
+    """
+    from tdax_torch.config import DatasetConfig, ExtractConfig
+    from tdax_torch.data.adversarial import generate_adversarial_metadata
+    from tdax_torch.data.dataset import generate_dataset
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    from tdax_torch.models.qwen_vl.model import init_params
+
+    cfg = QwenVLConfig()
+    with tempfile.TemporaryDirectory(prefix="tdax_torch_adversarial_") as tmp:
+        ds = DatasetConfig(data_dir=tmp)
+        metadata = generate_adversarial_metadata(generate_dataset(ds), ds, save=False)
+        params = init_params(cfg, "cuda", seed=0)
+        ecfg = ExtractConfig(model_dir=None, batch_size=16, save_interval=ADV_SAVE_INTERVAL)
+        results, capture = capture_timed(metadata, ds.adversarial_activations_path, cfg, ecfg,
+                                         params=params)
+        _check_capture(ds.adversarial_activations_path, metadata, results,
+                       "full-depth adversarial capture")
+    sites = cfg.visual.layers + 1 + cfg.num_layers
+    info = {"phase": "adversarial_full_depth", "nvidia_smi": smi, "samples": len(metadata),
+            "capture_shape": [cfg.num_layers, len(metadata), cfg.hidden_size],
+            "capture": capture, "expected_flash_launches": math.ceil(len(metadata) / 16) * sites}
+    emit(info)
+    if capture["launches"]["flash_fwd_sm90"] != info["expected_flash_launches"]:
+        raise AssertionError(f"full-depth adversarial capture launches {capture['launches']}")
+    return info
+
+
 def _distance_parts(sqdist, x) -> dict:
     """distance_matrix's stages one by one on x (CUDA events; the copy to
     the host on the host clock): the kernel (split pass and product as
@@ -1158,8 +1747,7 @@ def phase_tiny_parity(tmp: Path) -> dict:
     for dev, params in (("cpu", cpu_params), ("cuda", card_params)):
         res = extract_activations(metadata, str(tmp / f"tiny_{dev}.pt"), cfg, ecfg,
                                   params=params, device=dev, verbose=False)
-        runs[dev] = np.stack([np.stack([res[m["id"]]["activations"][f"layer_{i}"]
-                                        for m in metadata]) for i in range(cfg.num_layers)])
+        runs[dev] = _stack(res, metadata, cfg.num_layers)
     err = float(np.abs(runs["cuda"] - runs["cpu"]).max())
     scale = float(np.abs(runs["cpu"]).max())
     info = {"phase": "tiny_parity", "shape": list(runs["cuda"].shape), "max_abs_err": err,
@@ -1201,8 +1789,7 @@ def phase_tiny_int8(tmp: Path) -> dict:
     for dev in ("cpu", "cuda"):
         res = extract_activations(metadata, str(tmp / f"tiny_int8_{dev}.pt"), cfg, ecfg,
                                   params=params[dev], device=dev, verbose=False)
-        acts[dev] = np.stack([np.stack([res[m["id"]]["activations"][f"layer_{i}"]
-                                        for m in metadata]) for i in range(cfg.num_layers)])
+        acts[dev] = _stack(res, metadata, cfg.num_layers)
         batch = {"input_ids": torch.as_tensor(enc["input_ids"], device=dev).long(),
                  "attn_mask": torch.as_tensor(enc["attn_mask"], device=dev),
                  "images": torch.as_tensor(images, device=dev),
@@ -1332,16 +1919,21 @@ def phase_capture(tmp: Path, smi: str):
     return info, state
 
 
-def _check_capture(out_path: str, metadata, results, label):
-    """The capture's files in tdax's schemas: [32, 48, 4096], finite, .npz
-    ids and metadata, .pt entries equal to the .npz."""
+def _check_capture(out_path: str, metadata, results, label, n_layers: int = 32,
+                   hidden: int = 4096):
+    """The capture's files in tdax's schemas: [n_layers, len(metadata),
+    hidden], finite, .npz ids and metadata, .pt entries equal to the .npz,
+    no checkpoint file left."""
+    import os
+
     import numpy as np
     import torch
     from tdax_torch.data.io import load_activations_npz
 
     acts, ids, meta = load_activations_npz(out_path.rsplit(".", 1)[0] + ".npz")
-    if acts.shape != (32, 48, 4096):
-        raise AssertionError(f"{label}: shape {acts.shape}, expected (32, 48, 4096)")
+    shape = (n_layers, len(metadata), hidden)
+    if acts.shape != shape:
+        raise AssertionError(f"{label}: shape {acts.shape}, expected {shape}")
     if not np.isfinite(acts).all():
         raise AssertionError(f"{label}: non-finite values")
     if ids != [m["id"] for m in metadata] or meta != metadata:
@@ -1352,14 +1944,17 @@ def _check_capture(out_path: str, metadata, results, label):
     for j, sid in enumerate(ids):
         entry = pt[sid]
         if entry["metadata"] != metadata[j] or list(entry["activations"]) != [
-                f"layer_{i}" for i in range(32)]:
+                f"layer_{i}" for i in range(n_layers)]:
             raise AssertionError(f"{label}: .pt entry {sid} does not have the tdax schema")
-        if not np.array_equal(entry["activations"]["layer_31"].numpy(), acts[31, j]):
+        if not np.array_equal(entry["activations"][f"layer_{n_layers - 1}"].numpy(),
+                              acts[n_layers - 1, j]):
             raise AssertionError(f"{label}: .pt and .npz disagree for {sid}")
     if set(results) != set(ids):
         raise AssertionError(f"{label}: returned results do not cover the dataset")
     if np.abs(acts[:, 0] - acts[:, 1]).max() == 0:
         raise AssertionError(f"{label}: two different samples gave identical activations")
+    if os.path.exists(out_path + ".tmp.npz"):
+        raise AssertionError(f"{label}: the checkpoint file was left behind")
     return acts, ids
 
 
@@ -2171,6 +2766,11 @@ def main(argv=None) -> int:
         del state
         torch.cuda.empty_cache()
         phase_sweep(Path(tmp), smi)
+        ckpt, ckpt_state = phase_checkpoint(Path(tmp), smi)
+        adv = phase_adversarial(Path(tmp), smi, ckpt_state, args.seed)
+        del ckpt_state
+        gc.collect()
+        torch.cuda.empty_cache()
     scale = phase_scale(smi)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2204,7 +2804,12 @@ def main(argv=None) -> int:
                          - gen["runs"][0]["launches"]["flash_fwd_sm90"]},
             "train": {"sm90": train["launches"]["flash_fwd_sm90"],
                       "mma": train["launches"]["flash_fwd"]
-                      - train["launches"]["flash_fwd_sm90"]}},
+                      - train["launches"]["flash_fwd_sm90"]},
+            **{path: {"sm90": rec["launches"]["flash_fwd_sm90"],
+                      "mma": rec["launches"]["flash_fwd"] - rec["launches"]["flash_fwd_sm90"]}
+               for path, rec in (("checkpoint_capture", ckpt["capture"]),
+                                 ("checkpoint_int8_capture", ckpt["int8_capture"]),
+                                 ("adversarial_capture", adv["capture"]))}},
         "max_abs_err": max(s["max_abs_err"] for s in kern["sites"] + [tr]),
         "ms": total("ms"),
         "ms_mma": total("ms_mma"),
@@ -2281,7 +2886,11 @@ def main(argv=None) -> int:
                              "mma": int8["launches"]["qmm"] - int8["launches"]["qmm_sm90"]},
             "generate": {"sm90": gen["runs"][0]["launches"]["qmm_sm90"],
                          "mma": gen["runs"][0]["launches"]["qmm"]
-                         - gen["runs"][0]["launches"]["qmm_sm90"]}},
+                         - gen["runs"][0]["launches"]["qmm_sm90"]},
+            "checkpoint_int8_capture": {
+                "sm90": ckpt["int8_capture"]["launches"]["qmm_sm90"],
+                "mma": ckpt["int8_capture"]["launches"]["qmm"]
+                - ckpt["int8_capture"]["launches"]["qmm_sm90"]}},
         "max_abs_err": qmm["max_abs_err"],
         "max_abs_err_mma": qmm["max_abs_err_mma"],
         **_qmm_totals(qmm["sites"], "calls_per_capture_batch"),

@@ -1,76 +1,130 @@
-"""Command line of the port: the reference workflow's three steps.
+"""Command line of the port: the reference workflow and its adversarial
+experiment.
 
   python -m tdax_torch generate                 # 48 images + metadata.json
   python -m tdax_torch extract                  # full Qwen-VL capture on the card
+  python -m tdax_torch extract --model-dir DIR  # weights and tokenizer of a HF snapshot
   python -m tdax_torch extract --toy            # tiny random model
   python -m tdax_torch extract --int8           # int8 weight-only matmuls
   python -m tdax_torch extract --device cpu     # on the CPU, when asked
   python -m tdax_torch sweep                    # per-layer UMAP + Rips + silhouettes
   python -m tdax_torch sweep --device cpu       # the sweep on the CPU
+  python -m tdax_torch adversarial-metadata     # the 720 adversarial pairs
+  python -m tdax_torch extract --adversarial    # their capture
+  python -m tdax_torch sweep --adversarial      # the 4-condition sweep
 
-Without a checkpoint the model's weights are random (seed 0) and the
-tokenizer is the byte-level ``ToyTokenizer``, as in tdax when no
-checkpoint is present.  Outputs go to ``data/physics_experiment_6x6``
-(``all_activations.pt`` and ``.npz``) relative to the working directory;
+``extract`` takes its weights from ``--model-dir`` (which must hold
+checkpoint shards), else from ``./qwen-vl-chat-local`` when that holds
+them (not with ``--toy``), else draws them at random (seed 0); the
+tokenizer is the checkpoint's when the directory has one, else the
+byte-level ``ToyTokenizer``, as in tdax.  It prints which weights it
+used.  Files go to ``data/physics_experiment_6x6`` relative to the
+working directory: ``all_activations.pt`` and ``.npz``, or with
+``--adversarial`` ``adversarial_activations.pt`` and ``.npz`` (from
+``adversarial_metadata.json``, checkpointed every 50 samples).
 ``sweep`` (the counterpart of ``debug_tda_pipeline.py``) reads them back
-(the ``.npz`` when present) and writes ``tda_debug_output/``.
+(the ``.npz`` when present) and writes ``tda_debug_output/``; with
+``--adversarial`` (``analyze_adversarial_tda.py``) it writes
+``tda_adversarial_output/``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(prog="python -m tdax_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     sub.add_parser("generate", help="write the 48-sample 6x6 dataset")
+    sub.add_parser("adversarial-metadata",
+                   help="write the 720 adversarial image-text pairs of the bound images")
     ext = sub.add_parser("extract", help="capture per-layer last-token activations")
-    ext.add_argument("--toy", action="store_true", help="tiny random-weights model")
-    ext.add_argument("--int8", action="store_true",
-                     help="int8 weight-only matmuls (weights drawn straight into int8)")
+    ext.add_argument("--toy", action="store_true", help="tiny model")
+    ext.add_argument("--int8", action="store_true", help="int8 weight-only matmuls")
+    ext.add_argument("--model-dir", default=None,
+                     help="HF snapshot to load the weights and tokenizer from")
+    ext.add_argument("--adversarial", action="store_true",
+                     help="capture the adversarial pairs instead of the dataset")
     ext.add_argument("--device", default=None, help="'cpu' to run on the CPU (default: cuda)")
     swp = sub.add_parser("sweep", help="per-layer UMAP + Rips + silhouette sweep")
+    swp.add_argument("--adversarial", action="store_true",
+                     help="the 4-condition sweep of the adversarial capture")
     swp.add_argument("--device", default=None, help="'cpu' to run on the CPU (default: cuda)")
     args = parser.parse_args(argv)
 
     from tdax_torch.config import DatasetConfig, ExtractConfig
+    from tdax_torch.data.io import load_metadata
     ds = DatasetConfig()
     if args.command == "generate":
         from tdax_torch.data.dataset import generate_dataset
         metadata = generate_dataset(ds)
         print(f"Generated {len(metadata)} samples in {ds.data_dir}")
         return
+    if args.command == "adversarial-metadata":
+        from tdax_torch.data.adversarial import condition_counts, generate_adversarial_metadata
+        print(f"Loading base metadata from {ds.metadata_path}...")
+        samples = generate_adversarial_metadata(load_metadata(ds.metadata_path), ds, save=True)
+        print(f"\nGenerated {len(samples)} adversarial samples:")
+        for cond, count in sorted(condition_counts(samples).items()):
+            print(f"  {cond}: {count} samples")
+        print(f"\nSaved to {ds.adversarial_metadata_path}")
+        return
     if args.command == "sweep":
-        import os
-
-        from tdax_torch.config import SweepConfig
-        from tdax_torch.data.io import load_activations
-        from tdax_torch.pipeline.tda_sweep import run_tda_sweep
-        from tdax_torch.runtime import get_device
-
-        device = get_device(args.device)
-        cfg = SweepConfig()
-        npz = ds.activations_path.replace(".pt", ".npz")
-        path = npz if os.path.exists(npz) else ds.activations_path
-        print(f"Debug output will be saved to: {cfg.output_dir}")
-        print(f"Loading activations from {path}...")
-        run_tda_sweep(load_activations(path), ds.metadata_path, cfg, device=device)
+        _sweep(args, ds)
         return
 
-    from tdax_torch.data.io import load_metadata
     from tdax_torch.models.qwen_vl.config import QwenVLConfig
-    from tdax_torch.pipeline.extract import extract_activations
+    from tdax_torch.pipeline.extract import _has_checkpoint, extract_activations
+    from tdax_torch.runtime import get_device
 
+    device = get_device(args.device)
     cfg = QwenVLConfig.tiny() if args.toy else QwenVLConfig()
-    print(f"Loading metadata from {ds.metadata_path}...")
-    metadata = load_metadata(ds.metadata_path)
+    model_dir = args.model_dir or (None if args.toy else ExtractConfig.model_dir)
+    ecfg = ExtractConfig(model_dir=model_dir, quantize_int8=args.int8)
+    params = None
+    if args.model_dir is not None:
+        # an explicit directory must hold a checkpoint: the loader raises if not
+        from tdax_torch.models.qwen_vl.convert import load_qwen_checkpoint
+        params = load_qwen_checkpoint(args.model_dir, cfg, device, quantize=args.int8)
+    weights = (f"the checkpoint in {model_dir}" if params is not None or _has_checkpoint(model_dir)
+               else "random weights (seed 0)")
+    meta_path, out_path = ((ds.adversarial_metadata_path, ds.adversarial_activations_path)
+                           if args.adversarial else (ds.metadata_path, ds.activations_path))
+    print(f"Loading metadata from {meta_path}...")
+    metadata = load_metadata(meta_path)
     print(f"Extracting activations for {len(metadata)} samples "
-          f"({'toy model' if args.toy else 'full model'}, random weights"
+          f"({'toy model' if args.toy else 'full model'}, {weights}"
           f"{', int8' if args.int8 else ''})...")
-    results = extract_activations(metadata, ds.activations_path, cfg,
-                                  ExtractConfig(quantize_int8=args.int8), device=args.device)
+    results = extract_activations(metadata, out_path, cfg, ecfg, params=params, device=device)
     print(f"\nExtracted activations for {len(results)} samples.")
+
+
+def _sweep(args, ds) -> None:
+    from tdax_torch.config import SweepConfig
+    from tdax_torch.data.io import load_activations
+    from tdax_torch.runtime import get_device
+
+    device = get_device(args.device)
+    pt = ds.adversarial_activations_path if args.adversarial else ds.activations_path
+    npz = pt.replace(".pt", ".npz")
+    path = npz if os.path.exists(npz) else pt
+    print(f"Loading activations from {path}...")
+    all_data = load_activations(path)
+    if args.adversarial:
+        from tdax_torch.data.adversarial import condition_counts
+        from tdax_torch.pipeline.adversarial import run_adversarial_sweep
+        print("\nSamples per condition:")
+        for cond, cnt in sorted(condition_counts([e["metadata"]
+                                                  for e in all_data.values()]).items()):
+            print(f"  {cond}: {cnt} samples")
+        run_adversarial_sweep(all_data, "tda_adversarial_output", SweepConfig(), device=device)
+        return
+    from tdax_torch.pipeline.tda_sweep import run_tda_sweep
+    cfg = SweepConfig()
+    print(f"Debug output will be saved to: {cfg.output_dir}")
+    run_tda_sweep(all_data, ds.metadata_path, cfg, device=device)
 
 
 if __name__ == "__main__":

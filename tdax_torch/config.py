@@ -1,6 +1,6 @@
 """Typed configuration: the port's copy of ``tdax/config.py``.
 
-What the capture and the sweep need is copied here (dataset constants,
+What the captures and the sweeps need is copied here (dataset constants,
 ``DatasetConfig``, ``ExtractConfig``, ``UMAPConfig``, ``RipsConfig``,
 ``SweepConfig``); defaults are the reference constants, as in tdax.
 """
@@ -42,8 +42,16 @@ class DatasetConfig:
         return os.path.join(self.data_dir, "metadata.json")
 
     @property
+    def adversarial_metadata_path(self) -> str:
+        return os.path.join(self.data_dir, "adversarial_metadata.json")
+
+    @property
     def activations_path(self) -> str:
         return os.path.join(self.data_dir, "all_activations.pt")
+
+    @property
+    def adversarial_activations_path(self) -> str:
+        return os.path.join(self.data_dir, "adversarial_activations.pt")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,12 +103,16 @@ class SweepConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ExtractConfig:
-    """Activation extraction (reference extract_activations.py:10-13).
+    """Activation extraction (reference extract_activations.py:10-13,
+    extract_adversarial_activations.py:58).
 
-    The model's dtype is ``QwenVLConfig.dtype``; ``model_dir`` returns
-    with the checkpoint loader.  ``quantize_int8`` runs the capture with
+    ``model_dir`` is the Hugging Face snapshot the weights and the
+    tokenizer come from when it holds them (random weights and the
+    byte-level tokenizer otherwise).  The model's dtype is
+    ``QwenVLConfig.dtype``.  ``quantize_int8`` runs the capture with
     int8 weight-only matmuls (tdax's ``extract_activations.py --int8``)."""
 
+    model_dir: str | None = "./qwen-vl-chat-local"
     batch_size: int = 16
     save_interval: int = 50  # samples between incremental checkpoints
     quantize_int8: bool = False

@@ -86,12 +86,19 @@ def load_activations(path: str) -> dict[str, dict]:
 
 
 def activations_to_layer_clouds(all_data: dict[str, dict], n_layers: int,
-                                point_cloud_type: str | None = "bound"
+                                point_cloud_type: str | None = "bound",
+                                condition: str | None = None
                                 ) -> tuple[np.ndarray, list[str]]:
     """Stack per-sample activation dicts into ``[n_layers, n, hidden]`` clouds,
-    sorted sample ids filtered by metadata ``type`` (debug_tda_pipeline.py:46-65)."""
-    ids = sorted(sid for sid, entry in all_data.items()
-                 if point_cloud_type is None or entry["metadata"].get("type") == point_cloud_type)
+    sorted sample ids filtered by metadata ``condition`` when one is given
+    (analyze_adversarial_tda.py:63-78), else by ``type``
+    (debug_tda_pipeline.py:46-65)."""
+    def keep(md: dict) -> bool:
+        if condition is not None:
+            return md.get("condition") == condition
+        return point_cloud_type is None or md.get("type") == point_cloud_type
+
+    ids = sorted(sid for sid, entry in all_data.items() if keep(entry["metadata"]))
     clouds = np.stack([
         np.stack([np.asarray(all_data[sid]["activations"][f"layer_{i}"], dtype=np.float64)
                   for sid in ids])

@@ -8,12 +8,15 @@
   * the last-TEXT-token locator: substring-match the text-only ids
     inside the full sequence, fallback index -2.
 
-Only the byte-level ``ToyTokenizer`` is ported: the adapter around the
-real Qwen tokenizer waits until its files are in the repository.
+Backends: the real Qwen tokenizer of a checkpoint directory through
+Hugging Face ``transformers`` (``trust_remote_code``; imported only when
+a directory holds a ``tokenizer_config.json``), or the self-contained
+byte-level ``ToyTokenizer`` that goes with random weights.
 """
 
 from __future__ import annotations
 
+import os
 import re
 
 import numpy as np
@@ -81,8 +84,37 @@ class ToyTokenizer:
         return {"input_ids": ids, "images": images, "image_span_starts": spans}
 
 
-def get_tokenizer(cfg: QwenVLConfig) -> ToyTokenizer:
-    """The toy tokenizer (the real one waits for its files)."""
+class QwenTokenizerAdapter:
+    """Wraps the real HF Qwen-VL tokenizer (trust_remote_code) behind the
+    same interface as ToyTokenizer."""
+
+    def __init__(self, model_dir: str, cfg: QwenVLConfig):
+        from transformers import AutoTokenizer
+
+        self.tok = AutoTokenizer.from_pretrained(model_dir, trust_remote_code=True,
+                                                 local_files_only=True)
+        self.cfg = cfg
+        self.pad_id = self.tok.pad_token_id or 0
+
+    def encode_text(self, text: str) -> list[int]:
+        return self.tok(text, add_special_tokens=False).input_ids
+
+    def __call__(self, query: str) -> dict:
+        ids = self.tok(query).input_ids
+        spans = [i + 1 for i, t in enumerate(ids) if t == self.cfg.img_start_id]
+        images = IMG_TAG_RE.findall(query)
+        return {"input_ids": ids, "images": images, "image_span_starts": spans}
+
+
+def get_tokenizer(model_dir: str | None, cfg: QwenVLConfig):
+    """The checkpoint's own tokenizer when ``model_dir`` holds a
+    ``tokenizer_config.json``, the ``ToyTokenizer`` otherwise.
+
+    Where tdax prints a message and falls back to the toy tokenizer when
+    the real one fails to load, this raises: byte-level ids fed to real
+    weights give a capture that looks valid and is wrong."""
+    if model_dir and os.path.isfile(os.path.join(model_dir, "tokenizer_config.json")):
+        return QwenTokenizerAdapter(model_dir, cfg)
     return ToyTokenizer(cfg)
 
 

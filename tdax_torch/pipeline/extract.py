@@ -12,7 +12,10 @@ last-token activations.  As in tdax:
     the checkpoint holds ids foreign to the current metadata (a stale
     checkpoint from another run), and the file is removed after the
     final save;
-  * the outputs are the reference's ``.pt`` and a sibling ``.npz``.
+  * the outputs are the reference's ``.pt`` and a sibling ``.npz``;
+  * the weights and the tokenizer come from ``extract_cfg.model_dir``
+    when it holds a checkpoint, and are random (seed 0) and byte-level
+    otherwise.
 
 One card, so no data-parallel mesh.  The next batch's images are
 decoded on a host thread while the current batch runs.
@@ -31,7 +34,7 @@ from tdax_torch.config import ExtractConfig
 from tdax_torch.data.io import load_activations_npz, save_activations, save_activations_npz
 from tdax_torch.models.qwen_vl.config import QwenVLConfig
 from tdax_torch.models.qwen_vl.model import extract_layer_activations, init_params
-from tdax_torch.models.qwen_vl.quantize import init_params_quantized, quantize_params
+from tdax_torch.models.qwen_vl.quantize import quantize_params
 from tdax_torch.models.qwen_vl.preprocess import load_image_batch
 from tdax_torch.models.qwen_vl.tokenizer import batch_encode, get_tokenizer
 from tdax_torch.runtime import get_device
@@ -39,6 +42,24 @@ from tdax_torch.runtime import get_device
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def _has_checkpoint(model_dir: str | None) -> bool:
+    return bool(model_dir) and os.path.isdir(model_dir) and any(
+        f.endswith((".bin", ".safetensors")) for f in os.listdir(model_dir))
+
+
+def load_or_init_params(model_dir: str | None, cfg: QwenVLConfig, device,
+                        quantize: bool = False) -> dict:
+    """The converted checkpoint when ``model_dir`` holds one, a random
+    init (seed 0) otherwise, on ``device`` in ``cfg.dtype``.  With
+    ``quantize`` the large matmul weights come out int8, each quantized
+    from its value as read (or as drawn) and the whole fp tree never
+    built."""
+    if _has_checkpoint(model_dir):
+        from tdax_torch.models.qwen_vl.convert import load_qwen_checkpoint
+        return load_qwen_checkpoint(model_dir, cfg, device, quantize=quantize)
+    return init_params(cfg, device, quantize=quantize)
 
 
 def _load_checkpoint(tmp_path: str, metadata: list[dict]):
@@ -71,17 +92,18 @@ def extract_activations(metadata: list[dict], output_path: str,
     """Run extraction over metadata samples; returns the nested-dict
     results and writes output_path (.pt) and its sibling .npz.
 
-    ``params`` default to a random init (seed 0) on ``device`` (the
-    card unless ``device="cpu"``).  With ``extract_cfg.quantize_int8``
-    that init is drawn straight into int8, and given params are
-    quantized (a no-op on nodes that already are), as in tdax."""
+    ``params`` default to ``load_or_init_params(extract_cfg.model_dir)``
+    on ``device`` (the card unless ``device="cpu"``).  With
+    ``extract_cfg.quantize_int8`` those are quantized as they are loaded
+    or drawn, and given params are quantized (a no-op on nodes that
+    already are), as in tdax."""
     device = get_device(device)
     cfg = cfg or QwenVLConfig()
     extract_cfg = extract_cfg or ExtractConfig()
-    tokenizer = tokenizer or get_tokenizer(cfg)
+    tokenizer = tokenizer or get_tokenizer(extract_cfg.model_dir, cfg)
     if params is None:
-        params = (init_params_quantized(cfg, device) if extract_cfg.quantize_int8
-                  else init_params(cfg, device))
+        params = load_or_init_params(extract_cfg.model_dir, cfg, device,
+                                     quantize=extract_cfg.quantize_int8)
     elif extract_cfg.quantize_int8:
         params = quantize_params(params)
 

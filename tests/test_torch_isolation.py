@@ -66,9 +66,31 @@ with tempfile.TemporaryDirectory() as tmp:
                                2, default_optimizer(warmup_cosine_lr(1e-3, 1, 4)),
                                checkpoint_path=ck, checkpoint_every=1, device="cpu")
     assert len(losses) == 2 and st.count == 2 and os.path.exists(ck + ".npz")
+    # a tiny .bin snapshot, loaded; the adversarial capture from it and its sweep
+    import pathlib
+    import chip_smoke
+    from tdax_torch.data.adversarial import generate_adversarial_metadata
+    from tdax_torch.models.qwen_vl.convert import load_qwen_checkpoint
+    from tdax_torch.pipeline.adversarial import run_adversarial_sweep
+    snap = os.path.join(tmp, "snapshot")
+    chip_smoke.write_bin_snapshot(chip_smoke.hf_state(cfg, "cpu"), pathlib.Path(snap), 100_000)
+    assert len(os.listdir(snap)) > 2
+    assert load_qwen_checkpoint(snap, cfg, "cpu")["layers"]["mlp_w1"].shape == (4, 64, 128)
+    adv = [m for m in generate_adversarial_metadata(md, ds, save=False)
+           if m["base_id"] in ("red_cube", "red_sphere")]
+    res = extract_activations(adv, os.path.join(tmp, "adv.pt"), cfg,
+                              ExtractConfig(model_dir=snap, batch_size=8, save_interval=16),
+                              device="cpu", verbose=False)
+    summary = run_adversarial_sweep(res, os.path.join(tmp, "adv_sweep"),
+                                    SweepConfig(n_layers=2, umap=UMAPConfig(n_epochs=5),
+                                                save_diagrams=False),
+                                    verbose=False, device="cpu")
+    assert summary["n_samples_per_condition"] == {"matched": 2, "color_mismatch": 10,
+                                                  "shape_mismatch": 10, "both_mismatch": 18}
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib") or m == "tdax" or m.startswith("tdax."))
 print("LOADED:" + ",".join(bad))
+print("LAZY:" + ",".join(sorted(m for m in ("transformers", "safetensors") if m in sys.modules)))
 """
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|tdax)(?:[.\s,]|$)", re.MULTILINE)
@@ -80,6 +102,7 @@ def test_port_never_loads_jax_or_tdax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LOADED:\n" in proc.stdout, proc.stdout
+    assert "LAZY:\n" in proc.stdout, proc.stdout  # neither is needed without their files
 
 
 def _sources():
@@ -88,7 +111,8 @@ def _sources():
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {"tdax_torch/ops/quant_matmul.py", "tdax_torch/models/qwen_vl/quantize.py",
             "tdax_torch/models/qwen_vl/generate.py", "tdax_torch/parallel/train.py",
-            "tdax_torch/utils/checkpoint.py"} <= names
+            "tdax_torch/utils/checkpoint.py", "tdax_torch/models/qwen_vl/convert.py",
+            "tdax_torch/data/adversarial.py", "tdax_torch/pipeline/adversarial.py"} <= names
     return files
 
 
@@ -101,6 +125,24 @@ def test_sources_import_no_jax_or_tdax():
     assert _IMPORT.search("import jax.numpy as jnp")
     assert _IMPORT.search("from tdax.config import X")
     assert not _IMPORT.search("from tdax_torch.config import X")
+
+
+_TOP_LEVEL_LAZY = re.compile(r"^(?:import|from)\s+(transformers|safetensors)\b", re.MULTILINE)
+
+
+def test_transformers_and_safetensors_are_imported_only_where_used():
+    """The card's machine has no ``transformers``: the tokenizer adapter
+    and the safetensors reader import theirs inside the function that
+    needs it, never at a module's top level."""
+    users = {}
+    for path in _sources():
+        text = path.read_text()
+        assert not _TOP_LEVEL_LAZY.search(text), path
+        for name in ("transformers", "safetensors"):
+            if re.search(rf"^\s+(?:import|from)\s+{name}\b", text, re.MULTILINE):
+                users.setdefault(name, []).append(str(path.relative_to(ROOT)))
+    assert users == {"transformers": ["tdax_torch/models/qwen_vl/tokenizer.py"],
+                     "safetensors": ["tdax_torch/models/qwen_vl/convert.py"]}
 
 
 def test_get_device_raises_without_a_card(monkeypatch):
