@@ -105,6 +105,24 @@ and runs these phases, printing JSON lines:
             and, in the same process, on the CPU: the shape-silhouette
             peak must be layer 25 on both, silhouettes and max-H1 must
             agree within SWEEP_SIL_TOL / SWEEP_H1_TOL.  Times each stage.
+5a. report   the reference's remaining surface on that capture and
+            sweep: the peak layer's two HTML files (visualize_peak_layer,
+            png_fallback=False: the card's machine has no matplotlib),
+            each holding the 36 bound points once at the .npy cloud's
+            coordinates and no http src; the legacy sweep
+            (legacy_sweep_config: one reducer shared by every layer,
+            peak by max H1) on the card and on the CPU: peak = argmax of
+            max-H1 on both and the same, silhouettes within
+            SWEEP_SIL_TOL, max-H1 within SWEEP_H1_TOL plus the CPU's own
+            spread at that layer under LEGACY_MOVE (reported); the
+            geometry metrics (effective and TwoNN dimensionality, both
+            windowed into GEOMETRY_WINDOWS, matrix entropy at alpha 1
+            and 2) on the card against the CPU at the capture's [32, 36,
+            4096] and a seeded GEOMETRY_LARGE, within GEOMETRY_RTOL, NaN
+            alike, each timed by CUDA events; the Wasserstein distance
+            (orders 1 and 2) of the card sweep's peak H1 diagram and its
+            neighbour's equal to the same from the clouds on the CPU.
+            Reports the capture's flash_fwd_sm90 launches.
 5b. checkpoint  an HF-named bf16 state (hf_state: the values of tdax's
             random_hf_state and random_hf_visual_state) at the full
             widths of QwenVLConfig(), cut to SNAPSHOT_LAYERS decoder
@@ -294,6 +312,26 @@ SMALL_BOTTLENECK_TOL = 1e-4
 SWEEP_SIL_TOL, SWEEP_H1_TOL = 0.02, 0.03
 STATS_KEYS = ["layer", "n_h1_features", "max_h1_persistence", "all_h1_persistence_values",
               "n_h0_features", "max_h0_persistence", "silhouette_shape", "silhouette_color"]
+
+# the report phase's geometry metrics, card against CPU: the CPU tests'
+# tolerances against tdax (tests/test_torch_geometry.py), relative; NaN
+# in the same places.  The capture's clouds [32, 36, 4096] and a seeded
+# [4, 1024, 4096] (the training step's batch and length at the decoder's
+# width), each windowed into GEOMETRY_WINDOWS.
+GEOMETRY_RTOL = {"effective_dimensionality": 1e-4, "fixed_window_ed": 1e-4,
+                 "intrinsic_dimensionality": 1e-3, "fixed_window_id": 1e-3,
+                 "matrix_entropy_alpha1": 1e-4, "matrix_entropy_alpha2": 1e-4}
+GEOMETRY_LARGE = (4, 1024, 4096)
+GEOMETRY_WINDOWS = 4
+
+# the legacy sweep (one reducer shared by every layer) of the capture,
+# card against CPU: silhouettes within SWEEP_SIL_TOL and the same peak at
+# every run; max-H1 within SWEEP_H1_TOL plus what the CPU alone moves at
+# that layer when the capture's values move by LEGACY_MOVE relative
+# (LEGACY_MOVES seeded draws).  On an H100 the capture's layer 16 holds a
+# small loop whose persistence follows the layout's drift: card vs CPU
+# 0.0399, and the CPU alone up to 0.0372 over these draws.
+LEGACY_MOVE, LEGACY_MOVES = 1e-7, 4
 
 # the checkpoint and adversarial phases: the full widths of QwenVLConfig()
 # at SNAPSHOT_LAYERS decoder layers and ViT blocks, written in shards of
@@ -1067,6 +1105,192 @@ def phase_sweep(tmp: Path, smi: str) -> dict:
         raise AssertionError(f"synthetic sweep: card vs CPU silhouettes {sil_err:.4f} "
                              f"(limit {SWEEP_SIL_TOL}), max H1 {h1_err:.4f} "
                              f"(limit {SWEEP_H1_TOL})")
+    return info
+
+
+def _geometry_metrics():
+    from tdax_torch.metrics import geometry as geo
+    return {"effective_dimensionality": geo.compute_effective_dimensionality,
+            "fixed_window_ed": lambda x: geo.compute_fixed_window_ed(x, GEOMETRY_WINDOWS),
+            "intrinsic_dimensionality": geo.compute_intrinsic_dimensionality,
+            "fixed_window_id": lambda x: geo.compute_fixed_window_id(x, GEOMETRY_WINDOWS),
+            "matrix_entropy_alpha1": lambda x: geo.matrix_entropy(x, 1.0),
+            "matrix_entropy_alpha2": lambda x: geo.matrix_entropy(x, 2.0)}
+
+
+def _geometry_on_card_and_cpu(x_cpu, label) -> list:
+    """Each geometry metric on the card (CUDA events, one warm-up) and on
+    the CPU (host clock) on the same f32 values; the card within
+    GEOMETRY_RTOL of the CPU, NaN in the same places."""
+    import numpy as np
+    import torch
+
+    x_card = x_cpu.to("cuda")
+    rows = []
+    for name, fn in _geometry_metrics().items():
+        card = fn(x_card).cpu().numpy()
+        ms = cuda_ms(lambda: fn(x_card), iters=3, warmup=1)
+        t0 = time.perf_counter()
+        cpu = fn(x_cpu).numpy()
+        cpu_s = time.perf_counter() - t0
+        nan_card, nan_cpu = np.isnan(card), np.isnan(cpu)
+        both = ~nan_card & ~nan_cpu
+        rel = float(np.max(np.abs(card[both] - cpu[both]) / np.maximum(np.abs(cpu[both]), 1e-30),
+                           initial=0.0))
+        row = {"metric": name, "input": label, "shape": list(x_cpu.shape),
+               "out_shape": list(card.shape), "ms": ms, "cpu_s": cpu_s,
+               "max_rel_err": rel, "tolerance": GEOMETRY_RTOL[name],
+               "nan": int(nan_card.sum()), "value_range": [float(np.nanmin(card)),
+                                                           float(np.nanmax(card))]
+               if not nan_card.all() else None}
+        rows.append(row)
+        if (nan_card != nan_cpu).any() or rel > GEOMETRY_RTOL[name]:
+            emit({"phase": "report_geometry_failed", **row})
+            raise AssertionError(f"{name} on {label}: card vs CPU {rel:.3e} (limit "
+                                 f"{GEOMETRY_RTOL[name]}), NaN at {nan_card.sum()} / "
+                                 f"{nan_cpu.sum()} places")
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _html_traces(path: Path) -> list:
+    text = path.read_text()
+    if re.search(r"""src\s*=\s*["']?https?:""", text, re.IGNORECASE):
+        raise AssertionError(f"{path.name} loads a script from the network")
+    match = re.search(r"var traces = (.*);\n", text)
+    if match is None:
+        raise AssertionError(f"{path.name} holds no traces")
+    return json.loads(match.group(1))
+
+
+def phase_report(tmp: Path, smi: str, sweep: dict, capture_flash_sm90: int) -> dict:
+    """The reference's remaining surface on the capture and the sweep
+    that phase_sweep left in tmp: the peak layer's 3-D HTML, the legacy
+    sweep (one shared reducer, peak by max H1) on the card and the CPU,
+    the geometry metrics on the card and the CPU at two sizes, and the
+    Wasserstein distance between the peak layer's H1 diagram and its
+    neighbour's."""
+    import numpy as np
+    import torch
+
+    from tdax_torch.data.io import activations_to_layer_clouds, load_activations
+    from tdax_torch.metrics import wasserstein_distance
+    from tdax_torch.ops.rips import rips
+    from tdax_torch.pipeline.report import legacy_sweep_config, visualize_peak_layer
+    from tdax_torch.pipeline.tda_sweep import run_tda_sweep
+
+    data_dir, out_dir = tmp / "data", tmp / "tda_debug_output"
+    meta_path = str(data_dir / "metadata.json")
+    peak = sweep["peak_layer"]
+    info = {"phase": "report", "nvidia_smi": smi, "peak_layer": peak,
+            "capture_flash_launches_sm90": capture_flash_sm90}
+
+    # the peak layer's two HTML files (no PNG: the card's machine has no matplotlib)
+    t0 = time.perf_counter()
+    paths = visualize_peak_layer(peak, str(out_dir), meta_path, png_fallback=False)
+    info["html_s"] = time.perf_counter() - t0
+    metadata = json.loads(Path(meta_path).read_text())
+    ids = sorted(m["id"] for m in metadata if m["type"] == "bound")
+    cloud = np.load(out_dir / "point_clouds_3d" / f"layer_{peak}_cloud.npy").astype(float)
+    info["html_bytes"] = []
+    for path in map(Path, paths):
+        points = {}
+        for trace in _html_traces(path):
+            for k, sid in enumerate(trace["text"]):
+                if sid in points:
+                    raise AssertionError(f"{path.name}: {sid} twice")
+                points[sid] = (trace["x"][k], trace["y"][k], trace["z"][k])
+        if sorted(points) != ids or len(ids) != 36:
+            raise AssertionError(f"{path.name}: {len(points)} points, expected the 36 bound ids")
+        if any(points[sid] != tuple(cloud[j]) for j, sid in enumerate(ids)):
+            raise AssertionError(f"{path.name}: coordinates differ from the .npy cloud")
+        info["html_bytes"].append(path.stat().st_size)
+
+    # the legacy sweep on the card, then on the CPU
+    all_data = load_activations(str(data_dir / "all_activations.npz"))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        cfg = legacy_sweep_config(all_data, output_dir=str(tmp / f"tda_legacy_{dev}"))
+        t0 = time.perf_counter()
+        res = run_tda_sweep(all_data, meta_path, cfg, verbose=False, device=dev)
+        info[f"legacy_{dev}_s"] = time.perf_counter() - t0
+        _check_sweep(res, 32, f"legacy sweep on {dev}")
+        h1 = [s["max_h1_persistence"] for s in res["stats"]]
+        if res["peak_layer"] != int(np.argmax(h1)):
+            raise AssertionError(f"legacy sweep on {dev}: peak {res['peak_layer']} is not the "
+                                 f"max-H1 layer {int(np.argmax(h1))}")
+        info[f"legacy_{dev}_timings"] = res["timings"]
+        runs[dev] = res
+    card, cpu = runs["cuda"]["stats"], runs["cpu"]["stats"]
+    peaks = {dev: runs[dev]["peak_layer"] for dev in runs}
+    sil_err = max(abs(a[k] - b[k]) for a, b in zip(card, cpu)
+                  for k in ("silhouette_shape", "silhouette_color"))
+    h1 = {dev: np.array([s["max_h1_persistence"] for s in runs[dev]["stats"]]) for dev in runs}
+    h1_gap = np.abs(h1["cuda"] - h1["cpu"])
+    # what the CPU alone moves when the inputs move by LEGACY_MOVE relative
+    rng = np.random.default_rng(0)
+    spread = np.zeros(len(cpu))
+    for _ in range(LEGACY_MOVES):
+        moved = {sid: {"metadata": e["metadata"],
+                       "activations": {k: v * (1 + LEGACY_MOVE * rng.standard_normal(v.shape))
+                                       for k, v in e["activations"].items()}}
+                 for sid, e in all_data.items()}
+        res = run_tda_sweep(moved, meta_path,
+                            legacy_sweep_config(moved, output_dir=str(tmp / "tda_legacy_moved")),
+                            verbose=False, device="cpu")
+        if res["peak_layer"] != peaks["cpu"]:
+            raise AssertionError(f"legacy sweep on the CPU: peak {res['peak_layer']} with the "
+                                 f"inputs moved by {LEGACY_MOVE}, {peaks['cpu']} without")
+        spread = np.maximum(spread, np.abs([s["max_h1_persistence"] for s in res["stats"]]
+                                           - h1["cpu"]))
+    h1_over = [i for i in range(len(cpu)) if h1_gap[i] > SWEEP_H1_TOL + spread[i]]
+    info.update({"legacy_n_neighbors": legacy_sweep_config(all_data).umap.n_neighbors,
+                 "legacy_peak_card": peaks["cuda"],
+                 "legacy_peak_cpu": peaks["cpu"],
+                 "legacy_card_vs_cpu_max_silhouette_diff": sil_err,
+                 "legacy_card_vs_cpu_max_h1_diff": float(h1_gap.max()),
+                 "legacy_card_vs_cpu_max_h1_diff_layer": int(h1_gap.argmax()),
+                 "legacy_max_h1": {dev: h1[dev].tolist() for dev in runs},
+                 "legacy_cpu_max_h1_spread": spread.tolist(),
+                 "legacy_cpu_max_h1_spread_max": float(spread.max()),
+                 "legacy_h1_over_limit_layers": h1_over,
+                 "tolerances": [SWEEP_SIL_TOL, SWEEP_H1_TOL],
+                 "legacy_move": [LEGACY_MOVE, LEGACY_MOVES]})
+
+    # Wasserstein between the card sweep's peak H1 diagram and its
+    # neighbour's: host code, so the diagrams computed again on the CPU
+    # from the saved clouds give the same distances exactly
+    lp = peaks["cuda"]
+    nb = lp + 1 if lp + 1 < 32 else lp - 1
+    legacy_clouds = tmp / "tda_legacy_cuda" / "point_clouds_3d"
+    again = [rips(np.load(legacy_clouds / f"layer_{i}_cloud.npy").astype(np.float64),
+                  maxdim=1)["dgms"][1] for i in (lp, nb)]
+    dg = runs["cuda"]["diagrams"]
+    w = {}
+    for order in (1.0, 2.0):
+        got = wasserstein_distance(dg[lp][1], dg[nb][1], order)
+        want = wasserstein_distance(again[0], again[1], order)
+        if got != want or not np.isfinite(got):
+            raise AssertionError(f"wasserstein order {order}: {got} from the sweep's diagrams, "
+                                 f"{want} from the same clouds on the CPU")
+        w[f"order_{order:g}"] = got
+    info["wasserstein_h1"] = {"layers": [lp, nb], "bars": [len(dg[lp][1]), len(dg[nb][1])], **w}
+    del runs, all_data
+    gc.collect()
+
+    # the geometry metrics: the capture's bound clouds, then a seeded
+    # cloud at the decoder's width
+    clouds, _ = activations_to_layer_clouds(load_activations(str(data_dir /
+                                                                 "all_activations.npz")), 32)
+    gen = torch.Generator().manual_seed(0)
+    info["geometry"] = (
+        _geometry_on_card_and_cpu(torch.as_tensor(clouds, dtype=torch.float32), "capture")
+        + _geometry_on_card_and_cpu(torch.randn(GEOMETRY_LARGE, generator=gen), "seeded"))
+    emit(info)
+    if sil_err > SWEEP_SIL_TOL or h1_over or peaks["cuda"] != peaks["cpu"]:
+        raise AssertionError(f"legacy sweep: card vs CPU silhouettes {sil_err:.4f} "
+                             f"(limit {SWEEP_SIL_TOL}), max H1 over {SWEEP_H1_TOL} + the CPU's "
+                             f"own spread at layers {h1_over}, peaks {peaks}")
     return info
 
 
@@ -2765,7 +2989,8 @@ def main(argv=None) -> int:
         gen = phase_generate(smi, state, int8.pop("fingerprint"))
         del state
         torch.cuda.empty_cache()
-        phase_sweep(Path(tmp), smi)
+        sweep = phase_sweep(Path(tmp), smi)
+        phase_report(Path(tmp), smi, sweep, capture["flash_launches_sm90"])
         ckpt, ckpt_state = phase_checkpoint(Path(tmp), smi)
         adv = phase_adversarial(Path(tmp), smi, ckpt_state, args.seed)
         del ckpt_state

@@ -1,5 +1,5 @@
-"""Command line of the port: the reference workflow and its adversarial
-experiment.
+"""Command line of the port: the reference workflow, its adversarial
+experiment, the peak layer's 3-D HTML and the legacy sweep.
 
   python -m tdax_torch generate                 # 48 images + metadata.json
   python -m tdax_torch extract                  # full Qwen-VL capture on the card
@@ -12,6 +12,9 @@ experiment.
   python -m tdax_torch adversarial-metadata     # the 720 adversarial pairs
   python -m tdax_torch extract --adversarial    # their capture
   python -m tdax_torch sweep --adversarial      # the 4-condition sweep
+  python -m tdax_torch sweep --legacy           # one shared UMAP reducer, peak by max H1
+  python -m tdax_torch visualize                # the peak layer's interactive 3-D HTML
+  python -m tdax_torch visualize --peak-layer 25 --debug-dir tda-output --no-png
 
 ``extract`` takes its weights from ``--model-dir`` (which must hold
 checkpoint shards), else from ``./qwen-vl-chat-local`` when that holds
@@ -25,7 +28,13 @@ working directory: ``all_activations.pt`` and ``.npz``, or with
 ``sweep`` (the counterpart of ``debug_tda_pipeline.py``) reads them back
 (the ``.npz`` when present) and writes ``tda_debug_output/``; with
 ``--adversarial`` (``analyze_adversarial_tda.py``) it writes
-``tda_adversarial_output/``.
+``tda_adversarial_output/``; with ``--legacy``
+(``analyze_tda_over_layers.py``) it writes ``tda_legacy_output/`` and,
+in the working directory, ``tda_evolution_bound_umap.png`` and
+``peak_layer_<p>_diagram_umap.png`` (matplotlib).  ``visualize``
+(``visualize_peak_layer.py``) reads ``<debug-dir>/point_clouds_3d``
+(``tda_debug_output`` when the directory does not exist) and writes two
+HTML files there, each with a PNG beside it unless ``--no-png``.
 """
 
 from __future__ import annotations
@@ -49,9 +58,18 @@ def main(argv=None) -> None:
                      help="capture the adversarial pairs instead of the dataset")
     ext.add_argument("--device", default=None, help="'cpu' to run on the CPU (default: cuda)")
     swp = sub.add_parser("sweep", help="per-layer UMAP + Rips + silhouette sweep")
-    swp.add_argument("--adversarial", action="store_true",
-                     help="the 4-condition sweep of the adversarial capture")
+    mode = swp.add_mutually_exclusive_group()
+    mode.add_argument("--adversarial", action="store_true",
+                      help="the 4-condition sweep of the adversarial capture")
+    mode.add_argument("--legacy", action="store_true",
+                      help="one UMAP reducer shared by every layer, peak by max H1, "
+                           "and its two plots")
     swp.add_argument("--device", default=None, help="'cpu' to run on the CPU (default: cuda)")
+    vis = sub.add_parser("visualize", help="interactive 3-D HTML of the peak layer's cloud")
+    vis.add_argument("--peak-layer", type=int, default=25)
+    vis.add_argument("--debug-dir", default="tda-output")
+    vis.add_argument("--no-png", action="store_true",
+                     help="write no PNG beside the HTML (needs no matplotlib)")
     args = parser.parse_args(argv)
 
     from tdax_torch.config import DatasetConfig, ExtractConfig
@@ -73,6 +91,11 @@ def main(argv=None) -> None:
         return
     if args.command == "sweep":
         _sweep(args, ds)
+        return
+    if args.command == "visualize":
+        from tdax_torch.pipeline.report import visualize_peak_layer
+        visualize_peak_layer(args.peak_layer, args.debug_dir, ds.metadata_path,
+                             png_fallback=not args.no_png)
         return
 
     from tdax_torch.models.qwen_vl.config import QwenVLConfig
@@ -120,6 +143,10 @@ def _sweep(args, ds) -> None:
                                                   for e in all_data.values()]).items()):
             print(f"  {cond}: {cnt} samples")
         run_adversarial_sweep(all_data, "tda_adversarial_output", SweepConfig(), device=device)
+        return
+    if args.legacy:
+        from tdax_torch.pipeline.report import run_legacy_sweep
+        run_legacy_sweep(all_data, ds.metadata_path, device=device)
         return
     from tdax_torch.pipeline.tda_sweep import run_tda_sweep
     cfg = SweepConfig()

@@ -45,19 +45,33 @@ def load_activations_npz(path: str) -> tuple[np.ndarray, list[str], list[dict]]:
     return acts, ids, metadata
 
 
+def save_activations_pt(path: str, results: dict[str, dict]) -> None:
+    """Save the reference's nested-dict schema through torch (CPU):
+    ``results[sample_id] = {"metadata": item, "activations":
+    {"layer_i": vector}}`` (extract_activations.py:129-141).  Vectors
+    that are not tensors are converted."""
+    converted = {}
+    for sid, entry in results.items():
+        acts = {name: vec if isinstance(vec, torch.Tensor) else torch.as_tensor(np.asarray(vec))
+                for name, vec in entry["activations"].items()}
+        converted[sid] = {"metadata": entry["metadata"], "activations": acts}
+    torch.save(converted, path)
+
+
 def save_activations(path: str, activations: np.ndarray,
                      sample_ids: list[str], metadata: list[dict]) -> None:
-    """The reference's nested-dict ``.pt`` schema (one CPU tensor per
+    """Dispatch on the extension: ``.npz`` the columnar format, anything
+    else the reference's nested-dict ``.pt`` (one copied CPU tensor per
     sample and layer)."""
+    if path.endswith(".npz"):
+        save_activations_npz(path, activations, sample_ids, metadata)
+        return
     meta_by_id = {m["id"]: m for m in metadata}
-    results = {}
-    for j, sid in enumerate(sample_ids):
-        results[sid] = {
-            "metadata": meta_by_id[sid],
-            "activations": {f"layer_{i}": torch.from_numpy(np.array(activations[i, j]))
-                            for i in range(activations.shape[0])},
-        }
-    torch.save(results, path)
+    save_activations_pt(path, {
+        sid: {"metadata": meta_by_id[sid],
+              "activations": {f"layer_{i}": torch.from_numpy(np.array(activations[i, j]))
+                              for i in range(activations.shape[0])}}
+        for j, sid in enumerate(sample_ids)})
 
 
 def load_activations_pt(path: str) -> dict[str, dict]:

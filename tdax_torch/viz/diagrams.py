@@ -3,7 +3,8 @@
 persim.plot_diagrams as the reference uses it (debug_tda_pipeline.py:139-144):
 birth/death scatter per homology dimension, dashed diagonal, dashed
 infinity line for essential classes, legend H0/H1/...  Matplotlib only,
-imported when a plot is drawn.
+imported when a plot is drawn; pyplot only when no axis is given or
+``show`` asks for a window.
 """
 
 from __future__ import annotations
@@ -13,7 +14,16 @@ import numpy as np
 _COLORS = ["#1f77b4", "#ff7f0e", "#2ca02c", "#d62728"]
 
 
-def plot_diagrams(dgms, ax, title: str | None = None):
+def plot_diagrams(dgms, ax=None, show: bool = False, title: str | None = None):
+    """Draw ``dgms`` (one [n, 2] birth/death array per dimension) on
+    ``ax``, else on pyplot's current axis; ``show`` calls ``plt.show()``."""
+    if ax is None or show:
+        import matplotlib
+        matplotlib.use("Agg", force=False)
+        import matplotlib.pyplot as plt
+    if ax is None:
+        ax = plt.gca()
+
     finite_all = np.concatenate(
         [d[np.isfinite(d[:, 1])] for d in dgms if len(d)] or [np.zeros((0, 2))])
     has_inf = any(np.isinf(d[:, 1]).any() for d in dgms if len(d))
@@ -54,6 +64,8 @@ def plot_diagrams(dgms, ax, title: str | None = None):
     ax.legend(loc="lower right")
     if title:
         ax.set_title(title)
+    if show:
+        plt.show()
     return ax
 
 

@@ -18,6 +18,9 @@ _CHILD = r"""
 import sys, tempfile, os
 import numpy as np
 import tdax_torch
+# import tdax_torch stays light: no plotting, no scipy, no module of the port
+assert not [m for m in sys.modules if m.split(".")[0] in ("matplotlib", "scipy")
+            or m.startswith("tdax_torch.")]
 from tdax_torch.config import DatasetConfig, ExtractConfig, SweepConfig, UMAPConfig
 from tdax_torch.data.dataset import generate_dataset
 from tdax_torch.data.io import load_activations
@@ -87,6 +90,21 @@ with tempfile.TemporaryDirectory() as tmp:
                                     verbose=False, device="cpu")
     assert summary["n_samples_per_condition"] == {"matched": 2, "color_mismatch": 10,
                                                   "shape_mismatch": 10, "both_mismatch": 18}
+    # the reference's remaining surface: package names, geometry, Wasserstein,
+    # the peak layer's HTML of the sweep above
+    import tdax_torch.data, tdax_torch.metrics, tdax_torch.viz
+    from tdax_torch.metrics import compute_intrinsic_dimensionality, matrix_entropy
+    from tdax_torch.pipeline.report import legacy_sweep_config, visualize_peak_layer
+    x = rng.normal(size=(2, 12, 6))
+    assert compute_intrinsic_dimensionality(x, device="cpu").shape == (2,)
+    assert matrix_entropy(x, 2.0, device="cpu").shape == (2,)
+    assert tdax_torch.wasserstein_distance(out["diagrams"][0][1], out["diagrams"][1][1]) >= 0
+    assert tdax_torch.rips(rng.normal(size=(10, 3)))["dgms"][0].shape == (10, 2)
+    assert legacy_sweep_config(data).reducer_mode == "shared"
+    html = visualize_peak_layer(1, os.path.join(tmp, "sweep"), ds.metadata_path,
+                                png_fallback=False)
+    assert all(os.path.exists(p) for p in html)
+    assert "matplotlib" not in sys.modules
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib") or m == "tdax" or m.startswith("tdax."))
 print("LOADED:" + ",".join(bad))
@@ -112,7 +130,9 @@ def _sources():
     assert {"tdax_torch/ops/quant_matmul.py", "tdax_torch/models/qwen_vl/quantize.py",
             "tdax_torch/models/qwen_vl/generate.py", "tdax_torch/parallel/train.py",
             "tdax_torch/utils/checkpoint.py", "tdax_torch/models/qwen_vl/convert.py",
-            "tdax_torch/data/adversarial.py", "tdax_torch/pipeline/adversarial.py"} <= names
+            "tdax_torch/data/adversarial.py", "tdax_torch/pipeline/adversarial.py",
+            "tdax_torch/metrics/geometry.py", "tdax_torch/viz/scatter3d.py",
+            "tdax_torch/pipeline/report.py"} <= names
     return files
 
 
