@@ -170,6 +170,24 @@ and runs these phases, printing JSON lines:
             at 160 points (sqdist_sm90.cu) must give the CPU's diagrams
             (bottleneck <= SMALL_BOTTLENECK_TOL per dimension).  Times
             each stage.
+6b. scale_sparse  rips_at_scale_sparse on the same cloud (maxdim
+            SCALE_MAXDIM, degree SCALE_DEGREE).  The fused branch three
+            times, as bench_scale.py:53-72 (cold, warm from the host
+            array, warm from the cloud on the card): the sqdist counters,
+            set to 0 just before each call, must read one sqdist_sm90.cu
+            launch and one split pass after it; the three thresholds,
+            edge counts and bar counts equal; one more run profiled.  The
+            blocked branch (fused_max=0, SPARSE_BLOCK_ROWS rows a block)
+            must launch no sqdist kernel.  The cross-engine gate of both
+            (bench_scale.py:83-117): the dense engine on f64 distances of
+            the cloud (f64 torch on the card, no kernel of the port) at
+            each branch's threshold, every dimension's bottleneck <=
+            CROSS_ENGINE_TOL, timed.  The CSR each branch gave the engine:
+            indptr monotone, rows sorted and unique without self entries,
+            symmetric, the values of (r, c) and (c, r) bitwise equal.
+            Then bench_scale.py's recipe at SPARSE_LARGE_N x 4096,
+            H1, blocked, once from the host array: stage timings, edges,
+            bars, peak device memory and the same CSR checks.
 7. flash_bwd the flash backward kernels (dq; dk/dv) and the forward's
             lse output against their plain versions, bf16 and f32, at the
             decoder's training shape [4, 1024, 32, 128] (causal, the last
@@ -201,7 +219,8 @@ and runs these phases, printing JSON lines:
             profiled step's device time by kind.
 10. the kernels line (flash_fwd, flash_bwd_*, sqdist and qmm name both sources
             and the launches of each kernel on each path, the checkpoint
-            and adversarial captures' included), the nvidia-smi
+            and adversarial captures' and each scale_sparse call's
+            included), the nvidia-smi
             line, then the last
             line {"ok": true, "device": {...}}.  Kernel times are
             reported, never gated: only correctness and launch counts
@@ -297,6 +316,14 @@ SQDIST_REL_TOL = 1e-5
 SQDIST_SHAPES = [(36, 3), (100, 17), (130, 257), (1001, 333), (128, 4096), (129, 4096),
                  (1000, 4100), (1001, 332)]
 SCALE_N, SCALE_D, SCALE_DEGREE, SCALE_MAXDIM = 10_000, 4096, 40, 2
+# the sparse path (phase scale_sparse): the blocked branch's rows a block
+# (10000 = 4 x 2048 + 1808), the 10x point (README.md:310, bench_scale.py's
+# recipe at 100k, H1, blocked) and BASELINE.json's cross-engine bar:
+# every dimension's bottleneck between the sparse path's diagrams and the
+# dense engine's on f64 distances at the same threshold (bench_scale.py:83-117)
+SPARSE_BLOCK_ROWS = 2048
+SPARSE_LARGE_N, SPARSE_LARGE_MAXDIM = 100_000, 1
+CROSS_ENGINE_TOL = 1e-5
 # the card's matrix (kernel) and the CPU's (plain version) are both
 # expansion forms, so distances near 0.6 between points of norm ~11 may
 # differ by ~1e-5 relative (tests/test_scale_ops.py:91-95 allows 1e-4)
@@ -783,15 +810,15 @@ def phase_qmm() -> dict:
             "max_abs_err_mma": max(*errs_mma, *f32_errs)}
 
 
-def scale_cloud():
+def scale_cloud(n: int = SCALE_N):
     """bench_scale.py:36-40: n points on a 3-sphere embedded in 4096-d
     (seed 42), and the generator, which then picks the threshold's rows."""
     import numpy as np
     rng = np.random.default_rng(42)
-    z = rng.normal(size=(SCALE_N, 4))
+    z = rng.normal(size=(n, 4))
     z /= np.linalg.norm(z, axis=1, keepdims=True)
     proj = rng.normal(size=(4, SCALE_D)) / np.sqrt(4)
-    x = (z @ proj + rng.normal(0, 1e-3, (SCALE_N, SCALE_D))).astype(np.float32)
+    x = (z @ proj + rng.normal(0, 1e-3, (n, SCALE_D))).astype(np.float32)
     return x, rng
 
 
@@ -1951,6 +1978,145 @@ def phase_scale(smi: str) -> dict:
     return info
 
 
+def _check_csr(csr: dict, n: int, label: str) -> dict:
+    """The CSR the engine got: indptr monotone from 0 to nnz, each row's
+    columns ascending and unique with no self entry, (r, c) present iff
+    (c, r) is, and their values bitwise equal."""
+    import numpy as np
+    indptr, indices, data = csr["indptr"], csr["indices"], csr["data"]
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+    cols = indices.astype(np.int64)
+    same_row = rows[1:] == rows[:-1]
+    key = rows * n + cols
+    pos = np.minimum(np.searchsorted(key, cols * n + rows), len(key) - 1)
+    checks = {
+        "indptr_monotone": bool(indptr[0] == 0 and (np.diff(indptr) >= 0).all()
+                                and indptr[-1] == len(indices) == len(data)),
+        "rows_sorted_unique": bool((np.diff(cols)[same_row] > 0).all() and (rows != cols).all()),
+        "symmetric": bool((key[pos] == cols * n + rows).all()),
+        "values_bitwise_symmetric": bool(np.array_equal(data.view(np.uint32),
+                                                        data[pos].view(np.uint32))),
+        "finite_nonnegative": bool(np.isfinite(data).all() and (data >= 0).all()),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"scale_sparse {label}: CSR invariants {checks}")
+    return {**checks, "directed_entries": int(len(indices)),
+            "added_by_union": int(csr["added_by_union"])}
+
+
+def _sparse_run(x, label: str, **kwargs) -> tuple:
+    """One rips_at_scale_sparse call with the sqdist counters set to 0
+    just before it and read just after: (the result, its record)."""
+    import numpy as np
+    import tdax_torch.ops.sqdist as sqdist
+    from tdax_torch.pipeline.scale import rips_at_scale_sparse
+    sqdist.LAUNCHES = sqdist.LAUNCHES_SM90 = sqdist.SPLIT_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = rips_at_scale_sparse(x, _with_csr=True, **kwargs)
+    wall = time.perf_counter() - t0
+    launches = dict(zip(("sqdist", "sqdist_sm90", "split"), _sqdist_counts(sqdist)))
+    if not all(np.isfinite(g[:, 0]).all() for g in out["dgms"]):
+        raise AssertionError(f"scale_sparse {label}: non-finite births")
+    return out, {"run": label, "wall_s": wall, "thresh": out["thresh"],
+                 "n_edges": out["n_edges"], "bars": [int(len(g)) for g in out["dgms"]],
+                 "essential": [int(np.isinf(g[:, 1]).sum()) for g in out["dgms"]],
+                 "timings": out["timings"], "launches": launches}
+
+
+def phase_scale_sparse(smi: str) -> dict:
+    """rips_at_scale_sparse at BASELINE.json configs[4] (10000 x 4096, H2,
+    degree 40) on both branches, gated against the dense engine on f64
+    distances, and at 100000 x 4096, H1."""
+    import numpy as np
+    import torch
+    from tdax_torch.metrics.persistence import bottleneck_distance
+    from tdax_torch.ops.rips import rips_from_distances
+
+    kwargs = {"maxdim": SCALE_MAXDIM, "target_degree": SCALE_DEGREE}
+    x_np, _ = scale_cloud()
+    # (a) the fused branch, three times as bench_scale.py:53-72
+    runs, x_card = [], None
+    for label in ("cold", "warm_host", "warm_device"):
+        if label == "warm_device":
+            x_card = torch.as_tensor(x_np).to("cuda")
+            torch.cuda.synchronize()
+        fused, rec = _sparse_run(x_card if x_card is not None else x_np, label, **kwargs)
+        if rec["launches"] != {"sqdist": 1, "sqdist_sm90": 1, "split": 1}:
+            raise AssertionError(f"scale_sparse fused {label}: sqdist counters {rec['launches']}, "
+                                 f"expected one sqdist_sm90.cu launch and one split")
+        runs.append(rec)
+    first = runs[0]
+    if any((r["thresh"], r["n_edges"], r["bars"]) != (first["thresh"], first["n_edges"],
+                                                       first["bars"]) for r in runs):
+        raise AssertionError(f"scale_sparse fused: the three runs differ {runs}")
+    fused_csr = _check_csr(fused["_csr"], SCALE_N, "fused")
+    profile = profile_device(lambda: _sparse_run(x_card, "profiled", **kwargs))
+
+    # (b) the blocked branch on the same cloud: no sqdist kernel
+    blocked, blocked_rec = _sparse_run(x_card, "blocked", fused_max=0,
+                                       block_rows=SPARSE_BLOCK_ROWS, **kwargs)
+    if any(blocked_rec["launches"].values()):
+        raise AssertionError(f"scale_sparse blocked: sqdist counters {blocked_rec['launches']}")
+    blocked_csr = _check_csr(blocked["_csr"], SCALE_N, "blocked")
+
+    # (c) the cross-engine gate: the dense engine on f64 distances (f64
+    # torch on the card, no sqdist kernel) at each branch's threshold
+    t0 = time.perf_counter()
+    x64 = x_card.double()
+    sq = (x64 * x64).sum(1)
+    d = (sq[:, None] + sq[None, :] - 2.0 * (x64 @ x64.T)).clamp_min_(0.0).sqrt_()
+    d = (d + d.T).mul_(0.5).fill_diagonal_(0.0)
+    dist64 = d.cpu().numpy()
+    del d, x64
+    f64_s = time.perf_counter() - t0
+    gates, dense_by_thresh = {}, {}
+    for name, out in (("fused", fused), ("blocked", blocked)):
+        t0 = time.perf_counter()
+        if out["thresh"] not in dense_by_thresh:
+            dense_by_thresh[out["thresh"]] = rips_from_distances(
+                dist64, maxdim=SCALE_MAXDIM, thresh=out["thresh"])["dgms"]
+        dense = dense_by_thresh[out["thresh"]]
+        engine_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bns = [bottleneck_distance(g, w) for g, w in zip(out["dgms"], dense)]
+        gates[name] = {"bottleneck_per_dim": bns, "dense_engine_s": engine_s,
+                       "bottleneck_s": time.perf_counter() - t0,
+                       "dense_bars": [int(len(g)) for g in dense]}
+    del dist64
+
+    # (e) 100000 x 4096, H1, blocked (the default block rows), from the host
+    t0 = time.perf_counter()
+    x_large, _ = scale_cloud(SPARSE_LARGE_N)
+    draw_s = time.perf_counter() - t0
+    del x_card
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    large, large_rec = _sparse_run(x_large, "large", maxdim=SPARSE_LARGE_MAXDIM,
+                                   target_degree=SCALE_DEGREE)
+    large_rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    large_rec["draw_s"] = draw_s
+    if any(large_rec["launches"].values()):
+        raise AssertionError(f"scale_sparse 100k: sqdist counters {large_rec['launches']}")
+    large_csr = _check_csr(large["_csr"], SPARSE_LARGE_N, "100k")
+    del large, x_large
+
+    info = {"phase": "scale_sparse", "nvidia_smi": smi, "n": SCALE_N, "dim": SCALE_D,
+            "maxdim": SCALE_MAXDIM, "target_degree": SCALE_DEGREE,
+            "fused_runs": runs, "fused_csr": fused_csr, "fused_profile": profile,
+            "blocked": blocked_rec, "blocked_csr": blocked_csr,
+            "branches_n_edges_difference": blocked_rec["n_edges"] - first["n_edges"],
+            "branches_thresh_difference": blocked_rec["thresh"] - first["thresh"],
+            "f64_distances_s": f64_s, "cross_engine": gates,
+            "large": {"n": SPARSE_LARGE_N, **large_rec, "csr": large_csr}}
+    emit(info)
+    for name, gate in gates.items():
+        if not max(gate["bottleneck_per_dim"]) <= CROSS_ENGINE_TOL:
+            raise AssertionError(f"scale_sparse {name}: cross-engine bottleneck "
+                                 f"{gate['bottleneck_per_dim']} exceeds {CROSS_ENGINE_TOL}")
+    return info
+
+
 def phase_tiny_parity(tmp: Path) -> dict:
     """A tiny f32 model's capture: the card (kernels) against the CPU
     (plain attention), same parameters, same samples."""
@@ -2999,6 +3165,9 @@ def main(argv=None) -> int:
     scale = phase_scale(smi)
     gc.collect()
     torch.cuda.empty_cache()
+    sparse = phase_scale_sparse(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     train = phase_train(smi, args.seed)
 
     def total(key):
@@ -3083,10 +3252,15 @@ def main(argv=None) -> int:
                     "fma": "tdax_torch/ops/csrc/sqdist.cu"},
         "replaces": "tdax/ops/pallas_distances.py:27",
         "launches": scale["launches"]["sqdist"],
-        "launches_by_kernel": {"scale": {
-            "sm90": scale["launches"]["sqdist_sm90"],
-            "fma": scale["launches"]["sqdist"] - scale["launches"]["sqdist_sm90"],
-            "split": scale["launches"]["split"]}},
+        "launches_by_kernel": {
+            "scale": {"sm90": scale["launches"]["sqdist_sm90"],
+                      "fma": scale["launches"]["sqdist"] - scale["launches"]["sqdist_sm90"],
+                      "split": scale["launches"]["split"]},
+            **{f"scale_sparse_{run['run']}": {
+                "sm90": run["launches"]["sqdist_sm90"],
+                "fma": run["launches"]["sqdist"] - run["launches"]["sqdist_sm90"],
+                "split": run["launches"]["split"]}
+               for run in (*sparse["fused_runs"], sparse["blocked"], sparse["large"])}},
         "max_abs_err": sq["max_abs_err"],
         **{k: sq["site"][k] for k in ("ms", "kernel_ms", "split_ms", "ms_fma", "plain_ms",
                                       "bound_ms", "bound_by", "bound_share", "library_ms",

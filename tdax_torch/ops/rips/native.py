@@ -3,7 +3,8 @@
 Counterpart of ``tdax/ops/rips/native.py``: the same sources
 (``cpp/tdax_rips.cc``, ``tdax_rips_f32.cc``, ``tdax_rips_sparse.cc``),
 the same g++ line, the same symbols (``tdax_rips_dense``,
-``tdax_rips_dense_f32``, ``tdax_free``) and return codes.  The library
+``tdax_rips_dense_f32``, ``tdax_rips_sparse``, ``tdax_free``) and return
+codes.  The library
 is built at first use into ``build/tdax_torch/`` under a name hashed
 from the sources, g++'s version and the target options that
 ``-march=native`` selects on this host, never into ``cpp/``, where
@@ -96,6 +97,16 @@ def _library() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.POINTER(ctypes.c_double)),  # out bars
             ctypes.POINTER(ctypes.c_long),                     # out record count
         ]
+    lib.tdax_rips_sparse.restype = ctypes.c_int
+    lib.tdax_rips_sparse.argtypes = [
+        ctypes.c_int64,                                    # n
+        ctypes.POINTER(ctypes.c_int64),                    # indptr (n+1)
+        ctypes.POINTER(ctypes.c_int32),                    # indices
+        ctypes.POINTER(ctypes.c_float),                    # data
+        ctypes.c_int,                                      # maxdim
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_double)),  # out bars
+        ctypes.POINTER(ctypes.c_long),                     # out record count
+    ]
     lib.tdax_free.restype = None
     lib.tdax_free.argtypes = [ctypes.POINTER(ctypes.c_double)]
     return lib
@@ -129,6 +140,12 @@ def rips_native(dist: np.ndarray, maxdim: int = 1, thresh: float = np.inf) -> li
         raise MemoryError("native rips engine ran out of memory (dense engine std::bad_alloc)")
     if rc != 0:
         raise RuntimeError(f"tdax_rips_dense failed with code {rc}")
+    return bars_from_records(lib, out_ptr, out_len, maxdim)
+
+
+def bars_from_records(lib: ctypes.CDLL, out_ptr, out_len, maxdim: int) -> list[np.ndarray]:
+    """The engine's output buffer (freed here) as one diagram per
+    dimension, sorted by (birth, death)."""
     try:
         flat = np.ctypeslib.as_array(out_ptr, shape=(out_len.value,)).copy()
     finally:

@@ -61,6 +61,14 @@ with tempfile.TemporaryDirectory() as tmp:
     assert len(out["stats"]) == 2
     dgms = rips_at_scale(rng.normal(size=(40, 6)), maxdim=1, device="cpu")["dgms"]
     assert len(dgms) == 2
+    from tdax_torch.pipeline.scale import rips_at_scale_sparse
+    for kw in ({}, {"fused_max": 0, "block_rows": 16}):
+        sp = rips_at_scale_sparse(rng.normal(size=(40, 6)), maxdim=2, target_degree=8,
+                                  device="cpu", **kw)
+        assert len(sp["dgms"]) == 3 and sp["n_edges"] > 0
+    from tdax_torch.metrics.persistence import bottleneck_distance
+    bars = np.sort(rng.random((1500, 2)), axis=1)
+    assert bottleneck_distance(bars, bars + 1e-4) <= 1e-4 + 1e-12
     from tdax_torch.parallel import default_optimizer, train_loop, warmup_cosine_lr
     ids = torch.randint(1, 64, (2, 8))
     ck = os.path.join(tmp, "train_ck")
@@ -132,7 +140,8 @@ def _sources():
             "tdax_torch/utils/checkpoint.py", "tdax_torch/models/qwen_vl/convert.py",
             "tdax_torch/data/adversarial.py", "tdax_torch/pipeline/adversarial.py",
             "tdax_torch/metrics/geometry.py", "tdax_torch/viz/scatter3d.py",
-            "tdax_torch/pipeline/report.py"} <= names
+            "tdax_torch/pipeline/report.py", "tdax_torch/ops/rips/sparse.py",
+            "tdax_torch/pipeline/scale.py", "tdax_torch/metrics/persistence.py"} <= names
     return files
 
 

@@ -220,5 +220,7 @@ def test_bottleneck_matches_tdax(seed):
     a[0, 1] = b[0, 1] = np.inf
     assert bottleneck_distance(a, b) == j_bottleneck(a, b)
     assert bottleneck_distance(a, a) == 0.0
-    with pytest.raises(NotImplementedError, match="sparse"):
-        bottleneck_distance(np.zeros((2049, 2)), np.zeros((0, 2)))
+    # 3000 + 3000 bars: past 2048 both packages take the sparse path
+    big = np.sort(rng.random((3000, 2)), axis=1)
+    near = big + rng.uniform(-1e-3, 1e-3, big.shape)
+    assert bottleneck_distance(big, near) == j_bottleneck(big, near) > 0
