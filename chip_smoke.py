@@ -188,6 +188,31 @@ and runs these phases, printing JSON lines:
             Then bench_scale.py's recipe at SPARSE_LARGE_N x 4096,
             H1, blocked, once from the host array: stage timings, edges,
             bars, peak device memory and the same CSR checks.
+6c. umap_sparse  the edge-list UMAP (UMAP.fit past sparse_threshold).
+            bench_umap.py's recipe (umap_cloud: 8 planted clusters on a
+            16-d subspace, seed 42; cosine, k 15, 3-d, random_state 42,
+            500 epochs) at UMAP_N x 4096 three times (cold, warm from the
+            host array, warm from the cloud on the card), each call's
+            stages (LAST_TIMINGS: upload, kNN + calibration, COO
+            symmetrization, LOBPCG init and its iterations, layout), peak
+            memory, the planted-cluster silhouette on a 4000-point
+            subsample above UMAP_SIL_MIN; the card's and the host's
+            embeddings bitwise equal; one more call profiled.  Then
+            UMAP_TRANSFORM_N fresh points of the mixture through
+            UMAP.transform (the edge list): finite, the training side
+            unchanged, at least UMAP_PLACED_MIN of them nearest their own
+            cluster's centroid, a second transform bitwise equal.  The card
+            against the CPU at 3000 x 64 in 3 clusters (tolerances at
+            UMAP_INIT_COS_MIN): kNN lists, the LOBPCG init from one start,
+            the 30-epoch layout from one init and one set of negatives, the
+            whole path from those draws (reported), and the full fit on
+            both (silhouette above 0.7, the same clusters).  The shared
+            sweep (embed_and_silhouettes, reducer_mode "shared") on a
+            UMAP_SWEEP_SHAPE stack of the mixture equal to a serial
+            UMAP.fit + transform loop.  Then UMAP_LARGE_N x 4096 once
+            (200 epochs) from the host array, its stages, peak memory, the
+            same silhouette gate, and a profiled call's idle share.  No
+            kernel counter of the port may move in the phase.
 7. flash_bwd the flash backward kernels (dq; dk/dv) and the forward's
             lse output against their plain versions, bf16 and f32, at the
             decoder's training shape [4, 1024, 32, 128] (causal, the last
@@ -328,6 +353,37 @@ CROSS_ENGINE_TOL = 1e-5
 # expansion forms, so distances near 0.6 between points of norm ~11 may
 # differ by ~1e-5 relative (tests/test_scale_ops.py:91-95 allows 1e-4)
 SMALL_BOTTLENECK_TOL = 1e-4
+# the edge-list UMAP (phase umap_sparse): bench_umap.py's recipe (cosine,
+# k 15, 3-d, random_state 42) at its 10k default and at the 100k point
+# of README.md:321, its gate (the 8 planted clusters' silhouette on a
+# 4000-point subsample above 0.6, bench_umap.py:61-67) and the transform
+# placement bar of tests/test_umap_sparse.py:242-247
+UMAP_N, UMAP_LARGE_N, UMAP_D, UMAP_K = 10_000, 100_000, 4096, 15
+UMAP_SIL_MIN, UMAP_SUBSAMPLE = 0.6, 4000
+UMAP_TRANSFORM_N, UMAP_PLACED_MIN = 2000, 0.95
+# card against CPU: 3000 x 64 in 3 clusters (one connected kNN graph, so
+# the init's eigenvectors are distinct), 30 epochs from injected draws.
+# kNN distances within the CPU tests' 2e-3 (expansion form, two BLAS);
+# the LOBPCG init from one start and one edge list: |cosine| >= 0.999 a
+# column (a CPU run with weights moved 1e-6 relative reads 0.999996);
+# the layout from one edge list, init and negatives: the epochs are
+# chaotic (on the CPU an init moved 1e-7 relative moves the 30-epoch
+# points by median 6e-4, p99 0.018, max 0.14 on a cloud of max-abs ~9),
+# so the gate is the median and the 99th percentile of the per-point
+# gap, against O(1) for a wrong formula.  The full fit (500 epochs) on
+# 3 well-separated clusters of the same recipe (centres 3x further
+# apart: three components, every point's nearest centroid in the CPU's
+# embedding at least 5 ahead of the next): silhouette above
+# tests/test_umap_sparse.py's 0.7 on both, the same nearest-centroid
+# cluster of every point.  On the connected cloud the points between
+# clusters are ambiguous: on an H100 one of them landed in another
+# cluster than on the CPU.
+UMAP_PARITY_N, UMAP_PARITY_D, UMAP_PARITY_EPOCHS = 3000, 64, 30
+UMAP_PARITY_SPREAD, UMAP_FIT_SPREAD = 0.8, 3.0
+UMAP_INIT_COS_MIN = 0.999
+UMAP_LAYOUT_MEDIAN_TOL, UMAP_LAYOUT_P99_TOL = 0.05, 0.5
+UMAP_PARITY_SIL_MIN = 0.7
+UMAP_SWEEP_SHAPE = (3, 2100, 256)
 # the sweep on the card against the same sweep on the CPU: eigh may
 # return other signs (and another basis of a repeated eigenvalue) on the
 # card, and the 500-epoch layout amplifies rounding.  A CPU run with
@@ -2117,6 +2173,281 @@ def phase_scale_sparse(smi: str) -> dict:
     return info
 
 
+def umap_cloud(n: int, d: int = UMAP_D, seed: int = 42, n_new: int = 0):
+    """bench_umap.py:27-37's make_cloud: 8 Gaussian clusters on a random
+    16-d subspace embedded in d dims, and its labels; with n_new, also
+    n_new fresh points of the same mixture (the same centres and
+    projection, a second generator) and theirs."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(8, 16)) * 4.0
+    labels = rng.integers(0, 8, n)
+    z = centers[labels] + rng.normal(size=(n, 16))
+    proj = rng.normal(size=(16, d)) / 4.0
+    x = (z @ proj).astype(np.float32)
+    if not n_new:
+        return x, labels
+    rng2 = np.random.default_rng(seed + 1)
+    labels_new = rng2.integers(0, 8, n_new)
+    z_new = centers[labels_new] + rng2.normal(size=(n_new, 16))
+    return x, labels, (z_new @ proj).astype(np.float32), labels_new
+
+
+def _kernel_counters() -> dict:
+    """Every launch counter of the port's kernels."""
+    import tdax_torch.ops.flash_attention as fa
+    import tdax_torch.ops.quant_matmul as qm
+    import tdax_torch.ops.sqdist as sq
+    return {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": getattr(mod, name)
+            for mod in (fa, qm, sq) for name in dir(mod) if name.endswith("LAUNCHES")
+            or name.endswith("LAUNCHES_SM90")}
+
+
+def _subsample_silhouette(emb, labels) -> float:
+    """bench_umap.py:61-64: the port's silhouette on the card over a seeded subsample."""
+    import numpy as np
+    from tdax_torch.metrics.silhouette import silhouette_score
+    sub = np.random.default_rng(0).choice(len(emb), min(len(emb), UMAP_SUBSAMPLE),
+                                          replace=False)
+    return silhouette_score(emb[sub], labels[sub])
+
+
+def _umap_fit(x, labels, label: str) -> tuple:
+    """One bench_umap.py fit (cosine, k 15, 3-d, random_state 42): (the
+    reducer, its embedding, its record); fails on a non-finite embedding
+    or a planted-cluster silhouette at or below UMAP_SIL_MIN."""
+    import numpy as np
+    import torch
+    from tdax_torch.ops.umap import UMAP, sparse_path
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reducer = UMAP(n_neighbors=UMAP_K, n_components=3, metric="cosine", random_state=42)
+    emb = reducer.fit_transform(x)
+    wall = time.perf_counter() - t0
+    if emb.shape != (len(labels), 3) or not np.isfinite(emb).all():
+        raise AssertionError(f"umap_sparse {label}: embedding {emb.shape}, finite "
+                             f"{bool(np.isfinite(emb).all())}")
+    sil = _subsample_silhouette(emb, labels)
+    rec = {"run": label, "wall_s": wall, "timings": dict(sparse_path.LAST_TIMINGS),
+           "silhouette_8clusters": sil,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    if not sil > UMAP_SIL_MIN:
+        raise AssertionError(f"umap_sparse {label}: planted clusters collapsed: "
+                             f"{json.dumps(rec)}")
+    return reducer, emb, rec
+
+
+def _parity_cloud(spread: float):
+    """3000 x 64 in 3 unit-variance clusters around N(0, spread^2) centres
+    (spread 0.8: one connected kNN graph at k 15; 3.0: three components)."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    centers = rng.normal(size=(3, UMAP_PARITY_D)) * spread
+    labels = np.repeat(np.arange(3), UMAP_PARITY_N // 3)
+    x = centers[labels] + rng.normal(size=(UMAP_PARITY_N, UMAP_PARITY_D))
+    return x.astype(np.float32), labels
+
+
+def _nearest_centroid(emb, labels, points=None):
+    """The label whose centroid in ``emb`` lies nearest each of ``points``
+    (``emb`` itself by default)."""
+    import numpy as np
+    cents = np.stack([emb[labels == c].mean(0) for c in np.unique(labels)])
+    pts = emb if points is None else points
+    return np.argmin(np.linalg.norm(pts[:, None] - cents[None], axis=-1), 1)
+
+
+def _umap_card_vs_cpu() -> dict:
+    """The edge-list path at 3000 x 64 on the card and on the CPU, on the
+    connected cloud: the kNN lists, the LOBPCG init from one start and one
+    edge list, the 30-epoch layout from one edge list, init and set of
+    negatives; the whole path from those draws (reported: the init's
+    rounding, amplified by the epochs).  The full fit by invariants on
+    the separated cloud.  Fails on a gap past its tolerance."""
+    import numpy as np
+    import torch
+    from tdax_torch.metrics.silhouette import silhouette_score
+    from tdax_torch.ops.umap import UMAP, fuzzy, sparse_path as sp
+    from tdax_torch.ops.umap.umap import find_ab_params
+    x, labels = _parity_cloud(UMAP_PARITY_SPREAD)
+    x_fit, labels_fit = _parity_cloud(UMAP_FIT_SPREAD)
+    n, k, epochs = UMAP_PARITY_N, UMAP_K, UMAP_PARITY_EPOCHS
+    a, b = find_ab_params(1.0, 0.1)
+    rng = np.random.default_rng(1)
+    x0 = rng.normal(size=(n, 4)).astype(np.float32)
+    negs = [rng.integers(0, n, (n, sp.NEG_POOL)) for _ in range(epochs)]
+    knn, init, layout, whole, fit = {}, {}, {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        idx, dists = sp.knn_blocked(torch.as_tensor(x).to(dev), k, "euclidean")
+        sigma, rho = fuzzy.smooth_knn_dist(dists, float(k))
+        w = fuzzy.membership_strengths_knn(idx, dists, sigma, rho)
+        knn[dev] = (idx.cpu().numpy(), dists.cpu().numpy(),
+                    sp.build_sym_edges(idx.cpu().numpy(), w.cpu().numpy()))
+    edges = [torch.as_tensor(v) for v in knn["cpu"][2]]
+    for dev in ("cuda", "cpu"):
+        head, tail, wgt = edges[0].long().to(dev), edges[1].long().to(dev), edges[2].to(dev)
+        emb, iters = sp.spectral_init_lobpcg(head, tail, wgt, n, 2, 42, _x0=x0)
+        init[dev] = (emb.cpu().numpy(), iters)
+    for dev in ("cuda", "cpu"):
+        head, tail, wgt = edges[0].long().to(dev), edges[1].long().to(dev), edges[2].to(dev)
+        layout[dev] = sp.optimize_layout_edges(
+            torch.as_tensor(init["cpu"][0]).to(dev), head, tail, wgt, n, epochs, 42, a, b,
+            _negatives=lambda e: negs[e]).cpu().numpy()
+        whole[dev] = sp.embed_sparse(x, k, 2, "euclidean", epochs, 42, a, b, 1.0, 5, 1.0, 1.0,
+                                     1.0, device=dev, _x0=x0, _negatives=lambda e: negs[e])
+        t0 = time.perf_counter()
+        emb = UMAP(random_state=42, device=dev).fit_transform(x_fit)
+        fit[dev] = {"s": time.perf_counter() - t0, "timings": dict(sp.LAST_TIMINGS),
+                    "silhouette": silhouette_score(emb, labels_fit, device=dev),
+                    "clusters": _nearest_centroid(emb, labels_fit)}
+    (ci, cd, ce), (gi, gd, ge) = knn["cuda"], knn["cpu"]
+    x64 = x.astype(np.float64)
+    sq = (x64 * x64).sum(1)
+    srt = np.sort(np.sqrt(np.maximum(sq[:, None] + sq[None] - 2 * x64 @ x64.T, 0)), axis=1)
+    clear = srt[:, k] - srt[:, k - 1] > 2 * 2e-3
+    u, v = init["cuda"][0], init["cpu"][0]
+    cos = np.abs((u * v).sum(0)) / (np.linalg.norm(u, axis=0) * np.linalg.norm(v, axis=0))
+    gap = np.linalg.norm(layout["cuda"] - layout["cpu"], axis=1)
+    signs = np.sign((whole["cuda"] * whole["cpu"]).sum(0))
+    whole_gap = np.linalg.norm(whole["cuda"] - signs * whole["cpu"], axis=1)
+    rec = {"shape": [n, UMAP_PARITY_D], "epochs": epochs,
+           "knn_dist_max_gap": float(np.abs(cd - gd).max()),
+           "knn_rows_equal_sets": float(np.mean([set(p) == set(q) for p, q in zip(ci, gi)])),
+           "knn_clear_rows": int(clear.sum()),
+           "knn_clear_rows_equal_sets": bool(all(set(ci[r]) == set(gi[r])
+                                                 for r in np.flatnonzero(clear))),
+           "edges_card_cpu": [len(ce[0]), len(ge[0])],
+           "init_abs_cosine": cos.tolist(), "init_iterations": [init["cuda"][1],
+                                                                init["cpu"][1]],
+           "layout_gap_median": float(np.median(gap)),
+           "layout_gap_p99": float(np.quantile(gap, 0.99)), "layout_gap_max": float(gap.max()),
+           "whole_path_gap_median_sign_aligned": float(np.median(whole_gap)),
+           "whole_path_gap_max_sign_aligned": float(whole_gap.max()),
+           "fit_silhouette_card_cpu": [fit["cuda"]["silhouette"], fit["cpu"]["silhouette"]],
+           "fit_cluster_accuracy_card_cpu": [float((fit[d]["clusters"] == labels_fit).mean())
+                                             for d in ("cuda", "cpu")],
+           "fit_same_clusters": bool((fit["cuda"]["clusters"] == fit["cpu"]["clusters"]).all()),
+           "fit_s_card_cpu": [fit["cuda"]["s"], fit["cpu"]["s"]],
+           "fit_timings_card_cpu": [fit["cuda"]["timings"], fit["cpu"]["timings"]],
+           "tolerances": {"knn": 2e-3, "init_cos_min": UMAP_INIT_COS_MIN,
+                          "layout_median": UMAP_LAYOUT_MEDIAN_TOL,
+                          "layout_p99": UMAP_LAYOUT_P99_TOL, "fit_sil_min": UMAP_PARITY_SIL_MIN}}
+    faults = []
+    if not (np.abs(cd - gd) <= 2e-3 + 2e-3 * np.abs(gd)).all():
+        faults.append("kNN distances")
+    if not rec["knn_clear_rows_equal_sets"]:
+        faults.append("kNN index sets")
+    if not cos.min() >= UMAP_INIT_COS_MIN:
+        faults.append("LOBPCG init")
+    if not (rec["layout_gap_median"] <= UMAP_LAYOUT_MEDIAN_TOL
+            and rec["layout_gap_p99"] <= UMAP_LAYOUT_P99_TOL):
+        faults.append("layout")
+    if not (min(rec["fit_silhouette_card_cpu"]) > UMAP_PARITY_SIL_MIN
+            and rec["fit_same_clusters"]):
+        faults.append("full fit")
+    rec["faults"] = faults
+    return rec
+
+
+def phase_umap_sparse(smi: str) -> dict:
+    """The edge-list UMAP through UMAP.fit / transform and the shared
+    sweep: bench_umap.py at 10,000 x 4096 (cold, warm from the host, warm
+    from the card, a profiled call), a 2000-point transform, the card
+    against the CPU at 3000 x 64, 100,000 x 4096 once, and the shared
+    sweep past the threshold against the serial loop.  No kernel of the
+    port may launch."""
+    import numpy as np
+    import torch
+    from tdax_torch.config import SweepConfig, UMAPConfig
+    from tdax_torch.ops.umap import UMAP
+    from tdax_torch.pipeline.tda_sweep import embed_and_silhouettes
+
+    counters = _kernel_counters()
+    info = {"phase": "umap_sparse", "nvidia_smi": smi}
+    # (a) bench_umap.py:50-84 at 10k: cold, warm from the host, warm from the card
+    x, labels, x_new, labels_new = umap_cloud(UMAP_N, n_new=UMAP_TRANSFORM_N)
+    _, emb_cold, cold = _umap_fit(x, labels, "cold")
+    _, emb_host, warm_host = _umap_fit(x, labels, "warm_host")
+    x_card = torch.as_tensor(x).to("cuda")
+    torch.cuda.synchronize()
+    reducer, emb_card, warm_card = _umap_fit(x_card, labels, "warm_device")
+    info["runs"] = [cold, warm_host, warm_card]
+    info["cold_equals_warm"] = bool(np.array_equal(emb_cold, emb_host))
+    info["profile_warm_device"] = profile_device(
+        lambda: UMAP(n_neighbors=UMAP_K, n_components=3, metric="cosine",
+                     random_state=42).fit(x_card))
+    if not np.array_equal(emb_card, emb_host):
+        raise AssertionError("umap_sparse: the embeddings from the host and from the card "
+                             f"differ (max {np.abs(emb_card - emb_host).max()})")
+
+    # (b) 2000 fresh points of the mixture against (a)'s fit (the edge list)
+    before = reducer.embedding_.copy()
+    t0 = time.perf_counter()
+    got = reducer.transform(x_new)
+    transform_s = time.perf_counter() - t0
+    again = reducer.transform(x_new)
+    placed = float((_nearest_centroid(emb_card, labels, got) == labels_new).mean())
+    info["transform"] = {"n_new": UMAP_TRANSFORM_N, "wall_s": transform_s, "placed": placed,
+                         "repeat_equal": bool(np.array_equal(got, again))}
+    if (got.shape != (UMAP_TRANSFORM_N, 3) or not np.isfinite(got).all()
+            or not np.array_equal(before, reducer.embedding_) or placed < UMAP_PLACED_MIN
+            or not np.array_equal(got, again)):
+        raise AssertionError(f"umap_sparse transform: {info['transform']}, shape {got.shape}, "
+                             f"finite {bool(np.isfinite(got).all())}, train side unchanged "
+                             f"{bool(np.array_equal(before, reducer.embedding_))}")
+    del reducer, x_card
+
+    # (c) the card against the CPU
+    info["card_vs_cpu"] = _umap_card_vs_cpu()
+    if info["card_vs_cpu"]["faults"]:
+        emit(info)
+        raise AssertionError(f"umap_sparse card vs CPU: {info['card_vs_cpu']['faults']}")
+
+    # (e) the shared sweep past the threshold against the serial loop
+    rng = np.random.default_rng(3)
+    n_layers, n_sw, d_sw = UMAP_SWEEP_SHAPE
+    centers = rng.normal(size=(8, 16)) * 4.0
+    sw_labels = rng.integers(0, 8, n_sw)
+    proj = rng.normal(size=(16, d_sw)) / 4.0
+    clouds = np.stack([(centers[sw_labels] + rng.normal(size=(n_sw, 16))) @ proj
+                       for _ in range(n_layers)]).astype(np.float32)
+    ucfg = UMAPConfig(n_neighbors=UMAP_K)
+    t0 = time.perf_counter()
+    embs, sils = embed_and_silhouettes(clouds, SweepConfig(reducer_mode="shared", umap=ucfg),
+                                       {"cluster": [str(c) for c in sw_labels]})
+    sweep_s = time.perf_counter() - t0
+    serial = UMAP.from_config(ucfg)
+    serial.fit(clouds[-1])
+    serial = np.stack([serial.transform(c) for c in clouds])
+    info["shared_sweep"] = {"shape": list(UMAP_SWEEP_SHAPE), "wall_s": sweep_s,
+                            "silhouettes": sils["cluster"].tolist(),
+                            "equals_serial_loop": bool(np.array_equal(embs, serial))}
+    if not np.isfinite(embs).all() or not np.array_equal(embs, serial):
+        raise AssertionError(f"umap_sparse shared sweep: {info['shared_sweep']}")
+
+    # (d) 100,000 x 4096 once, from the host array (the default 200 epochs)
+    t0 = time.perf_counter()
+    x_large, labels_large = umap_cloud(UMAP_LARGE_N)
+    draw_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, large = _umap_fit(x_large, labels_large, "large")
+    large["draw_s"] = draw_s
+    info["large"] = {"n": UMAP_LARGE_N, **large}
+    info["profile_large"] = profile_device(
+        lambda: UMAP(n_neighbors=UMAP_K, n_components=3, metric="cosine",
+                     random_state=42).fit(x_large))
+    del x_large
+
+    moved = {k: v - counters[k] for k, v in _kernel_counters().items() if v != counters[k]}
+    info["kernel_counters_moved"] = moved
+    emit(info)
+    if moved:
+        raise AssertionError(f"umap_sparse launched kernels of the port: {moved}")
+    return info
+
+
 def phase_tiny_parity(tmp: Path) -> dict:
     """A tiny f32 model's capture: the card (kernels) against the CPU
     (plain attention), same parameters, same samples."""
@@ -3166,6 +3497,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sparse = phase_scale_sparse(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_umap_sparse(smi)
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train(smi, args.seed)

@@ -95,6 +95,17 @@ def _memberships(knn_dists, sigma, rho) -> torch.Tensor:
     return torch.where(d_adj <= 0.0, 1.0, torch.exp(-d_adj / sigma[..., None]))
 
 
+def membership_strengths_knn(knn_idx: torch.Tensor, knn_dists: torch.Tensor,
+                             sigma: torch.Tensor, rho: torch.Tensor) -> torch.Tensor:
+    """Directed membership weights on the kNN lists themselves [..., n, k]
+    (self entries zero): the edge-list path's counterpart of
+    ``membership_strengths``, which scatters into a dense [n, n]."""
+    n = knn_idx.shape[-2]
+    w = _memberships(knn_dists, sigma, rho)
+    rows = torch.arange(n, device=knn_idx.device)[:, None]
+    return torch.where(knn_idx == rows, 0.0, w)
+
+
 def membership_strengths(knn_idx: torch.Tensor, knn_dists: torch.Tensor,
                          sigma: torch.Tensor, rho: torch.Tensor) -> torch.Tensor:
     """Dense directed membership matrix A[..., i, j] (self edges zero)."""

@@ -1,4 +1,4 @@
-"""UMAP estimator and the batched sweep paths, dense path only (port of
+"""UMAP estimator and the batched sweep paths (port of
 ``tdax/ops/umap/umap.py``).
 
 The reference uses two modes:
@@ -8,15 +8,16 @@ The reference uses two modes:
 
 ``fit_transform_batched`` and ``shared_transform_batched`` run either
 mode on a stack of clouds [L, n, D] with the layer axis as a leading
-batch dimension, where tdax vmaps one jitted program.  Only the dense
-path (n <= ``UMAP.sparse_threshold`` = 2048) is in the port; the
-edge-list path above it (tdax's ``sparse_path.py``) comes with the
-sparse slice and raises ``NotImplementedError`` here.
+batch dimension, where tdax vmaps one jitted program.  Past the
+instance's ``sparse_threshold`` (2048 points) ``UMAP.fit`` embeds on
+the edge list (``sparse_path.py``), and ``UMAP.transform`` does too past
+``sparse_threshold`` squared (train x new) pairs, as tdax dispatches.
 """
 
 from __future__ import annotations
 
 import functools
+import time
 
 import numpy as np
 import torch
@@ -26,16 +27,6 @@ from tdax_torch.ops.umap.fuzzy import fuzzy_simplicial_set, smooth_knn_dist
 from tdax_torch.ops.umap.layout import optimize_layout
 from tdax_torch.ops.umap.spectral import spectral_init
 from tdax_torch.runtime import as_device_f32
-
-SPARSE_THRESHOLD = 2048
-
-
-def _dense_only(n: int) -> None:
-    if n > SPARSE_THRESHOLD:
-        raise NotImplementedError(
-            f"UMAP on {n} points needs the edge-list path (n > {SPARSE_THRESHOLD}), "
-            f"which comes to the port with the sparse scale/UMAP slice")
-
 
 @functools.lru_cache(maxsize=64)
 def find_ab_params(spread: float, min_dist: float) -> tuple[float, float]:
@@ -131,9 +122,12 @@ def _transform_core(x: torch.Tensor, train_x: torch.Tensor, train_emb: torch.Ten
 
 
 class UMAP:
-    """The reference's as-used ``umap.UMAP`` surface, dense path."""
+    """The reference's as-used ``umap.UMAP`` surface."""
 
-    sparse_threshold: int = SPARSE_THRESHOLD
+    # above this point count the dense [n, n] fuzzy graph and [n, n, d]
+    # epoch tensor stop fitting and the edge-list path takes over; an
+    # instance may set its own (the tests force the edge-list path so)
+    sparse_threshold: int = 2048
 
     def __init__(self, n_neighbors: int = 15, n_components: int = 2, min_dist: float = 0.1,
                  spread: float = 1.0, metric: str = "euclidean",
@@ -172,18 +166,29 @@ class UMAP:
                    set_op_mix_ratio=cfg.set_op_mix_ratio, device=device)
 
     def fit(self, x) -> "UMAP":
-        x = as_device_f32(x, self.device)
+        t0 = time.perf_counter()
+        x = as_device_f32(x, self.device)  # a copy from the host ends before it returns
+        upload_s = time.perf_counter() - t0
         n = x.shape[0]
         if n < 2:
             raise ValueError(f"UMAP requires at least 2 samples, got {n}")
-        _dense_only(n)
         k = min(self.n_neighbors, n - 1)
-        emb, _ = _embed(x, k, self.n_components, self.metric,
-                        _default_epochs(n, self.n_epochs), self.random_state,
-                        self._a, self._b, self.learning_rate, self.negative_sample_rate,
-                        self.repulsion_strength, self.local_connectivity,
-                        self.set_op_mix_ratio)
-        self.embedding_ = emb.cpu().numpy()
+        if n > self.sparse_threshold:
+            from tdax_torch.ops.umap import sparse_path
+            self.embedding_ = sparse_path.embed_sparse(
+                x, k, self.n_components, self.metric, _default_epochs(n, self.n_epochs),
+                self.random_state, self._a, self._b, self.learning_rate,
+                self.negative_sample_rate, self.repulsion_strength, self.local_connectivity,
+                self.set_op_mix_ratio)
+            # the cloud came to the device here, before embed_sparse
+            sparse_path.LAST_TIMINGS["upload_s"] += upload_s
+        else:
+            emb, _ = _embed(x, k, self.n_components, self.metric,
+                            _default_epochs(n, self.n_epochs), self.random_state,
+                            self._a, self._b, self.learning_rate, self.negative_sample_rate,
+                            self.repulsion_strength, self.local_connectivity,
+                            self.set_op_mix_ratio)
+            self.embedding_ = emb.cpu().numpy()
         self._train_x = x
         return self
 
@@ -197,15 +202,19 @@ class UMAP:
             raise RuntimeError("transform called before fit")
         x = as_device_f32(x, self.device)
         n_new, n_train = x.shape[0], self._train_x.shape[0]
-        if n_new * n_train > self.sparse_threshold ** 2:
-            raise NotImplementedError(
-                f"transforming {n_new} points against {n_train} needs the edge-list path, "
-                f"which comes to the port with the sparse scale/UMAP slice")
         k = min(self.n_neighbors, n_train)
+        n_epochs = _transform_epochs(self.n_epochs, n_new)
+        # past the dense fit ceiling's product the edge-list transform
+        # takes over (always the case when the fit itself was sparse)
+        if n_new * n_train > self.sparse_threshold ** 2:
+            from tdax_torch.ops.umap.sparse_path import transform_sparse
+            return transform_sparse(x, self._train_x, self.embedding_, k, self.metric,
+                                    n_epochs, self.random_state, self._a, self._b,
+                                    self.learning_rate, self.negative_sample_rate,
+                                    self.repulsion_strength, self.local_connectivity)
         train_emb = torch.as_tensor(self.embedding_).to(x.device)
-        emb = _transform_core(x, self._train_x, train_emb, k, self.metric,
-                              _transform_epochs(self.n_epochs, n_new), self._a, self._b,
-                              self.learning_rate, self.negative_sample_rate,
+        emb = _transform_core(x, self._train_x, train_emb, k, self.metric, n_epochs,
+                              self._a, self._b, self.learning_rate, self.negative_sample_rate,
                               self.repulsion_strength, self.local_connectivity)
         return emb.cpu().numpy()
 
@@ -243,7 +252,6 @@ def _prepare(clouds, cfg: UMAPConfig | None, n_neighbors: int | None, device):
     n = cs.shape[1]
     if n < 2:
         raise ValueError(f"UMAP requires at least 2 samples per cloud, got {n}")
-    _dense_only(n)
     k = n_neighbors if n_neighbors is not None else min(cfg.n_neighbors, n - 1)
     return cfg, cs, n, k, find_ab_params(cfg.spread, cfg.min_dist)
 
@@ -258,7 +266,12 @@ def fit_transform_batched(clouds, cfg: UMAPConfig | None = None,
 def shared_transform_batched(clouds, cfg: UMAPConfig | None = None,
                              n_neighbors: int | None = None, device=None) -> np.ndarray:
     """Shared-reducer embed of a stack [L, n, D] -> [L, n, c]: fit on
-    clouds[-1], transform every layer."""
+    clouds[-1], transform every layer.  Dense path only (n <= the sparse
+    threshold): the legacy mode's workloads are the 36-point clouds."""
     cfg, cs, n, k, (a, b) = _prepare(clouds, cfg, n_neighbors, device)
+    if n > UMAP.sparse_threshold:
+        raise ValueError(
+            f"shared_transform_batched is dense-path only (n <= "
+            f"{UMAP.sparse_threshold}, got {n}); use UMAP.fit + transform")
     return batched_shared_embed(cs, cfg, k, _default_epochs(n, cfg.n_epochs),
                                 _transform_epochs(cfg.n_epochs, n), a, b).cpu().numpy()

@@ -33,7 +33,7 @@ from tdax_torch.data.io import activations_to_layer_clouds, dump_json, ensure_di
 from tdax_torch.metrics.persistence import diagram_stats
 from tdax_torch.metrics.silhouette import encode_labels, silhouette
 from tdax_torch.ops.rips import rips
-from tdax_torch.ops.umap.umap import (_default_epochs, _prepare, _transform_epochs,
+from tdax_torch.ops.umap.umap import (UMAP, _default_epochs, _prepare, _transform_epochs,
                                       batched_embed, batched_shared_embed)
 from tdax_torch.runtime import as_device_f32
 from tdax_torch.utils.log import log_event
@@ -51,15 +51,22 @@ def batched_silhouettes(clouds, label_sets: dict[str, list[str]],
 
 
 def embed_layers(clouds, cfg: SweepConfig, device=None) -> torch.Tensor:
-    """[L, n, D] -> [L, n, 3] f32 on the device, in the configured reducer mode."""
+    """[L, n, D] -> [L, n, 3] f32 on the device, in the configured reducer
+    mode; the per-layer mode is batched and dense at any n, as tdax's."""
     ucfg, cs, n, k, (a, b) = _prepare(clouds, cfg.umap, None, device)
     if cfg.reducer_mode == "per_layer":
         return batched_embed(cs, ucfg, k, _default_epochs(n, ucfg.n_epochs), a, b)
     if cfg.reducer_mode == "shared":
         # fit on the LAST layer, transform every layer (same "camera"),
-        # analyze_tda_over_layers.py:65-72
-        return batched_shared_embed(cs, ucfg, k, _default_epochs(n, ucfg.n_epochs),
-                                    _transform_epochs(ucfg.n_epochs, n), a, b)
+        # analyze_tda_over_layers.py:65-72: batched at dense sizes, a
+        # serial fit/transform loop on the edge list past the threshold
+        if n <= UMAP.sparse_threshold:
+            return batched_shared_embed(cs, ucfg, k, _default_epochs(n, ucfg.n_epochs),
+                                        _transform_epochs(ucfg.n_epochs, n), a, b)
+        reducer = UMAP.from_config(ucfg, device=cs.device)
+        reducer.n_neighbors = k
+        reducer.fit(cs[-1])
+        return torch.stack([torch.as_tensor(reducer.transform(c)) for c in cs]).to(cs.device)
     raise ValueError(f"unknown reducer_mode {cfg.reducer_mode!r}")
 
 

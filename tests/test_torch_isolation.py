@@ -113,6 +113,14 @@ with tempfile.TemporaryDirectory() as tmp:
                                 png_fallback=False)
     assert all(os.path.exists(p) for p in html)
     assert "matplotlib" not in sys.modules
+    # the edge-list UMAP: a fit and a transform past a lowered threshold
+    from tdax_torch.ops.umap import UMAP
+    from tdax_torch.ops.umap import sparse_path
+    u = UMAP(n_neighbors=5, n_epochs=5, device="cpu")
+    u.sparse_threshold = 16
+    emb = u.fit_transform(rng.normal(size=(40, 6)))
+    assert emb.shape == (40, 2) and sparse_path.LAST_TIMINGS["init_iterations"] > 0
+    assert u.transform(rng.normal(size=(20, 6))).shape == (20, 2)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib") or m == "tdax" or m.startswith("tdax."))
 print("LOADED:" + ",".join(bad))
@@ -141,7 +149,8 @@ def _sources():
             "tdax_torch/data/adversarial.py", "tdax_torch/pipeline/adversarial.py",
             "tdax_torch/metrics/geometry.py", "tdax_torch/viz/scatter3d.py",
             "tdax_torch/pipeline/report.py", "tdax_torch/ops/rips/sparse.py",
-            "tdax_torch/pipeline/scale.py", "tdax_torch/metrics/persistence.py"} <= names
+            "tdax_torch/pipeline/scale.py", "tdax_torch/metrics/persistence.py",
+            "tdax_torch/ops/umap/sparse_path.py", "tdax_torch/ops/umap/lobpcg.py"} <= names
     return files
 
 

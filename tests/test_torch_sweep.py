@@ -196,8 +196,14 @@ def test_shared_batched_matches_serial_umap_loop():
 
 
 def test_umap_dense_only():
-    with pytest.raises(NotImplementedError, match="sparse"):
-        tu.fit_transform_batched(np.zeros((1, 2049, 3), np.float32), device="cpu")
+    """tdax's dispatch of the batched paths: fit_transform_batched has no
+    threshold (dense at any n, here 2049 points), shared_transform_batched
+    raises past it."""
+    x = np.random.default_rng(5).normal(size=(1, 2049, 3)).astype(np.float32)
+    emb = tu.fit_transform_batched(x, UMAPConfig(n_epochs=2, n_neighbors=4), device="cpu")
+    assert emb.shape == (1, 2049, 3) and np.isfinite(emb).all()
+    with pytest.raises(ValueError, match="dense-path only"):
+        tu.shared_transform_batched(x, device="cpu")
 
 
 def test_silhouette_matches_tdax_and_sklearn():
