@@ -93,6 +93,28 @@ and runs these phases, printing JSON lines:
             (CACHE_TOL), kv_int8's first decode logits within 0.05 x
             max|logit| of the bf16 cache's; a profile of one decode
             step.
+4d. w8a8    W8A8 serving (set_w8a8: int8 activations x int8 weights,
+            torch._int_mm) on generate's int8 weights, the switch off
+            again after it whatever happens.  At every QMM_SITES shape a
+            seeded bf16 x through qdot on the card (one int8 product, no
+            qmm launch) bitwise equal to the CPU's on its first
+            W8A8_SITE_ROWS rows; the quantize pass, int8_mm, torch._int_mm
+            alone on the column-major and the row-major weight, and the
+            whole qdot timed beside the qmm phase's qmm_sm90.cu and cuBLAS
+            bf16 times and the int8 bound (INT8_PEAK).  The tiny f32
+            model's int8 tree under W8A8: capture, decode logits and
+            generate (8 tokens) on the card against the CPU within
+            W8A8_REL_TOL, greedy tokens identical, every product of the
+            card's runs bitwise the CPU's on its input.  The full capture
+            with the switch on: [32, 48, 4096], finite, tdax's schemas,
+            int8 products 3 x 359 = 1077 and no qmm launch, flash 243 all
+            sm90, min cosine per vector >= INT8_MIN_COSINE against the
+            weight-only int8 capture; one batch profiled, the quantize
+            passes and int8_mm as ranges.  generate (16 x 32, bf16 caches):
+            ids in range, int8 products 5351 and no qmm launch, flash 1073
+            (81 sm90), the prefill's and two decode steps' logits against
+            the uncached W8A8 forward within W8A8_CACHE_TOL, a decode step
+            profiled.
 5. sweep    the port's run_tda_sweep on the activations the capture
             wrote, read back through the port's load_activations: 32
             layers x 36 bound samples x 4096, UMAP (cosine, k 6, 3-d,
@@ -105,6 +127,18 @@ and runs these phases, printing JSON lines:
             and, in the same process, on the CPU: the shape-silhouette
             peak must be layer 25 on both, silhouettes and max-H1 must
             agree within SWEEP_SIL_TOL / SWEEP_H1_TOL.  Times each stage.
+5p. ph_backends  the fallback Rips backends on that sweep's [32, 36, 3]
+            clouds: rips_tiny_batched on the card at maxdim 1 (twice) and
+            2 (tdax's chunks), and on the CPU at maxdim 1 and for
+            PH_CPU_H2_CLOUDS clouds at maxdim 2, each with the native
+            engine's bar counts and within TINY_PH_TOL (bottleneck) of its
+            diagrams (the CPU of the card's); sweep counts and times beside
+            the native thread pool's; run_tda_sweep on make_clouds with
+            RipsConfig(backend="device") on the card: peak 25, max-H1
+            within SWEEP_H1_TOL of the "auto" sweep's; the python oracle
+            on four clouds within ORACLE_TOL of the engine; a 9-point
+            cloud at maxdim 4 through the oracle, the engine not called.
+            No kernel counter may move.
 5a. report   the reference's remaining surface on that capture and
             sweep: the peak layer's two HTML files (visualize_peak_layer,
             png_fallback=False: the card's machine has no matplotlib),
@@ -244,8 +278,10 @@ and runs these phases, printing JSON lines:
             profiled step's device time by kind.
 10. the kernels line (flash_fwd, flash_bwd_*, sqdist and qmm name both sources
             and the launches of each kernel on each path, the checkpoint
-            and adversarial captures' and each scale_sparse call's
-            included), the nvidia-smi
+            and adversarial captures', the W8A8 capture's and
+            generate's and each scale_sparse call's included; the W8A8
+            product is torch._int_mm, a library call, whose times are on
+            the w8a8 line), the nvidia-smi
             line, then the last
             line {"ok": true, "device": {...}}.  Kernel times are
             reported, never gated: only correctness and launch counts
@@ -331,6 +367,25 @@ INT8_MIN_COSINE = 0.98
 # against bf16 caches as tests/test_generate.py:94
 CACHE_TOL, KV_INT8_TOL = 3e-2, 5e-2
 GEN_BATCH, GEN_PROMPT_LEN, GEN_NEW_TOKENS = 16, 320, 32
+INT8_PEAK = 1979e12     # H100 SXM dense int8 tensor-core OP/s
+# W8A8 sites, card against CPU: the CPU computes each site's first rows
+# only (a row of the product depends on its own row of x alone)
+W8A8_SITE_ROWS = 256
+# W8A8, card against CPU end to end: the values upstream of each
+# quantization differ by summation order (~1e-7), and an activation that
+# close to an int8 rounding boundary lands a level apart (1/127 of its
+# row's max), which later layers carry on; the bound is tdax's own between
+# W8A8 and the weight-only product (tests/test_quantize.py), relative to
+# the largest value.  Each product is held bitwise besides.
+W8A8_REL_TOL = 2e-2
+# W8A8 generate, cached decode logits against the uncached forward,
+# relative to max|logit|: a bf16 ulp (2^-8) upstream moves x / s_x by up to
+# half a level near 127, so in bf16 many activations land a level apart
+# between the cached step and the uncached forward (measured on the card:
+# 3.8% under W8A8 against 1.5% weight-only); the bound is KV_INT8_TOL's,
+# tdax's where int8 rounding enters the cached decode
+# (tests/test_generate.py:94)
+W8A8_CACHE_TOL = KV_INT8_TOL
 # sqdist: kernel and plain version are expansion forms summed in other
 # orders (one f32 FMA chain per entry in sqdist.cu, 3xTF32 on the tensor
 # cores in sqdist_sm90.cu, against a library product), so the bound is
@@ -393,6 +448,11 @@ UMAP_SWEEP_SHAPE = (3, 2100, 256)
 # eigenvalue) and 0.0160 (max-H1, of a mean max-H1 of 0.41), the same
 # in every run.  The limits leave under 2x room over those gaps.
 SWEEP_SIL_TOL, SWEEP_H1_TOL = 0.02, 0.03
+# rips_tiny_batched against the native engine, per cloud and dimension:
+# tdax's own bound (tests/test_rips_tiny_device.py: f32 distances against
+# the engine's f64); the oracle against the engine on the same f64 distances
+TINY_PH_TOL, ORACLE_TOL = 5e-5, 1e-9
+PH_CPU_H2_CLOUDS = 4    # the H2 matrices of all 32 clouds are ~3.4 GB on the host
 STATS_KEYS = ["layer", "n_h1_features", "max_h1_persistence", "all_h1_persistence_values",
               "n_h0_features", "max_h0_persistence", "silhouette_shape", "silhouette_color"]
 
@@ -1188,6 +1248,118 @@ def phase_sweep(tmp: Path, smi: str) -> dict:
         raise AssertionError(f"synthetic sweep: card vs CPU silhouettes {sil_err:.4f} "
                              f"(limit {SWEEP_SIL_TOL}), max H1 {h1_err:.4f} "
                              f"(limit {SWEEP_H1_TOL})")
+    return info
+
+
+def _diagram_gaps(got: list, want: list) -> tuple:
+    """Per cloud and dimension: (bar counts equal everywhere, the largest
+    bottleneck distance)."""
+    from tdax_torch.metrics.persistence import bottleneck_distance
+    same = all(len(a) == len(b) and all(x.shape == y.shape for x, y in zip(a, b))
+               for a, b in zip(got, want))
+    gap = max(bottleneck_distance(x, y) for a, b in zip(got, want) for x, y in zip(a, b))
+    return same, gap
+
+
+def phase_ph_backends(tmp: Path, smi: str) -> dict:
+    """The fallback Rips backends on the capture sweep's [32, 36, 3] clouds:
+    rips_tiny_batched on the card at maxdim 1 and 2 (tdax's chunks) and on
+    the CPU (maxdim 1, and PH_CPU_H2_CLOUDS clouds at maxdim 2) against the
+    native engine's thread pool, timed; run_tda_sweep with
+    RipsConfig(backend="device") on make_clouds; the python oracle against
+    the native engine, and maxdim 4 through the oracle."""
+    import numpy as np
+    import torch
+    from tdax_torch.config import RipsConfig, SweepConfig
+    from tdax_torch.ops.rips import native, rips
+    from tdax_torch.ops.rips import tiny_device as tt
+    from tdax_torch.pipeline.tda_sweep import peak, persistence_per_layer, run_tda_sweep
+
+    t_phase = time.perf_counter()
+    cloud_dir = tmp / "tda_debug_output" / "point_clouds_3d"
+    clouds = np.stack([np.load(cloud_dir / f"layer_{i}_cloud.npy") for i in range(32)])
+    kernels_before = _kernel_counters()
+    info = {"phase": "ph_backends", "nvidia_smi": smi, "clouds": list(clouds.shape)}
+    native_dgms = {}
+    for md in (1, 2):
+        t0 = time.perf_counter()
+        native_dgms[md] = persistence_per_layer(clouds, maxdim=md)
+        info[f"native_pool_maxdim{md}_s"] = time.perf_counter() - t0
+
+    card = {}
+    for md, label in ((1, "h1_first"), (1, "h1"), (2, "h2")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card[md] = tt.rips_tiny_batched(clouds, maxdim=md)
+        info[f"card_{label}"] = {"wall_s": time.perf_counter() - t0, **tt.LAST_RUN}
+        same, gap = _diagram_gaps(card[md], native_dgms[md])
+        info[f"card_{label}"].update(bar_counts_equal_native=same, bottleneck_vs_native=gap)
+        if not same or gap > TINY_PH_TOL:
+            raise AssertionError(f"rips_tiny_batched maxdim {md} on the card against the native "
+                                 f"engine: bar counts equal {same}, bottleneck {gap:.3e}")
+
+    cpu = {}
+    for md, part in ((1, clouds), (2, clouds[:PH_CPU_H2_CLOUDS])):
+        t0 = time.perf_counter()
+        cpu[md] = tt.rips_tiny_batched(part, maxdim=md, device="cpu")
+        info[f"cpu_maxdim{md}"] = {"wall_s": time.perf_counter() - t0, **tt.LAST_RUN}
+        same, gap = _diagram_gaps(cpu[md], card[md][:len(part)])
+        info[f"cpu_maxdim{md}"].update(bar_counts_equal_card=same, bottleneck_vs_card=gap)
+        if not same or gap > TINY_PH_TOL:
+            raise AssertionError(f"rips_tiny_batched maxdim {md}: CPU against the card: bar "
+                                 f"counts equal {same}, bottleneck {gap:.3e}")
+
+    # the sweep with the device batch, beside the native engine's, on the card
+    all_data, meta_path, _, _ = synthetic_capture(tmp / "synthetic_ph")
+    sweeps = {}
+    for backend in ("auto", "device"):
+        t0 = time.perf_counter()
+        res = run_tda_sweep(all_data, meta_path,
+                            SweepConfig(output_dir=str(tmp / f"synthetic_ph_{backend}"),
+                                        save_diagrams=False, rips=RipsConfig(backend=backend)),
+                            verbose=False)
+        _check_sweep(res, 32, f"synthetic sweep, backend {backend}")
+        sweeps[backend] = res
+        info[f"sweep_{backend}"] = {"wall_s": time.perf_counter() - t0, **res["timings"]}
+    dev_peak = peak(sweeps["device"]["stats"], "shape_silhouette")
+    h1_gap = max(abs(a["max_h1_persistence"] - b["max_h1_persistence"])
+                 for a, b in zip(sweeps["device"]["stats"], sweeps["auto"]["stats"]))
+    info.update(sweep_device_peak=dev_peak, sweep_device_vs_auto_max_h1_diff=h1_gap,
+                sweep_clouds_bitwise_equal=bool(np.array_equal(sweeps["device"]["clouds_3d"],
+                                                               sweeps["auto"]["clouds_3d"])))
+    if dev_peak != 25 or h1_gap > SWEEP_H1_TOL:
+        raise AssertionError(f"device-backend sweep: peak {dev_peak} (expected 25), max-H1 "
+                             f"against the auto sweep {h1_gap:.4f} (limit {SWEEP_H1_TOL})")
+
+    # the python oracle against the native engine, and past maxdim 3
+    t0 = time.perf_counter()
+    oracle = [rips(c.astype(np.float64), maxdim=1, backend="python")["dgms"] for c in clouds[:4]]
+    info["oracle_4_clouds_s"] = time.perf_counter() - t0
+    engine = [rips(c.astype(np.float64), maxdim=1, backend="native")["dgms"] for c in clouds[:4]]
+    same, gap = _diagram_gaps(oracle, engine)
+    info.update(oracle_bar_counts_equal_native=same, oracle_bottleneck_vs_native=gap)
+    if not same or gap > ORACLE_TOL:
+        raise AssertionError(f"oracle against the native engine: bar counts equal {same}, "
+                             f"bottleneck {gap:.3e}")
+    nine = np.random.default_rng(9).normal(size=(9, 3))
+    real_native = native.rips_native
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the native engine was called at maxdim 4")
+    native.rips_native = refuse
+    try:
+        high = rips(nine, maxdim=4)["dgms"]
+    finally:
+        native.rips_native = real_native
+    want = rips(nine, maxdim=4, backend="python")["dgms"]
+    if len(high) != 5 or not all(np.array_equal(a, b) for a, b in zip(high, want)):
+        raise AssertionError("rips at maxdim 4 did not give the oracle's five diagrams")
+    info["maxdim4_bars"] = [len(d) for d in high]
+    if _kernel_counters() != kernels_before:
+        raise AssertionError("ph_backends moved a kernel counter: no kernel of the port is on "
+                             "this path")
+    info["phase_s"] = time.perf_counter() - t_phase
+    emit(info)
     return info
 
 
@@ -2686,13 +2858,18 @@ def _device_time_by_kind(prof) -> dict:
     kinds = {"qmm": 0.0, "flash": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
              "gemm": 0.0, "other": 0.0}
     top = []
-    qmm_sm90_us = 0.0
+    qmm_sm90_us = int8_us = 0.0
+    ranges = {}
     for ev in prof.key_averages():
-        # a record_function range (torch.optim's "Optimizer.step#...") shows
-        # as a device event spanning its kernels: not a kernel of its own
+        # a record_function range (torch.optim's "Optimizer.step#...", the
+        # W8A8 phase's "w8a8.*") shows as a device event spanning its
+        # kernels: not a kernel of its own
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.key.startswith("w8a8."):
+            ranges[ev.key] = {"device_ms": getattr(ev, "device_time_total", 0.0) / 1e3,
+                              "count": ev.count}
         if (ev.device_type != torch.autograd.DeviceType.CUDA
                 or getattr(ev, "is_user_annotation", False)
-                or ev.key.startswith("Optimizer.")):
+                or ev.key.startswith(("Optimizer.", "w8a8."))):
             continue
         us = getattr(ev, "self_device_time_total", 0.0)
         name = ev.key.lower()
@@ -2704,11 +2881,17 @@ def _device_time_by_kind(prof) -> dict:
                 "other")
         kinds[kind] += us / 1e3
         qmm_sm90_us += us if "qmm_sm90" in name else 0.0
+        int8_us += us if kind == "gemm" and any(w in name for w in ("s8", "i8", "imma")) else 0
         top.append((us / 1e3, ev.count, ev.key[:90]))
     top.sort(reverse=True)
-    # qmm_ms holds both qmm kernels; qmm_sm90_ms the Hopper one's share of it
-    return {"busy_ms": sum(kinds.values()), **{f"{k}_ms": v for k, v in kinds.items()},
-            "qmm_sm90_ms": qmm_sm90_us / 1e3, "top_kernels_ms_count_name": top[:12]}
+    # qmm_ms holds both qmm kernels; qmm_sm90_ms the Hopper one's share of it;
+    # int8_gemm_ms the int8 x int8 GEMMs' share of gemm_ms
+    out = {"busy_ms": sum(kinds.values()), **{f"{k}_ms": v for k, v in kinds.items()},
+           "qmm_sm90_ms": qmm_sm90_us / 1e3, "int8_gemm_ms": int8_us / 1e3,
+           "top_kernels_ms_count_name": top[:12]}
+    if ranges:
+        out["ranges"] = ranges
+    return out
 
 
 def phase_profile(params, cfg, encoded, max_len, bs, smi, label) -> dict:
@@ -2837,6 +3020,7 @@ def phase_int8_capture(tmp: Path, smi: str, state: dict, bf16_peak: int) -> dict
     info["profile"] = phase_profile(params, cfg, state["encoded"], state["max_len"],
                                     ecfg.batch_size, smi, "int8")
     info["fingerprint"] = _fingerprint(params)
+    state["int8_acts"] = acts
     return info
 
 
@@ -2845,20 +3029,135 @@ def _cache_bytes(*caches) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def phase_generate(smi: str, state: dict, fingerprint: list) -> dict:
-    """KV-cached greedy generation at full width from
-    init_params_quantized, with bf16 caches and with int8 caches."""
+def _generate_inputs(state: dict) -> dict:
+    """The first GEN_BATCH samples' prompts padded to GEN_PROMPT_LEN, on the card."""
     import numpy as np
     import torch
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    from tdax_torch.models.qwen_vl.preprocess import load_image_batch
+    from tdax_torch.models.qwen_vl.tokenizer import ToyTokenizer
+
+    cfg = QwenVLConfig()
+    enc, b = state["encoded"], GEN_BATCH
+    pad = GEN_PROMPT_LEN - enc["input_ids"].shape[1]
+
+    def dev(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to("cuda", dtype)
+
+    mask = dev(np.pad(enc["attn_mask"][:b], ((0, 0), (0, pad))), torch.int32)
+    return {"ids": dev(np.pad(enc["input_ids"][:b], ((0, 0), (0, pad)),
+                              constant_values=ToyTokenizer(cfg).pad_id), torch.long),
+            "mask": mask,
+            "images": dev(load_image_batch(enc["image_paths"][:b], cfg.visual.image_size),
+                          torch.float32),
+            "pos": dev(enc["image_positions"][:b], torch.long),
+            "lengths": mask.sum(1).long(), "rows": torch.arange(b, device="cuda")}
+
+
+def _launches() -> dict:
     import tdax_torch.ops.flash_attention as fa
     import tdax_torch.ops.quant_matmul as qm
-    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    return {"qmm": qm.LAUNCHES, "qmm_sm90": qm.LAUNCHES_SM90, "int8_mm": qm.LAUNCHES_INT8,
+            "flash_fwd": fa.LAUNCHES, "flash_fwd_sm90": fa.LAUNCHES_SM90}
+
+
+def _zero_launches() -> None:
+    import tdax_torch.ops.flash_attention as fa
+    import tdax_torch.ops.quant_matmul as qm
+    fa.LAUNCHES = fa.LAUNCHES_SM90 = qm.LAUNCHES = qm.LAUNCHES_SM90 = qm.LAUNCHES_INT8 = 0
+
+
+def _generate_run(params, cfg, inp: dict, kv_int8: bool, expected: dict, label: str) -> dict:
+    """generate's GEN_NEW_TOKENS greedy tokens (timed, launches counted and
+    held against ``expected``), then the same steps by hand: the prefill
+    alone (timed), its logits and two decode steps', and a profile of one
+    more decode step."""
+    import torch
     from tdax_torch.models.qwen_vl.decoder import rms_norm
     from tdax_torch.models.qwen_vl.generate import _decode_step, generate, prefill
+    from tdax_torch.models.qwen_vl.quantize import qdot
+
+    b, n_steps = GEN_BATCH, GEN_NEW_TOKENS - 1
+    ids, mask, images, pos, lengths = (inp[k] for k in ("ids", "mask", "images", "pos",
+                                                        "lengths"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    toks = generate(params, cfg, ids, mask, max_new_tokens=GEN_NEW_TOKENS, images=images,
+                    image_positions=pos, kv_int8=kv_int8)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    if toks.shape != (b, GEN_NEW_TOKENS) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"{label}: ids {tuple(toks.shape)} out of shape or range")
+    if launches != expected:
+        raise AssertionError(f"{label} (kv_int8={kv_int8}): launches {launches}, "
+                             f"expected {expected}")
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hidden, ks, vs = prefill(params, cfg, ids, mask, images, pos,
+                                 t_max=GEN_PROMPT_LEN + GEN_NEW_TOKENS, kv_int8=kv_int8)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        last = rms_norm(hidden[inp["rows"], lengths - 1], params["ln_f"], cfg.layer_norm_eps)
+        logits = [qdot(last, params["lm_head"]).float()]
+        tok = [logits[0].argmax(-1)]
+        del hidden
+        for i in range(2):
+            step, ks, vs = _decode_step(params, cfg, tok[-1], lengths + i, ks, vs)
+            logits.append(step)
+            tok.append(step.argmax(-1))
+        step_profile = profile_device(
+            lambda: _decode_step(params, cfg, tok[-1], lengths + 2, ks, vs))
+    info = {"kv_int8": kv_int8, "wall_s": wall_s, "prefill_s": prefill_s,
+            "decode_ms_per_step": 1e3 * (wall_s - prefill_s) / n_steps,
+            "tokens_per_s": b * GEN_NEW_TOKENS / wall_s, "cache_bytes": _cache_bytes(ks, vs),
+            "max_memory_allocated_bytes": peak, "launches": launches,
+            "expected_launches": expected, "decode_step_profile": step_profile}
+    del ks, vs
+    torch.cuda.empty_cache()
+    return {"tokens": toks, "logits": logits, "tok": tok, "info": info}
+
+
+def _check_first_tokens(run: dict, label: str) -> None:
+    import torch
+    if not torch.equal(run["tokens"][:, :3], torch.stack(run["tok"], 1)):
+        raise AssertionError(f"{label}: the first tokens differ from the same steps by hand")
+
+
+def _cached_vs_uncached(params, cfg, inp: dict, run: dict) -> tuple:
+    """The cached logits of a run against the uncached forward on prompt +
+    the generated prefix, at each sample's last real position: the error
+    over max|logit| and the argmax agreement, per step."""
+    import torch
     from tdax_torch.models.qwen_vl.model import forward
-    from tdax_torch.models.qwen_vl.preprocess import load_image_batch
-    from tdax_torch.models.qwen_vl.quantize import init_params_quantized, qdot, quantized_bytes
-    from tdax_torch.models.qwen_vl.tokenizer import ToyTokenizer
+
+    rows, lengths = inp["rows"], inp["lengths"]
+    ids2, mask2 = inp["ids"].clone(), inp["mask"].clone()
+    for j in range(2):
+        ids2[rows, lengths + j] = run["tok"][j]
+        mask2[rows, lengths + j] = 1
+    with torch.inference_mode():
+        full = forward(params, cfg, ids2, mask2, inp["images"], inp["pos"])
+        ref = [full[rows, lengths - 1 + j] for j in range(3)]
+    del full
+    err = [float((c - r).abs().max() / r.abs().max()) for c, r in zip(run["logits"], ref)]
+    agree = [float((c.argmax(-1) == r.argmax(-1)).float().mean())
+             for c, r in zip(run["logits"], ref)]
+    return err, agree
+
+
+def phase_generate(smi: str, state: dict, fingerprint: list) -> dict:
+    """KV-cached greedy generation at full width from
+    init_params_quantized, with bf16 caches and with int8 caches.  Leaves
+    the int8 tree in ``state["int8_params"]`` for the W8A8 phase."""
+    import torch
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    from tdax_torch.models.qwen_vl.quantize import init_params_quantized, quantized_bytes
 
     cfg = QwenVLConfig()
     torch.cuda.synchronize()
@@ -2869,97 +3168,28 @@ def phase_generate(smi: str, state: dict, fingerprint: list) -> dict:
     if not all(torch.equal(a, b) for a, b in zip(_fingerprint(params), fingerprint)):
         raise AssertionError("init_params_quantized differs from quantize_params(init_params)")
 
-    enc, b = state["encoded"], GEN_BATCH
-    pad = GEN_PROMPT_LEN - enc["input_ids"].shape[1]
-
-    def dev(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a)).to("cuda", dtype)
-
-    ids = dev(np.pad(enc["input_ids"][:b], ((0, 0), (0, pad)),
-                     constant_values=ToyTokenizer(cfg).pad_id), torch.long)
-    mask = dev(np.pad(enc["attn_mask"][:b], ((0, 0), (0, pad))), torch.int32)
-    images = dev(load_image_batch(enc["image_paths"][:b], cfg.visual.image_size), torch.float32)
-    pos = dev(enc["image_positions"][:b], torch.long)
-    lengths = mask.sum(1).long()
-    rows = torch.arange(b, device="cuda")
-    t_max, n_steps = GEN_PROMPT_LEN + GEN_NEW_TOKENS, GEN_NEW_TOKENS - 1
+    inp = _generate_inputs(state)
+    n_steps = GEN_NEW_TOKENS - 1
     # the prefill's attention on the sm90 kernel, the decode steps' (Tq = 1)
     # on the mma kernel; the prefill's int8 products as a capture batch's
     # (358 on qmm_sm90.cu), its lm_head on the 16 last rows and every decode
     # step's (M = 16) on qmm.cu
     expected = {"qmm": QMM_PER_CAPTURE_BATCH + 1 + n_steps * QMM_PER_DECODE_STEP,
-                "qmm_sm90": QMM_SM90_PER_CAPTURE_BATCH,
+                "qmm_sm90": QMM_SM90_PER_CAPTURE_BATCH, "int8_mm": 0,
                 "flash_fwd": cfg.visual.layers + 1 + cfg.num_layers + n_steps * cfg.num_layers,
                 "flash_fwd_sm90": cfg.visual.layers + 1 + cfg.num_layers}
+    runs = {kv_int8: _generate_run(params, cfg, inp, kv_int8, expected, "generate")
+            for kv_int8 in (False, True)}
 
-    runs = {}
-    for kv_int8 in (False, True):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        fa.LAUNCHES = fa.LAUNCHES_SM90 = qm.LAUNCHES = qm.LAUNCHES_SM90 = 0
-        t0 = time.perf_counter()
-        toks = generate(params, cfg, ids, mask, max_new_tokens=GEN_NEW_TOKENS, images=images,
-                        image_positions=pos, kv_int8=kv_int8)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        launches = {"qmm": qm.LAUNCHES, "qmm_sm90": qm.LAUNCHES_SM90, "flash_fwd": fa.LAUNCHES,
-                    "flash_fwd_sm90": fa.LAUNCHES_SM90}
-        peak = torch.cuda.max_memory_allocated()
-        if toks.shape != (b, GEN_NEW_TOKENS) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
-            raise AssertionError(f"generate: ids {tuple(toks.shape)} out of shape or range")
-        if launches != expected:
-            raise AssertionError(f"generate (kv_int8={kv_int8}): launches {launches}, "
-                                 f"expected {expected}")
-
-        # the same steps by hand: the prefill alone (timed), two decode steps
-        with torch.inference_mode():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            hidden, ks, vs = prefill(params, cfg, ids, mask, images, pos, t_max=t_max,
-                                     kv_int8=kv_int8)
-            torch.cuda.synchronize()
-            prefill_s = time.perf_counter() - t0
-            last = rms_norm(hidden[rows, lengths - 1], params["ln_f"], cfg.layer_norm_eps)
-            logits = [qdot(last, params["lm_head"]).float()]
-            tok = [logits[0].argmax(-1)]
-            del hidden
-            for i in range(2):
-                step, ks, vs = _decode_step(params, cfg, tok[-1], lengths + i, ks, vs)
-                logits.append(step)
-                tok.append(step.argmax(-1))
-            step_profile = profile_device(
-                lambda: _decode_step(params, cfg, tok[-1], lengths + 2, ks, vs))
-        runs[kv_int8] = {"tokens": toks, "logits": logits, "tok": tok, "info": {
-            "kv_int8": kv_int8, "wall_s": wall_s, "prefill_s": prefill_s,
-            "decode_ms_per_step": 1e3 * (wall_s - prefill_s) / n_steps,
-            "tokens_per_s": b * GEN_NEW_TOKENS / wall_s, "cache_bytes": _cache_bytes(ks, vs),
-            "max_memory_allocated_bytes": peak, "launches": launches,
-            "expected_launches": expected, "decode_step_profile": step_profile}}
-        del ks, vs
-        torch.cuda.empty_cache()
-
-    # the bf16-cache logits against the uncached forward on prompt + the
-    # generated prefix, at each sample's last real position
     ref_run = runs[False]
-    ids2, mask2 = ids.clone(), mask.clone()
-    for j in range(2):
-        ids2[rows, lengths + j] = ref_run["tok"][j]
-        mask2[rows, lengths + j] = 1
-    with torch.inference_mode():
-        full = forward(params, cfg, ids2, mask2, images, pos)
-        ref = [full[rows, lengths - 1 + j] for j in range(3)]
-    del full
-    cache_err = [float((c - r).abs().max() / r.abs().max())
-                 for c, r in zip(ref_run["logits"], ref)]
-    cache_agree = [float((c.argmax(-1) == r.argmax(-1)).float().mean())
-                   for c, r in zip(ref_run["logits"], ref)]
+    cache_err, cache_agree = _cached_vs_uncached(params, cfg, inp, ref_run)
     l_bf16, l_int8 = runs[False]["logits"][1], runs[True]["logits"][1]
     kv_err = float((l_int8 - l_bf16).abs().max() / l_bf16.abs().max())
     token_agree = float((runs[True]["tokens"] == runs[False]["tokens"]).float().mean())
     info = {"phase": "generate", "nvidia_smi": smi, "init_s": init_s,
-            "weight_bytes_int8": quantized_bytes(params), "batch": b,
-            "prompt_len": GEN_PROMPT_LEN, "prompt_lengths": lengths.tolist(),
-            "max_new_tokens": GEN_NEW_TOKENS, "t_max": t_max,
+            "weight_bytes_int8": quantized_bytes(params), "batch": GEN_BATCH,
+            "prompt_len": GEN_PROMPT_LEN, "prompt_lengths": inp["lengths"].tolist(),
+            "max_new_tokens": GEN_NEW_TOKENS, "t_max": GEN_PROMPT_LEN + GEN_NEW_TOKENS,
             "runs": [runs[k]["info"] for k in (False, True)],
             "cached_vs_uncached_max_err_over_max_logit": cache_err,
             "cached_vs_uncached_argmax_agreement": cache_agree, "cache_tolerance": CACHE_TOL,
@@ -2973,9 +3203,282 @@ def phase_generate(smi: str, state: dict, fingerprint: list) -> dict:
     if kv_err > KV_INT8_TOL:
         raise AssertionError(f"generate: kv_int8 vs bf16 cache logits {kv_err} over "
                              f"{KV_INT8_TOL}")
-    if not torch.equal(ref_run["tokens"][:, :3], torch.stack(ref_run["tok"], 1)):
-        raise AssertionError("generate's first tokens differ from the same steps by hand")
+    _check_first_tokens(ref_run, "generate")
+    state["int8_params"] = params
     return info
+
+
+def w8a8_bound(m, k, n):
+    """(ms, 'operations' | 'bytes'): the int8 product's 2MNK int8 tensor-core
+    operations; int8 x and q read once, the int32 product written once."""
+    t_ops = 2.0 * m * n * k / INT8_PEAK
+    t_bytes = (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _bits(t):
+    """A tensor's bits, to compare two results bitwise."""
+    import torch
+    return t.contiguous().view({1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _w8a8_sites(qmm_sites: list) -> list:
+    """W8A8 qdot at every QMM_SITES shape on the card against the CPU,
+    bitwise, and timed by parts: the quantize pass, int8_mm (padding, the
+    weight's column-major copy kept from its first call), the copy alone
+    (made once per weight), torch._int_mm alone on the column-major and on
+    the row-major weight, the whole qdot."""
+    import torch
+    import torch.nn.functional as F
+    from tdax_torch.models.qwen_vl.quantize import qdot, quantize_activations
+    from tdax_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    by_site = {s["site"]: s for s in qmm_sites}
+    sites = []
+    for name, m, k, n, per_batch, per_step in QMM_SITES:
+        x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+        w = {"q": torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                                dtype=torch.int8),
+             "s": torch.rand((n,), generator=gen, device="cuda") / (127 * math.sqrt(k))}
+        before = (qm.LAUNCHES_INT8, qm.LAUNCHES)
+        got = qdot(x, w)
+        if (qm.LAUNCHES_INT8, qm.LAUNCHES) != (before[0] + 1, before[1]):
+            raise AssertionError(f"w8a8 {name}: not one int8 product and no qmm launch")
+        rows = min(m, W8A8_SITE_ROWS)
+        want = qdot(x[:rows].cpu(), {"q": w["q"].cpu(), "s": w["s"].cpu()})
+        torch.cuda.synchronize()
+        if got.dtype != x.dtype or not torch.equal(_bits(got[:rows].cpu()), _bits(want)):
+            diff = (got[:rows].cpu().float() - want.float()).abs()
+            raise AssertionError(f"w8a8 {name}: card and CPU differ at {int((diff > 0).sum())} "
+                                 f"of {diff.numel()} values (max {float(diff.max()):.3e})")
+        iters = 50 if m <= 64 else 10
+        xq, _ = quantize_activations(x)
+        mp, kp = (m if m > 16 else 32), -(-k // 8) * 8
+        a = F.pad(xq, (0, kp - k, 0, mp - m))
+        bt = F.pad(w["q"].t(), (0, kp - k)).contiguous()
+        site = {"site": name, "shape": [m, k, n], "calls_per_capture_batch": per_batch,
+                "calls_per_decode_step": per_step, "bitwise_rows": rows,
+                "quantize_ms": cuda_ms(lambda: quantize_activations(x), iters=iters),
+                "int8_mm_ms": cuda_ms(lambda: qm.int8_mm(xq, w["q"]), iters=iters),
+                "column_major_copy_ms": cuda_ms(lambda: qm._column_major(w["q"], kp, n),
+                                                iters=iters),
+                "int_mm_col_major_ms": cuda_ms(lambda: torch._int_mm(a, bt.t()), iters=iters),
+                "qdot_ms": cuda_ms(lambda: qdot(x, w), iters=iters)}
+        try:
+            row_major = F.pad(w["q"], (0, 0, 0, kp - k))
+            site["int_mm_row_major_ms"] = cuda_ms(lambda: torch._int_mm(a, row_major),
+                                                  iters=iters)
+        except RuntimeError as e:
+            site["int_mm_row_major_ms"] = f"refused: {str(e)[:160]}"
+        site["bound_ms"], site["bound_by"] = w8a8_bound(m, k, n)
+        site["int8_mm_tops"] = 2.0 * m * n * k / (site["int8_mm_ms"] * 1e-3) / 1e12
+        site["qmm_ms"] = by_site[name]["ms"]
+        site["cublas_bf16_ms"] = by_site[name]["library_ms"]
+        emit({"phase": "w8a8_site", **site})
+        sites.append(site)
+        del x, w, got, xq, a, bt
+        torch.cuda.empty_cache()
+    return sites
+
+
+def _w8a8_totals(sites: list, calls_key: str) -> dict:
+    keys = ("quantize_ms", "int8_mm_ms", "column_major_copy_ms", "int_mm_col_major_ms",
+            "qdot_ms", "bound_ms", "qmm_ms", "cublas_bf16_ms")
+    return {k: sum(s[k] * s[calls_key] for s in sites) for k in keys}
+
+
+def _checked_products(stats: dict):
+    """A stand-in for the model modules' ``qdot`` that holds every int8
+    product on the card bitwise against the CPU's on the same input."""
+    import torch
+    from tdax_torch.models.qwen_vl.quantize import is_quantized, qdot
+
+    def check(x, w):
+        out = qdot(x, w)
+        if is_quantized(w) and x.is_cuda:
+            want = qdot(x.cpu(), {"q": w["q"].cpu(), "s": w["s"].cpu()})
+            stats["products"] += 1
+            stats["bitwise"] += int(torch.equal(_bits(out.cpu()), _bits(want)))
+        return out
+    return check
+
+
+def _w8a8_tiny(tmp: Path) -> dict:
+    """The tiny f32 model's int8 tree under W8A8: capture, decode logits and
+    generate (8 tokens) on the card against the CPU, every product of the
+    card's runs bitwise the CPU's on its input."""
+    import numpy as np
+    import torch
+    from tdax_torch.config import DatasetConfig, ExtractConfig
+    from tdax_torch.data.dataset import generate_dataset
+    from tdax_torch.models.qwen_vl import decoder, generate as gen_mod, model, vit
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    from tdax_torch.models.qwen_vl.generate import _decode_step, generate, prefill
+    from tdax_torch.models.qwen_vl.model import init_params
+    from tdax_torch.models.qwen_vl.preprocess import load_image_batch
+    from tdax_torch.models.qwen_vl.quantize import quantize_params
+    from tdax_torch.models.qwen_vl.tokenizer import ToyTokenizer, batch_encode
+    from tdax_torch.pipeline.extract import extract_activations
+
+    cfg = QwenVLConfig.tiny(dtype="float32")
+    metadata = generate_dataset(DatasetConfig(data_dir=str(tmp / "tiny_w8a8_data")))
+    cpu_params = quantize_params(init_params(cfg, "cpu", seed=7))
+    params = {"cpu": cpu_params, "cuda": _to_card(cpu_params)}
+    enc = batch_encode(ToyTokenizer(cfg), metadata[:6], cfg)
+    images = load_image_batch(enc["image_paths"], cfg.visual.image_size)
+    stats = {"products": 0, "bitwise": 0}
+    modules = (decoder, vit, model, gen_mod)
+    saved = [m.qdot for m in modules]
+    for m in modules:
+        m.qdot = _checked_products(stats)
+    acts, logits, toks = {}, {}, {}
+    try:
+        for dev in ("cpu", "cuda"):
+            res = extract_activations(metadata, str(tmp / f"tiny_w8a8_{dev}.pt"), cfg,
+                                      ExtractConfig(batch_size=16, quantize_int8=True),
+                                      params=params[dev], device=dev, verbose=False)
+            acts[dev] = _stack(res, metadata, cfg.num_layers)
+            batch = {"input_ids": torch.as_tensor(enc["input_ids"], device=dev).long(),
+                     "attn_mask": torch.as_tensor(enc["attn_mask"], device=dev),
+                     "images": torch.as_tensor(images, device=dev),
+                     "image_positions": torch.as_tensor(enc["image_positions"],
+                                                        device=dev).long()}
+            with torch.inference_mode():
+                _, ks, vs = prefill(params[dev], cfg, t_max=enc["input_ids"].shape[1] + 8,
+                                    **batch)
+                step, _, _ = _decode_step(params[dev], cfg, batch["input_ids"][:, 0],
+                                          batch["attn_mask"].sum(1).long(), ks, vs)
+            logits[dev] = step.cpu().numpy()
+            toks[dev] = generate(params[dev], cfg, max_new_tokens=8, **batch).cpu().numpy()
+    finally:
+        for m, f in zip(modules, saved):
+            m.qdot = f
+    err = float(np.abs(acts["cuda"] - acts["cpu"]).max())
+    scale = float(np.abs(acts["cpu"]).max())
+    logit_err = float(np.abs(logits["cuda"] - logits["cpu"]).max())
+    logit_scale = float(np.abs(logits["cpu"]).max())
+    info = {"phase": "w8a8_tiny", "capture_shape": list(acts["cuda"].shape),
+            "capture_max_abs_err": err,
+            "capture_max_abs_value": scale,
+            "capture_values_over_tiny_tol": int((np.abs(acts["cuda"] - acts["cpu"])
+                                                 > TINY_TOL * max(1.0, scale)).sum()),
+            "decode_logits_max_abs_err": logit_err, "logits_max_abs": logit_scale,
+            "greedy_tokens_identical": bool(np.array_equal(toks["cuda"], toks["cpu"])),
+            "card_products_bitwise_cpu": stats, "tolerance_rel": W8A8_REL_TOL,
+            "tiny_tol": TINY_TOL}
+    emit(info)
+    if stats["products"] == 0 or stats["bitwise"] != stats["products"]:
+        raise AssertionError(f"w8a8 tiny: card products bitwise the CPU's: {stats}")
+    if not np.isfinite(acts["cuda"]).all() or err > W8A8_REL_TOL * scale:
+        raise AssertionError(f"w8a8 tiny capture: card vs CPU max abs err {err:.3e}")
+    if logit_err > W8A8_REL_TOL * logit_scale:
+        raise AssertionError(f"w8a8 tiny decode logits: card vs CPU {logit_err:.3e}")
+    if not info["greedy_tokens_identical"]:
+        raise AssertionError("w8a8 tiny generate: card and CPU tokens differ")
+    return info
+
+
+def phase_w8a8(tmp: Path, smi: str, state: dict, qmm: dict) -> dict:
+    """W8A8 serving (int8 activations x int8 weights) on the int8 capture's
+    and generate's weights: every QMM_SITES shape bitwise against the CPU
+    and timed by parts; the tiny model card against CPU; the full capture
+    and generate with the switch on, their launch counts, fidelity and
+    profiles.  The switch is off again after the phase, whatever happens."""
+    import numpy as np
+    import torch
+    from tdax_torch.config import ExtractConfig
+    from tdax_torch.models.qwen_vl import quantize
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    from tdax_torch.pipeline.extract import extract_activations
+
+    cfg = QwenVLConfig()
+    params, metadata = state["int8_params"], state["metadata"]
+    t_phase = time.perf_counter()
+    quantize.set_w8a8(True)
+    try:
+        sites = _w8a8_sites(qmm["sites"])
+        tiny = _w8a8_tiny(tmp)
+
+        # the full capture with the switch on
+        out_dir = tmp / "w8a8"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        out_path = str(out_dir / "all_activations.pt")
+        ecfg = ExtractConfig(batch_size=16, quantize_int8=True)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        results = extract_activations(metadata, out_path, cfg, ecfg, params=params,
+                                      device="cuda", verbose=False)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = _launches()
+        peak = torch.cuda.max_memory_allocated()
+        acts, _ = _check_capture(out_path, metadata, results, "w8a8 capture")
+        n_batches = math.ceil(len(metadata) / ecfg.batch_size)
+        flash = n_batches * (cfg.visual.layers + 1 + cfg.num_layers)
+        expected = {"qmm": 0, "qmm_sm90": 0, "int8_mm": n_batches * QMM_PER_CAPTURE_BATCH,
+                    "flash_fwd": flash, "flash_fwd_sm90": flash}
+        ref = state["int8_acts"].astype(np.float64)
+        got = acts.astype(np.float64)
+        cos = (ref * got).sum(-1) / (np.linalg.norm(ref, axis=-1)
+                                     * np.linalg.norm(got, axis=-1))
+        capture = {"phase": "w8a8_capture", "capture_shape": list(acts.shape), "finite": True,
+                   "launches": launches,
+                   "expected_launches": expected, "wall_s": wall_s,
+                   "max_memory_allocated_bytes": peak,
+                   "cosine_vs_weight_only_min": float(cos.min()),
+                   "cosine_vs_weight_only_median": float(np.median(cos)),
+                   "cosine_limit": INT8_MIN_COSINE}
+        emit(capture)
+        if launches != expected:
+            raise AssertionError(f"w8a8 capture launches {launches}, expected {expected}")
+        if not cos.min() >= INT8_MIN_COSINE:
+            raise AssertionError(f"w8a8 capture: min cosine {cos.min():.4f} against the "
+                                 "weight-only capture")
+        # one batch profiled, the quantize passes and int8_mm as ranges
+        wrapped = {name: getattr(quantize, name) for name in ("quantize_activations", "int8_mm")}
+        for name, fn in wrapped.items():
+            def ranged(*args, _fn=fn, _name=name):
+                with torch.profiler.record_function(f"w8a8.{_name}"):
+                    return _fn(*args)
+            setattr(quantize, name, ranged)
+        try:
+            capture["profile"] = phase_profile(params, cfg, state["encoded"], state["max_len"],
+                                               ecfg.batch_size, smi, "w8a8")
+        finally:
+            for name, fn in wrapped.items():
+                setattr(quantize, name, fn)
+
+        # generate with bf16 caches
+        inp = _generate_inputs(state)
+        n_steps = GEN_NEW_TOKENS - 1
+        expected = {"qmm": 0, "qmm_sm90": 0,
+                    "int8_mm": QMM_PER_CAPTURE_BATCH + 1 + n_steps * QMM_PER_DECODE_STEP,
+                    "flash_fwd": cfg.visual.layers + 1 + cfg.num_layers
+                    + n_steps * cfg.num_layers,
+                    "flash_fwd_sm90": cfg.visual.layers + 1 + cfg.num_layers}
+        run = _generate_run(params, cfg, inp, False, expected, "w8a8 generate")
+        cache_err, cache_agree = _cached_vs_uncached(params, cfg, inp, run)
+        _check_first_tokens(run, "w8a8 generate")
+        emit({"phase": "w8a8_generate", **run["info"],
+              "cached_vs_uncached_max_err_over_max_logit": cache_err,
+              "cached_vs_uncached_argmax_agreement": cache_agree,
+              "cache_tolerance": W8A8_CACHE_TOL})
+        if max(cache_err) > W8A8_CACHE_TOL:
+            raise AssertionError(f"w8a8 generate: cached vs uncached logits {cache_err} over "
+                                 f"{W8A8_CACHE_TOL}")
+    finally:
+        quantize.set_w8a8(False)
+    info = {"phase": "w8a8", "nvidia_smi": smi,
+            "capture_batch": {"calls": QMM_PER_CAPTURE_BATCH,
+                              **_w8a8_totals(sites, "calls_per_capture_batch")},
+            "decode_step": {"calls": QMM_PER_DECODE_STEP,
+                            **_w8a8_totals(sites, "calls_per_decode_step")},
+            "sites_bitwise": len(sites), "tokens_first_rows": run["tokens"][:2].tolist(),
+            "phase_s": time.perf_counter() - t_phase}
+    emit(info)
+    return {**info, "tiny": tiny, "capture": capture, "generate": run["info"]}
 
 
 def _visible_pairs(tq, tk, causal) -> int:
@@ -3484,9 +3987,12 @@ def main(argv=None) -> int:
         capture, state = phase_capture(Path(tmp), smi)
         int8 = phase_int8_capture(Path(tmp), smi, state, capture["max_memory_allocated_bytes"])
         gen = phase_generate(smi, state, int8.pop("fingerprint"))
+        w8 = phase_w8a8(Path(tmp), smi, state, qmm)
         del state
+        gc.collect()
         torch.cuda.empty_cache()
         sweep = phase_sweep(Path(tmp), smi)
+        phase_ph_backends(Path(tmp), smi)
         phase_report(Path(tmp), smi, sweep, capture["flash_launches_sm90"])
         ckpt, ckpt_state = phase_checkpoint(Path(tmp), smi)
         adv = phase_adversarial(Path(tmp), smi, ckpt_state, args.seed)
@@ -3530,6 +4036,10 @@ def main(argv=None) -> int:
             "generate": {"sm90": gen["runs"][0]["launches"]["flash_fwd_sm90"],
                          "mma": gen["runs"][0]["launches"]["flash_fwd"]
                          - gen["runs"][0]["launches"]["flash_fwd_sm90"]},
+            **{path: {"sm90": rec["launches"]["flash_fwd_sm90"],
+                      "mma": rec["launches"]["flash_fwd"] - rec["launches"]["flash_fwd_sm90"]}
+               for path, rec in (("w8a8_capture", w8["capture"]),
+                                 ("w8a8_generate", w8["generate"]))},
             "train": {"sm90": train["launches"]["flash_fwd_sm90"],
                       "mma": train["launches"]["flash_fwd"]
                       - train["launches"]["flash_fwd_sm90"]},

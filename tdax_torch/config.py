@@ -75,10 +75,12 @@ class UMAPConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RipsConfig:
-    """Vietoris-Rips persistence (reference debug_tda_pipeline.py:21,109):
-    Z/2 coefficients, no threshold, the native C++ engine."""
+    """Vietoris-Rips persistence (reference debug_tda_pipeline.py:21,109)."""
 
     maxdim: int = 1
+    thresh: float = float("inf")
+    coeff: int = 2  # only Z/2 supported, matching the as-used ripser default
+    backend: str = "auto"  # "auto" | "native" | "python" | "device" (the sweep's batch)
 
 
 @dataclasses.dataclass(frozen=True)

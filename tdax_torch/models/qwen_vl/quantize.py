@@ -10,15 +10,25 @@ forward code.  The full config's bf16 weights (19.3 GB) become ~9.7 GB.
 
 Every int8 product goes through ``tdax_torch.ops.quant_matmul.qmm``: the
 plain version on CPU tensors, the hand-written kernel on the card.
-tdax's opt-in W8A8 mode (``set_w8a8``, int8 activations too) is not
-ported.
+
+W8A8 (``set_w8a8(True)`` or ``TDAX_W8A8=1``, tdax's opt-in serving mode)
+quantizes the activations too, per token (abs-max scale over the last
+axis), and runs each int8 product as int8 x int8 -> int32
+(``quant_matmul.int8_mm``).  Its arithmetic is tdax's step for step, so
+on the CPU ``qdot`` equals tdax's bitwise.  The port is eager: the
+switch is read at every ``qdot`` and takes effect at the next call,
+where tdax's takes effect when the model step is traced.  It acts on
+``{"q", "s"}`` nodes only; fp weights and ``embed_lookup`` are as
+without it.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-from tdax_torch.ops.quant_matmul import qmm
+from tdax_torch.ops.quant_matmul import int8_mm, qmm
 
 # weight names worth quantizing (the big matmuls); norms, biases and
 # positions stay fp
@@ -54,10 +64,42 @@ def is_quantized(node) -> bool:
     return isinstance(node, dict) and set(node) == {"q", "s"}
 
 
+_W8A8 = [False]
+
+
+def set_w8a8(enabled: bool) -> None:
+    """Turn W8A8 serving on or off for this process (see the module's
+    docstring); ``TDAX_W8A8=1`` turns it on as well."""
+    _W8A8[0] = bool(enabled)
+
+
+def w8a8_enabled() -> bool:
+    return _W8A8[0] or os.environ.get("TDAX_W8A8") == "1"
+
+
+def quantize_activations(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token int8 activations, as tdax: s_x = max|x| / 127 over the
+    last axis (at least 1e-12), xq = round(x / s_x) (half to even) clipped
+    to +-127, in f32.  Returns (xq int8 [..., K], s_x f32 [..., 1]).  The
+    divisor 127 is a tensor on x's device: torch's CUDA division by a
+    host scalar multiplies by its reciprocal, which can differ by an ulp."""
+    s_x = x.abs().amax(-1, keepdim=True).float()
+    s_x = (s_x / torch.full((), 127.0, device=x.device)).clamp_min_(1e-12)
+    # x / s_x promotes a bf16 x to f32 exactly, as tdax's x.astype(f32)
+    return (x / s_x).round_().clamp_(-127, 127).to(torch.int8), s_x
+
+
 def qdot(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` for an fp weight (f32 accumulation, one cast), or the
-    int8 product for a {"q", "s"} node."""
+    int8 product for a {"q", "s"} node: weight-only through ``qmm``, or
+    under W8A8 int8 activations times the int8 weight, then
+    (acc * s_x) * s in f32 and one cast."""
     if is_quantized(w):
+        if w8a8_enabled():
+            xq, s_x = quantize_activations(x)
+            acc = int8_mm(xq.reshape(-1, xq.shape[-1]), w["q"])
+            out = torch.mul(acc, s_x.reshape(-1, 1)).mul_(w["s"])
+            return out.to(x.dtype).reshape(*x.shape[:-1], out.shape[-1])
         return qmm(x, w["q"], w["s"])
     return x @ w
 

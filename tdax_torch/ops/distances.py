@@ -63,3 +63,28 @@ def pairwise_cosine(x: torch.Tensor) -> torch.Tensor:
     xn = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(1e-30)
     sim = xn @ xn.transpose(-1, -2)
     return _off_diagonal((1.0 - sim).clamp(0.0, 2.0))
+
+
+def pairwise_distances(x, metric: str = "euclidean", backend: str = "torch",
+                       device=None) -> np.ndarray:
+    """Host numpy [n, n] distances of ``x`` [n, d] (tdax's unified entry).
+    ``backend="numpy"``: the float64 host paths above.  ``"torch"`` (tdax's
+    ``"jax"``): f32 on ``device`` (the card unless the caller asks for the
+    CPU), Euclidean in difference form while n * d < 2^22 and in the
+    expansion form above that, as tdax."""
+    if backend == "numpy":
+        if metric == "euclidean":
+            return pairwise_euclidean_np(x)
+        if metric == "cosine":
+            return pairwise_cosine_np(x)
+        raise ValueError(f"unknown metric {metric!r}")
+    if backend != "torch":
+        raise ValueError(f"unknown backend {backend!r}")
+    from tdax_torch.runtime import as_device_f32
+
+    xt = as_device_f32(x, device)
+    if metric == "euclidean":
+        return pairwise_euclidean(xt, exact=xt.shape[0] * xt.shape[-1] < 2**22).cpu().numpy()
+    if metric == "cosine":
+        return pairwise_cosine(xt).cpu().numpy()
+    raise ValueError(f"unknown metric {metric!r}")

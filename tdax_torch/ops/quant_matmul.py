@@ -29,6 +29,10 @@ path and the Pallas kernel's function), used for CPU tensors only;
 dispatches on the device.  ``LAUNCHES`` counts launches of both kernels
 and ``LAUNCHES_SM90`` of the Hopper one alone (one per successful
 launch, and nowhere else).
+
+``int8_mm`` is W8A8's int8 x int8 -> int32 product (tdax computes it as
+a plain ``dot_general`` outside any Pallas kernel): ``torch._int_mm``
+on either device, exact.  ``LAUNCHES_INT8`` counts its products.
 """
 
 from __future__ import annotations
@@ -37,9 +41,11 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 LAUNCHES = 0
 LAUNCHES_SM90 = 0
+LAUNCHES_INT8 = 0
 
 # the fewest rows qmm_sm90.cu takes (its blocks have 256); below it
 # (decode, M = 16) qmm.cu's 16 x 32 tiling spreads the weight stream over
@@ -179,3 +185,81 @@ def qmm(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cuda":
         return quant_matmul(x, q, s)
     raise ValueError(f"qmm: unsupported device {x.device}")
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _column_major(wq: torch.Tensor, kp: int, np_: int) -> torch.Tensor:
+    """wq [K, N] as a zero-padded row-major [Np, Kp] tensor: wq's
+    column-major form, the layout cuBLASLt's int8 kernels take."""
+    bt = wq.new_zeros((np_, kp))
+    bt[:wq.shape[1], :wq.shape[0]] = wq.t()
+    return bt
+
+
+# the column-major forms int8_mm_padded made, per root tensor of the
+# weights they came from (a stacked [layers, K, N] weight or a single one):
+# dropped with that tensor, made again after it is written to
+_COLUMN_MAJOR = WeakIdKeyDictionary()
+
+
+def _column_major_cached(wq: torch.Tensor, kp: int, np_: int) -> torch.Tensor:
+    root = wq if wq._base is None else wq._base
+    views = _COLUMN_MAJOR.setdefault(root, {})
+    key = (wq.storage_offset(), tuple(wq.shape), wq.stride(), kp, np_)
+    version, bt = views.get(key, (None, None))
+    if version != wq._version:
+        bt = _column_major(wq, kp, np_)
+        views[key] = (wq._version, bt)
+    return bt
+
+
+def int8_mm_padded(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """int8 [M, K] @ int8 [K, N] -> the exact int32 [M, N] through
+    ``torch._int_mm`` in the form the card's cuBLASLt takes: more than 16
+    rows (M <= 16 padded to 32), K and N multiples of 8, and the weight
+    column-major.  On an H100 a row-major weight runs 5-7x slower at the
+    capture's shapes, and a column-major copy made at every call costs
+    more than the product at decode (``chip_smoke.py``'s w8a8 phase), so
+    the copy of each weight is made once and kept (``_COLUMN_MAJOR``:
+    under W8A8 the card holds the int8 weights twice).  Zero rows and
+    columns add nothing to an int32 sum, so the slice of the padded
+    product is the product."""
+    m, k = xq.shape
+    n = wq.shape[1]
+    mp = m if m > 16 else 32
+    kp, np_ = _round_up(k, 8), _round_up(n, 8)
+    if (mp, kp) != (m, k) or xq.stride(1) != 1:
+        a = xq.new_zeros((mp, kp))
+        a[:m, :k] = xq
+    else:
+        a = xq
+    if (kp, np_) == (k, n) and wq.stride() == (1, k):
+        bt = wq.t()  # already column-major
+    else:
+        bt = _column_major_cached(wq, kp, np_)
+    return torch._int_mm(a, bt.t())[:m, :n]
+
+
+def int8_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """int8 [M, K] @ int8 [K, N] -> int32 [M, N], exact (|acc| <= K * 127^2
+    stays below 2^31 for K < 133,000).  CPU tensors go to ``torch._int_mm``
+    as they are; CUDA tensors through ``int8_mm_padded``.  A product
+    cuBLASLt refuses raises; there is no other route."""
+    global LAUNCHES_INT8
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8 or xq.dim() != 2 or wq.dim() != 2:
+        raise TypeError(f"int8_mm: two 2-D int8 tensors expected, got {xq.dtype} "
+                        f"{tuple(xq.shape)} and {wq.dtype} {tuple(wq.shape)}")
+    if xq.shape[1] != wq.shape[0] or xq.device != wq.device:
+        raise ValueError(f"int8_mm: {tuple(xq.shape)} @ {tuple(wq.shape)} on {xq.device}, "
+                         f"{wq.device} do not match")
+    if xq.device.type == "cpu":
+        out = torch._int_mm(xq, wq)
+    elif xq.device.type == "cuda":
+        out = int8_mm_padded(xq, wq)
+    else:
+        raise ValueError(f"int8_mm: unsupported device {xq.device}")
+    LAUNCHES_INT8 += 1
+    return out

@@ -77,6 +77,13 @@ def _boruvka(dist: torch.Tensor, thresh: float) -> torch.Tensor:
     return torch.sort(weights[:-1]).values
 
 
+def boruvka_batched(dist: torch.Tensor) -> torch.Tensor:
+    """[L, n, n] -> [L, n-1] MST weights of each matrix, ascending, no
+    threshold (tdax ``vmap``s ``_boruvka``; here one call per matrix, on
+    dist's device)."""
+    return torch.stack([_boruvka(d, float("inf")) for d in dist])
+
+
 def boruvka_mst_weights(dist, thresh: float = np.inf, device=None) -> np.ndarray:
     """[n-1] MST edge weights ascending; +inf entries mark missing edges.
 

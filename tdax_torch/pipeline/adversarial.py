@@ -59,7 +59,8 @@ def compute_tda_for_condition(condition: str, clouds: np.ndarray,
 
     cfg = _pin_protocol(cfg)
     clouds_3d, sil = embed_and_silhouettes(clouds, cfg, labels, device)
-    dgms_per_layer = persistence_per_layer(clouds_3d, maxdim=cfg.rips.maxdim)
+    dgms_per_layer = persistence_per_layer(clouds_3d, maxdim=cfg.rips.maxdim,
+                                           backend=cfg.rips.backend, device=device)
 
     all_stats = []
     for i in range(cfg.n_layers):

@@ -8,7 +8,8 @@ The dense path, ``rips_at_scale``:
     kernel (``tdax_torch.ops.sqdist``, replacing tdax's Pallas
     ``_sqdist_kernel``), in the expansion form;
   * H0 on the card (Boruvka MST, ``tdax_torch.ops.rips.mst``) on the
-    copy of the matrix already there;
+    copy of the matrix already there (``h0_on_device=False`` keeps the
+    engine's dim-0 bars instead);
   * H1/H2 in the native C++ cohomology engine on the host, with an
     explicit threshold (at 10k points the full complex has ~1.7e11
     triangles).
@@ -60,21 +61,25 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def rips_at_scale(x, maxdim: int = 2, thresh: float = np.inf, device=None) -> dict:
-    """VR persistence of a large cloud: distances and H0 on the card, H1+
-    in the native engine.  Returns {"dgms": [...], "timings": {stage: s}}
-    (host clock; each device stage ends in a synchronise)."""
+def rips_at_scale(x, maxdim: int = 2, thresh: float = np.inf, device=None,
+                  h0_on_device: bool = True) -> dict:
+    """VR persistence of a large cloud: distances on the card, H0 by
+    Boruvka on the card (``h0_on_device``, the default; else the engine's
+    dim-0 bars), H1+ in the native engine.  Returns {"dgms": [...],
+    "timings": {stage: s}} (host clock; each device stage ends in a
+    synchronise)."""
     timings = {}
     t = time.perf_counter()
     dist = distance_matrix(x, device)
     _sync(dist.device)
     timings["distance_s"] = time.perf_counter() - t
 
-    t = time.perf_counter()
-    dgm0 = h0_diagram_device(dist, thresh)
-    timings["h0_s"] = time.perf_counter() - t
-    if maxdim == 0:
-        return {"dgms": [dgm0], "timings": timings}
+    if h0_on_device:
+        t = time.perf_counter()
+        dgm0 = h0_diagram_device(dist, thresh)
+        timings["h0_s"] = time.perf_counter() - t
+        if maxdim == 0:
+            return {"dgms": [dgm0], "timings": timings}
 
     t = time.perf_counter()
     host = dist.cpu().numpy()
@@ -83,8 +88,9 @@ def rips_at_scale(x, maxdim: int = 2, thresh: float = np.inf, device=None) -> di
     t = time.perf_counter()
     result = rips_from_distances(host, maxdim=maxdim, thresh=thresh)
     timings["engine_s"] = time.perf_counter() - t
-    # the on-device H0 replaces the engine's dim-0 output
-    result["dgms"][0] = dgm0
+    if h0_on_device:
+        # the on-device H0 replaces the engine's dim-0 output
+        result["dgms"][0] = dgm0
     result["timings"] = timings
     return result
 

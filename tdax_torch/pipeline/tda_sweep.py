@@ -7,7 +7,8 @@ The reference's main analysis loop (debug_tda_pipeline.py:92-150):
   2. score every layer against the shape and colour labels (silhouette),
      in the same batched calls;
   3. Vietoris-Rips H0/H1 per layer in the native C++ engine, in a thread
-     pool (ctypes releases the GIL).
+     pool (ctypes releases the GIL), or the whole batch on the device with
+     ``RipsConfig(backend="device")``.
 
 Artifacts and JSON schemas are tdax's (and the reference's):
 point_clouds_3d/layer_i_cloud.npy, diagrams/layer_i_diagram.png,
@@ -81,14 +82,28 @@ def embed_and_silhouettes(clouds, cfg: SweepConfig, label_sets: dict[str, list[s
     return embs.cpu().numpy().astype(np.float32), sils
 
 
-def persistence_per_layer(clouds_3d: np.ndarray, maxdim: int = 1,
-                          max_workers: int | None = None) -> list[list[np.ndarray]]:
-    """VR diagrams of each layer cloud: the native engine in a thread pool."""
+def persistence_per_layer(clouds_3d: np.ndarray, maxdim: int = 1, backend: str = "auto",
+                          max_workers: int | None = None, device=None) -> list[list[np.ndarray]]:
+    """VR diagrams of each layer cloud.
+
+    ``backend="device"`` reduces the whole batch on the device
+    (``ops.rips.tiny_device.rips_tiny_batched``, on ``device``: the card
+    unless the caller asks for the CPU) and lets its errors through.
+    Every other backend runs ``rips`` per layer in a thread pool (ctypes
+    releases the GIL); ``"auto"`` is the native engine there.  tdax's
+    ``"auto"`` takes the device batch only when no native engine is built
+    (``TDAX_NO_DEVICE_PH=1`` forbids even that); the port's native engine
+    is built or raises, so its ``"auto"`` never takes it."""
     n_layers = clouds_3d.shape[0]
+    if backend == "device":
+        from tdax_torch.ops.rips.tiny_device import rips_tiny_batched
+        return rips_tiny_batched(clouds_3d, maxdim=maxdim, device=device)
+
     max_workers = max_workers or min(n_layers, os.cpu_count() or 8)
 
     def one(i: int):
-        return rips(np.asarray(clouds_3d[i], dtype=np.float64), maxdim=maxdim)["dgms"]
+        return rips(np.asarray(clouds_3d[i], dtype=np.float64), maxdim=maxdim,
+                    backend=backend)["dgms"]
 
     with cf.ThreadPoolExecutor(max_workers=max_workers) as pool:
         return list(pool.map(one, range(n_layers)))
@@ -140,7 +155,8 @@ def run_tda_sweep(all_data: dict[str, dict], metadata_path: str,
               seconds=round(timings["embed_silhouettes_s"], 2))
 
     t = time.perf_counter()
-    dgms_per_layer = persistence_per_layer(clouds_3d, maxdim=cfg.rips.maxdim)
+    dgms_per_layer = persistence_per_layer(clouds_3d, maxdim=cfg.rips.maxdim,
+                                           backend=cfg.rips.backend, device=device)
     timings["persistence_s"] = time.perf_counter() - t
     if verbose:
         print(f"[tdax_torch] persistence: {timings['persistence_s']:.1f}s", flush=True)

@@ -121,6 +121,29 @@ with tempfile.TemporaryDirectory() as tmp:
     emb = u.fit_transform(rng.normal(size=(40, 6)))
     assert emb.shape == (40, 2) and sparse_path.LAST_TIMINGS["init_iterations"] > 0
     assert u.transform(rng.normal(size=(20, 6))).shape == (20, 2)
+    # W8A8: a tiny capture with int8 activations; the fallback Rips backends
+    from tdax_torch.models.qwen_vl.quantize import set_w8a8
+    from tdax_torch.ops import quant_matmul
+    set_w8a8(True)
+    try:
+        before = quant_matmul.LAUNCHES_INT8
+        res = extract_activations(md[:2], os.path.join(tmp, "w8a8.pt"), cfg,
+                                  ExtractConfig(batch_size=2, quantize_int8=True), device="cpu",
+                                  verbose=False)
+        assert len(res) == 2 and quant_matmul.LAUNCHES_INT8 > before
+    finally:
+        set_w8a8(False)
+    from tdax_torch.config import RipsConfig
+    from tdax_torch.ops.rips import rips
+    from tdax_torch.ops.rips.tiny_device import rips_tiny_batched
+    assert len(rips(rng.normal(size=(7, 3)), maxdim=4, backend="python")["dgms"]) == 5
+    assert len(rips_tiny_batched(rng.normal(size=(2, 10, 3)), maxdim=2, device="cpu")[0]) == 3
+    out = run_tda_sweep(data, ds.metadata_path,
+                        SweepConfig(n_layers=2, output_dir=os.path.join(tmp, "sweep_dev"),
+                                    umap=UMAPConfig(n_epochs=5), save_diagrams=False,
+                                    rips=RipsConfig(backend="device")),
+                        verbose=False, device="cpu")
+    assert len(out["stats"]) == 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib") or m == "tdax" or m.startswith("tdax."))
 print("LOADED:" + ",".join(bad))
@@ -150,7 +173,9 @@ def _sources():
             "tdax_torch/metrics/geometry.py", "tdax_torch/viz/scatter3d.py",
             "tdax_torch/pipeline/report.py", "tdax_torch/ops/rips/sparse.py",
             "tdax_torch/pipeline/scale.py", "tdax_torch/metrics/persistence.py",
-            "tdax_torch/ops/umap/sparse_path.py", "tdax_torch/ops/umap/lobpcg.py"} <= names
+            "tdax_torch/ops/umap/sparse_path.py", "tdax_torch/ops/umap/lobpcg.py",
+            "tdax_torch/ops/rips/reference.py", "tdax_torch/ops/rips/tiny_device.py",
+            "tdax_torch/ops/rips/api.py", "tdax_torch/ops/distances.py"} <= names
     return files
 
 

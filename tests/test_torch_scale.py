@@ -158,8 +158,15 @@ def test_rips_from_distances_keeps_f32_and_thresh():
     b = rips_from_distances(d32.astype(np.float64), maxdim=1, thresh=1.0)["dgms"]
     for p, q in zip(a, b):
         np.testing.assert_array_equal(p, q)
-    with pytest.raises(NotImplementedError, match="maxdim 3"):
-        rips_from_distances(d32, maxdim=4)
+    # past the native engine's maxdim 3, "auto" takes the python oracle (as
+    # tdax); the native backend asked for by name refuses
+    small = d32[:9, :9]
+    high = rips_from_distances(small, maxdim=4)["dgms"]
+    assert len(high) == 5
+    for p, q in zip(high, rips_from_distances(small, maxdim=4, backend="python")["dgms"]):
+        np.testing.assert_array_equal(p, q)
+    with pytest.raises(ValueError, match="maxdim <= 3"):
+        rips_from_distances(small, maxdim=4, backend="native")
 
 
 def test_native_engine_library_name_depends_on_the_host(monkeypatch):
