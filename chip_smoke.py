@@ -192,6 +192,36 @@ and runs these phases, printing JSON lines:
             (its max-H1 reported: see the constant's note).
             (phase_adversarial_full_depth, run alone, measures the same
             capture at the full depth.)
+5d. multidevice  multi-device serving over torch.distributed, the parent
+            holding no full-depth tree, torch.cuda.mem_get_info printed
+            first; every rank a spawned process whose failure or timeout
+            (MD_TIMEOUT_S) fails the phase.  (a) A world of one over NCCL
+            on cuda:0: QwenVLConfig() in bf16 from seed 0,
+            extract_activations of the 48 samples at batch 16 under the
+            group (its dp path): the capture bitwise equal to phase
+            capture's, 243 flash launches all sm90, an NCCL all_gather
+            run.  (b) Four ranks on cuda:0 over gloo (NCCL refuses two
+            ranks on one card), each loading phase checkpoint's 8 + 8-layer
+            snapshot: dp=4 extraction (tp=1) uninterrupted, then crashed
+            after its first checkpoint and resumed, within MD_RESUME_TOL
+            (bitwise reported), no .tmp.npz left.  Then, for the snapshot
+            and for the model's own init at its shape (init_params, seed
+            0), rank 0's one-device references (the capture, the same
+            capture with every product summed in another order: the
+            control, and generation), then the tree sharded dp=2 tp=2
+            (shard_params): the capture, each rank 8 rows of each batch
+            of 16, every rank's 51 attentions on flash_fwd_sm90.cu at 8
+            ViT, 16 resampler and 16 decoder heads, timed (on the init,
+            one more batch with its tp all_reduces timed alone); each
+            captured vector's cosine against one device, gated >=
+            MD_MIN_COSINE on the init (the snapshot's N(0, 0.05) weights
+            amplify any summation order: its cosine and its control's are
+            reported), max relative error by layer reported; generation
+            of 16 prompts x MD_NEW_TOKENS (bf16 and int8 caches): the
+            prefill logits' error and the greedy tokens' agreement with
+            one device reported.  The tiny f32 model at dp=2 tp=2
+            against one device: capture within TINY_TOL, greedy tokens
+            equal, int8-cache decode logits within MD_KV_INT8_TOL.
 6. scale    rips_at_scale on bench_scale.py's seeded 3-sphere cloud,
             10000 x 4096, threshold for ~40 neighbours, maxdim
             SCALE_MAXDIM: the distance matrix through sqdist_sm90.cu (its
@@ -278,7 +308,8 @@ and runs these phases, printing JSON lines:
             profiled step's device time by kind.
 10. the kernels line (flash_fwd, flash_bwd_*, sqdist and qmm name both sources
             and the launches of each kernel on each path, the checkpoint
-            and adversarial captures', the W8A8 capture's and
+            and adversarial captures', the multidevice worlds' (rank
+            0's), the W8A8 capture's and
             generate's and each scale_sparse call's included; the W8A8
             product is torch._int_mm, a library call, whose times are on
             the w8a8 line), the nvidia-smi
@@ -500,6 +531,17 @@ ADV_CLUSTERED_LAYER = 5
 # -0.2 to -0.05 elsewhere) and its max-H1 is reported, not compared; the
 # other layers are held to SWEEP_SIL_TOL / SWEEP_H1_TOL.
 ADV_CLUSTERED_SIL_TOL = 0.1
+# phase multidevice: tdax's stage-5 resume tolerance and stage-6 int8-cache
+# decode tolerance (__graft_entry__.py:246, :289); the dp=2 tp=2 bf16
+# capture's floor on the cosine of each captured vector against one
+# device, on the model's own init (the tp sums differ from one device's
+# in order only: an H100 read 0.99993, as one device with its sums
+# reordered); 8 new tokens of 16 prompts; the tiny model's 6 (the dry run's)
+MD_RESUME_TOL = dict(rtol=1e-5, atol=1e-6)
+MD_KV_INT8_TOL = dict(rtol=2e-3, atol=5e-3)
+MD_MIN_COSINE = 0.999
+MD_NEW_TOKENS, MD_TINY_NEW_TOKENS = 8, 6
+MD_TIMEOUT_S = 600
 
 # (name, B, Tq, Tk, nh, hd, causal, calls per batch on the main path)
 MAIN_SHAPES = [
@@ -3312,7 +3354,7 @@ def _w8a8_tiny(tmp: Path) -> dict:
     import torch
     from tdax_torch.config import DatasetConfig, ExtractConfig
     from tdax_torch.data.dataset import generate_dataset
-    from tdax_torch.models.qwen_vl import decoder, generate as gen_mod, model, vit
+    from tdax_torch.models.qwen_vl import decoder, model, vit
     from tdax_torch.models.qwen_vl.config import QwenVLConfig
     from tdax_torch.models.qwen_vl.generate import _decode_step, generate, prefill
     from tdax_torch.models.qwen_vl.model import init_params
@@ -3328,7 +3370,7 @@ def _w8a8_tiny(tmp: Path) -> dict:
     enc = batch_encode(ToyTokenizer(cfg), metadata[:6], cfg)
     images = load_image_batch(enc["image_paths"], cfg.visual.image_size)
     stats = {"products": 0, "bitwise": 0}
-    modules = (decoder, vit, model, gen_mod)
+    modules = (decoder, vit, model)  # generate's LM head is model.lm_logits
     saved = [m.qdot for m in modules]
     for m in modules:
         m.qdot = _checked_products(stats)
@@ -3951,6 +3993,508 @@ def phase_train(smi: str, seed: int) -> dict:
     return info
 
 
+def _md_world(fn, world: int, work: Path, *args, timeout_s: float) -> list:
+    """``fn(rank, world, store_path, work, *args)`` on ``world`` spawned
+    processes (torch.multiprocessing, spawn), each joining the process
+    group through a FileStore in ``work``; returns each rank's result
+    (``rank<r>.pt``).  A rank's exception fails the call (its traceback
+    raised here), and so does the world outliving ``timeout_s``: its
+    processes are killed first."""
+    import torch
+    work.mkdir(parents=True, exist_ok=True)
+    ctx = torch.multiprocessing.start_processes(
+        _md_entry, args=(fn, world, str(work), args), nprocs=world, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+        if time.monotonic() >= deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            raise TimeoutError(f"multidevice: a world of {world} still ran after {timeout_s} s")
+    return [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def _md_entry(rank: int, fn, world: int, work: str, args: tuple) -> None:
+    import torch
+    import_port()
+    out = fn(rank, world, str(Path(work) / "store"), Path(work), *args)
+    torch.save(out, Path(work) / f"rank{rank}.pt")
+
+
+class _FlashCalls:
+    """(query rows, heads, kernel) of each flash forward launched while
+    active: the wrapper ``mha`` calls, noted around it."""
+
+    def __enter__(self):
+        import tdax_torch.ops.flash_attention as fa
+        self.fa, self.calls, self.orig = fa, [], fa.flash_attention
+
+        def noted(q, k, v, *args, **kw):
+            self.calls.append((q.shape[1], q.shape[2], fa._route(q, k, v)))
+            return self.orig(q, k, v, *args, **kw)
+
+        fa.flash_attention = noted
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention = self.orig
+
+
+class _TimedAllReduce:
+    """The host seconds of the tp sums while active (the device
+    synchronised before and after each, so the time is the collective's)."""
+
+    def __enter__(self):
+        import torch
+        import tdax_torch.models.qwen_vl.tp as tp
+        self.tp, self.orig, self.seconds, self.calls = tp, tp.all_reduce, 0.0, 0
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.orig(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        tp.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.tp.all_reduce = self.orig
+
+
+def _md_nccl_rank(rank: int, world: int, store: str, work: Path, data_dir: str) -> dict:
+    """(a) The world of one over NCCL: the full QwenVLConfig() in bf16 from
+    seed 0 on the card, extract_activations of the 48 samples at batch
+    16 under the process group (its dp path: the rows gathered by an
+    NCCL all_gather)."""
+    import torch
+    import tdax_torch.ops.flash_attention as fa
+    from tdax_torch.config import ExtractConfig
+    from tdax_torch.data.io import load_metadata
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    from tdax_torch.models.qwen_vl.model import init_params
+    from tdax_torch.parallel import mesh as pm
+    from tdax_torch.pipeline.extract import extract_activations
+
+    device = pm.init_distributed("cuda:0", rank=rank, world_size=world, store_path=store)
+    try:
+        backend = torch.distributed.get_backend()
+        cfg = QwenVLConfig()
+        params = init_params(cfg, device, seed=0)
+        metadata = load_metadata(str(Path(data_dir) / "metadata.json"))
+        fa.LAUNCHES = fa.LAUNCHES_SM90 = 0
+        pm.COLLECTIVES.clear()
+        t0 = time.perf_counter()
+        extract_activations(metadata, str(work / "nccl.pt"), cfg, ExtractConfig(batch_size=16),
+                            params=params, device=device, verbose=False)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        return {"backend": backend, "wall_s": wall_s, "collectives": dict(pm.COLLECTIVES),
+                "launches": {"flash_fwd": fa.LAUNCHES, "flash_fwd_sm90": fa.LAUNCHES_SM90},
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    finally:
+        pm.shutdown()
+
+
+def _md_batches(cfg, metadata, tokenizer, bs: int):
+    """The extraction's batches as its own host code builds them: the
+    dataset tokenized once and padded to round_up(longest + 1, 64)."""
+    import numpy as np
+    from tdax_torch.models.qwen_vl.preprocess import load_image_batch
+    from tdax_torch.models.qwen_vl.tokenizer import batch_encode
+    enc = batch_encode(tokenizer, metadata, cfg)
+    max_len = math.ceil((enc["input_ids"].shape[1] + 1) / 64) * 64
+    pad = max_len - enc["input_ids"].shape[1]
+    ids = np.pad(enc["input_ids"], ((0, 0), (0, pad)), constant_values=tokenizer.pad_id)
+    mask = np.pad(enc["attn_mask"], ((0, 0), (0, pad)))
+    for s in range(0, len(metadata), bs):
+        images = load_image_batch(enc["image_paths"][s:s + bs], cfg.visual.image_size)
+        yield (ids[s:s + bs], mask[s:s + bs], enc["last_token_idx"][s:s + bs], images,
+               enc["image_positions"][s:s + bs])
+
+
+def _md_to(arrays, device, mesh=None):
+    """Host batch -> tensors on ``device`` (this rank's dp rows with a mesh)."""
+    import numpy as np
+    import torch
+    from tdax_torch.parallel import mesh as pm
+    out = []
+    for a, dtype in zip(arrays, (torch.long, torch.int32, torch.long, torch.float32,
+                                 torch.long)):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+        out.append(pm.split_batch(t, mesh) if mesh is not None else t)
+    return out
+
+
+def _md_extraction(cfg, params, metadata, work: Path, device) -> dict:
+    """(b) dp=4 extraction (tp=1): uninterrupted, then crashed after its
+    first checkpoint and resumed, as tdax's stage 5."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from tdax_torch.config import ExtractConfig
+    from tdax_torch.pipeline.extract import extract_activations
+
+    ecfg = ExtractConfig(model_dir=None, batch_size=16, save_interval=16)
+
+    def run(meta, name):
+        res = extract_activations(meta, str(work / name), cfg, ecfg, params=params,
+                                  device=device, verbose=False)
+        return _stack(res, meta, cfg.num_layers)
+
+    t0 = time.perf_counter()
+    full = run(metadata, "dp_full.pt")
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    run(metadata[:16], "dp_res.pt")
+    if dist.get_rank() == 0:  # the crash: only the checkpoint is left
+        (work / "dp_res.npz").replace(work / "dp_res.pt.tmp.npz")
+        (work / "dp_res.pt").unlink()
+    dist.barrier()
+    resumed = run(metadata, "dp_res.pt")
+    return {"full": full, "full_s": full_s,
+            "resume_within_tol": bool(np.allclose(resumed, full, **MD_RESUME_TOL)),
+            "resume_bitwise": bool(np.array_equal(resumed, full)),
+            "resume_max_abs_err": float(np.abs(resumed - full).max()),
+            "tmp_left": (work / "dp_res.pt.tmp.npz").exists()}
+
+
+def _md_prefill_logits(params, cfg, ids, mask, images, pos, kv_int8: bool):
+    """The prefill's logits at each prompt's last real token."""
+    import torch
+    from tdax_torch.models.qwen_vl.decoder import rms_norm
+    from tdax_torch.models.qwen_vl.generate import prefill
+    from tdax_torch.models.qwen_vl.model import lm_logits
+    hidden, _, _ = prefill(params, cfg, ids, mask, images, pos,
+                           t_max=ids.shape[1] + MD_NEW_TOKENS, kv_int8=kv_int8)
+    lengths = mask.sum(1).long()
+    last = hidden[torch.arange(ids.shape[0], device=ids.device), lengths - 1]
+    return lm_logits(rms_norm(last, params["ln_f"], cfg.layer_norm_eps), params, cfg)
+
+
+def _md_generation(params, cfg, batch, device, mesh=None) -> dict:
+    """MD_GEN_PROMPTS prompts (this rank's dp rows with a mesh): greedy
+    generate of MD_NEW_TOKENS with bf16 and with int8 caches, and the
+    prefill's logits; gathered over dp."""
+    import torch
+    from tdax_torch.models.qwen_vl.generate import generate
+    from tdax_torch.parallel import mesh as pm
+    ids, mask, _, images, pos = _md_to(batch, device, mesh)
+    out = {}
+    with torch.inference_mode():
+        for kv_int8 in (False, True):
+            key = "int8" if kv_int8 else "bf16"
+            toks = generate(params, cfg, ids, mask, max_new_tokens=MD_NEW_TOKENS,
+                            images=images, image_positions=pos, kv_int8=kv_int8)
+            out[f"tokens_{key}"] = toks if mesh is None else pm.gather_batch(toks, mesh)
+        logits = _md_prefill_logits(params, cfg, ids, mask, images, pos, False)
+        out["prefill_logits"] = logits if mesh is None else pm.gather_batch(logits, mesh)
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def _md_tiny(device, mesh) -> dict:
+    """The tiny f32 model (seed 0) at dp=2 tp=2 against one device, both on
+    the card in this process: the capture, greedy tokens and the
+    int8-cache decode logits (tdax's stage-6 rules)."""
+    import numpy as np
+    import torch
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    from tdax_torch.models.qwen_vl.generate import _decode_step, generate, prefill
+    from tdax_torch.models.qwen_vl.model import extract_layer_activations, init_params
+    from tdax_torch.ops.flash_attention import flash_sharding
+    from tdax_torch.parallel import mesh as pm
+
+    cfg = QwenVLConfig.tiny(dtype="float32")
+    params = init_params(cfg, device, seed=0)
+    local = pm.shard_params(params, mesh, cfg=cfg)
+    rng = np.random.default_rng(0)
+    b, t, nq, s = 4, 64, cfg.visual.n_queries, cfg.visual.image_size
+    cap = _md_to((rng.integers(1, cfg.vocab_size, (b, t)), np.ones((b, t)), np.full(b, t - 1),
+                  rng.normal(size=(b, 3, s, s)), np.tile(np.arange(2, 2 + nq), (b, 1))), device)
+    gen_ids = torch.from_numpy(rng.integers(1, cfg.vocab_size, (b, 16))).to(device)
+    gen_mask = torch.ones_like(gen_ids, dtype=torch.int32)
+
+    def both(p, m):
+        rows = (lambda x: pm.split_batch(x, m)) if m is not None else (lambda x: x)
+        back = (lambda x: pm.gather_batch(x, m)) if m is not None else (lambda x: x)
+        with torch.inference_mode():
+            acts = extract_layer_activations(p, cfg, *map(rows, cap))
+            ids, mask = rows(gen_ids), rows(gen_mask)
+            toks = generate(p, cfg, ids, mask, max_new_tokens=MD_TINY_NEW_TOKENS)
+            _, ks, vs = prefill(p, cfg, ids, mask, t_max=17, kv_int8=True)
+            lengths = torch.full((ids.shape[0],), 16, dtype=torch.long, device=device)
+            logits = _decode_step(p, cfg, ids[:, -1], lengths, ks, vs)[0]
+        return (pm.gather_batch(acts, m, dim=1) if m is not None else acts,
+                back(toks), back(logits))
+
+    one = both(params, None)
+    with flash_sharding(mesh, "dp", "tp"):
+        got = both(local, mesh)
+    capture_err = float((got[0] - one[0]).abs().max())
+    int8_ok = bool(torch.allclose(got[2], one[2], **MD_KV_INT8_TOL))
+    return {"capture_max_abs_err": capture_err,
+            "capture_within_tol": bool(torch.allclose(got[0], one[0], rtol=TINY_TOL,
+                                                      atol=TINY_TOL)),
+            "tokens_equal": bool(torch.equal(got[1], one[1])),
+            "int8_logits_max_abs_err": float((got[2] - one[2]).abs().max()),
+            "int8_logits_within_tol": int8_ok}
+
+
+def _md_one_device(full, cfg, batches, device) -> dict:
+    """Rank 0's one-device references for a tree: the capture of the
+    batches, the same capture with every product's sum taken in another
+    order (f32 matmuls of the bf16 operands, cast once: the order change
+    a tp split makes, without the split), and the generation."""
+    import numpy as np
+    import torch
+    import tdax_torch.models.qwen_vl.decoder as dec
+    import tdax_torch.models.qwen_vl.vit as vit
+    from tdax_torch.models.qwen_vl.model import extract_layer_activations
+
+    def capture():
+        with torch.inference_mode():
+            return np.concatenate([extract_layer_activations(full, cfg, *_md_to(b, device))
+                                   .float().cpu().numpy() for b in batches], axis=1)
+
+    acts = capture()
+    orig = dec.qdot, vit.qdot
+    dec.qdot = vit.qdot = lambda x, w: torch.matmul(x.float(), w.float()).to(x.dtype)
+    try:
+        reordered = capture()
+    finally:
+        dec.qdot, vit.qdot = orig
+    return {"acts": acts, "reordered_cosine": _cosines(acts, reordered),
+            "generation": _md_generation(full, cfg, batches[0], device)}
+
+
+def _md_sharded(local, cfg, batches, device, mesh, timed: bool) -> dict:
+    """A rank's dp=2 tp=2 capture of the batches (its 8 rows of each),
+    gathered, and its generation; each flash launch noted; with
+    ``timed`` one more batch with each tp sum timed alone."""
+    import torch
+    import tdax_torch.ops.flash_attention as fa
+    from tdax_torch.models.qwen_vl.model import extract_layer_activations
+    from tdax_torch.ops.flash_attention import flash_sharding
+    from tdax_torch.parallel import mesh as pm
+
+    fa.LAUNCHES = fa.LAUNCHES_SM90 = 0
+    pm.COLLECTIVES.clear()
+    acts, forward_s = [], []
+    out = {}
+    with torch.inference_mode(), flash_sharding(mesh, "dp", "tp"):
+        with _FlashCalls() as calls:
+            for batch in batches:
+                rows = _md_to(batch, device, mesh)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a = extract_layer_activations(local, cfg, *rows)
+                torch.cuda.synchronize()
+                forward_s.append(time.perf_counter() - t0)
+                acts.append(pm.gather_batch(a.float(), mesh, dim=1).cpu().numpy())
+        out["capture"] = {"forward_s": forward_s, "calls": calls.calls,
+                          "launches": {"flash_fwd": fa.LAUNCHES,
+                                       "flash_fwd_sm90": fa.LAUNCHES_SM90},
+                          "collectives": dict(pm.COLLECTIVES)}
+        if timed:
+            with _TimedAllReduce() as ar:
+                rows = _md_to(batches[0], device, mesh)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                extract_layer_activations(local, cfg, *rows)
+                torch.cuda.synchronize()
+                out["capture"].update(timed_batch_s=time.perf_counter() - t0,
+                                      all_reduce_s=ar.seconds, all_reduces=ar.calls)
+    fa.LAUNCHES = fa.LAUNCHES_SM90 = 0
+    with flash_sharding(mesh, "dp", "tp"):
+        t0 = time.perf_counter()
+        out["generation"] = _md_generation(local, cfg, batches[0], device, mesh)
+        torch.cuda.synchronize()
+    out["generate"] = {"wall_s": time.perf_counter() - t0,
+                       "launches": {"flash_fwd": fa.LAUNCHES, "flash_fwd_sm90": fa.LAUNCHES_SM90}}
+    out["acts"] = acts
+    return out
+
+
+def _md_compare(got: dict, one: dict) -> dict:
+    """Rank 0's comparison of a tree's dp x tp run with one device."""
+    import numpy as np
+    acts, ref = np.concatenate(got.pop("acts"), axis=1), one["acts"]
+    err = np.abs(acts - ref).max(axis=(1, 2)) / np.abs(ref).max(axis=(1, 2))
+    gen, gen1 = got.pop("generation"), one["generation"]
+    d = (gen["prefill_logits"] - gen1["prefill_logits"]).abs()
+    return {**got, "shape": list(acts.shape), "cosine": _cosines(ref, acts),
+            "max_rel_err_by_layer": err.tolist(),
+            "one_device_reordered_sums_cosine": one["reordered_cosine"],
+            "prefill_logits_max_err_over_max": float(d.max()
+                                                     / gen1["prefill_logits"].abs().max()),
+            "prefill_argmax_agree": float((gen["prefill_logits"].argmax(-1)
+                                           == gen1["prefill_logits"].argmax(-1)).float().mean()),
+            **{f"{k}_agree": float((gen[k] == gen1[k]).float().mean())
+               for k in ("tokens_bf16", "tokens_int8")}}
+
+
+def _md_gloo_rank(rank: int, world: int, store: str, work: Path, snap: str, data_dir: str,
+                  ref_npz: str) -> dict:
+    """(b) Four ranks on cuda:0 over gloo.  Each loads the 8 + 8-layer
+    snapshot: dp=4 extraction with crash and resume on the whole
+    weights, then the weights sharded dp=2 tp=2 for the capture of the
+    48 samples (each rank 8 rows of each batch of 16) and generation.
+    The same for a tree of the model's own init at the snapshot's shape
+    (init_params, seed 0), then the tiny f32 model.  Rank 0 computes
+    each tree's one-device references before it is sharded."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import tdax_torch.ops.flash_attention as fa
+    from tdax_torch.data.io import load_activations_npz, load_metadata
+    from tdax_torch.models.qwen_vl.convert import load_qwen_checkpoint
+    from tdax_torch.models.qwen_vl.model import init_params
+    from tdax_torch.models.qwen_vl.tokenizer import get_tokenizer
+    from tdax_torch.parallel import mesh as pm
+
+    device = pm.init_distributed("cuda:0", rank=rank, world_size=world, store_path=store,
+                                 backend="gloo")
+    try:
+        out = {"backend": dist.get_backend()}
+        cfg = snapshot_config()
+        metadata = load_metadata(str(Path(data_dir) / "metadata.json"))
+        batches = list(_md_batches(cfg, metadata, get_tokenizer(snap, cfg), 16))
+        mesh = pm.make_mesh(dp=2, tp=2)
+        for name in ("snapshot", "init"):
+            t0 = time.perf_counter()
+            full = (load_qwen_checkpoint(snap, cfg, device) if name == "snapshot"
+                    else init_params(cfg, device, seed=0))
+            torch.cuda.synchronize()
+            rec = {"load_s": time.perf_counter() - t0}
+            if name == "snapshot":
+                fa.LAUNCHES = fa.LAUNCHES_SM90 = 0
+                out["extraction"] = _md_extraction(cfg, full, metadata, work, device)
+                out["extraction"]["launches"] = {"flash_fwd": fa.LAUNCHES,
+                                                 "flash_fwd_sm90": fa.LAUNCHES_SM90}
+            one = _md_one_device(full, cfg, batches, device) if rank == 0 else None
+            dist.barrier()
+            local = pm.shard_params(full, mesh, cfg=cfg)
+            del full
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec.update(local_params=sum(t.numel() for t in _md_leaves(local)),
+                       memory_after_shard_bytes=torch.cuda.memory_allocated())
+            rec.update(_md_sharded(local, cfg, batches, device, mesh, timed=name == "init"))
+            del local
+            gc.collect()
+            torch.cuda.empty_cache()
+            if rank == 0:
+                rec = _md_compare(rec, one)
+                if name == "snapshot":
+                    ext = out["extraction"]
+                    ref = load_activations_npz(ref_npz)[0]
+                    rec["one_device_bitwise_phase_checkpoint"] = bool(
+                        np.array_equal(one["acts"], ref))
+                    ext["cosine_vs_one_device"] = _cosines(one["acts"], ext["full"])
+            else:
+                rec.pop("acts")
+                rec.pop("generation")
+            out[name] = rec
+        out["extraction"].pop("full")
+        out["tiny"] = _md_tiny(device, mesh)
+        return out
+    finally:
+        pm.shutdown()
+
+
+def _md_leaves(tree):
+    for leaf in tree.values():
+        if isinstance(leaf, dict):
+            yield from _md_leaves(leaf)
+        else:
+            yield leaf
+
+
+def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: float, snap: str,
+                      snap_data: Path) -> dict:
+    """Multi-device serving over torch.distributed on the one card: (a) a
+    world of one over NCCL at the full config against phase capture's
+    capture in ``capture_dir`` (its wall ``capture_wall_s``), (b) four
+    ranks on cuda:0 over gloo on the 8 + 8-layer snapshot ``snap`` (its
+    one-device capture in ``snap_data``) and on the model's own init at
+    that shape.  See the module's docstring."""
+    import numpy as np
+    import torch
+    from tdax_torch.data.io import load_activations_npz
+
+    t_phase = time.perf_counter()
+    free, total = torch.cuda.mem_get_info()
+    print(f"multidevice: torch.cuda.mem_get_info() before the spawn: {free} free of {total} "
+          "bytes", flush=True)
+    t0 = time.perf_counter()
+    (a,) = _md_world(_md_nccl_rank, 1, tmp / "md_nccl", str(capture_dir),
+                     timeout_s=MD_TIMEOUT_S)
+    a["world_s"] = time.perf_counter() - t0
+    a["phase_capture_wall_s"] = capture_wall_s
+    got = load_activations_npz(str(tmp / "md_nccl" / "nccl.npz"))[0]
+    want = load_activations_npz(str(capture_dir / "all_activations.npz"))[0]
+    a["bitwise_equal_capture"] = bool(got.shape == want.shape and np.array_equal(got, want))
+
+    free_b, _ = torch.cuda.mem_get_info()
+    t0 = time.perf_counter()
+    ranks = _md_world(_md_gloo_rank, 4, tmp / "md_gloo", snap, str(snap_data),
+                      str(snap_data / "all_activations.npz"), timeout_s=MD_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    cfg = snapshot_config()
+    # each batch of the capture: the ViT blocks, the resampler, the decoder
+    # layers, at tp=2 heads, on the Hopper kernel
+    heads = ([(cfg.visual.heads // 2, "sm90")] * cfg.visual.layers
+             + [(cfg.visual.resampler_heads // 2, "sm90")]
+             + [(cfg.num_heads // 2, "sm90")] * cfg.num_layers) * 3
+    calls_ok = {name: all([(h, route) for _, h, route in r[name]["capture"]["calls"]] == heads
+                          for r in ranks) for name in ("snapshot", "init")}
+    b = ranks[0]
+    for name in ("snapshot", "init"):
+        b[name]["capture"].pop("calls")
+    info = {"phase": "multidevice", "nvidia_smi": smi,
+            "mem_get_info_before_spawn": {"free_bytes": free, "total_bytes": total},
+            "nccl_world_of_one": a,
+            "gloo_dp2_tp2": {"world_s": world_s, "mem_free_before_spawn_bytes": free_b,
+                             "backend": b["backend"], "extraction": b["extraction"],
+                             "snapshot": b["snapshot"], "init": b["init"],
+                             "capture_calls_as_expected": calls_ok,
+                             "tiny_by_rank": [r["tiny"] for r in ranks]},
+            "phase_s": time.perf_counter() - t_phase,
+            "note": "times of four ranks sharing one card: they say nothing of scaling"}
+    emit(info)
+    if a["backend"] != "nccl" or a["collectives"].get("nccl.all_gather", 0) < 1:
+        raise AssertionError(f"multidevice (a): backend {a['backend']}, collectives "
+                             f"{a['collectives']}: no NCCL gather ran")
+    if a["launches"] != {"flash_fwd": 243, "flash_fwd_sm90": 243}:
+        raise AssertionError(f"multidevice (a): launches {a['launches']}, expected 243 sm90")
+    if not a["bitwise_equal_capture"]:
+        raise AssertionError("multidevice (a): the NCCL world's capture differs from phase "
+                             "capture's")
+    for r in ranks:
+        ext = r["extraction"]
+        if not (ext["resume_within_tol"] and not ext["tmp_left"]):
+            raise AssertionError(f"multidevice (b): dp=4 resume {ext}")
+        for name in ("snapshot", "init"):
+            got = r[name]["capture"]["launches"]
+            if got != {"flash_fwd": len(heads), "flash_fwd_sm90": len(heads)}:
+                raise AssertionError(f"multidevice (b) {name}: capture launches {got}, expected "
+                                     f"{len(heads)}, all sm90, a rank")
+        t = r["tiny"]
+        if not (t["capture_within_tol"] and t["tokens_equal"] and t["int8_logits_within_tol"]):
+            raise AssertionError(f"multidevice (b) tiny: {t}")
+    if not all(calls_ok.values()):
+        raise AssertionError(f"multidevice (b): a rank's attention did not run on "
+                             f"flash_fwd_sm90.cu at its shard's heads: {calls_ok}")
+    if b["init"]["cosine"]["min"] < MD_MIN_COSINE:
+        raise AssertionError(f"multidevice (b): min cosine {b['init']['cosine']['min']} "
+                             f"< {MD_MIN_COSINE} on the model's init")
+    return info
+
+
 def _qmm_totals(sites, calls_key) -> dict:
     """Kernel (as routed, and all on qmm.cu), plain, library and bound ms
     summed over the sites of one capture batch or one decode step, each
@@ -3996,9 +4540,12 @@ def main(argv=None) -> int:
         phase_report(Path(tmp), smi, sweep, capture["flash_launches_sm90"])
         ckpt, ckpt_state = phase_checkpoint(Path(tmp), smi)
         adv = phase_adversarial(Path(tmp), smi, ckpt_state, args.seed)
+        snap, snap_data = ckpt_state["snapshot"], ckpt_state["data_dir"]
         del ckpt_state
         gc.collect()
         torch.cuda.empty_cache()
+        md = phase_multidevice(Path(tmp), smi, Path(tmp) / "data", capture["wall_s"], snap,
+                               snap_data)
     scale = phase_scale(smi)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4047,7 +4594,14 @@ def main(argv=None) -> int:
                       "mma": rec["launches"]["flash_fwd"] - rec["launches"]["flash_fwd_sm90"]}
                for path, rec in (("checkpoint_capture", ckpt["capture"]),
                                  ("checkpoint_int8_capture", ckpt["int8_capture"]),
-                                 ("adversarial_capture", adv["capture"]))}},
+                                 ("adversarial_capture", adv["capture"]),
+                                 ("multidevice_nccl_capture", md["nccl_world_of_one"]),
+                                 ("multidevice_dp4_extraction_rank0",
+                                  md["gloo_dp2_tp2"]["extraction"]),
+                                 *((f"multidevice_dp2_tp2_{name}_{what}_rank0",
+                                    md["gloo_dp2_tp2"][name][what])
+                                   for name in ("snapshot", "init")
+                                   for what in ("capture", "generate")))}},
         "max_abs_err": max(s["max_abs_err"] for s in kern["sites"] + [tr]),
         "ms": total("ms"),
         "ms_mma": total("ms_mma"),

@@ -7,6 +7,8 @@ experiment, the peak layer's 3-D HTML and the legacy sweep.
   python -m tdax_torch extract --toy            # tiny random model
   python -m tdax_torch extract --int8           # int8 weight-only matmuls
   python -m tdax_torch extract --device cpu     # on the CPU, when asked
+  torchrun --standalone --nproc-per-node 8 -m tdax_torch extract --toy --device cpu
+                                                # dp over 8 ranks (gloo; NCCL on cards)
   python -m tdax_torch sweep                    # per-layer UMAP + Rips + silhouettes
   python -m tdax_torch sweep --device cpu       # the sweep on the CPU
   python -m tdax_torch adversarial-metadata     # the 720 adversarial pairs
@@ -16,7 +18,11 @@ experiment, the peak layer's 3-D HTML and the legacy sweep.
   python -m tdax_torch visualize                # the peak layer's interactive 3-D HTML
   python -m tdax_torch visualize --peak-layer 25 --debug-dir tda-output --no-png
 
-``extract`` takes its weights from ``--model-dir`` (which must hold
+Under ``torchrun`` ``extract`` joins the process group torchrun set up
+and runs data parallel over its ranks, as tdax does over its devices:
+each rank its rows of every batch (NCCL, ``cuda:LOCAL_RANK``; gloo with
+``--device cpu``), rank 0 writing the files.  ``extract`` takes its
+weights from ``--model-dir`` (which must hold
 checkpoint shards), else from ``./qwen-vl-chat-local`` when that holds
 them (not with ``--toy``), else draws them at random (seed 0); the
 tokenizer is the checkpoint's when the directory has one, else the
@@ -72,7 +78,7 @@ def main(argv=None) -> None:
                      help="write no PNG beside the HTML (needs no matplotlib)")
     args = parser.parse_args(argv)
 
-    from tdax_torch.config import DatasetConfig, ExtractConfig
+    from tdax_torch.config import DatasetConfig
     from tdax_torch.data.io import load_metadata
     ds = DatasetConfig()
     if args.command == "generate":
@@ -98,11 +104,25 @@ def main(argv=None) -> None:
                              png_fallback=not args.no_png)
         return
 
+    from tdax_torch.parallel import mesh
+    if mesh.launched_by_torchrun():
+        device = mesh.init_distributed(args.device)
+        try:  # the other ranks say nothing
+            _extract(args, ds, device,
+                     say=print if int(os.environ["RANK"]) == 0 else lambda *a, **k: None)
+        finally:
+            mesh.shutdown()
+    else:
+        from tdax_torch.runtime import get_device
+        _extract(args, ds, get_device(args.device), say=print)
+
+
+def _extract(args, ds, device, say) -> None:
+    from tdax_torch.config import ExtractConfig
+    from tdax_torch.data.io import load_metadata
     from tdax_torch.models.qwen_vl.config import QwenVLConfig
     from tdax_torch.pipeline.extract import _has_checkpoint, extract_activations
-    from tdax_torch.runtime import get_device
 
-    device = get_device(args.device)
     cfg = QwenVLConfig.tiny() if args.toy else QwenVLConfig()
     model_dir = args.model_dir or (None if args.toy else ExtractConfig.model_dir)
     ecfg = ExtractConfig(model_dir=model_dir, quantize_int8=args.int8)
@@ -115,13 +135,13 @@ def main(argv=None) -> None:
                else "random weights (seed 0)")
     meta_path, out_path = ((ds.adversarial_metadata_path, ds.adversarial_activations_path)
                            if args.adversarial else (ds.metadata_path, ds.activations_path))
-    print(f"Loading metadata from {meta_path}...")
+    say(f"Loading metadata from {meta_path}...")
     metadata = load_metadata(meta_path)
-    print(f"Extracting activations for {len(metadata)} samples "
-          f"({'toy model' if args.toy else 'full model'}, {weights}"
-          f"{', int8' if args.int8 else ''})...")
+    say(f"Extracting activations for {len(metadata)} samples "
+        f"({'toy model' if args.toy else 'full model'}, {weights}"
+        f"{', int8' if args.int8 else ''})...")
     results = extract_activations(metadata, out_path, cfg, ecfg, params=params, device=device)
-    print(f"\nExtracted activations for {len(results)} samples.")
+    say(f"\nExtracted activations for {len(results)} samples.")
 
 
 def _sweep(args, ds) -> None:

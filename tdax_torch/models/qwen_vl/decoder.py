@@ -11,6 +11,11 @@ stacked weight is a view, no copy).  Weights are [in, out] and every
 product goes through ``qdot``: ``x @ w`` for an fp weight (f32
 accumulation, one cast to the working dtype), the int8 kernel for a
 quantized one.
+
+Under tp (``tdax_torch.parallel.mesh.shard_params``) a layer holds its
+rank's heads and MLP columns: the head count comes from the weights'
+shapes, and the two row-parallel products (``attn_proj_w``,
+``mlp_proj_w``) are summed over the tp group (``tp.tp_row_product``).
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from tdax_torch.models.qwen_vl.config import QwenVLConfig
-from tdax_torch.models.qwen_vl.quantize import layer_at, qdot
+from tdax_torch.models.qwen_vl.quantize import is_quantized, layer_at, qdot
+from tdax_torch.models.qwen_vl.tp import tp_row_product
 from tdax_torch.ops.flash_attention import AttnSpec, mha
 
 
@@ -52,14 +58,22 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch
     return torch.cat([r1, r2], dim=-1).to(x.dtype)
 
 
+def local_heads(layers: dict, cfg: QwenVLConfig) -> int:
+    """The attention heads the layer weights hold: ``cfg.num_heads``, or
+    this rank's share under tp."""
+    w = layers["attn_qkv_w"]
+    return (w["q"] if is_quantized(w) else w).shape[-1] // (3 * cfg.head_dim)
+
+
 def project_qkv(x: torch.Tensor, layer: dict, cfg: QwenVLConfig,
                 cos: torch.Tensor, sin: torch.Tensor):
-    """x [B, T, H] -> rotated (q, k, v) each [B, T, nh, hd].  v stays a
-    strided view of the fused projection; the kernel reads it as is."""
+    """x [B, T, H] -> rotated (q, k, v) each [B, T, nh, hd], nh the heads
+    the weights hold.  v stays a strided view of the fused projection;
+    the kernel reads it as is."""
     b, t, _ = x.shape
     qkv = qdot(x, layer["attn_qkv_w"]) + layer["attn_qkv_b"]
-    q, k, v = qkv.split(cfg.hidden_size, dim=-1)
-    shape = (b, t, cfg.num_heads, cfg.head_dim)
+    q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
+    shape = (b, t, q.shape[-1] // cfg.head_dim, cfg.head_dim)
     q = apply_rotary(q.reshape(shape), cos, sin)
     k = apply_rotary(k.reshape(shape), cos, sin)
     return q, k, v.reshape(shape)
@@ -67,17 +81,19 @@ def project_qkv(x: torch.Tensor, layer: dict, cfg: QwenVLConfig,
 
 def attend(q, k, v, spec: AttnSpec, layer: dict, cfg: QwenVLConfig) -> torch.Tensor:
     """Attention + output projection: [B, Tq, nh, hd] -> [B, Tq, H]."""
-    b, tq = q.shape[0], q.shape[1]
-    out = mha(q, k, v, spec).reshape(b, tq, cfg.hidden_size)
-    return qdot(out, layer["attn_proj_w"])
+    b, tq, nh, hd = q.shape
+    out = mha(q, k, v, spec).reshape(b, tq, nh * hd)
+    w = layer["attn_proj_w"]
+    return qdot(out, w) if nh == cfg.num_heads else tp_row_product(out, w)
 
 
-def mlp(x: torch.Tensor, layer: dict) -> torch.Tensor:
+def mlp(x: torch.Tensor, layer: dict, cfg: QwenVLConfig) -> torch.Tensor:
     """QWen SwiGLU: c_proj(w1(x) * silu(w2(x)))."""
     a1 = qdot(x, layer["mlp_w1"])
     a2 = qdot(x, layer["mlp_w2"])
     inter = a1 * F.silu(a2.float()).to(x.dtype)
-    return qdot(inter, layer["mlp_proj_w"])
+    w = layer["mlp_proj_w"]
+    return qdot(inter, w) if inter.shape[-1] == cfg.ff_half else tp_row_product(inter, w)
 
 
 def block_kv(x: torch.Tensor, layer: dict, cfg: QwenVLConfig,
@@ -87,7 +103,7 @@ def block_kv(x: torch.Tensor, layer: dict, cfg: QwenVLConfig,
     q, k, v = project_qkv(h1, layer, cfg, cos, sin)
     x = x + attend(q, k, v, spec, layer, cfg)
     h2 = rms_norm(x, layer["ln_2"], cfg.layer_norm_eps)
-    return x + mlp(h2, layer), k, v
+    return x + mlp(h2, layer, cfg), k, v
 
 
 def block(x: torch.Tensor, layer: dict, cfg: QwenVLConfig,

@@ -9,7 +9,12 @@ implementation, with fp or int8 (``qdot``) parameter trees.
 
 Cache layout: k/v [n_layers, B, T_max, n_heads, head_dim] in the model
 dtype, or with ``kv_int8`` ``{"q": int8 [L, B, T_max, nh, hd], "s": f32
-[L, B, T_max, nh]}`` (per-(token, head) abs-max scales).  Ragged
+[L, B, T_max, nh]}`` (per-(token, head) abs-max scales).  Under dp x tp
+each rank runs its own rows with its tp heads: its caches are [L, B/dp,
+T_max, nh/tp, hd] (the scales sharded with their heads), its logits the
+whole vocabulary (gathered over tp), so greedy tokens agree across a tp
+group; a sampled token is drawn on the group's first rank and
+broadcast.  Ragged
 right-padded prompts keep per-sample timelines: step i writes each
 sample's row at ``lengths + i``, so rotary positions have no pad gaps.
 
@@ -30,10 +35,11 @@ from __future__ import annotations
 import torch
 
 from tdax_torch.models.qwen_vl.config import QwenVLConfig
-from tdax_torch.models.qwen_vl.decoder import (_rotary_and_spec, attend, block_kv, mlp,
-                                               project_qkv, rms_norm, rotary_cos_sin)
-from tdax_torch.models.qwen_vl.model import embed_inputs, torch_dtype
-from tdax_torch.models.qwen_vl.quantize import embed_lookup, layer_at, qdot
+from tdax_torch.models.qwen_vl.decoder import (_rotary_and_spec, attend, block_kv, local_heads,
+                                               mlp, project_qkv, rms_norm, rotary_cos_sin)
+from tdax_torch.models.qwen_vl.model import embed_inputs, lm_logits, torch_dtype
+from tdax_torch.models.qwen_vl.quantize import embed_lookup, layer_at
+from tdax_torch.models.qwen_vl.tp import tp_broadcast
 from tdax_torch.ops.flash_attention import AttnSpec
 
 
@@ -113,7 +119,7 @@ def prefill(params: dict, cfg: QwenVLConfig, input_ids: torch.Tensor, attn_mask:
     b, t, _ = x.shape
     t_max = t_max or t
     cos, sin, spec = _rotary_and_spec(x, cfg, attn_mask)
-    shape = (cfg.num_layers, b, t_max, cfg.num_heads, cfg.head_dim)
+    shape = (cfg.num_layers, b, t_max, local_heads(params["layers"], cfg), cfg.head_dim)
     ks = _empty_cache(shape, x.dtype, x.device, kv_int8)
     vs = _empty_cache(shape, x.dtype, x.device, kv_int8)
     for i in range(cfg.num_layers):
@@ -153,10 +159,9 @@ def _decode_step(params: dict, cfg: QwenVLConfig, tok: torch.Tensor, cur_pos: to
                 cache[i, rows, cur_pos] = new[:, 0]
         h = h + attend(q, _kv_dequant(_cache_layer(ks, i), h.dtype),
                        _kv_dequant(_cache_layer(vs, i), h.dtype), spec, layer, cfg)
-        h = h + mlp(rms_norm(h, layer["ln_2"], cfg.layer_norm_eps), layer)
+        h = h + mlp(rms_norm(h, layer["ln_2"], cfg.layer_norm_eps), layer, cfg)
     final = rms_norm(h, params["ln_f"], cfg.layer_norm_eps)
-    logits = qdot(final[:, 0, :], params["lm_head"]).to(torch.float32)
-    return logits, ks, vs
+    return lm_logits(final[:, 0, :], params, cfg), ks, vs
 
 
 def generate(params: dict, cfg: QwenVLConfig, input_ids: torch.Tensor, attn_mask: torch.Tensor,
@@ -180,11 +185,11 @@ def generate(params: dict, cfg: QwenVLConfig, input_ids: torch.Tensor, attn_mask
                                  t_max=t + max_new_tokens, kv_int8=kv_int8)
         # logits at each prompt's last real token
         last_h = hidden[torch.arange(b, device=hidden.device), lengths - 1]
-        last_h = rms_norm(last_h, params["ln_f"], cfg.layer_norm_eps)
-        logits = qdot(last_h, params["lm_head"]).to(torch.float32)
+        logits = lm_logits(rms_norm(last_h, params["ln_f"], cfg.layer_norm_eps), params, cfg)
 
         def pick(lg):
-            return sample_logits(lg, generator, temperature, top_k, top_p)
+            tok = sample_logits(lg, generator, temperature, top_k, top_p)
+            return tok if temperature == 0.0 else tp_broadcast(tok)
 
         tok = pick(logits)
         done = tok == eos_token_id if eos_token_id is not None else None

@@ -19,6 +19,7 @@ import torch
 from tdax_torch.models.qwen_vl.config import QwenVLConfig, VisualConfig
 from tdax_torch.models.qwen_vl.decoder import decoder, decoder_capture, rms_norm
 from tdax_torch.models.qwen_vl.quantize import _QUANT_KEYS, embed_lookup, qdot, quantize_weight
+from tdax_torch.models.qwen_vl.tp import tp_gather
 from tdax_torch.models.qwen_vl.vit import interp_pos_embed, sincos_2d, visual_encode
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -162,16 +163,23 @@ def extract_layer_activations(params: dict, cfg: QwenVLConfig,
     return capture
 
 
+def lm_logits(x: torch.Tensor, params: dict, cfg: QwenVLConfig) -> torch.Tensor:
+    """[..., H] final hidden states -> [..., vocab] f32 logits; under tp
+    each rank's vocab shard, gathered over the tp group."""
+    logits = qdot(x, params["lm_head"]).to(torch.float32)
+    return tp_gather(logits, logits.shape[-1] < cfg.vocab_size)
+
+
 def forward(params: dict, cfg: QwenVLConfig, input_ids: torch.Tensor,
             attn_mask: torch.Tensor | None = None,
             images: torch.Tensor | None = None,
             image_positions: torch.Tensor | None = None,
             remat: bool = False) -> torch.Tensor:
-    """Logits [B, T, vocab] in f32.  ``remat`` rematerializes decoder
-    blocks in the backward pass (see ``decoder``)."""
+    """Logits [B, T, vocab] in f32 (the whole vocabulary on every rank
+    under tp).  ``remat`` rematerializes decoder blocks in the backward
+    pass (see ``decoder``)."""
     if attn_mask is None:
         attn_mask = torch.ones_like(input_ids)
     x = embed_inputs(params, cfg, input_ids, images, image_positions)
     x = decoder(params["layers"], x, cfg, attn_mask, remat=remat)
-    x = rms_norm(x, params["ln_f"], cfg.layer_norm_eps)
-    return qdot(x, params["lm_head"]).float()
+    return lm_logits(rms_norm(x, params["ln_f"], cfg.layer_norm_eps), params, cfg)

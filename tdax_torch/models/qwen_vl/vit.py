@@ -9,6 +9,11 @@ positions on both sides, ``ln_post`` and the output projection.
 Numerics follow tdax exactly: layer norm with population variance,
 normalized in f32, cast to the model dtype, *then* ``* w + b`` in that
 dtype; GELU is ``jax.nn.gelu``'s default tanh approximation.
+
+Under tp a block and the resampler hold their rank's heads and MLP
+columns (the head count from the weights' shapes); the row-parallel
+products are summed over the tp group (``tp.tp_row_product``) and
+their biases, replicated, added once after the sum.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch.nn.functional as F
 
 from tdax_torch.models.qwen_vl.config import VisualConfig
 from tdax_torch.models.qwen_vl.quantize import layer_at, qdot
+from tdax_torch.models.qwen_vl.tp import tp_row_product
 from tdax_torch.ops.flash_attention import AttnSpec, mha
 
 
@@ -44,28 +50,35 @@ def patch_embed(images: torch.Tensor, w: torch.Tensor, cfg: VisualConfig) -> tor
     return qdot(x, w).to(images.dtype)
 
 
-def _mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """Dense multi-head attention on [B, T, D] inputs (already projected).
-    The head split is a view: the kernel reads the strided qkv split."""
+def _mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, hd: int) -> torch.Tensor:
+    """Dense multi-head attention on [B, T, D] inputs (already projected),
+    D / hd heads.  The head split is a view: the kernel reads the strided
+    qkv split."""
     b, tq, d = q.shape
     tk = k.shape[1]
-    hd = d // n_heads
+    n_heads = d // hd
     out = mha(q.reshape(b, tq, n_heads, hd), k.reshape(b, tk, n_heads, hd),
               v.reshape(b, tk, n_heads, hd), AttnSpec(kv_valid=None, causal=False))
     return out.reshape(b, tq, d)
 
 
+def _row(x: torch.Tensor, w, width: int) -> torch.Tensor:
+    """A row-parallel product: ``qdot`` with whole weights (x ``width``
+    wide), summed over the tp group with this rank's rows of them."""
+    return qdot(x, w) if x.shape[-1] == width else tp_row_product(x, w)
+
+
 def vit_block(x: torch.Tensor, layer: dict, cfg: VisualConfig) -> torch.Tensor:
     h = layer_norm(x, layer["ln_1_w"], layer["ln_1_b"], cfg.layer_norm_eps)
     qkv = qdot(h, layer["attn_qkv_w"]) + layer["attn_qkv_b"]
-    q, k, v = qkv.split(cfg.width, dim=-1)
-    attn = _mha(q, k, v, cfg.heads)
-    attn = qdot(attn, layer["attn_proj_w"]) + layer["attn_proj_b"]
+    q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
+    attn = _mha(q, k, v, cfg.width // cfg.heads)
+    attn = _row(attn, layer["attn_proj_w"], cfg.width) + layer["attn_proj_b"]
     x = x + attn
     h = layer_norm(x, layer["ln_2_w"], layer["ln_2_b"], cfg.layer_norm_eps)
     h = qdot(h, layer["mlp_fc_w"]) + layer["mlp_fc_b"]
     h = gelu_tanh(h)
-    h = qdot(h, layer["mlp_proj_w"]) + layer["mlp_proj_b"]
+    h = _row(h, layer["mlp_proj_w"], cfg.mlp_dim) + layer["mlp_proj_b"]
     return x + h
 
 
@@ -113,8 +126,8 @@ def resampler(x: torch.Tensor, params: dict, cfg: VisualConfig) -> torch.Tensor:
     qh = qdot(qb, params["attn_q_w"]) + params["attn_q_b"]
     kh = qdot(kb, params["attn_k_w"]) + params["attn_k_b"]
     vh = qdot(kv, params["attn_v_w"]) + params["attn_v_b"]
-    out = _mha(qh, kh, vh, cfg.resampler_heads)
-    return qdot(out, params["attn_out_w"]) + params["attn_out_b"]
+    out = _mha(qh, kh, vh, d // cfg.resampler_heads)
+    return _row(out, params["attn_out_w"], d) + params["attn_out_b"]
 
 
 def visual_encode(images: torch.Tensor, params: dict, cfg: VisualConfig) -> torch.Tensor:

@@ -39,6 +39,12 @@ other.  It goes through ``FlashAttention`` only when autograd needs it
 (grad mode on and q, k or v requiring grad); under ``inference_mode``
 the call is the plain forward launch.
 
+``flash_sharding(mesh, batch_axis, head_axis)`` declares how a
+multi-device run shards attention (tdax's context of that name).  In the
+port each rank already holds its shard: q, k and v are its dp rows and
+its tp heads, so ``mha`` runs the same route on them; the model's
+row-parallel sites read the tp group from the context.
+
 ``LAUNCHES`` (both forward kernels), ``LAUNCHES_SM90`` (the Hopper one
 alone), ``BWD_DQ_LAUNCHES`` and ``BWD_DKV_LAUNCHES`` (both backward
 kernels of each pair) and ``BWD_DQ_LAUNCHES_SM90`` and
@@ -50,6 +56,7 @@ kernel carried each path.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -82,6 +89,34 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # keys): below it a 128-row block is mostly padding (the decode step has
 # one row)
 SM90_MIN_TQ = 64
+
+
+# Active (mesh, batch_axis, head_axis, seq_axis) of a multi-device run;
+# a stack, so nested scopes restore.  Set by flash_sharding().
+_SHARD_CTX: list[tuple] = []
+
+
+@contextlib.contextmanager
+def flash_sharding(mesh, batch_axis: str | None = "dp", head_axis: str | None = None,
+                   seq_axis: str | None = None):
+    """Declare how attention inputs are sharded over ``mesh``
+    (``tdax_torch.parallel.mesh.make_mesh``): the batch over
+    ``batch_axis``, the heads over ``head_axis``.  Each rank runs the
+    flash kernels on its local q, k and v; the model's row-parallel
+    products sum over ``head_axis``'s group.  ``seq_axis`` (context
+    parallelism, ring attention) is not ported and raises."""
+    if seq_axis is not None:
+        raise NotImplementedError("flash_sharding: seq_axis (context parallelism, ring "
+                                  "attention) comes with the port's multi-device training")
+    _SHARD_CTX.append((mesh, batch_axis, head_axis, seq_axis))
+    try:
+        yield
+    finally:
+        _SHARD_CTX.pop()
+
+
+def current_flash_sharding():
+    return _SHARD_CTX[-1] if _SHARD_CTX else None
 
 
 class AttnSpec:

@@ -17,8 +17,17 @@ last-token activations.  As in tdax:
     when it holds a checkpoint, and are random (seed 0) and byte-level
     otherwise.
 
-One card, so no data-parallel mesh.  The next batch's images are
-decoded on a host thread while the current batch runs.
+Under a ``torch.distributed`` process group of W ranks
+(``tdax_torch.parallel.mesh.init_distributed``, or ``torchrun``), as
+tdax's dp mesh over its devices: when W divides ``batch_size`` each rank
+runs its ``batch_size / W`` rows of every batch (the padded tail
+included) inside ``flash_sharding(mesh, "dp")``, the rows are gathered
+over the group, and rank 0 alone writes the ``.tmp.npz``, ``.pt`` and
+``.npz``, a barrier after each write; otherwise every rank runs whole
+batches, tdax's replicated case, and rank 0 writes.  On a restart every
+rank reads the same checkpoint and skips the same ids.  Every rank
+returns the whole result.  The next batch's images are decoded on a
+host thread while the current batch runs.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tdax_torch.config import ExtractConfig
 from tdax_torch.data.io import load_activations_npz, save_activations, save_activations_npz
@@ -37,6 +47,8 @@ from tdax_torch.models.qwen_vl.model import extract_layer_activations, init_para
 from tdax_torch.models.qwen_vl.quantize import quantize_params
 from tdax_torch.models.qwen_vl.preprocess import load_image_batch
 from tdax_torch.models.qwen_vl.tokenizer import batch_encode, get_tokenizer
+from tdax_torch.ops.flash_attention import flash_sharding
+from tdax_torch.parallel.mesh import gather_batch, make_mesh
 from tdax_torch.runtime import get_device
 
 
@@ -62,23 +74,27 @@ def load_or_init_params(model_dir: str | None, cfg: QwenVLConfig, device,
     return init_params(cfg, device, quantize=quantize)
 
 
-def _load_checkpoint(tmp_path: str, metadata: list[dict]):
-    """(activations, ids) from a resumable checkpoint, or (None, [])."""
+def _load_checkpoint(tmp_path: str, metadata: list[dict], announce: bool = True):
+    """(activations, ids) from a resumable checkpoint, or (None, []);
+    ``announce`` prints what was found."""
     if not os.path.exists(tmp_path):
         return None, []
     try:
         done_acts, done_ids, _ = load_activations_npz(tmp_path)
     except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile) as e:
-        print(f"Warning: Could not load checkpoint: {e}. Starting fresh.")
+        if announce:
+            print(f"Warning: Could not load checkpoint: {e}. Starting fresh.")
         return None, []
     current_ids = {m["id"] for m in metadata}
     stale = [i for i in done_ids if i not in current_ids]
     if stale:
-        print(f"Warning: checkpoint {tmp_path} holds {len(stale)} sample ids not in "
+        if announce:
+            print(f"Warning: checkpoint {tmp_path} holds {len(stale)} sample ids not in "
               f"the current metadata (e.g. {stale[0]!r}) — stale checkpoint from "
               f"another run; starting fresh.")
         return None, []
-    print(f"Found existing checkpoint, resuming... ({len(done_ids)} samples done)")
+    if announce:
+        print(f"Found existing checkpoint, resuming... ({len(done_ids)} samples done)")
     return done_acts, done_ids
 
 
@@ -107,11 +123,24 @@ def extract_activations(metadata: list[dict], output_path: str,
     elif extract_cfg.quantize_int8:
         params = quantize_params(params)
 
+    bs = extract_cfg.batch_size
+    group = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if group else 1
+    mesh = make_mesh(dp=world) if group and bs % world == 0 else None
+    writer = not group or dist.get_rank() == 0
     tmp_path = output_path + ".tmp.npz"
-    done_acts, done_ids = _load_checkpoint(tmp_path, metadata)
+    done_acts, done_ids = _load_checkpoint(tmp_path, metadata, announce=writer)
     done = set(done_ids)
     todo = [m for m in metadata if m["id"] not in done]
-    bs = extract_cfg.batch_size
+    verbose = verbose and writer
+    # this rank's rows of a padded batch (its images alone are decoded):
+    # its dp share, or all of them
+    per, r = bs // world, mesh.local_rank("dp") if mesh is not None else 0
+    share = slice(None) if mesh is None else slice(r * per, (r + 1) * per)
+
+    def written():
+        if group:
+            dist.barrier()
 
     encoded = batch_encode(tokenizer, metadata, cfg)
     max_len = _round_up(encoded["input_ids"].shape[1] + 1, 64)
@@ -123,7 +152,7 @@ def extract_activations(metadata: list[dict], output_path: str,
 
     def host_prep(chunk):
         rows = np.asarray([row_of[m["id"]] for m in chunk]
-                          + [row_of[chunk[0]["id"]]] * (bs - len(chunk)))
+                          + [row_of[chunk[0]["id"]]] * (bs - len(chunk)))[share]
         images = load_image_batch([encoded["image_paths"][r] for r in rows],
                                   cfg.visual.image_size)
         return (enc_ids[rows], enc_mask[rows], encoded["last_token_idx"][rows],
@@ -148,7 +177,12 @@ def extract_activations(metadata: list[dict], output_path: str,
         for i, chunk in enumerate(batches):
             args = fut.result()
             fut = pool.submit(host_prep, batches[i + 1]) if i + 1 < len(batches) else None
-            acts = run(*args).float().cpu().numpy()[:, :len(chunk)]
+            if mesh is None:
+                acts = run(*args).float()
+            else:
+                with flash_sharding(mesh, batch_axis="dp"):
+                    acts = gather_batch(run(*args).float(), mesh, dim=1)
+            acts = acts.cpu().numpy()[:, :len(chunk)]
             collected.append(acts)
             collected_ids.extend(m["id"] for m in chunk)
             since_save += len(chunk)
@@ -156,7 +190,9 @@ def extract_activations(metadata: list[dict], output_path: str,
                 print(f"  extracted {len(collected_ids)}/{len(metadata)}", flush=True)
             if since_save >= extract_cfg.save_interval:
                 all_acts = np.concatenate(collected, axis=1)
-                save_activations_npz(tmp_path, all_acts, collected_ids, metadata)
+                if writer:
+                    save_activations_npz(tmp_path, all_acts, collected_ids, metadata)
+                written()
                 collected = [all_acts]
                 since_save = 0
                 if verbose:
@@ -166,11 +202,13 @@ def extract_activations(metadata: list[dict], output_path: str,
         (cfg.num_layers, 0, cfg.hidden_size), np.float32)
 
     if collected_ids:
-        save_activations(output_path, all_acts, collected_ids, metadata)
-        save_activations_npz(output_path.rsplit(".", 1)[0] + ".npz",
-                             all_acts, collected_ids, metadata)
-        if os.path.exists(tmp_path):
-            os.remove(tmp_path)
+        if writer:
+            save_activations(output_path, all_acts, collected_ids, metadata)
+            save_activations_npz(output_path.rsplit(".", 1)[0] + ".npz",
+                                 all_acts, collected_ids, metadata)
+            if os.path.exists(tmp_path):
+                os.remove(tmp_path)
+        written()
         if verbose:
             print(f"Extracted activations for {len(collected_ids)} samples. "
                   f"Saved to {output_path}")

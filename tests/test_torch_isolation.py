@@ -144,6 +144,15 @@ with tempfile.TemporaryDirectory() as tmp:
                                     rips=RipsConfig(backend="device")),
                         verbose=False, device="cpu")
     assert len(out["stats"]) == 2
+    # a world of one over gloo: the extraction's dp path (gather, rank 0 writes)
+    from tdax_torch.parallel import mesh
+    mesh.init_distributed("cpu", rank=0, world_size=1, store_path=os.path.join(tmp, "store"))
+    try:
+        res = extract_activations(md[:3], os.path.join(tmp, "dp.pt"), cfg,
+                                  ExtractConfig(batch_size=2), device="cpu", verbose=False)
+        assert len(res) == 3 and mesh.COLLECTIVES == {"gloo.all_gather": 2}
+    finally:
+        mesh.shutdown()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib") or m == "tdax" or m.startswith("tdax."))
 print("LOADED:" + ",".join(bad))
@@ -175,7 +184,8 @@ def _sources():
             "tdax_torch/pipeline/scale.py", "tdax_torch/metrics/persistence.py",
             "tdax_torch/ops/umap/sparse_path.py", "tdax_torch/ops/umap/lobpcg.py",
             "tdax_torch/ops/rips/reference.py", "tdax_torch/ops/rips/tiny_device.py",
-            "tdax_torch/ops/rips/api.py", "tdax_torch/ops/distances.py"} <= names
+            "tdax_torch/ops/rips/api.py", "tdax_torch/ops/distances.py",
+            "tdax_torch/parallel/mesh.py", "tdax_torch/models/qwen_vl/tp.py"} <= names
     return files
 
 

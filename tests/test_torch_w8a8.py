@@ -55,7 +55,6 @@ from tdax_torch.config import DatasetConfig, ExtractConfig
 from tdax_torch.data.dataset import generate_dataset
 from tdax_torch.models.qwen_vl import QwenVLConfig, extract_layer_activations, forward
 from tdax_torch.models.qwen_vl import decoder, model, vit
-from tdax_torch.models.qwen_vl import generate as generate_module
 from tdax_torch.models.qwen_vl.convert import params_from_numpy
 from tdax_torch.models.qwen_vl.generate import generate
 from tdax_torch.models.qwen_vl.model import init_params
@@ -102,7 +101,7 @@ def checked(monkeypatch):
             np.testing.assert_array_equal(out.numpy(), want)
             seen.append(tuple(x.shape))
         return out
-    for module in (decoder, vit, model, generate_module):
+    for module in (decoder, vit, model):  # generate's LM head is model.lm_logits
         monkeypatch.setattr(module, "qdot", check)
     return seen
 
