@@ -222,6 +222,33 @@ and runs these phases, printing JSON lines:
             one device reported.  The tiny f32 model at dp=2 tp=2
             against one device: capture within TINY_TOL, greedy tokens
             equal, int8-cache decode logits within MD_KV_INT8_TOL.
+            Then tdax's dry-run stages 2 and 3 (the sweep's layers split
+            over the ranks; row-sharded distances, kNN and sparse edge
+            extraction), to H1 (MD_SCALE_MAXDIM), each stage's wall, its
+            gathers' bytes and seconds, each rank's peak memory and the
+            collectives reported.  (a) In the NCCL world: run_tda_sweep
+            of phase capture's activations, stats and clouds bitwise
+            equal to phase sweep's; distance_matrix(mesh=) on the scale
+            cloud bitwise the true-f32 expansion form symmetrised,
+            rips_at_scale(mesh=); rips_at_scale_sparse(mesh=,
+            fused_max=0) with one device's n_edges and bitwise diagrams;
+            the mesh paths launch no sqdist kernel.  (b) In the gloo
+            world at dp=4: the sweep, 8 layers a rank, its peak layer
+            phase sweep's, silhouettes within MD_SWEEP_SIL_TOL, each
+            layer's pairwise-distance correlation > MD_UMAP_CORR;
+            sharded_knn (k = MD_KNN_K) on the scale cloud, every row
+            exact or its disputed neighbours within MD_KNN_TIE of each
+            other; rips_at_scale(mesh=) (true f32) within
+            SMALL_BOTTLENECK_TOL of the diagrams of rank 0's one-device
+            true-f32 matrix (the expansion form in one product), and
+            against rank 0's one-device rips_at_scale (through
+            sqdist_sm90.cu's 3xTF32: one launch and one split) its
+            bottleneck reported, not gated (the expansion form's f32
+            cancellation at the cloud's small distances: phase scale's
+            h0_deaths_sm90_vs_fma);
+            rips_at_scale_sparse(mesh=, fused_max=0) with one device's
+            n_edges and diagrams within CROSS_ENGINE_TOL; every rank's
+            results equal.
 6. scale    rips_at_scale on bench_scale.py's seeded 3-sphere cloud,
             10000 x 4096, threshold for ~40 neighbours, maxdim
             SCALE_MAXDIM: the distance matrix through sqdist_sm90.cu (its
@@ -542,6 +569,25 @@ MD_KV_INT8_TOL = dict(rtol=2e-3, atol=5e-3)
 MD_MIN_COSINE = 0.999
 MD_NEW_TOKENS, MD_TINY_NEW_TOKENS = 8, 6
 MD_TIMEOUT_S = 600
+# phase multidevice's sweep and scale stages (tdax's dry-run stages 2 and
+# 3).  Four ranks' sweep (8 layers a rank) against phase sweep's on one
+# device: the 500-epoch layouts amplify a batch's rounding as they amplify
+# the card's against the CPU's (SWEEP_SIL_TOL), so silhouettes within
+# 0.03, and tdax's stage-2 gate, each layer's pairwise-distance
+# correlation > 0.995.  kNN at k = 15 on the scale cloud: a row's disputed
+# neighbours within tdax's 1e-5 x max(1, d) of each other and its
+# distances the k smallest within the same.  rips_at_scale(mesh=) (true
+# f32) is held to the diagrams of one device's true-f32 matrix within
+# SMALL_BOTTLENECK_TOL: against the one-device call through
+# sqdist_sm90.cu's 3xTF32 its H0 deaths differ by up to 6.75e-3 on an
+# H100, the gap phase scale reports as h0_deaths_sm90_vs_fma, the f32
+# expansion form's cancellation at distances ~0.1 between points of norm
+# ~32.  The scale stages run to H1.
+MD_SWEEP_SIL_TOL, MD_UMAP_CORR = 0.03, 0.995
+MD_KNN_K, MD_KNN_TIE = 15, 1e-5
+MD_SCALE_MAXDIM = 1
+MD_SPARSE_KW = dict(maxdim=MD_SCALE_MAXDIM, target_degree=SCALE_DEGREE, fused_max=0,
+                    block_rows=SPARSE_BLOCK_ROWS)
 
 # (name, B, Tq, Tk, nh, hd, causal, calls per batch on the main path)
 MAIN_SHAPES = [
@@ -4066,11 +4112,276 @@ class _TimedAllReduce:
         self.tp.all_reduce = self.orig
 
 
-def _md_nccl_rank(rank: int, world: int, store: str, work: Path, data_dir: str) -> dict:
+class _TimedGathers:
+    """The bytes and host seconds of every mesh all_gather while active
+    (the device synchronised before and after each, so the time is the
+    gather's, the host staging of gloo included)."""
+
+    def __enter__(self):
+        import torch
+        from tdax_torch.parallel import mesh as pm
+        self.pm, self.orig = pm, pm.all_gather
+        self.calls, self.bytes, self.seconds = 0, 0, 0.0
+
+        def timed(x, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.orig(x, *args, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.bytes += out.numel() * out.element_size()
+            self.calls += 1
+            return out
+
+        pm.all_gather = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.pm.all_gather = self.orig
+
+
+def _md_stage(rec: dict, name: str, fn):
+    """fn()'s result; rec[name] its wall (synchronised host clock) and its
+    gathers: calls, the bytes each brought to this rank, their seconds."""
+    import torch
+    torch.cuda.synchronize()
+    with _TimedGathers() as g:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rec[name] = {"wall_s": wall, "gathers": g.calls, "gathered_bytes": g.bytes,
+                 "gather_s": g.seconds}
+    return out
+
+
+def _md_sweep(rec: dict, data_dir: str, out_dir: Path) -> dict:
+    """run_tda_sweep of phase capture's activations under the process group
+    (the layers split over its ranks), as phase sweep runs it."""
+    from tdax_torch.config import SweepConfig
+    from tdax_torch.data.io import load_activations
+    from tdax_torch.pipeline.tda_sweep import run_tda_sweep
+    all_data = load_activations(str(Path(data_dir) / "all_activations.npz"))
+    return _md_stage(rec, "sweep", lambda: run_tda_sweep(
+        all_data, str(Path(data_dir) / "metadata.json"),
+        SweepConfig(output_dir=str(out_dir), save_diagrams=False), verbose=False))
+
+
+def _md_sweep_ref(sweep_dir: str) -> tuple:
+    """Phase sweep's stats, clouds and peak layer (one device, the same capture)."""
+    import numpy as np
+    from tdax_torch.pipeline.tda_sweep import peak
+    d = Path(sweep_dir)
+    stats = json.loads((d / "summary_stats.json").read_text())
+    clouds = np.stack([np.load(d / "point_clouds_3d" / f"layer_{i}_cloud.npy")
+                       for i in range(len(stats))])
+    return stats, clouds, peak(stats, "shape_silhouette")
+
+
+def _md_scale_inputs(device):
+    """The scale cloud on the card and its sparse path's threshold (the
+    median over 512 rows of the SCALE_DEGREE-th distance)."""
+    import torch
+    from tdax_torch.pipeline.scale import _select_threshold
+    x = torch.as_tensor(scale_cloud()[0]).to(device)
+    return x, _select_threshold(x, SCALE_N, SCALE_DEGREE)
+
+
+def _digest(*arrays) -> str:
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _md_nccl_sweep_scale(device, data_dir: str, sweep_dir: str, work: Path) -> dict:
+    """(a) Stages 2 and 3 in the NCCL world of one: the sweep against phase
+    sweep's, the gathered matrix against the expansion form, the dense
+    and the sparse scale paths (see the module's docstring)."""
+    import numpy as np
+    import torch
+    import tdax_torch.ops.sqdist as sqdist
+    from tdax_torch.parallel import mesh as pm
+    from tdax_torch.pipeline.scale import (_expansion_rows, distance_matrix, rips_at_scale,
+                                           rips_at_scale_sparse)
+
+    torch.cuda.reset_peak_memory_stats()
+    pm.COLLECTIVES.clear()
+    rec = {}
+    res = _md_sweep(rec, data_dir, work / "sweep")
+    stats, clouds, peak_layer = _md_sweep_ref(sweep_dir)
+    rec["sweep"].update(stats_equal=res["stats"] == stats,
+                        clouds_bitwise=bool(np.array_equal(res["clouds_3d"], clouds)),
+                        peak_layer=res["peak_layer"], one_device_peak_layer=peak_layer,
+                        timings=res["timings"])
+    del res
+    x, thresh = _md_scale_inputs(device)
+    mesh = pm.make_mesh()
+    sqdist.LAUNCHES = sqdist.LAUNCHES_SM90 = sqdist.SPLIT_LAUNCHES = 0
+    d = _md_stage(rec, "distance_matrix", lambda: distance_matrix(x, mesh=mesh))
+    sq = (x * x).sum(1)
+    ref = _expansion_rows(x, x, sq, sq)
+    rec["distance_matrix"]["bitwise_expansion_form"] = bool(torch.equal(d, (ref + ref.T).mul_(0.5)))
+    del d, ref
+    dense = _md_stage(rec, "rips_at_scale", lambda: rips_at_scale(
+        x, maxdim=MD_SCALE_MAXDIM, thresh=thresh, mesh=mesh))
+    rec["rips_at_scale"].update(bars=[int(len(g)) for g in dense["dgms"]],
+                                timings=dense["timings"])
+    sp = _md_stage(rec, "rips_at_scale_sparse", lambda: rips_at_scale_sparse(
+        x, mesh=mesh, **MD_SPARSE_KW))
+    rec["mesh_sqdist_launches"] = list(_sqdist_counts(sqdist))
+    one = _md_stage(rec, "rips_at_scale_sparse_one_device", lambda: rips_at_scale_sparse(
+        x, **MD_SPARSE_KW))
+    rec["rips_at_scale_sparse"].update(
+        n_edges=sp["n_edges"], n_edges_one_device=one["n_edges"], thresh=sp["thresh"],
+        bars=[int(len(g)) for g in sp["dgms"]], timings=sp["timings"],
+        dgms_bitwise_one_device=len(sp["dgms"]) == len(one["dgms"]) and all(
+            np.array_equal(a, b) for a, b in zip(sp["dgms"], one["dgms"])))
+    rec.update(thresh=thresh, max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+               collectives=dict(pm.COLLECTIVES))
+    return rec
+
+
+def _pdist_corr(a, b) -> float:
+    """tdax's stage-2 measure: the correlation of two embeddings' pairwise distances."""
+    import numpy as np
+
+    def pdist(e):
+        return np.linalg.norm(e[:, None] - e[None, :], axis=-1).ravel()
+    return float(np.corrcoef(pdist(a), pdist(b))[0, 1])
+
+
+def _md_knn_check(x, idx, dists) -> dict:
+    """Rank 0's check of sharded_knn's rows against the true-f32 expansion
+    form of the whole cloud in one product (tdax's stage-3 gate, its 1e-5
+    taken relative as max(1, d) takes it): a row that differs must differ
+    in neighbours whose distances lie within MD_KNN_TIE of each other, and
+    its distances must be the k smallest within the same."""
+    import numpy as np
+    import torch
+    from tdax_torch.pipeline.scale import _expansion_rows
+    sq = (x * x).sum(1)
+    d = _expansion_rows(x, x, sq, sq)
+    ref_d, ref_idx = torch.topk(d, MD_KNN_K, dim=1, largest=False, sorted=True)
+    got = torch.as_tensor(idx, device=x.device).long()
+    got_d = torch.as_tensor(dists, device=x.device)
+    rows = torch.nonzero((got.sort(1).values != ref_idx.sort(1).values).any(1)).flatten().tolist()
+    worst_tie = worst_dist = 0.0
+    for i in rows:
+        dv = d[i, sorted(set(got[i].tolist()) ^ set(ref_idx[i].tolist()))]
+        worst_tie = max(worst_tie, float(dv.max() - dv.min()) / max(1.0, float(dv.max())))
+        worst_dist = max(worst_dist, float((got_d[i] - ref_d[i]).abs().max())
+                         / max(1.0, float(ref_d[i].max())))
+    ascending = bool(np.all(np.diff(dists, axis=1) >= 0))
+    return {"rows": int(len(idx)), "rows_differing": len(rows),
+            "worst_tie_spread_rel": worst_tie, "worst_dist_err_rel": worst_dist,
+            "max_abs_dist_err_all_rows": float((got_d - ref_d).abs().max()),
+            "ascending": ascending,
+            "ok": ascending and worst_tie <= MD_KNN_TIE and worst_dist <= MD_KNN_TIE}
+
+
+def _md_true_f32_dgms(x, thresh: float) -> list:
+    """rips_at_scale's diagrams from one device's true-f32 matrix: the
+    expansion form in one product (the arithmetic the mesh path shares
+    with tdax's), symmetrised, H0 by Boruvka on the card, H1 in the
+    engine."""
+    from tdax_torch.ops.rips import rips_from_distances
+    from tdax_torch.ops.rips.mst import h0_diagram_device
+    from tdax_torch.pipeline.scale import _expansion_rows
+    sq = (x * x).sum(1)
+    d = _expansion_rows(x, x, sq, sq)
+    d = (d + d.T).mul_(0.5)
+    dgms = rips_from_distances(d.cpu().numpy(), maxdim=MD_SCALE_MAXDIM, thresh=thresh)["dgms"]
+    dgms[0] = h0_diagram_device(d, thresh)
+    return dgms
+
+
+def _md_gloo_sweep_scale(rank: int, device, data_dir: str, sweep_dir: str,
+                         work: Path) -> dict:
+    """(b) Stages 2 and 3 over four gloo ranks at dp=4, with rank 0's
+    one-device references (see the module's docstring).  Every rank
+    returns its walls, gathers, peak memory and collectives and the
+    digests of its results; rank 0 the comparisons too."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import tdax_torch.ops.sqdist as sqdist
+    from tdax_torch.metrics.persistence import bottleneck_distance
+    from tdax_torch.parallel import mesh as pm
+    from tdax_torch.parallel.sharded_ops import sharded_knn
+    from tdax_torch.pipeline.scale import rips_at_scale, rips_at_scale_sparse
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pm.COLLECTIVES.clear()
+    rec, cmp = {}, {}
+    mesh = pm.make_mesh(dp=4)
+    res = _md_sweep(rec, data_dir, work / "sweep")
+    if rank == 0:
+        stats, clouds, peak_layer = _md_sweep_ref(sweep_dir)
+        cmp["sweep"] = {
+            "peak_layer": res["peak_layer"], "one_device_peak_layer": peak_layer,
+            "max_silhouette_diff": max(abs(a[k] - b[k]) for a, b in zip(res["stats"], stats)
+                                       for k in ("silhouette_shape", "silhouette_color")),
+            "max_h1_diff": max(abs(a["max_h1_persistence"] - b["max_h1_persistence"])
+                               for a, b in zip(res["stats"], stats)),
+            "pdist_corr": [_pdist_corr(g, w) for g, w in zip(res["clouds_3d"], clouds)],
+            "timings": res["timings"]}
+    digests = {"sweep": _digest(res["clouds_3d"]), "sweep_peak": res["peak_layer"]}
+    del res
+
+    x, thresh = _md_scale_inputs(device)
+    sqdist.LAUNCHES = sqdist.LAUNCHES_SM90 = sqdist.SPLIT_LAUNCHES = 0
+    idx, dists = _md_stage(rec, "sharded_knn", lambda: sharded_knn(x, MD_KNN_K, mesh))
+    digests["knn"] = _digest(idx, dists)
+    if rank == 0:
+        cmp["knn"] = _md_knn_check(x, idx, dists)
+    dist.barrier()
+    dense = _md_stage(rec, "rips_at_scale", lambda: rips_at_scale(
+        x, maxdim=MD_SCALE_MAXDIM, thresh=thresh, mesh=mesh))
+    sp = _md_stage(rec, "rips_at_scale_sparse", lambda: rips_at_scale_sparse(
+        x, mesh=mesh, **MD_SPARSE_KW))
+    rec["mesh_sqdist_launches"] = list(_sqdist_counts(sqdist))
+    digests.update(dense=_digest(*dense["dgms"]), sparse=_digest(*sp["dgms"]),
+                   sparse_n_edges=sp["n_edges"])
+    if rank == 0:
+        one = _md_stage(rec, "rips_at_scale_one_device", lambda: rips_at_scale(
+            x, maxdim=MD_SCALE_MAXDIM, thresh=thresh))
+        one_launches = list(_sqdist_counts(sqdist))
+        f32 = _md_stage(rec, "rips_true_f32_one_device", lambda: _md_true_f32_dgms(x, thresh))
+        one_sp = _md_stage(rec, "rips_at_scale_sparse_one_device", lambda: rips_at_scale_sparse(
+            x, **MD_SPARSE_KW))
+        cmp["rips_at_scale"] = {
+            "bottleneck_per_dim": [bottleneck_distance(a, b)
+                                   for a, b in zip(dense["dgms"], f32)],
+            "bitwise_true_f32_one_device": all(np.array_equal(a, b)
+                                               for a, b in zip(dense["dgms"], f32)),
+            "bottleneck_per_dim_vs_3xtf32": [bottleneck_distance(a, b)
+                                             for a, b in zip(dense["dgms"], one["dgms"])],
+            "bars": [int(len(g)) for g in dense["dgms"]],
+            "bars_one_device": [int(len(g)) for g in one["dgms"]],
+            "one_device_sqdist_launches": one_launches,
+            "timings": dense["timings"], "one_device_timings": one["timings"]}
+        cmp["rips_at_scale_sparse"] = {
+            "n_edges": sp["n_edges"], "n_edges_one_device": one_sp["n_edges"],
+            "bottleneck_per_dim": [bottleneck_distance(a, b)
+                                   for a, b in zip(sp["dgms"], one_sp["dgms"])],
+            "bars": [int(len(g)) for g in sp["dgms"]], "timings": sp["timings"]}
+    dist.barrier()
+    return {"stages": rec, "compared": cmp, "digests": digests, "thresh": thresh,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "collectives": dict(pm.COLLECTIVES)}
+
+
+def _md_nccl_rank(rank: int, world: int, store: str, work: Path, data_dir: str,
+                  sweep_dir: str) -> dict:
     """(a) The world of one over NCCL: the full QwenVLConfig() in bf16 from
     seed 0 on the card, extract_activations of the 48 samples at batch
     16 under the process group (its dp path: the rows gathered by an
-    NCCL all_gather)."""
+    NCCL all_gather); then the sweep and scale stages."""
     import torch
     import tdax_torch.ops.flash_attention as fa
     from tdax_torch.config import ExtractConfig
@@ -4093,9 +4404,14 @@ def _md_nccl_rank(rank: int, world: int, store: str, work: Path, data_dir: str) 
                             params=params, device=device, verbose=False)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        return {"backend": backend, "wall_s": wall_s, "collectives": dict(pm.COLLECTIVES),
-                "launches": {"flash_fwd": fa.LAUNCHES, "flash_fwd_sm90": fa.LAUNCHES_SM90},
-                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        out = {"backend": backend, "wall_s": wall_s, "collectives": dict(pm.COLLECTIVES),
+               "launches": {"flash_fwd": fa.LAUNCHES, "flash_fwd_sm90": fa.LAUNCHES_SM90},
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["sweep_scale"] = _md_nccl_sweep_scale(device, data_dir, sweep_dir, work)
+        return out
     finally:
         pm.shutdown()
 
@@ -4338,14 +4654,15 @@ def _md_compare(got: dict, one: dict) -> dict:
 
 
 def _md_gloo_rank(rank: int, world: int, store: str, work: Path, snap: str, data_dir: str,
-                  ref_npz: str) -> dict:
+                  ref_npz: str, capture_dir: str, sweep_dir: str) -> dict:
     """(b) Four ranks on cuda:0 over gloo.  Each loads the 8 + 8-layer
     snapshot: dp=4 extraction with crash and resume on the whole
     weights, then the weights sharded dp=2 tp=2 for the capture of the
     48 samples (each rank 8 rows of each batch of 16) and generation.
     The same for a tree of the model's own init at the snapshot's shape
-    (init_params, seed 0), then the tiny f32 model.  Rank 0 computes
-    each tree's one-device references before it is sharded."""
+    (init_params, seed 0), then the tiny f32 model, then the sweep and
+    scale stages at dp=4.  Rank 0 computes each tree's one-device
+    references before it is sharded."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4401,6 +4718,7 @@ def _md_gloo_rank(rank: int, world: int, store: str, work: Path, snap: str, data
             out[name] = rec
         out["extraction"].pop("full")
         out["tiny"] = _md_tiny(device, mesh)
+        out["sweep_scale"] = _md_gloo_sweep_scale(rank, device, capture_dir, sweep_dir, work)
         return out
     finally:
         pm.shutdown()
@@ -4415,13 +4733,15 @@ def _md_leaves(tree):
 
 
 def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: float, snap: str,
-                      snap_data: Path) -> dict:
-    """Multi-device serving over torch.distributed on the one card: (a) a
-    world of one over NCCL at the full config against phase capture's
-    capture in ``capture_dir`` (its wall ``capture_wall_s``), (b) four
-    ranks on cuda:0 over gloo on the 8 + 8-layer snapshot ``snap`` (its
-    one-device capture in ``snap_data``) and on the model's own init at
-    that shape.  See the module's docstring."""
+                      snap_data: Path, sweep_dir: Path) -> dict:
+    """Multi-device serving, sweep and scale over torch.distributed on the
+    one card: (a) a world of one over NCCL at the full config against
+    phase capture's capture in ``capture_dir`` (its wall
+    ``capture_wall_s``) and phase sweep's output in ``sweep_dir``, (b)
+    four ranks on cuda:0 over gloo on the 8 + 8-layer snapshot ``snap``
+    (its one-device capture in ``snap_data``), on the model's own init at
+    that shape, then on phase capture's capture and the scale cloud.
+    See the module's docstring."""
     import numpy as np
     import torch
     from tdax_torch.data.io import load_activations_npz
@@ -4431,7 +4751,7 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
     print(f"multidevice: torch.cuda.mem_get_info() before the spawn: {free} free of {total} "
           "bytes", flush=True)
     t0 = time.perf_counter()
-    (a,) = _md_world(_md_nccl_rank, 1, tmp / "md_nccl", str(capture_dir),
+    (a,) = _md_world(_md_nccl_rank, 1, tmp / "md_nccl", str(capture_dir), str(sweep_dir),
                      timeout_s=MD_TIMEOUT_S)
     a["world_s"] = time.perf_counter() - t0
     a["phase_capture_wall_s"] = capture_wall_s
@@ -4442,7 +4762,8 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
     free_b, _ = torch.cuda.mem_get_info()
     t0 = time.perf_counter()
     ranks = _md_world(_md_gloo_rank, 4, tmp / "md_gloo", snap, str(snap_data),
-                      str(snap_data / "all_activations.npz"), timeout_s=MD_TIMEOUT_S)
+                      str(snap_data / "all_activations.npz"), str(capture_dir), str(sweep_dir),
+                      timeout_s=MD_TIMEOUT_S)
     world_s = time.perf_counter() - t0
     cfg = snapshot_config()
     # each batch of the capture: the ViT blocks, the resampler, the decoder
@@ -4455,6 +4776,7 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
     b = ranks[0]
     for name in ("snapshot", "init"):
         b[name]["capture"].pop("calls")
+    scale_by_rank = [r.pop("sweep_scale") for r in ranks]
     info = {"phase": "multidevice", "nvidia_smi": smi,
             "mem_get_info_before_spawn": {"free_bytes": free, "total_bytes": total},
             "nccl_world_of_one": a,
@@ -4463,9 +4785,18 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
                              "snapshot": b["snapshot"], "init": b["init"],
                              "capture_calls_as_expected": calls_ok,
                              "tiny_by_rank": [r["tiny"] for r in ranks]},
+            "gloo_dp4_sweep_scale": {
+                "compared": scale_by_rank[0]["compared"], "thresh": scale_by_rank[0]["thresh"],
+                "stages_by_rank": [r["stages"] for r in scale_by_rank],
+                "max_memory_allocated_bytes_by_rank": [r["max_memory_allocated_bytes"]
+                                                       for r in scale_by_rank],
+                "collectives_by_rank": [r["collectives"] for r in scale_by_rank],
+                "results_equal_on_every_rank": all(r["digests"] == scale_by_rank[0]["digests"]
+                                                   for r in scale_by_rank)},
             "phase_s": time.perf_counter() - t_phase,
             "note": "times of four ranks sharing one card: they say nothing of scaling"}
     emit(info)
+    _md_check_sweep_scale(a["sweep_scale"], info["gloo_dp4_sweep_scale"], scale_by_rank)
     if a["backend"] != "nccl" or a["collectives"].get("nccl.all_gather", 0) < 1:
         raise AssertionError(f"multidevice (a): backend {a['backend']}, collectives "
                              f"{a['collectives']}: no NCCL gather ran")
@@ -4493,6 +4824,49 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
         raise AssertionError(f"multidevice (b): min cosine {b['init']['cosine']['min']} "
                              f"< {MD_MIN_COSINE} on the model's init")
     return info
+
+
+def _md_check_sweep_scale(a: dict, b: dict, ranks: list) -> None:
+    """The gates of the sweep and scale stages (see the module's docstring)."""
+    sw = a["sweep"]
+    if not (sw["stats_equal"] and sw["clouds_bitwise"]
+            and sw["peak_layer"] == sw["one_device_peak_layer"]):
+        raise AssertionError(f"multidevice (a) sweep: not bitwise phase sweep's {sw}")
+    if not a["distance_matrix"]["bitwise_expansion_form"]:
+        raise AssertionError("multidevice (a): distance_matrix(mesh=) differs from the "
+                             "expansion form symmetrised")
+    sp = a["rips_at_scale_sparse"]
+    if not (sp["n_edges"] == sp["n_edges_one_device"] and sp["dgms_bitwise_one_device"]):
+        raise AssertionError(f"multidevice (a) sparse: {sp}")
+    for label, launches in [("a", a["mesh_sqdist_launches"])] + [
+            (f"b rank {i}", r["stages"]["mesh_sqdist_launches"]) for i, r in enumerate(ranks)]:
+        if any(launches):
+            raise AssertionError(f"multidevice ({label}): the mesh paths launched the sqdist "
+                                 f"kernels {launches}")
+    c = b["compared"]
+    sw = c["sweep"]
+    if sw["peak_layer"] != sw["one_device_peak_layer"]:
+        raise AssertionError(f"multidevice (b) sweep: peak layer {sw['peak_layer']}, one "
+                             f"device {sw['one_device_peak_layer']}")
+    if sw["max_silhouette_diff"] > MD_SWEEP_SIL_TOL or min(sw["pdist_corr"]) <= MD_UMAP_CORR:
+        raise AssertionError(f"multidevice (b) sweep: silhouettes {sw['max_silhouette_diff']} "
+                             f"(limit {MD_SWEEP_SIL_TOL}), pdist correlation "
+                             f"{min(sw['pdist_corr'])} (floor {MD_UMAP_CORR})")
+    if not c["knn"]["ok"]:
+        raise AssertionError(f"multidevice (b) sharded_knn: {c['knn']}")
+    dense = c["rips_at_scale"]
+    if dense["one_device_sqdist_launches"] != [1, 1, 1]:
+        raise AssertionError(f"multidevice (b): the one-device rips_at_scale launched "
+                             f"{dense['one_device_sqdist_launches']}, expected one "
+                             "sqdist_sm90.cu launch and one split")
+    if max(dense["bottleneck_per_dim"]) > SMALL_BOTTLENECK_TOL:
+        raise AssertionError(f"multidevice (b) rips_at_scale(mesh=): {dense}")
+    sp = c["rips_at_scale_sparse"]
+    if sp["n_edges"] != sp["n_edges_one_device"] or max(sp["bottleneck_per_dim"]) > \
+            CROSS_ENGINE_TOL:
+        raise AssertionError(f"multidevice (b) rips_at_scale_sparse(mesh=): {sp}")
+    if not b["results_equal_on_every_rank"]:
+        raise AssertionError("multidevice (b): the ranks' sweep or scale results differ")
 
 
 def _qmm_totals(sites, calls_key) -> dict:
@@ -4545,7 +4919,7 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         md = phase_multidevice(Path(tmp), smi, Path(tmp) / "data", capture["wall_s"], snap,
-                               snap_data)
+                               snap_data, Path(tmp) / "tda_debug_output")
     scale = phase_scale(smi)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4658,7 +5032,14 @@ def main(argv=None) -> int:
                 "sm90": run["launches"]["sqdist_sm90"],
                 "fma": run["launches"]["sqdist"] - run["launches"]["sqdist_sm90"],
                 "split": run["launches"]["split"]}
-               for run in (*sparse["fused_runs"], sparse["blocked"], sparse["large"])}},
+               for run in (*sparse["fused_runs"], sparse["blocked"], sparse["large"])},
+            **{path: {"sm90": n[1], "fma": n[0] - n[1], "split": n[2]} for path, n in (
+                ("multidevice_nccl_mesh_paths", md["nccl_world_of_one"]["sweep_scale"][
+                    "mesh_sqdist_launches"]),
+                ("multidevice_dp4_mesh_paths_rank0", md["gloo_dp4_sweep_scale"][
+                    "stages_by_rank"][0]["mesh_sqdist_launches"]),
+                ("multidevice_dp4_one_device_reference_rank0", md["gloo_dp4_sweep_scale"][
+                    "compared"]["rips_at_scale"]["one_device_sqdist_launches"]))}},
         "max_abs_err": sq["max_abs_err"],
         **{k: sq["site"][k] for k in ("ms", "kernel_ms", "split_ms", "ms_fma", "plain_ms",
                                       "bound_ms", "bound_by", "bound_share", "library_ms",

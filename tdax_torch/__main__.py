@@ -11,6 +11,8 @@ experiment, the peak layer's 3-D HTML and the legacy sweep.
                                                 # dp over 8 ranks (gloo; NCCL on cards)
   python -m tdax_torch sweep                    # per-layer UMAP + Rips + silhouettes
   python -m tdax_torch sweep --device cpu       # the sweep on the CPU
+  torchrun --standalone --nproc-per-node 4 -m tdax_torch sweep --device cpu
+                                                # the layers split over 4 ranks (gloo)
   python -m tdax_torch adversarial-metadata     # the 720 adversarial pairs
   python -m tdax_torch extract --adversarial    # their capture
   python -m tdax_torch sweep --adversarial      # the 4-condition sweep
@@ -18,10 +20,12 @@ experiment, the peak layer's 3-D HTML and the legacy sweep.
   python -m tdax_torch visualize                # the peak layer's interactive 3-D HTML
   python -m tdax_torch visualize --peak-layer 25 --debug-dir tda-output --no-png
 
-Under ``torchrun`` ``extract`` joins the process group torchrun set up
-and runs data parallel over its ranks, as tdax does over its devices:
-each rank its rows of every batch (NCCL, ``cuda:LOCAL_RANK``; gloo with
-``--device cpu``), rank 0 writing the files.  ``extract`` takes its
+Under ``torchrun`` ``extract`` and ``sweep`` join the process group
+torchrun set up (NCCL, ``cuda:LOCAL_RANK``; gloo with ``--device cpu``)
+and split their work over its ranks, as tdax does over its devices:
+``extract`` each rank's rows of every batch, ``sweep`` each rank's
+share of the layers when the ranks divide them (else every rank runs
+them all); rank 0 alone prints and writes the files.  ``extract`` takes its
 weights from ``--model-dir`` (which must hold
 checkpoint shards), else from ``./qwen-vl-chat-local`` when that holds
 them (not with ``--toy``), else draws them at random (seed 0); the
@@ -95,26 +99,24 @@ def main(argv=None) -> None:
             print(f"  {cond}: {count} samples")
         print(f"\nSaved to {ds.adversarial_metadata_path}")
         return
-    if args.command == "sweep":
-        _sweep(args, ds)
-        return
     if args.command == "visualize":
         from tdax_torch.pipeline.report import visualize_peak_layer
         visualize_peak_layer(args.peak_layer, args.debug_dir, ds.metadata_path,
                              png_fallback=not args.no_png)
         return
 
+    run = _sweep if args.command == "sweep" else _extract
     from tdax_torch.parallel import mesh
     if mesh.launched_by_torchrun():
         device = mesh.init_distributed(args.device)
         try:  # the other ranks say nothing
-            _extract(args, ds, device,
-                     say=print if int(os.environ["RANK"]) == 0 else lambda *a, **k: None)
+            run(args, ds, device,
+                say=print if int(os.environ["RANK"]) == 0 else lambda *a, **k: None)
         finally:
             mesh.shutdown()
     else:
         from tdax_torch.runtime import get_device
-        _extract(args, ds, get_device(args.device), say=print)
+        run(args, ds, get_device(args.device), say=print)
 
 
 def _extract(args, ds, device, say) -> None:
@@ -144,24 +146,22 @@ def _extract(args, ds, device, say) -> None:
     say(f"\nExtracted activations for {len(results)} samples.")
 
 
-def _sweep(args, ds) -> None:
+def _sweep(args, ds, device, say) -> None:
     from tdax_torch.config import SweepConfig
     from tdax_torch.data.io import load_activations
-    from tdax_torch.runtime import get_device
 
-    device = get_device(args.device)
     pt = ds.adversarial_activations_path if args.adversarial else ds.activations_path
     npz = pt.replace(".pt", ".npz")
     path = npz if os.path.exists(npz) else pt
-    print(f"Loading activations from {path}...")
+    say(f"Loading activations from {path}...")
     all_data = load_activations(path)
     if args.adversarial:
         from tdax_torch.data.adversarial import condition_counts
         from tdax_torch.pipeline.adversarial import run_adversarial_sweep
-        print("\nSamples per condition:")
+        say("\nSamples per condition:")
         for cond, cnt in sorted(condition_counts([e["metadata"]
                                                   for e in all_data.values()]).items()):
-            print(f"  {cond}: {cnt} samples")
+            say(f"  {cond}: {cnt} samples")
         run_adversarial_sweep(all_data, "tda_adversarial_output", SweepConfig(), device=device)
         return
     if args.legacy:
@@ -170,7 +170,7 @@ def _sweep(args, ds) -> None:
         return
     from tdax_torch.pipeline.tda_sweep import run_tda_sweep
     cfg = SweepConfig()
-    print(f"Debug output will be saved to: {cfg.output_dir}")
+    say(f"Debug output will be saved to: {cfg.output_dir}")
     run_tda_sweep(all_data, ds.metadata_path, cfg, device=device)
 
 

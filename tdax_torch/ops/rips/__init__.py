@@ -12,4 +12,4 @@ device (the sweep's ``backend="device"``).
 from tdax_torch.ops.rips.api import rips, rips_from_distances
 from tdax_torch.ops.rips.sparse import csr_from_knn, rips_sparse
 
-__all__ = ["rips", "rips_from_distances", "csr_from_knn", "rips_sparse"]
+__all__ = ["rips", "rips_from_distances"]  # tdax's; the CSR pair is imported by name

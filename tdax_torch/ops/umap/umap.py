@@ -8,7 +8,10 @@ The reference uses two modes:
 
 ``fit_transform_batched`` and ``shared_transform_batched`` run either
 mode on a stack of clouds [L, n, D] with the layer axis as a leading
-batch dimension, where tdax vmaps one jitted program.  Past the
+batch dimension, where tdax vmaps one jitted program.  Under a process
+group whose size divides L each rank embeds its contiguous share of the
+layers and the embeddings are gathered (``shard_layer_axis``, tdax's
+sharding of that axis over its devices).  Past the
 instance's ``sparse_threshold`` (2048 points) ``UMAP.fit`` embeds on
 the edge list (``sparse_path.py``), and ``UMAP.transform`` does too past
 ``sparse_threshold`` squared (train x new) pairs, as tdax dispatches.
@@ -26,6 +29,7 @@ from tdax_torch.config import UMAPConfig
 from tdax_torch.ops.umap.fuzzy import fuzzy_simplicial_set, smooth_knn_dist
 from tdax_torch.ops.umap.layout import optimize_layout
 from tdax_torch.ops.umap.spectral import spectral_init
+from tdax_torch.parallel import mesh as pm
 from tdax_torch.runtime import as_device_f32
 
 @functools.lru_cache(maxsize=64)
@@ -219,15 +223,32 @@ class UMAP:
         return emb.cpu().numpy()
 
 
+def shard_layer_axis(embed, clouds: torch.Tensor) -> torch.Tensor:
+    """``embed`` over the layer axis of clouds [L, ...]: under a process
+    group whose W ranks divide L (a group of one included) each rank
+    embeds its contiguous L/W layers and the results are gathered in
+    rank order, as tdax shards that axis over its devices when they
+    divide it; otherwise ``embed(clouds)`` whole, on every rank.
+    Collective under a group: every rank calls it with the same stack."""
+    mesh = pm.dp_mesh(clouds.shape[0])
+    if mesh is None:
+        return embed(clouds)
+    per = clouds.shape[0] // mesh.shape["dp"]
+    r0 = mesh.local_rank("dp") * per
+    return pm.all_gather(embed(clouds[r0:r0 + per]), mesh, "dp")
+
+
 def batched_embed(clouds: torch.Tensor, cfg: UMAPConfig, k: int, n_epochs: int,
                   a: float, b: float) -> torch.Tensor:
     """Per-layer fits of clouds [L, n, D] -> [L, n, n_components]
     (tdax's ``batched_embed_fn``): every layer with the same seed, as
-    the reference builds a fresh ``UMAP(random_state=42)`` per layer."""
-    emb, _ = _embed(clouds, k, cfg.n_components, cfg.metric, n_epochs, cfg.random_state,
-                    a, b, cfg.learning_rate, cfg.negative_sample_rate,
-                    cfg.repulsion_strength, cfg.local_connectivity, cfg.set_op_mix_ratio)
-    return emb
+    the reference builds a fresh ``UMAP(random_state=42)`` per layer;
+    the layers split over a process group's ranks (``shard_layer_axis``)."""
+    def embed(part):
+        return _embed(part, k, cfg.n_components, cfg.metric, n_epochs, cfg.random_state,
+                      a, b, cfg.learning_rate, cfg.negative_sample_rate,
+                      cfg.repulsion_strength, cfg.local_connectivity, cfg.set_op_mix_ratio)[0]
+    return shard_layer_axis(embed, clouds)
 
 
 def batched_shared_embed(clouds: torch.Tensor, cfg: UMAPConfig, k: int, n_fit_epochs: int,
@@ -235,15 +256,19 @@ def batched_shared_embed(clouds: torch.Tensor, cfg: UMAPConfig, k: int, n_fit_ep
     """Shared reducer (tdax's ``batched_shared_embed_fn``): fit on the
     LAST layer, then transform every layer against it, [L, n, D] ->
     [L, n, n_components].  The same as ``UMAP.fit`` + a per-layer
-    ``transform`` loop: the transform draws nothing at random."""
+    ``transform`` loop: the transform draws nothing at random.  Under a
+    process group every rank fits the whole stack's last layer and
+    transforms its own share of the layers (``shard_layer_axis``)."""
     train = clouds[-1]
     emb_train, _ = _embed(train, k, cfg.n_components, cfg.metric, n_fit_epochs,
                           cfg.random_state, a, b, cfg.learning_rate,
                           cfg.negative_sample_rate, cfg.repulsion_strength,
                           cfg.local_connectivity, cfg.set_op_mix_ratio)
-    return _transform_core(clouds, train, emb_train, k, cfg.metric, n_t_epochs, a, b,
-                           cfg.learning_rate, cfg.negative_sample_rate,
-                           cfg.repulsion_strength, cfg.local_connectivity)
+    return shard_layer_axis(
+        lambda part: _transform_core(part, train, emb_train, k, cfg.metric, n_t_epochs, a, b,
+                                     cfg.learning_rate, cfg.negative_sample_rate,
+                                     cfg.repulsion_strength, cfg.local_connectivity),
+        clouds)
 
 
 def _prepare(clouds, cfg: UMAPConfig | None, n_neighbors: int | None, device):
@@ -258,7 +283,9 @@ def _prepare(clouds, cfg: UMAPConfig | None, n_neighbors: int | None, device):
 
 def fit_transform_batched(clouds, cfg: UMAPConfig | None = None,
                           n_neighbors: int | None = None, device=None) -> np.ndarray:
-    """Embed a stack of clouds [L, n, D] -> [L, n, n_components], one fit per layer."""
+    """Embed a stack of clouds [L, n, D] -> [L, n, n_components], one fit
+    per layer; under a process group the layers split over its ranks
+    (collective: every rank calls it with the same stack)."""
     cfg, cs, n, k, (a, b) = _prepare(clouds, cfg, n_neighbors, device)
     return batched_embed(cs, cfg, k, _default_epochs(n, cfg.n_epochs), a, b).cpu().numpy()
 
@@ -267,7 +294,9 @@ def shared_transform_batched(clouds, cfg: UMAPConfig | None = None,
                              n_neighbors: int | None = None, device=None) -> np.ndarray:
     """Shared-reducer embed of a stack [L, n, D] -> [L, n, c]: fit on
     clouds[-1], transform every layer.  Dense path only (n <= the sparse
-    threshold): the legacy mode's workloads are the 36-point clouds."""
+    threshold): the legacy mode's workloads are the 36-point clouds.
+    Under a process group the transforms split over its ranks
+    (collective: every rank calls it with the same stack)."""
     cfg, cs, n, k, (a, b) = _prepare(clouds, cfg, n_neighbors, device)
     if n > UMAP.sparse_threshold:
         raise ValueError(

@@ -3,9 +3,12 @@
 
 ``mesh`` joins a ``torch.distributed`` process group and holds tdax's
 dp x tp mesh, sharding rules and ``shard_params``, with the collectives
-the model's tp sites and the extraction's dp gather run; ``train`` the
-single-device step and loop.  tdax's FSDP rules, hybrid mesh, sequence
-and context parallelism and the 1F1B pipeline are not ported yet.
+the model's tp sites, the extraction's dp gather and the sweep's layer
+split run; ``sharded_ops`` the row-sharded distances, kNN and sparse
+edge extraction of the scale paths (a module of its own, as in tdax,
+whose ``__all__`` does not name them); ``train`` the single-device step
+and loop.  tdax's FSDP rules, hybrid mesh, sequence and context
+parallelism and the 1F1B pipeline are not ported yet.
 
 Names resolve on first use, so that the model can import ``mesh``
 without importing the training step (which imports the model).

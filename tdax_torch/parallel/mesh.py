@@ -24,6 +24,11 @@ raises; nothing here catches it.
 
 ``COLLECTIVES`` counts the collectives run, by backend and kind
 (``"nccl.all_gather"``, ...), so a run can show which ran.
+
+Every collective here, and every function of the port that runs one
+(``sharded_ops``, the sweep and scale paths under a process group), is
+called by every rank of the group with the same arguments: a rank that
+skips the call leaves the others waiting until the group's timeout.
 """
 
 from __future__ import annotations
@@ -109,6 +114,34 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
+def joined() -> bool:
+    """Whether this process is a rank of a process group."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def is_writer() -> bool:
+    """Whether this process writes the files of a run: rank 0 of the
+    process group, or the process itself without one."""
+    return not joined() or dist.get_rank() == 0
+
+
+def barrier() -> None:
+    """Every rank waits for the others (after the writer's files); a
+    no-op without a process group."""
+    if joined():
+        dist.barrier()
+
+
+def dp_mesh(n: int) -> "Mesh | None":
+    """A dp mesh over every rank of the process group when one is joined
+    and its size divides ``n`` (a batch's rows, a stack's layers), as
+    tdax splits such an axis over its devices only when they divide it;
+    None otherwise: every rank then runs the whole axis."""
+    if not joined() or n % dist.get_world_size():
+        return None
+    return make_mesh(dp=dist.get_world_size())
+
+
 def make_mesh(dp: int | None = None, tp: int = 1, cp: int = 1) -> Mesh:
     """dp x tp mesh over the process group's ranks, tp innermost (a tp
     group is ``tp`` consecutive ranks).  ``cp > 1`` (context parallelism)
@@ -162,6 +195,25 @@ def broadcast(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     dist.broadcast(x, src=dist.get_global_rank(group, 0), group=group)
     _count("broadcast", group)
     return x
+
+
+def _first_rank(mesh: Mesh) -> int:
+    return int(mesh.device_mesh.mesh.flatten()[0])
+
+
+def broadcast_object(obj, mesh: Mesh):
+    """The mesh's first rank's ``obj`` (any picklable value) on every rank
+    of the process group, which ``make_mesh``'s meshes span; the other
+    ranks' ``obj`` is ignored."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=_first_rank(mesh))
+    _count("broadcast_object", None)
+    return box[0]
+
+
+def is_first_rank(mesh: Mesh) -> bool:
+    """Whether this rank is the mesh's first."""
+    return dist.get_rank() == _first_rank(mesh)
 
 
 def split_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -28,6 +28,7 @@ from tdax_torch.config import SweepConfig
 from tdax_torch.data.adversarial import CONDITIONS
 from tdax_torch.data.io import activations_to_layer_clouds, dump_json, ensure_dir
 from tdax_torch.metrics.persistence import get_persistence
+from tdax_torch.parallel.mesh import barrier, is_writer
 from tdax_torch.pipeline.tda_sweep import embed_and_silhouettes, persistence_per_layer
 from tdax_torch.runtime import get_device
 
@@ -51,11 +52,16 @@ def compute_tda_for_condition(condition: str, clouds: np.ndarray,
                               device=None) -> list[dict]:
     """clouds [L, n, hidden]; labels: img_color/img_shape/txt_color/txt_shape.
     Writes the condition's point clouds, diagrams and layer_stats.json
-    and returns its per-layer stats."""
-    if verbose:
+    and returns its per-layer stats.  Under a process group: collective,
+    the layers split over the ranks, rank 0 alone printing and writing."""
+    writer = is_writer()
+    if verbose and writer:
         print(f"\n--- Analyzing {condition} ---")
-    diag_dir = ensure_dir(os.path.join(output_subdir, "diagrams"))
-    cloud_dir = ensure_dir(os.path.join(output_subdir, "point_clouds"))
+    diag_dir = os.path.join(output_subdir, "diagrams")
+    cloud_dir = os.path.join(output_subdir, "point_clouds")
+    if writer:
+        ensure_dir(diag_dir)
+        ensure_dir(cloud_dir)
 
     cfg = _pin_protocol(cfg)
     clouds_3d, sil = embed_and_silhouettes(clouds, cfg, labels, device)
@@ -64,7 +70,7 @@ def compute_tda_for_condition(condition: str, clouds: np.ndarray,
 
     all_stats = []
     for i in range(cfg.n_layers):
-        if cfg.save_clouds:
+        if cfg.save_clouds and writer:
             np.save(os.path.join(cloud_dir, f"layer_{i}_cloud.npy"), clouds_3d[i])
         dgms = dgms_per_layer[i]
         _, max_h0 = get_persistence(dgms[0])
@@ -80,6 +86,8 @@ def compute_tda_for_condition(condition: str, clouds: np.ndarray,
             "silhouette_txt_shape": float(sil["txt_shape"][i]),
         })
 
+    if not writer:
+        return all_stats
     if cfg.save_diagrams:
         from tdax_torch.viz.diagrams import save_diagram_png
 
@@ -151,10 +159,16 @@ def run_adversarial_sweep(all_data: dict[str, dict], output_dir: str,
     """The four conditions' sweeps; returns and writes summary.json
     ({"condition_stats": {condition: [per-layer stats]},
     "n_samples_per_condition": {condition: n}}).  Runs on the card
-    unless ``device="cpu"``."""
+    unless ``device="cpu"``.  Under a process group the call is
+    collective (each condition's layers split over the ranks), every
+    rank returns the summary, and rank 0 alone prints and writes, the
+    others waiting for it."""
     cfg = cfg or SweepConfig()
     device = get_device(device)
-    ensure_dir(os.path.join(output_dir, "comparison"))
+    writer = is_writer()
+    verbose = verbose and writer
+    if writer:
+        ensure_dir(os.path.join(output_dir, "comparison"))
 
     n_avail = len(next(iter(all_data.values()))["activations"])
     if n_avail < cfg.n_layers:
@@ -176,12 +190,14 @@ def run_adversarial_sweep(all_data: dict[str, dict], output_dir: str,
             condition, clouds, labels, os.path.join(output_dir, condition), cfg,
             verbose=verbose, device=device)
 
-    if cfg.save_diagrams:
+    if cfg.save_diagrams and writer:
         plot_comparison(condition_stats, cfg.n_layers,
                         os.path.join(output_dir, "comparison", "all_conditions_comparison.png"))
 
     summary = {"condition_stats": condition_stats, "n_samples_per_condition": n_per_condition}
-    dump_json(summary, os.path.join(output_dir, "summary.json"))
+    if writer:
+        dump_json(summary, os.path.join(output_dir, "summary.json"))
+    barrier()
     if verbose:
         print(f"\n--- Analysis Complete ---\nResults saved to: {output_dir}")
     return summary

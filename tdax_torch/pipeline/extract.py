@@ -38,7 +38,6 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from tdax_torch.config import ExtractConfig
 from tdax_torch.data.io import load_activations_npz, save_activations, save_activations_npz
@@ -48,7 +47,7 @@ from tdax_torch.models.qwen_vl.quantize import quantize_params
 from tdax_torch.models.qwen_vl.preprocess import load_image_batch
 from tdax_torch.models.qwen_vl.tokenizer import batch_encode, get_tokenizer
 from tdax_torch.ops.flash_attention import flash_sharding
-from tdax_torch.parallel.mesh import gather_batch, make_mesh
+from tdax_torch.parallel.mesh import barrier, dp_mesh, gather_batch, is_writer
 from tdax_torch.runtime import get_device
 
 
@@ -124,10 +123,8 @@ def extract_activations(metadata: list[dict], output_path: str,
         params = quantize_params(params)
 
     bs = extract_cfg.batch_size
-    group = dist.is_available() and dist.is_initialized()
-    world = dist.get_world_size() if group else 1
-    mesh = make_mesh(dp=world) if group and bs % world == 0 else None
-    writer = not group or dist.get_rank() == 0
+    mesh = dp_mesh(bs)
+    writer = is_writer()
     tmp_path = output_path + ".tmp.npz"
     done_acts, done_ids = _load_checkpoint(tmp_path, metadata, announce=writer)
     done = set(done_ids)
@@ -135,12 +132,11 @@ def extract_activations(metadata: list[dict], output_path: str,
     verbose = verbose and writer
     # this rank's rows of a padded batch (its images alone are decoded):
     # its dp share, or all of them
-    per, r = bs // world, mesh.local_rank("dp") if mesh is not None else 0
-    share = slice(None) if mesh is None else slice(r * per, (r + 1) * per)
-
-    def written():
-        if group:
-            dist.barrier()
+    if mesh is None:
+        share = slice(None)
+    else:
+        per = bs // mesh.shape["dp"]
+        share = slice(mesh.local_rank("dp") * per, (mesh.local_rank("dp") + 1) * per)
 
     encoded = batch_encode(tokenizer, metadata, cfg)
     max_len = _round_up(encoded["input_ids"].shape[1] + 1, 64)
@@ -192,7 +188,7 @@ def extract_activations(metadata: list[dict], output_path: str,
                 all_acts = np.concatenate(collected, axis=1)
                 if writer:
                     save_activations_npz(tmp_path, all_acts, collected_ids, metadata)
-                written()
+                barrier()
                 collected = [all_acts]
                 since_save = 0
                 if verbose:
@@ -208,7 +204,7 @@ def extract_activations(metadata: list[dict], output_path: str,
                                  all_acts, collected_ids, metadata)
             if os.path.exists(tmp_path):
                 os.remove(tmp_path)
-        written()
+        barrier()
         if verbose:
             print(f"Extracted activations for {len(collected_ids)} samples. "
                   f"Saved to {output_path}")

@@ -95,12 +95,20 @@ def run_legacy_sweep(all_data: dict[str, dict], metadata_path: str, device=None)
     ``tda_legacy_output/`` (with its ``summary_evolution_plot.png``),
     then ``tda_evolution_bound_umap.png`` and
     ``peak_layer_<p>_diagram_umap.png`` in the working directory, as
-    tdax's script writes them; returns the sweep's result."""
+    tdax's script writes them; returns the sweep's result.  Under a
+    process group the call is collective and rank 0 alone draws."""
+    from tdax_torch.parallel.mesh import barrier, is_writer
     from tdax_torch.pipeline.tda_sweep import run_tda_sweep
 
     cfg = legacy_sweep_config(all_data)
     result = run_tda_sweep(all_data, metadata_path, cfg, device=device)
+    if is_writer():
+        _legacy_plots(result, cfg)
+    barrier()
+    return result
 
+
+def _legacy_plots(result: dict, cfg) -> None:
     from tdax_torch.viz.diagrams import plot_diagrams
     from tdax_torch.viz.evolution import _plt, plot_evolution_1x3, plot_evolution_2x2
 
@@ -119,4 +127,3 @@ def run_legacy_sweep(all_data: dict[str, dict], metadata_path: str, device=None)
     plt.savefig(f"peak_layer_{peak}_diagram_umap.png")
     plt.close(fig)
     print(f"Saved diagram for peak layer {peak}")
-    return result

@@ -41,17 +41,30 @@ import torch
 from tdax_torch.ops.rips import rips_from_distances, rips_sparse
 from tdax_torch.ops.rips.mst import h0_diagram_device
 from tdax_torch.ops.sqdist import euclidean
+from tdax_torch.parallel import mesh as pm
 from tdax_torch.runtime import as_device_f32, get_device
 
 THRESH_SAMPLE = 512      # rows whose k-th distance picks the threshold
 REFINE_BLOCK = 131072    # edges refined per pass: two [block, d] gathers
 
 
-def distance_matrix(x, device=None) -> torch.Tensor:
+def distance_matrix(x, device=None, mesh=None) -> torch.Tensor:
     """[n, d] -> [n, n] f32 Euclidean distances on the device (tdax's
     ``distance_matrix_tpu``, which returns the host copy).  Symmetrized
-    exactly, (d + d^T) * 0.5 in f32, for the combinatorial engine."""
-    d = euclidean(as_device_f32(x, device))
+    exactly, (d + d^T) * 0.5 in f32, for the combinatorial engine.
+
+    With ``mesh`` the call is collective (every rank of the mesh makes
+    it, with the same ``x``): each rank computes its row block over dp in
+    true f32 (``sharded_pairwise_sq_euclidean``), takes its root, and the
+    blocks are gathered in rank order; every rank returns the whole
+    matrix.  As on tdax's mesh path the diagonal is not zeroed: the
+    expansion form may leave a small positive value there."""
+    xj = as_device_f32(x, device)
+    if mesh is not None:
+        from tdax_torch.parallel.sharded_ops import sharded_pairwise_sq_euclidean
+        d = pm.all_gather(sharded_pairwise_sq_euclidean(xj, mesh).sqrt_(), mesh, "dp")
+    else:
+        d = euclidean(xj)
     d = d + d.T
     return d.mul_(0.5)
 
@@ -62,24 +75,35 @@ def _sync(device: torch.device) -> None:
 
 
 def rips_at_scale(x, maxdim: int = 2, thresh: float = np.inf, device=None,
-                  h0_on_device: bool = True) -> dict:
+                  h0_on_device: bool = True, mesh=None) -> dict:
     """VR persistence of a large cloud: distances on the card, H0 by
     Boruvka on the card (``h0_on_device``, the default; else the engine's
     dim-0 bars), H1+ in the native engine.  Returns {"dgms": [...],
     "timings": {stage: s}} (host clock; each device stage ends in a
-    synchronise)."""
+    synchronise).
+
+    With ``mesh`` the call is collective: the matrix is
+    ``distance_matrix(mesh=)``'s, H0 and the engine run on the mesh's
+    first rank alone (ranks sharing a host run one engine), and its
+    result, timings included, is broadcast to every rank."""
     timings = {}
     t = time.perf_counter()
-    dist = distance_matrix(x, device)
+    dist = distance_matrix(x, device, mesh)
     _sync(dist.device)
     timings["distance_s"] = time.perf_counter() - t
+    if mesh is not None and not pm.is_first_rank(mesh):
+        del dist
+        return pm.broadcast_object(None, mesh)
+
+    def out(result: dict) -> dict:
+        return result if mesh is None else pm.broadcast_object(result, mesh)
 
     if h0_on_device:
         t = time.perf_counter()
         dgm0 = h0_diagram_device(dist, thresh)
         timings["h0_s"] = time.perf_counter() - t
         if maxdim == 0:
-            return {"dgms": [dgm0], "timings": timings}
+            return out({"dgms": [dgm0], "timings": timings})
 
     t = time.perf_counter()
     host = dist.cpu().numpy()
@@ -92,7 +116,7 @@ def rips_at_scale(x, maxdim: int = 2, thresh: float = np.inf, device=None,
         # the on-device H0 replaces the engine's dim-0 output
         result["dgms"][0] = dgm0
     result["timings"] = timings
-    return result
+    return out(result)
 
 
 # --- the sparse path -------------------------------------------------------------
@@ -119,13 +143,19 @@ def _kth_median(d_rows: torch.Tensor, target_degree: int) -> torch.Tensor:
     return _median(kth)
 
 
-def _expansion_rows(x_rows: torch.Tensor, x_full: torch.Tensor, sq_rows: torch.Tensor,
-                    sq_full: torch.Tensor) -> torch.Tensor:
-    """[m, n] expansion-form distances sqrt(max(|x_r|^2 + |x_c|^2 - 2 x_r.x_c, 0))
+def _expansion_sq_rows(x_rows: torch.Tensor, x_full: torch.Tensor, sq_rows: torch.Tensor,
+                       sq_full: torch.Tensor) -> torch.Tensor:
+    """[m, n] expansion-form squared distances max(|x_r|^2 + |x_c|^2 - 2 x_r.x_c, 0)
     from one true-f32 matrix product; rounding as tdax's (s - 2g, with 2g exact)."""
     g = x_rows @ x_full.T
     g.mul_(-2.0).add_(sq_rows[:, None] + sq_full[None, :])
-    return g.clamp_min_(0.0).sqrt_()
+    return g.clamp_min_(0.0)
+
+
+def _expansion_rows(x_rows: torch.Tensor, x_full: torch.Tensor, sq_rows: torch.Tensor,
+                    sq_full: torch.Tensor) -> torch.Tensor:
+    """[m, n] expansion-form distances, the root of ``_expansion_sq_rows``."""
+    return _expansion_sq_rows(x_rows, x_full, sq_rows, sq_full).sqrt_()
 
 
 def _select_threshold(xj: torch.Tensor, n: int, target_degree: int,
@@ -215,7 +245,8 @@ def _refine_edge_values(xj: torch.Tensor, r: torch.Tensor, c: torch.Tensor,
 
 def rips_at_scale_sparse(x, maxdim: int = 2, target_degree: int = 40,
                          degree_headroom: float = 4.0, block_rows: int = 8192,
-                         fused_max: int = 16384, device=None, *, _with_csr: bool = False) -> dict:
+                         fused_max: int = 16384, device=None, mesh=None, *,
+                         _with_csr: bool = False) -> dict:
     """VR persistence of a large cloud from its thresholded neighbour
     graph: the threshold (the median over 512 rows of the target_degree-th
     neighbour distance) and the edges within it on the card, the edge
@@ -227,7 +258,13 @@ def rips_at_scale_sparse(x, maxdim: int = 2, target_degree: int = 40,
     Returns {"dgms", "thresh", "n_edges", "timings": {stage: s}} (host
     clock; each device stage ends in a synchronise).  Edges within ~1e-4
     relative of the threshold may fall on either side of it: membership
-    is decided in the expansion form, values are difference form."""
+    is decided in the expansion form, values are difference form.
+
+    With ``mesh`` the blocked branch (n > ``fused_max``) is collective:
+    ``sharded_edge_extract`` over the mesh's dp axis (its first axis
+    without one), ``min(block_rows, 2048)`` rows a chunk, then the CSR
+    tail on the mesh's first rank, whose result every rank returns.  The
+    fused branch ignores the mesh, as tdax's does."""
     timings: dict[str, float] = {}
     t0 = time.perf_counter()
     xj = as_device_f32(x, device)
@@ -255,6 +292,28 @@ def rips_at_scale_sparse(x, maxdim: int = 2, target_degree: int = 40,
     timings["thresh_s"] = time.perf_counter() - t0
     block_rows = min(block_rows, n)
     row_budget = int(target_degree * degree_headroom)
+
+    if mesh is not None:
+        # rows sharded over the mesh, each rank its shard against the
+        # whole cloud; the same contract (column-sorted kept prefixes and
+        # counts), so the CSR tail is shared.  tdax honours the mesh on
+        # this branch only: the fused one above returns before it.
+        from tdax_torch.parallel.sharded_ops import sharded_edge_extract
+        t0 = time.perf_counter()
+        axis = "dp" if "dp" in mesh.shape else next(iter(mesh.shape))
+        cols, counts, n_trunc = sharded_edge_extract(xj, thresh, row_budget, mesh, axis=axis,
+                                                     chunk=min(block_rows, 2048))
+        if n_trunc:
+            raise ValueError(f"{n_trunc} rows have >= {row_budget} neighbors within the "
+                             f"threshold; raise degree_headroom")
+        r, c = _edges_from_prefix(torch.from_numpy(cols).to(xj.device),
+                                  torch.from_numpy(counts).to(xj.device, torch.int64), True)
+        _sync(xj.device)
+        timings["extract_s"] = time.perf_counter() - t0
+        if not pm.is_first_rank(mesh):
+            return pm.broadcast_object(None, mesh)
+        return pm.broadcast_object(
+            _sparse_csr_tail(xj, n, r, c, thresh, maxdim, timings, _with_csr), mesh)
 
     # every block is launched before any result is read back
     t0 = time.perf_counter()

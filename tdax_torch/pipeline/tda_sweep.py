@@ -36,6 +36,7 @@ from tdax_torch.metrics.silhouette import encode_labels, silhouette
 from tdax_torch.ops.rips import rips
 from tdax_torch.ops.umap.umap import (UMAP, _default_epochs, _prepare, _transform_epochs,
                                       batched_embed, batched_shared_embed)
+from tdax_torch.parallel.mesh import barrier, is_writer
 from tdax_torch.runtime import as_device_f32
 from tdax_torch.utils.log import log_event
 
@@ -53,7 +54,12 @@ def batched_silhouettes(clouds, label_sets: dict[str, list[str]],
 
 def embed_layers(clouds, cfg: SweepConfig, device=None) -> torch.Tensor:
     """[L, n, D] -> [L, n, 3] f32 on the device, in the configured reducer
-    mode; the per-layer mode is batched and dense at any n, as tdax's."""
+    mode; the per-layer mode is batched and dense at any n, as tdax's.
+    Under a process group whose size divides L the per-layer mode and
+    the dense shared mode split the layers over its ranks and gather
+    them (collective: every rank calls it with the same stack); the
+    shared mode past the sparse threshold runs whole on every rank, as
+    tdax's does."""
     ucfg, cs, n, k, (a, b) = _prepare(clouds, cfg.umap, None, device)
     if cfg.reducer_mode == "per_layer":
         return batched_embed(cs, ucfg, k, _default_epochs(n, ucfg.n_epochs), a, b)
@@ -77,7 +83,11 @@ def embed_and_silhouettes(clouds, cfg: SweepConfig, label_sets: dict[str, list[s
     label-set silhouette, computed on the device; one copy of the
     results to the host.  A tensor stack is used where it lies (a stack
     on the card makes no host round trip)."""
-    embs = embed_layers(clouds, cfg, device)
+    # row-major whatever the path (the layout inherits eigh's column-major
+    # vectors, a gather over ranks returns rows): the silhouettes' sums,
+    # and so the stats, then round alike, and the .npy clouds are
+    # C-ordered as tdax's
+    embs = embed_layers(clouds, cfg, device).contiguous()
     sils = batched_silhouettes(embs, label_sets)
     return embs.cpu().numpy().astype(np.float32), sils
 
@@ -115,16 +125,26 @@ def run_tda_sweep(all_data: dict[str, dict], metadata_path: str,
     "clouds_3d": [L, n, 3], "diagrams": [...], "sample_ids": [...],
     "timings": {stage: s}} and writes the artifact tree.  Runs on the
     card unless ``device="cpu"``.  With ``cfg.save_diagrams`` off it
-    draws no PNG at all and needs no matplotlib."""
+    draws no PNG at all and needs no matplotlib.
+
+    Under a process group the call is collective: the embedding splits
+    the layers over the ranks (``embed_and_silhouettes``), every rank
+    returns the whole result, and rank 0 alone prints, wipes the output
+    directory and writes the files, the others waiting for it."""
     from tdax_torch.runtime import get_device
 
     cfg = cfg or SweepConfig()
     device = get_device(device)
+    writer = is_writer()
+    verbose = verbose and writer
 
-    if os.path.exists(cfg.output_dir):
-        shutil.rmtree(cfg.output_dir)  # the reference wipes per run
-    diagram_dir = ensure_dir(os.path.join(cfg.output_dir, "diagrams"))
-    cloud_dir = ensure_dir(os.path.join(cfg.output_dir, "point_clouds_3d"))
+    diagram_dir = os.path.join(cfg.output_dir, "diagrams")
+    cloud_dir = os.path.join(cfg.output_dir, "point_clouds_3d")
+    if writer:
+        if os.path.exists(cfg.output_dir):
+            shutil.rmtree(cfg.output_dir)  # the reference wipes per run
+        ensure_dir(diagram_dir)
+        ensure_dir(cloud_dir)
 
     metadata_map = {m["id"]: m for m in load_metadata(metadata_path)}
 
@@ -151,8 +171,9 @@ def run_tda_sweep(all_data: dict[str, dict], metadata_path: str,
     if verbose:
         print(f"[tdax_torch] embed+silhouettes ({cfg.reducer_mode}): "
               f"{timings['embed_silhouettes_s']:.1f}s", flush=True)
-    log_event("embed", mode=cfg.reducer_mode, n_layers=cfg.n_layers,
-              seconds=round(timings["embed_silhouettes_s"], 2))
+    if writer:
+        log_event("embed", mode=cfg.reducer_mode, n_layers=cfg.n_layers,
+                  seconds=round(timings["embed_silhouettes_s"], 2))
 
     t = time.perf_counter()
     dgms_per_layer = persistence_per_layer(clouds_3d, maxdim=cfg.rips.maxdim,
@@ -160,12 +181,14 @@ def run_tda_sweep(all_data: dict[str, dict], metadata_path: str,
     timings["persistence_s"] = time.perf_counter() - t
     if verbose:
         print(f"[tdax_torch] persistence: {timings['persistence_s']:.1f}s", flush=True)
-    log_event("persistence", n_layers=cfg.n_layers, seconds=round(timings["persistence_s"], 2))
+    if writer:
+        log_event("persistence", n_layers=cfg.n_layers,
+                  seconds=round(timings["persistence_s"], 2))
 
     t = time.perf_counter()
     all_stats = []
     for i in range(cfg.n_layers):
-        if cfg.save_clouds:
+        if cfg.save_clouds and writer:
             np.save(os.path.join(cloud_dir, f"layer_{i}_cloud.npy"), clouds_3d[i])
         stats = diagram_stats(dgms_per_layer[i], layer=i)
         stats["silhouette_shape"] = float(sil["shape"][i])
@@ -179,8 +202,9 @@ def run_tda_sweep(all_data: dict[str, dict], metadata_path: str,
             print(f"  SILHOUETTE (Shape): {stats['silhouette_shape']:.4f}")
             print(f"  SILHOUETTE (Color): {stats['silhouette_color']:.4f}")
 
-    dump_json(all_stats, os.path.join(cfg.output_dir, "summary_stats.json"))
-    if cfg.save_diagrams:
+    if writer:
+        dump_json(all_stats, os.path.join(cfg.output_dir, "summary_stats.json"))
+    if cfg.save_diagrams and writer:
         # the only matplotlib in the sweep; tdax draws the evolution plot
         # even without the diagrams
         from tdax_torch.viz.diagrams import save_diagram_png
@@ -195,6 +219,7 @@ def run_tda_sweep(all_data: dict[str, dict], metadata_path: str,
         with cf.ThreadPoolExecutor(max_workers=4) as pool:
             list(pool.map(render, range(cfg.n_layers)))
         plot_evolution_2x2(all_stats, os.path.join(cfg.output_dir, "summary_evolution_plot.png"))
+    barrier()
     timings["artifacts_s"] = time.perf_counter() - t
 
     peak_layer = peak(all_stats, cfg.peak_rule)

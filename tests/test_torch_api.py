@@ -1,6 +1,8 @@
-"""tdax's package-level names resolve in the port: every name of
-``tdax.data``, ``tdax.metrics`` and ``tdax.viz``'s ``__all__``, and the
-five lazy top-level names of ``tdax``."""
+"""tdax's package-level names resolve in the port: every name of the
+``__all__`` of ``tdax.data``, ``tdax.metrics``, ``tdax.viz``,
+``tdax.pipeline`` (resolved on first use, as ``tdax_torch.parallel``'s
+names), ``tdax.ops.rips``, ``tdax.ops.umap`` and ``tdax.models.qwen_vl``,
+and the five lazy top-level names of ``tdax``."""
 
 import importlib
 
@@ -12,7 +14,8 @@ import tdax_torch
 TOP_LEVEL = ["rips", "UMAP", "silhouette_score", "bottleneck_distance", "wasserstein_distance"]
 
 
-@pytest.mark.parametrize("sub", ["data", "metrics", "viz"])
+@pytest.mark.parametrize("sub", ["data", "metrics", "viz", "pipeline", "ops.rips", "ops.umap",
+                                 "models.qwen_vl"])
 def test_subpackage_names_match_tdax(sub):
     want = importlib.import_module(f"tdax.{sub}").__all__
     port = importlib.import_module(f"tdax_torch.{sub}")
@@ -37,3 +40,14 @@ def test_unknown_top_level_name_raises_attribute_error():
         tdax.nope
     assert not hasattr(tdax_torch, "plot_diagrams")
 
+
+def test_pipeline_names_import_from_the_package():
+    """The reference's scripts import the sweeps from the package
+    (debug_tda_pipeline.py:16, analyze_tda_over_layers.py:18)."""
+    from tdax_torch.pipeline import run_adversarial_sweep, run_tda_sweep
+    from tdax_torch.pipeline.adversarial import run_adversarial_sweep as adversarial
+    from tdax_torch.pipeline.tda_sweep import run_tda_sweep as sweep
+    assert (run_tda_sweep, run_adversarial_sweep) == (sweep, adversarial)
+    with pytest.raises(AttributeError, match="'tdax_torch.pipeline' has no attribute 'nope'"):
+        import tdax_torch.pipeline
+        tdax_torch.pipeline.nope

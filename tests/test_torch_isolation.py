@@ -144,13 +144,24 @@ with tempfile.TemporaryDirectory() as tmp:
                                     rips=RipsConfig(backend="device")),
                         verbose=False, device="cpu")
     assert len(out["stats"]) == 2
-    # a world of one over gloo: the extraction's dp path (gather, rank 0 writes)
+    # a world of one over gloo: the extraction's dp path (gather, rank 0
+    # writes), the sweep's layer split and the sparse mesh extraction
     from tdax_torch.parallel import mesh
     mesh.init_distributed("cpu", rank=0, world_size=1, store_path=os.path.join(tmp, "store"))
     try:
         res = extract_activations(md[:3], os.path.join(tmp, "dp.pt"), cfg,
                                   ExtractConfig(batch_size=2), device="cpu", verbose=False)
         assert len(res) == 3 and mesh.COLLECTIVES == {"gloo.all_gather": 2}
+        out = run_tda_sweep(data, ds.metadata_path,
+                            SweepConfig(n_layers=2, output_dir=os.path.join(tmp, "sweep_dp"),
+                                        umap=UMAPConfig(n_epochs=5), save_diagrams=False),
+                            verbose=False, device="cpu")
+        assert len(out["stats"]) == 2
+        sp = rips_at_scale_sparse(rng.normal(size=(40, 6)), maxdim=1, target_degree=8,
+                                  fused_max=0, block_rows=16, device="cpu",
+                                  mesh=mesh.make_mesh())
+        assert sp["n_edges"] > 0
+        assert mesh.COLLECTIVES == {"gloo.all_gather": 4, "gloo.broadcast_object": 1}
     finally:
         mesh.shutdown()
 bad = sorted(m for m in sys.modules
@@ -185,7 +196,8 @@ def _sources():
             "tdax_torch/ops/umap/sparse_path.py", "tdax_torch/ops/umap/lobpcg.py",
             "tdax_torch/ops/rips/reference.py", "tdax_torch/ops/rips/tiny_device.py",
             "tdax_torch/ops/rips/api.py", "tdax_torch/ops/distances.py",
-            "tdax_torch/parallel/mesh.py", "tdax_torch/models/qwen_vl/tp.py"} <= names
+            "tdax_torch/parallel/mesh.py", "tdax_torch/models/qwen_vl/tp.py",
+            "tdax_torch/parallel/sharded_ops.py"} <= names
     return files
 
 

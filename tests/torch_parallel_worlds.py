@@ -249,3 +249,179 @@ def one_world(rank: int, world: int, store_path: str, inp_path: str, work: str) 
                 "grouped_extract": grouped_extract, "collectives": dict(pm.COLLECTIVES)}
     finally:
         pm.shutdown()
+
+
+# ---- the sweep and scale stages (tests/test_torch_parallel_scale.py) -------
+
+def _dgms(out: dict) -> list:
+    return [np.asarray(g) for g in out["dgms"]]
+
+
+def _stage3(inp: dict, mesh) -> dict:
+    """tdax's dry-run stage 3 on the mesh: kNN both metrics, the local
+    squared-distance block, rips_at_scale and the sparse extraction."""
+    from tdax_torch.parallel.sharded_ops import sharded_knn, sharded_pairwise_sq_euclidean
+    from tdax_torch.pipeline.scale import rips_at_scale, rips_at_scale_sparse
+    x = _t(inp["x"])
+    out = {f"knn_{m}": sharded_knn(x, inp["k"], mesh, metric=m) for m in ("euclidean", "cosine")}
+    out["sq_block"] = sharded_pairwise_sq_euclidean(x, mesh).numpy()
+    out["rips"] = _dgms(rips_at_scale(x, maxdim=1, mesh=mesh))
+    sp = rips_at_scale_sparse(x, maxdim=1, target_degree=12, fused_max=0,
+                              block_rows=x.shape[0], mesh=mesh)
+    out["sparse"] = {"n_edges": sp["n_edges"], "dgms": _dgms(sp)}
+    return out
+
+
+def _edges(inp: dict, mesh) -> dict:
+    """sharded_edge_extract on a cloud the axis pads, at each threshold."""
+    from tdax_torch.parallel.sharded_ops import sharded_edge_extract
+    x = _t(inp["x_pad"])
+    return {name: sharded_edge_extract(x, t, inp["budget"], mesh, chunk=inp["chunk"])
+            for name, t in inp["thresholds"].items()}
+
+
+class _Init:
+    """tdax's spectral inits in place of the port's while active: the
+    stack's per-layer inits (this rank's share of them) and the shared
+    fit's (tests/test_torch_sweep.py injects them so in one process)."""
+
+    def __init__(self, per_layer: np.ndarray, shared: np.ndarray, r0: int):
+        self.per_layer, self.shared, self.r0 = per_layer, shared, r0
+
+    def __enter__(self):
+        import tdax_torch.ops.umap.umap as tu
+        self.tu, self.orig = tu, tu.spectral_init
+
+        def fake(w, n_components, random_state):
+            if w.dim() == 2:
+                return _t(self.shared)
+            return _t(self.per_layer[self.r0:self.r0 + w.shape[0]])
+
+        tu.spectral_init = fake
+        return self
+
+    def __exit__(self, *exc):
+        self.tu.spectral_init = self.orig
+
+
+def _stage2(inp: dict, rank: int) -> dict:
+    """tdax's dry-run stage 2: both batched UMAP modes over the layer axis,
+    from the port's init and from tdax's, and a stack the world does not
+    divide."""
+    from tdax_torch.config import UMAPConfig
+    from tdax_torch.ops.umap.umap import fit_transform_batched, shared_transform_batched
+    ucfg = UMAPConfig(**inp["umap"])
+    clouds = inp["clouds"]
+    out = {}
+    for name, fn in (("fit", fit_transform_batched), ("shared", shared_transform_batched)):
+        out[name] = fn(clouds, ucfg, device="cpu")
+        per = len(clouds) // dist.get_world_size()
+        with _Init(inp["tdax_init"], inp["tdax_init_shared"], rank * per):
+            out[f"{name}_tdax_init"] = fn(clouds, ucfg, device="cpu")
+    before = dict(pm.COLLECTIVES)
+    out["undivided"] = fit_transform_batched(inp["undivided"], ucfg, device="cpu")
+    out["undivided_gathers"] = pm.COLLECTIVES.get("gloo.all_gather", 0) - before.get(
+        "gloo.all_gather", 0)
+    return out
+
+
+def scale_world(rank: int, world: int, store_path: str, inp_path: str) -> dict:
+    """The 8-rank world: stage 3 at dp=2 tp=4, the edge extraction
+    padded at dp=8, stage 2 one layer a rank."""
+    _join(rank, world, store_path)
+    try:
+        with open(inp_path, "rb") as f:
+            inp = pickle.load(f)
+        mesh = pm.make_mesh(dp=2, tp=4)
+        return {"dp_rank": mesh.local_rank("dp"), "stage3": _stage3(inp, mesh),
+                "edges": _edges(inp, pm.make_mesh(dp=8)), "stage2": _stage2(inp, rank),
+                "collectives": dict(pm.COLLECTIVES)}
+    finally:
+        pm.shutdown()
+
+
+class _Writes:
+    """The file writes of run_tda_sweep's module while active: each call
+    of its wipe, directory, .npy and JSON writers, noted by name."""
+
+    def __enter__(self):
+        import tdax_torch.pipeline.tda_sweep as ts
+        self.ts, self.calls = ts, []
+        self.orig = {name: getattr(ts, name) for name in ("dump_json", "ensure_dir")}
+        self.orig_np, self.orig_rm = ts.np.save, ts.shutil.rmtree
+        for name, fn in self.orig.items():
+            setattr(ts, name, self._noted(name, fn))
+        ts.np.save = self._noted("np.save", self.orig_np)
+        ts.shutil.rmtree = self._noted("rmtree", self.orig_rm)
+        return self
+
+    def _noted(self, name, fn):
+        def noted(*args, **kw):
+            self.calls.append(name)
+            return fn(*args, **kw)
+        return noted
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.ts, name, fn)
+        self.ts.np.save, self.ts.shutil.rmtree = self.orig_np, self.orig_rm
+
+
+def _sweep(inp: dict, out_dir: str) -> dict:
+    from tdax_torch.config import SweepConfig, UMAPConfig
+    from tdax_torch.data.io import load_activations
+    from tdax_torch.pipeline import run_tda_sweep
+    cfg = SweepConfig(n_layers=inp["n_layers"], output_dir=out_dir,
+                      umap=UMAPConfig(n_epochs=inp["n_epochs"]), save_diagrams=False)
+    with _Writes() as writes:
+        res = run_tda_sweep(load_activations(inp["npz"]), inp["metadata_path"], cfg,
+                            verbose=True, device="cpu")
+    return {"stats": res["stats"], "peak_layer": res["peak_layer"],
+            "clouds_3d": res["clouds_3d"], "writes": writes.calls}
+
+
+def sweep_world(rank: int, world: int, store_path: str, inp_path: str, out_dir: str) -> dict:
+    """The 4-rank world: run_tda_sweep of the tiny capture, each rank its
+    layers, into one output directory."""
+    _join(rank, world, store_path)
+    try:
+        with open(inp_path, "rb") as f:
+            inp = pickle.load(f)
+        return {**_sweep(inp, out_dir), "collectives": dict(pm.COLLECTIVES)}
+    finally:
+        pm.shutdown()
+
+
+def one_scale_world(rank: int, world: int, store_path: str, inp_path: str,
+                    work: str) -> dict:
+    """The world of one: the sweep, both UMAP modes, the dense matrix and
+    the sparse extraction without a process group, then in one."""
+    from tdax_torch.config import UMAPConfig
+    from tdax_torch.ops.umap.umap import fit_transform_batched, shared_transform_batched
+    from tdax_torch.pipeline.scale import (_expansion_rows, distance_matrix,
+                                           rips_at_scale_sparse)
+    with open(inp_path, "rb") as f:
+        inp = pickle.load(f)
+    x = _t(inp["x"])
+    ucfg = UMAPConfig(**inp["umap"])
+
+    def run(mesh):
+        sp = rips_at_scale_sparse(x, maxdim=1, target_degree=12, fused_max=0,
+                                  block_rows=x.shape[0], mesh=mesh, device="cpu")
+        return {"sweep": _sweep(inp, str(Path(work) / ("grouped" if mesh else "single"))),
+                "fit": fit_transform_batched(inp["clouds"], ucfg, device="cpu"),
+                "shared": shared_transform_batched(inp["clouds"], ucfg, device="cpu"),
+                "sparse": {"n_edges": sp["n_edges"], "dgms": _dgms(sp)}}
+
+    single = run(None)
+    sq = (x * x).sum(1)
+    d = _expansion_rows(x, x, sq, sq)
+    single["dense"] = ((d + d.T) * 0.5).numpy()
+    _join(rank, world, store_path)
+    try:
+        mesh = pm.make_mesh()
+        grouped = run(mesh)
+        grouped["dense"] = distance_matrix(x, mesh=mesh).numpy()
+        return {"single": single, "grouped": grouped, "collectives": dict(pm.COLLECTIVES)}
+    finally:
+        pm.shutdown()
