@@ -248,7 +248,34 @@ and runs these phases, printing JSON lines:
             h0_deaths_sm90_vs_fma);
             rips_at_scale_sparse(mesh=, fused_max=0) with one device's
             n_edges and diagrams within CROSS_ENGINE_TOL; every rank's
-            results equal.
+            results equal.  Then tdax's dry-run stages 4 and 8 and the
+            edge-list UMAP's mesh variants.  (a) In the NCCL world:
+            phase train's first step again under flash_sharding over the
+            dp=1 tp=1 mesh (full QwenVLConfig() decoder, bf16, remat,
+            --seed's init and batch), its loss and the fingerprint of its
+            params and both AdamW moments bitwise phase train's after its
+            warm step, 64 / 32 / 32 flash launches all sm90;
+            embed_sparse(mesh=) at UMAP_N and UMAP_LARGE_N x 4096 bitwise
+            phase umap_sparse's embeddings and transform_sparse(mesh=)
+            bitwise its transform.  (b) In the gloo world: the full
+            decoder widths cut to MD_TRAIN_LAYERS layers, dp=2 tp=2,
+            MD_TRAIN_STEPS plain steps and as many sequence-parallel ones
+            (sp_mesh), remat, against rank 0's one-device steps from the
+            same init (computed and freed first): each step's loss within
+            MD_TRAIN_LOSS_RTOL of one device's, equal on every rank, the
+            flash launches all sm90; the max relative error of each leaf
+            of rank 0's updated shard, each run's collectives by axis
+            (count, bytes, seconds), step walls and every rank's peak
+            memory reported.
+            embed_sparse(mesh=) at dp=4 on UMAP_N x 4096: planted-cluster
+            silhouette above UMAP_SIL_MIN, a transform_sparse(mesh=)
+            against it placing at least UMAP_PLACED_MIN, its pairwise-
+            distance correlation with phase umap_sparse's reported;
+            transform_sparse(mesh=) against phase umap_sparse's
+            embedding bitwise its transform; knn_blocked(mesh=) every row
+            exact or its disputed neighbours within MD_KNN_TIE; every
+            rank's results equal.  Phases 6, 6b, 6c and 9 run before this
+            one, inside the run's temp dir.
 6. scale    rips_at_scale on bench_scale.py's seeded 3-sphere cloud,
             10000 x 4096, threshold for ~40 neighbours, maxdim
             SCALE_MAXDIM: the distance matrix through sqdist_sm90.cu (its
@@ -588,6 +615,24 @@ MD_KNN_K, MD_KNN_TIE = 15, 1e-5
 MD_SCALE_MAXDIM = 1
 MD_SPARSE_KW = dict(maxdim=MD_SCALE_MAXDIM, target_degree=SCALE_DEGREE, fused_max=0,
                     block_rows=SPARSE_BLOCK_ROWS)
+# phase multidevice's training (tdax's dry-run stages 4 and 8): the full
+# decoder widths cut to MD_TRAIN_LAYERS layers (depth only: four ranks
+# and rank 0's one-device reference share one card's memory and the
+# phase's time), text-only, bf16, remat, a fixed MD_TRAIN_BATCH x
+# MD_TRAIN_SEQ batch whose last row's final MD_TRAIN_MASKED positions
+# are masked (the dp ranks' token counts differ), AdamW at a constant lr,
+# MD_TRAIN_STEPS plain steps and as many sequence-parallel ones at dp=2
+# tp=2 against rank 0's one-device steps from the same init.  Each
+# step's loss within MD_TRAIN_LOSS_RTOL relative of one device's: the
+# sharded step rounds the same bf16 math in another order (the tp
+# partials summed in f32 across ranks, the dp halves' CE summed apart),
+# which moves a logit by a bf16 step here and there and the mean CE over
+# ~1000 tokens by far less than 1e-3 of it, while a gradient missing a
+# rank's share moves the second step's loss (the first step moves it by
+# ~10%) by more.
+MD_TRAIN_LAYERS, MD_TRAIN_STEPS, MD_TRAIN_LR = 2, 2, 1e-4
+MD_TRAIN_BATCH, MD_TRAIN_SEQ, MD_TRAIN_MASKED = 4, 256, 32
+MD_TRAIN_LOSS_RTOL = 1e-3
 
 # (name, B, Tq, Tk, nh, hd, causal, calls per batch on the main path)
 MAIN_SHAPES = [
@@ -2692,7 +2737,7 @@ def phase_umap_sparse(smi: str) -> dict:
     draw_s = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
-    _, _, large = _umap_fit(x_large, labels_large, "large")
+    _, emb_large, large = _umap_fit(x_large, labels_large, "large")
     large["draw_s"] = draw_s
     info["large"] = {"n": UMAP_LARGE_N, **large}
     info["profile_large"] = profile_device(
@@ -2705,6 +2750,8 @@ def phase_umap_sparse(smi: str) -> dict:
     emit(info)
     if moved:
         raise AssertionError(f"umap_sparse launched kernels of the port: {moved}")
+    # phase multidevice's mesh calls are held to these one-device results
+    info["arrays"] = {"embedding": emb_card, "transform": got, "embedding_large": emb_large}
     return info
 
 
@@ -3916,6 +3963,46 @@ def train_flops(cfg, b, t) -> float:
     return 3.0 * fwd
 
 
+def _train_batch(cfg, seed: int, device) -> dict:
+    """Phase train's fixed batch: TRAIN_BATCH x TRAIN_SEQ ids from
+    ``seed``'s numpy generator, the last row's final TRAIN_MASKED
+    positions masked."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    mask = np.ones((TRAIN_BATCH, TRAIN_SEQ), np.int32)
+    mask[-1, -TRAIN_MASKED:] = 0
+    return {"input_ids": torch.as_tensor(ids, device=device).long(),
+            "attn_mask": torch.as_tensor(mask, device=device)}
+
+
+def _f32_bits(x) -> int:
+    """The bit pattern of an f32 scalar (a loss), to compare bitwise."""
+    import numpy as np
+    return int(np.float32(float(x)).view(np.uint32))
+
+
+def _train_fingerprint(params, state) -> list:
+    """Exact integer sums of the bits of every leaf of the params and of
+    AdamW's two moments (the sum of the 16-bit words and the sum weighted
+    by position mod 65521, in int64 over 2^24-word chunks), so that equal
+    trees give equal lists and a one-bit change shows."""
+    import torch
+    out = []
+    for tree in (params, state.mu, state.nu):
+        for leaf in _md_leaves(tree):
+            words = leaf.detach().reshape(-1).view(torch.int16)
+            total = weighted = 0
+            for c0 in range(0, words.numel(), 1 << 24):
+                chunk = words[c0:c0 + (1 << 24)].long()
+                pos = torch.arange(c0, c0 + chunk.numel(), device=chunk.device) % 65521 + 1
+                total += int(chunk.sum())
+                weighted += int((chunk * pos).sum())
+            out.append([total, weighted])
+    return out
+
+
 def phase_train(smi: str, seed: int) -> dict:
     """The training step at the full decoder width on the card."""
     import numpy as np
@@ -3938,12 +4025,7 @@ def phase_train(smi: str, seed: int) -> dict:
     n_params = sum(leaf.numel() for leaf in state.leaves)
     step = make_train_step(cfg, opt, remat=True)
 
-    rng = np.random.default_rng(seed)
-    ids = rng.integers(1, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
-    mask = np.ones((TRAIN_BATCH, TRAIN_SEQ), np.int32)
-    mask[-1, -TRAIN_MASKED:] = 0
-    batch = {"input_ids": torch.as_tensor(ids, device="cuda").long(),
-             "attn_mask": torch.as_tensor(mask, device="cuda")}
+    batch = _train_batch(cfg, seed, "cuda")
 
     losses = []
     t0 = time.perf_counter()
@@ -3951,6 +4033,9 @@ def phase_train(smi: str, seed: int) -> dict:
     losses.append(loss)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    # phase multidevice's NCCL world of one takes this first step again
+    reference = {"seed": seed, "loss_bits": _f32_bits(loss),
+                 "fingerprint": _train_fingerprint(params, state)}
 
     fa.LAUNCHES = fa.LAUNCHES_SM90 = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
     fa.BWD_DQ_LAUNCHES_SM90 = fa.BWD_DKV_LAUNCHES_SM90 = 0
@@ -4027,6 +4112,7 @@ def phase_train(smi: str, seed: int) -> dict:
             "max_gap_to_reference_losses": ref_gap, "split_step": parts,
             "profiled_step": profiled}
     emit(info)
+    info["reference"] = reference
     if n_params != 7_721_324_544:
         raise AssertionError(f"train: {n_params} parameters, expected 7,721,324,544")
     if launches != expected:
@@ -4087,71 +4173,64 @@ class _FlashCalls:
         self.fa.flash_attention = self.orig
 
 
-class _TimedAllReduce:
-    """The host seconds of the tp sums while active (the device
-    synchronised before and after each, so the time is the collective's)."""
+class _TimedCollectives:
+    """Count, bytes and host seconds of every mesh all_reduce, all_gather
+    and reduce_scatter while active, by axis and kind ("tp.all_reduce",
+    "dp.all_gather", ...): the bytes of each result on this rank, the
+    device synchronised before and after each, so the time is the
+    collective's, gloo's host staging included.  ``total(kind)`` sums a
+    kind over the axes."""
 
     def __enter__(self):
-        import torch
-        import tdax_torch.models.qwen_vl.tp as tp
-        self.tp, self.orig, self.seconds, self.calls = tp, tp.all_reduce, 0.0, 0
-
-        def timed(*args, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = self.orig(*args, **kw)
-            torch.cuda.synchronize()
-            self.seconds += time.perf_counter() - t0
-            self.calls += 1
-            return out
-
-        tp.all_reduce = timed
-        return self
-
-    def __exit__(self, *exc):
-        self.tp.all_reduce = self.orig
-
-
-class _TimedGathers:
-    """The bytes and host seconds of every mesh all_gather while active
-    (the device synchronised before and after each, so the time is the
-    gather's, the host staging of gloo included)."""
-
-    def __enter__(self):
-        import torch
         from tdax_torch.parallel import mesh as pm
-        self.pm, self.orig = pm, pm.all_gather
-        self.calls, self.bytes, self.seconds = 0, 0, 0.0
-
-        def timed(x, *args, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = self.orig(x, *args, **kw)
-            torch.cuda.synchronize()
-            self.seconds += time.perf_counter() - t0
-            self.bytes += out.numel() * out.element_size()
-            self.calls += 1
-            return out
-
-        pm.all_gather = timed
+        self.pm, self.stats = pm, {}
+        self.orig = {kind: getattr(pm, kind)
+                     for kind in ("all_reduce", "all_gather", "reduce_scatter")}
+        for kind, fn in self.orig.items():
+            setattr(pm, kind, self._timed(kind, fn))
         return self
 
+    def _timed(self, kind, fn):
+        import torch
+
+        def timed(x, mesh, axis, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(x, mesh, axis, *args, **kw)
+            torch.cuda.synchronize()
+            rec = self.stats.setdefault(f"{axis}.{kind}", {"count": 0, "bytes": 0,
+                                                            "seconds": 0.0})
+            rec["count"] += 1
+            rec["bytes"] += out.numel() * out.element_size()
+            rec["seconds"] += time.perf_counter() - t0
+            return out
+
+        return timed
+
+    def total(self, kind: str) -> dict:
+        recs = [r for key, r in self.stats.items() if key.endswith("." + kind)]
+        return {f: sum(r[f] for r in recs) for f in ("count", "bytes", "seconds")}
+
     def __exit__(self, *exc):
-        self.pm.all_gather = self.orig
+        for kind, fn in self.orig.items():
+            setattr(self.pm, kind, fn)
 
 
 def _md_stage(rec: dict, name: str, fn):
-    """fn()'s result; rec[name] its wall (synchronised host clock) and its
-    gathers: calls, the bytes each brought to this rank, their seconds."""
+    """fn()'s result; rec[name] its wall (synchronised host clock), its
+    gathers (calls, the bytes they brought to this rank, their seconds)
+    and its all_reduces (calls, seconds)."""
     import torch
     torch.cuda.synchronize()
-    with _TimedGathers() as g:
+    with _TimedCollectives() as tc:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rec[name] = {"wall_s": wall, "gathers": g.calls, "gathered_bytes": g.bytes,
-                 "gather_s": g.seconds}
+    g, r = tc.total("all_gather"), tc.total("all_reduce")
+    rec[name] = {"wall_s": wall, "gathers": g["count"], "gathered_bytes": g["bytes"],
+                 "gather_s": g["seconds"], "all_reduces": r["count"],
+                 "all_reduce_s": r["seconds"]}
     return out
 
 
@@ -4376,12 +4455,288 @@ def _md_gloo_sweep_scale(rank: int, device, data_dir: str, sweep_dir: str,
             "collectives": dict(pm.COLLECTIVES)}
 
 
+def _train_launches() -> dict:
+    import tdax_torch.ops.flash_attention as fa
+    return {"flash_fwd": fa.LAUNCHES, "flash_fwd_sm90": fa.LAUNCHES_SM90,
+            "flash_bwd_dq": fa.BWD_DQ_LAUNCHES, "flash_bwd_dkv": fa.BWD_DKV_LAUNCHES,
+            "flash_bwd_dq_sm90": fa.BWD_DQ_LAUNCHES_SM90,
+            "flash_bwd_dkv_sm90": fa.BWD_DKV_LAUNCHES_SM90}
+
+
+def _zero_train_launches() -> None:
+    import tdax_torch.ops.flash_attention as fa
+    fa.LAUNCHES = fa.LAUNCHES_SM90 = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
+    fa.BWD_DQ_LAUNCHES_SM90 = fa.BWD_DKV_LAUNCHES_SM90 = 0
+
+
+def _expected_train_launches(layers: int, steps: int) -> dict:
+    """A remat step's flash launches: a forward and its replay a layer,
+    one dq and one dk/dv launch a layer, all on the sm90 kernels."""
+    fwd, bwd = 2 * layers * steps, layers * steps
+    return {"flash_fwd": fwd, "flash_fwd_sm90": fwd, "flash_bwd_dq": bwd,
+            "flash_bwd_dkv": bwd, "flash_bwd_dq_sm90": bwd, "flash_bwd_dkv_sm90": bwd}
+
+
+def _md_umap_args(n: int) -> tuple:
+    """embed_sparse's arguments as UMAP.fit passes them for bench_umap.py's
+    reducer (cosine, k 15, 3-d, random_state 42) at n points."""
+    from tdax_torch.ops.umap import UMAP
+    from tdax_torch.ops.umap.umap import _default_epochs
+    u = UMAP(n_neighbors=UMAP_K, n_components=3, metric="cosine", random_state=42)
+    return (min(u.n_neighbors, n - 1), u.n_components, u.metric,
+            _default_epochs(n, u.n_epochs), u.random_state, u._a, u._b, u.learning_rate,
+            u.negative_sample_rate, u.repulsion_strength, u.local_connectivity,
+            u.set_op_mix_ratio)
+
+
+def _md_transform_args(n_train: int, n_new: int) -> tuple:
+    """transform_sparse's arguments after the train points, as
+    UMAP.transform passes them for the same reducer."""
+    from tdax_torch.ops.umap import UMAP
+    from tdax_torch.ops.umap.umap import _transform_epochs
+    u = UMAP(n_neighbors=UMAP_K, n_components=3, metric="cosine", random_state=42)
+    return (min(u.n_neighbors, n_train), u.metric, _transform_epochs(u.n_epochs, n_new),
+            u.random_state, u._a, u._b, u.learning_rate, u.negative_sample_rate,
+            u.repulsion_strength, u.local_connectivity)
+
+
+def _md_nccl_umap(device, ref: dict) -> dict:
+    """(a) embed_sparse(mesh=) at UMAP_N and UMAP_LARGE_N x 4096 and
+    transform_sparse(mesh=) of UMAP_TRANSFORM_N points against phase
+    umap_sparse's one-device embedding, in the NCCL world of one: each
+    against phase umap_sparse's own result, bitwise."""
+    import numpy as np
+    import torch
+    from tdax_torch.ops.umap.sparse_path import LAST_TIMINGS, embed_sparse, transform_sparse
+    from tdax_torch.parallel import mesh as pm
+
+    mesh = pm.make_mesh()
+    rec = {}
+    x, _, x_new, _ = umap_cloud(UMAP_N, n_new=UMAP_TRANSFORM_N)
+    xd = torch.as_tensor(x).to(device)
+    emb = _md_stage(rec, "embed_sparse", lambda: embed_sparse(xd, *_md_umap_args(UMAP_N),
+                                                              mesh=mesh))
+    rec["embed_sparse"]["timings"] = dict(LAST_TIMINGS)
+    tr = _md_stage(rec, "transform_sparse", lambda: transform_sparse(
+        x_new, xd, ref["embedding"], *_md_transform_args(UMAP_N, UMAP_TRANSFORM_N),
+        mesh=mesh))
+    del xd
+    x_large, _ = umap_cloud(UMAP_LARGE_N)
+    large = _md_stage(rec, "embed_sparse_large", lambda: embed_sparse(
+        x_large, *_md_umap_args(UMAP_LARGE_N), device=device, mesh=mesh))
+    rec["embed_sparse_large"]["timings"] = dict(LAST_TIMINGS)
+    rec.update(embed_bitwise=bool(np.array_equal(emb, ref["embedding"])),
+               transform_bitwise=bool(np.array_equal(tr, ref["transform"])),
+               embed_large_bitwise=bool(np.array_equal(large, ref["embedding_large"])))
+    return rec
+
+
+def _md_nccl_train(device, ref: dict) -> dict:
+    """(a) phase train's first step in the NCCL world of one: the full
+    QwenVLConfig() decoder (text-only, bf16, remat), its init and batch
+    from ``ref['seed']``, inside flash_sharding over the dp=1 tp=1 mesh;
+    its loss and fingerprint against phase train's after its warm step
+    (whose learning rate is 0: the params are the init, AdamW's moments
+    carry the gradient's bits)."""
+    import torch
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    from tdax_torch.models.qwen_vl.model import init_params
+    from tdax_torch.ops.flash_attention import flash_sharding
+    from tdax_torch.parallel import default_optimizer, make_train_step, warmup_cosine_lr
+    from tdax_torch.parallel import mesh as pm
+
+    cfg = QwenVLConfig()
+    mesh = pm.make_mesh()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, device, seed=ref["seed"], with_visual=False)
+    opt = default_optimizer(warmup_cosine_lr(1e-4, 2, 8))
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, remat=True, device=device)
+    batch = _train_batch(cfg, ref["seed"], device)
+    _zero_train_launches()
+    pm.COLLECTIVES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with flash_sharding(mesh, "dp", "tp"):
+        params, state, loss = step(params, state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fingerprint = _train_fingerprint(params, state)
+    return {"step_s": wall, "loss": float(loss),
+            "loss_bitwise_phase_train": _f32_bits(loss) == ref["loss_bits"],
+            "fingerprint_bitwise_phase_train": fingerprint == ref["fingerprint"],
+            "leaves_fingerprinted": len(fingerprint), "launches": _train_launches(),
+            "collectives": dict(pm.COLLECTIVES),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _max_rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in f32, 8192 rows of dim 0 at a time."""
+    err = top = 0.0
+    for r0 in range(0, want.shape[0], 8192):
+        a, b = got[r0:r0 + 8192].float(), want[r0:r0 + 8192].float()
+        err = max(err, float((a - b).abs().max()))
+        top = max(top, float(b.abs().max()))
+    return err / max(top, 1e-30)
+
+
+def _md_gloo_train(rank: int, device) -> dict:
+    """(b) dp=2 tp=2 training on the four gloo ranks (MD_TRAIN_* constants):
+    rank 0's one-device reference steps first (its shard of the updated
+    tree kept, the rest freed), then every rank's plain steps and its
+    sequence-parallel steps, each from the seed-0 init sharded; per run
+    the losses, each step's wall, the flash launches, the collectives by
+    axis (count, bytes, seconds) and the peak memory; rank 0 also each
+    step's loss error and each leaf of its updated shard's max relative
+    error against one device."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    from tdax_torch.models.qwen_vl.model import init_params
+    from tdax_torch.ops.flash_attention import flash_sharding
+    from tdax_torch.parallel import default_optimizer, make_train_step
+    from tdax_torch.parallel import mesh as pm
+
+    cfg = dataclasses.replace(QwenVLConfig(), num_layers=MD_TRAIN_LAYERS)
+    mesh = pm.make_mesh(dp=2, tp=2)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, cfg.vocab_size, (MD_TRAIN_BATCH, MD_TRAIN_SEQ))
+    mask = np.ones((MD_TRAIN_BATCH, MD_TRAIN_SEQ), np.int32)
+    mask[-1, -MD_TRAIN_MASKED:] = 0
+    whole = {"input_ids": torch.as_tensor(ids, device=device).long(),
+             "attn_mask": torch.as_tensor(mask, device=device)}
+    rows = {k: pm.split_batch(v, mesh) for k, v in whole.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"mem_free_before_bytes": torch.cuda.mem_get_info()[0]}
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, device, seed=0, with_visual=False)
+        opt = default_optimizer(MD_TRAIN_LR)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, remat=True, device=device)
+        t0 = time.perf_counter()
+        ref_losses = [float(step(params, state, whole)[2]) for _ in range(MD_TRAIN_STEPS)]
+        out["one_device"] = {"losses": ref_losses, "wall_s": time.perf_counter() - t0,
+                             "params": sum(t.numel() for t in _md_leaves(params)),
+                             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        ref_local = pm.shard_params(params, mesh, cfg=cfg)
+        del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    for name, kw in (("plain", {}), ("sp", {"sp_mesh": mesh})):
+        torch.cuda.reset_peak_memory_stats()
+        local = pm.shard_params(init_params(cfg, device, seed=0, with_visual=False), mesh,
+                                cfg=cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        opt = default_optimizer(MD_TRAIN_LR)
+        state = opt.init(local)
+        step = make_train_step(cfg, opt, remat=True, device=device, **kw)
+        _zero_train_launches()
+        losses, walls = [], []
+        with flash_sharding(mesh, "dp", "tp"), _TimedCollectives() as tc:
+            for _ in range(MD_TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, state, loss = step(local, state, rows)
+                losses.append(float(loss))
+                walls.append(time.perf_counter() - t0)
+        rec = {"losses": losses, "step_s": walls, "launches": _train_launches(),
+               "local_params": sum(t.numel() for t in _md_leaves(local)),
+               "collectives": tc.stats,
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        if rank == 0:
+            rec["loss_rel_err"] = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+            # a zero-init bias whose gradient is zero in exact arithmetic
+            # (the key third of attn_qkv_b) takes Adam's near-sign steps
+            # on rounding noise: relative errors near 2 there
+            rec["param_rel_err_by_leaf"] = {
+                path: _max_rel_err(a, b) for (path, a), (_, b) in zip(
+                    _md_named_leaves(local), _md_named_leaves(ref_local))}
+        out[name] = rec
+        del local, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _md_umap_knn_check(xd, idx, dists) -> dict:
+    """Rank 0's check of knn_blocked(mesh=)'s cosine rows against one
+    device's: a row that differs must differ in neighbours whose
+    distances lie within MD_KNN_TIE (relative to max(1, d)) of each
+    other, and its distances must be one device's within the same."""
+    import torch
+    from tdax_torch.ops.umap.sparse_path import knn_blocked
+    ref_idx, ref_d = knn_blocked(xd, UMAP_K, "cosine")
+    xn = xd / torch.linalg.vector_norm(xd, dim=1, keepdim=True).clamp_min(1e-30)
+    exact = (idx == ref_idx).all(1) & (dists == ref_d).all(1)
+    rows = torch.nonzero(~exact).flatten().tolist()
+    worst_tie = worst_dist = 0.0
+    for i in rows:
+        disputed = sorted(set(idx[i].tolist()) ^ set(ref_idx[i].tolist()))
+        if disputed:
+            dv = (1.0 - xn[disputed] @ xn[i]).clamp(0.0, 2.0)
+            worst_tie = max(worst_tie, float(dv.max() - dv.min()) / max(1.0, float(dv.max())))
+        worst_dist = max(worst_dist, float((dists[i] - ref_d[i]).abs().max()))
+    return {"rows": int(idx.shape[0]), "rows_not_exact": len(rows),
+            "worst_tie_spread_rel": worst_tie, "worst_dist_err": worst_dist,
+            "ok": worst_tie <= MD_KNN_TIE and worst_dist <= MD_KNN_TIE}
+
+
+def _md_gloo_umap(rank: int, device, ref: dict) -> dict:
+    """(b) the edge-list UMAP at dp=4 on bench_umap.py's UMAP_N x 4096:
+    embed_sparse(mesh=) (rank 0: its planted-cluster silhouette, the
+    placement of a transform_sparse(mesh=) against it, its pairwise-
+    distance correlation with phase umap_sparse's embedding on a
+    2000-point subsample), transform_sparse(mesh=) against phase
+    umap_sparse's embedding (rank 0: bitwise its transform) and
+    knn_blocked(mesh=) (rank 0: against one device's); every rank's
+    digests and stage walls."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from tdax_torch.ops.umap.sparse_path import embed_sparse, knn_blocked, transform_sparse
+    from tdax_torch.parallel import mesh as pm
+
+    mesh = pm.make_mesh(dp=4)
+    rec, cmp = {}, {}
+    x, labels, x_new, labels_new = umap_cloud(UMAP_N, n_new=UMAP_TRANSFORM_N)
+    xd = torch.as_tensor(x).to(device)
+    targs = _md_transform_args(UMAP_N, UMAP_TRANSFORM_N)
+    emb = _md_stage(rec, "embed_sparse", lambda: embed_sparse(xd, *_md_umap_args(UMAP_N),
+                                                              mesh=mesh))
+    own = _md_stage(rec, "transform_sparse_own_fit", lambda: transform_sparse(
+        x_new, xd, emb, *targs, mesh=mesh))
+    tr = _md_stage(rec, "transform_sparse", lambda: transform_sparse(
+        x_new, xd, ref["embedding"], *targs, mesh=mesh))
+    idx, dists = _md_stage(rec, "knn_blocked", lambda: knn_blocked(xd, UMAP_K, "cosine",
+                                                                   mesh=mesh))
+    digests = {"embed": _digest(emb), "transform": _digest(tr),
+               "knn": _digest(idx.cpu().numpy(), dists.cpu().numpy())}
+    if rank == 0:
+        sub = np.random.default_rng(0).choice(UMAP_N, min(UMAP_N, 2000), replace=False)
+        cmp = {"silhouette_8clusters": _subsample_silhouette(emb, labels),
+               "placed": float((_nearest_centroid(emb, labels, own) == labels_new).mean()),
+               "pdist_corr_one_device": _pdist_corr(emb[sub], ref["embedding"][sub]),
+               "transform_bitwise_one_device": bool(np.array_equal(tr, ref["transform"])),
+               "transform_max_abs_err": float(np.abs(tr - ref["transform"]).max()),
+               "knn": _md_umap_knn_check(xd, idx, dists)}
+    dist.barrier()
+    return {"stages": rec, "compared": cmp, "digests": digests}
+
+
 def _md_nccl_rank(rank: int, world: int, store: str, work: Path, data_dir: str,
-                  sweep_dir: str) -> dict:
+                  sweep_dir: str, umap_ref: dict, train_ref: dict) -> dict:
     """(a) The world of one over NCCL: the full QwenVLConfig() in bf16 from
     seed 0 on the card, extract_activations of the 48 samples at batch
     16 under the process group (its dp path: the rows gathered by an
-    NCCL all_gather); then the sweep and scale stages."""
+    NCCL all_gather); then the sweep and scale stages, the edge-list
+    UMAP's mesh calls against phase umap_sparse's ``umap_ref`` and phase
+    train's first step against its ``train_ref``."""
     import torch
     import tdax_torch.ops.flash_attention as fa
     from tdax_torch.config import ExtractConfig
@@ -4411,6 +4766,12 @@ def _md_nccl_rank(rank: int, world: int, store: str, work: Path, data_dir: str,
         gc.collect()
         torch.cuda.empty_cache()
         out["sweep_scale"] = _md_nccl_sweep_scale(device, data_dir, sweep_dir, work)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["umap"] = _md_nccl_umap(device, umap_ref)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["train"] = _md_nccl_train(device, train_ref)
         return out
     finally:
         pm.shutdown()
@@ -4616,14 +4977,15 @@ def _md_sharded(local, cfg, batches, device, mesh, timed: bool) -> dict:
                                        "flash_fwd_sm90": fa.LAUNCHES_SM90},
                           "collectives": dict(pm.COLLECTIVES)}
         if timed:
-            with _TimedAllReduce() as ar:
+            with _TimedCollectives() as tc:
                 rows = _md_to(batches[0], device, mesh)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 extract_layer_activations(local, cfg, *rows)
                 torch.cuda.synchronize()
                 out["capture"].update(timed_batch_s=time.perf_counter() - t0,
-                                      all_reduce_s=ar.seconds, all_reduces=ar.calls)
+                                      all_reduce_s=tc.total("all_reduce")["seconds"],
+                                      all_reduces=tc.total("all_reduce")["count"])
     fa.LAUNCHES = fa.LAUNCHES_SM90 = 0
     with flash_sharding(mesh, "dp", "tp"):
         t0 = time.perf_counter()
@@ -4654,15 +5016,16 @@ def _md_compare(got: dict, one: dict) -> dict:
 
 
 def _md_gloo_rank(rank: int, world: int, store: str, work: Path, snap: str, data_dir: str,
-                  ref_npz: str, capture_dir: str, sweep_dir: str) -> dict:
+                  ref_npz: str, capture_dir: str, sweep_dir: str, umap_ref: dict) -> dict:
     """(b) Four ranks on cuda:0 over gloo.  Each loads the 8 + 8-layer
     snapshot: dp=4 extraction with crash and resume on the whole
     weights, then the weights sharded dp=2 tp=2 for the capture of the
     48 samples (each rank 8 rows of each batch of 16) and generation.
     The same for a tree of the model's own init at the snapshot's shape
     (init_params, seed 0), then the tiny f32 model, then the sweep and
-    scale stages at dp=4.  Rank 0 computes each tree's one-device
-    references before it is sharded."""
+    scale stages at dp=4, dp=2 tp=2 training and the edge-list UMAP at
+    dp=4.  Rank 0 computes each one-device reference before the
+    sharded run."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4719,9 +5082,21 @@ def _md_gloo_rank(rank: int, world: int, store: str, work: Path, snap: str, data
         out["extraction"].pop("full")
         out["tiny"] = _md_tiny(device, mesh)
         out["sweep_scale"] = _md_gloo_sweep_scale(rank, device, capture_dir, sweep_dir, work)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["train"] = _md_gloo_train(rank, device)
+        out["umap"] = _md_gloo_umap(rank, device, umap_ref)
         return out
     finally:
         pm.shutdown()
+
+
+def _md_named_leaves(tree, prefix: str = ""):
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            yield from _md_named_leaves(leaf, f"{prefix}{name}/")
+        else:
+            yield f"{prefix}{name}", leaf
 
 
 def _md_leaves(tree):
@@ -4733,15 +5108,18 @@ def _md_leaves(tree):
 
 
 def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: float, snap: str,
-                      snap_data: Path, sweep_dir: Path) -> dict:
-    """Multi-device serving, sweep and scale over torch.distributed on the
-    one card: (a) a world of one over NCCL at the full config against
-    phase capture's capture in ``capture_dir`` (its wall
-    ``capture_wall_s``) and phase sweep's output in ``sweep_dir``, (b)
-    four ranks on cuda:0 over gloo on the 8 + 8-layer snapshot ``snap``
-    (its one-device capture in ``snap_data``), on the model's own init at
-    that shape, then on phase capture's capture and the scale cloud.
-    See the module's docstring."""
+                      snap_data: Path, sweep_dir: Path, umap_ref: dict,
+                      train_ref: dict) -> dict:
+    """Multi-device serving, sweep, scale, training and the edge-list UMAP
+    over torch.distributed on the one card: (a) a world of one over NCCL
+    at the full config against phase capture's capture in
+    ``capture_dir`` (its wall ``capture_wall_s``), phase sweep's output
+    in ``sweep_dir``, phase umap_sparse's embeddings ``umap_ref`` and
+    phase train's first step ``train_ref``, (b) four ranks on cuda:0
+    over gloo on the 8 + 8-layer snapshot ``snap`` (its one-device
+    capture in ``snap_data``), on the model's own init at that shape,
+    then on phase capture's capture and the scale cloud, then dp=2 tp=2
+    training and the UMAP at dp=4.  See the module's docstring."""
     import numpy as np
     import torch
     from tdax_torch.data.io import load_activations_npz
@@ -4752,7 +5130,7 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
           "bytes", flush=True)
     t0 = time.perf_counter()
     (a,) = _md_world(_md_nccl_rank, 1, tmp / "md_nccl", str(capture_dir), str(sweep_dir),
-                     timeout_s=MD_TIMEOUT_S)
+                     umap_ref, train_ref, timeout_s=MD_TIMEOUT_S)
     a["world_s"] = time.perf_counter() - t0
     a["phase_capture_wall_s"] = capture_wall_s
     got = load_activations_npz(str(tmp / "md_nccl" / "nccl.npz"))[0]
@@ -4763,7 +5141,7 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
     t0 = time.perf_counter()
     ranks = _md_world(_md_gloo_rank, 4, tmp / "md_gloo", snap, str(snap_data),
                       str(snap_data / "all_activations.npz"), str(capture_dir), str(sweep_dir),
-                      timeout_s=MD_TIMEOUT_S)
+                      umap_ref, timeout_s=MD_TIMEOUT_S)
     world_s = time.perf_counter() - t0
     cfg = snapshot_config()
     # each batch of the capture: the ViT blocks, the resampler, the decoder
@@ -4777,6 +5155,8 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
     for name in ("snapshot", "init"):
         b[name]["capture"].pop("calls")
     scale_by_rank = [r.pop("sweep_scale") for r in ranks]
+    train_by_rank = [r.pop("train") for r in ranks]
+    umap_by_rank = [r.pop("umap") for r in ranks]
     info = {"phase": "multidevice", "nvidia_smi": smi,
             "mem_get_info_before_spawn": {"free_bytes": free, "total_bytes": total},
             "nccl_world_of_one": a,
@@ -4793,10 +5173,21 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
                 "collectives_by_rank": [r["collectives"] for r in scale_by_rank],
                 "results_equal_on_every_rank": all(r["digests"] == scale_by_rank[0]["digests"]
                                                    for r in scale_by_rank)},
+            "gloo_dp2_tp2_train": {
+                "layers": MD_TRAIN_LAYERS, "batch": [MD_TRAIN_BATCH, MD_TRAIN_SEQ],
+                "one_device_rank0": train_by_rank[0].get("one_device"),
+                "by_rank": [{k: v for k, v in r.items() if k != "one_device"}
+                            for r in train_by_rank]},
+            "gloo_dp4_umap": {
+                "compared": umap_by_rank[0]["compared"],
+                "stages_by_rank": [r["stages"] for r in umap_by_rank],
+                "results_equal_on_every_rank": all(r["digests"] == umap_by_rank[0]["digests"]
+                                                   for r in umap_by_rank)},
             "phase_s": time.perf_counter() - t_phase,
             "note": "times of four ranks sharing one card: they say nothing of scaling"}
     emit(info)
     _md_check_sweep_scale(a["sweep_scale"], info["gloo_dp4_sweep_scale"], scale_by_rank)
+    _md_check_train_umap(a, info["gloo_dp2_tp2_train"], info["gloo_dp4_umap"])
     if a["backend"] != "nccl" or a["collectives"].get("nccl.all_gather", 0) < 1:
         raise AssertionError(f"multidevice (a): backend {a['backend']}, collectives "
                              f"{a['collectives']}: no NCCL gather ran")
@@ -4824,6 +5215,37 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
         raise AssertionError(f"multidevice (b): min cosine {b['init']['cosine']['min']} "
                              f"< {MD_MIN_COSINE} on the model's init")
     return info
+
+
+def _md_check_train_umap(a: dict, train: dict, umap: dict) -> None:
+    """The gates of the training and UMAP stages (see the module's docstring)."""
+    t = a["train"]
+    if not (t["loss_bitwise_phase_train"] and t["fingerprint_bitwise_phase_train"]):
+        raise AssertionError(f"multidevice (a) train: not bitwise phase train's first step: {t}")
+    if t["launches"] != _expected_train_launches(32, 1):
+        raise AssertionError(f"multidevice (a) train: launches {t['launches']}, expected "
+                             f"{_expected_train_launches(32, 1)}")
+    u = a["umap"]
+    if not (u["embed_bitwise"] and u["transform_bitwise"] and u["embed_large_bitwise"]):
+        raise AssertionError(f"multidevice (a) umap: not bitwise phase umap_sparse's: {u}")
+    want = _expected_train_launches(MD_TRAIN_LAYERS, MD_TRAIN_STEPS)
+    for i, r in enumerate(train["by_rank"]):
+        for name in ("plain", "sp"):
+            if r[name]["launches"] != want:
+                raise AssertionError(f"multidevice (b) train {name} rank {i}: launches "
+                                     f"{r[name]['launches']}, expected {want}")
+            if r[name]["losses"] != train["by_rank"][0][name]["losses"]:
+                raise AssertionError(f"multidevice (b) train {name}: the ranks' losses differ")
+    for name in ("plain", "sp"):
+        errs = train["by_rank"][0][name]["loss_rel_err"]
+        if not max(errs) <= MD_TRAIN_LOSS_RTOL:
+            raise AssertionError(f"multidevice (b) train {name}: loss relative errors {errs} "
+                                 f"against one device (limit {MD_TRAIN_LOSS_RTOL})")
+    c = umap["compared"]
+    if not (c["silhouette_8clusters"] > UMAP_SIL_MIN and c["placed"] >= UMAP_PLACED_MIN
+            and c["transform_bitwise_one_device"] and c["knn"]["ok"]
+            and umap["results_equal_on_every_rank"]):
+        raise AssertionError(f"multidevice (b) umap at dp=4: {umap}")
 
 
 def _md_check_sweep_scale(a: dict, b: dict, ranks: list) -> None:
@@ -4880,6 +5302,17 @@ def _qmm_totals(sites, calls_key) -> dict:
     return out
 
 
+def _train_paths(train: dict, md: dict) -> list:
+    """(path, flash launches) of every training run: phase train's five
+    timed steps, the NCCL world's step, rank 0's dp=2 tp=2 plain and
+    sequence-parallel steps."""
+    runs = md["gloo_dp2_tp2_train"]["by_rank"][0]
+    return [("train", train["launches"]),
+            ("multidevice_nccl_train", md["nccl_world_of_one"]["train"]["launches"]),
+            ("multidevice_dp2_tp2_train_rank0", runs["plain"]["launches"]),
+            ("multidevice_dp2_tp2_train_sp_rank0", runs["sp"]["launches"])]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="the training batch's seed")
@@ -4918,18 +5351,22 @@ def main(argv=None) -> int:
         del ckpt_state
         gc.collect()
         torch.cuda.empty_cache()
+        scale = phase_scale(smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        sparse = phase_scale_sparse(smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        umap_ref = phase_umap_sparse(smi)["arrays"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        train = phase_train(smi, args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # after the phases whose one-device results its mesh paths are held to
         md = phase_multidevice(Path(tmp), smi, Path(tmp) / "data", capture["wall_s"], snap,
-                               snap_data, Path(tmp) / "tda_debug_output")
-    scale = phase_scale(smi)
-    gc.collect()
-    torch.cuda.empty_cache()
-    sparse = phase_scale_sparse(smi)
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_umap_sparse(smi)
-    gc.collect()
-    torch.cuda.empty_cache()
-    train = phase_train(smi, args.seed)
+                               snap_data, Path(tmp) / "tda_debug_output", umap_ref,
+                               train.pop("reference"))
 
     def total(key):
         return sum(s[key] * s["calls_per_batch"] for s in kern["sites"])
@@ -4961,9 +5398,9 @@ def main(argv=None) -> int:
                       "mma": rec["launches"]["flash_fwd"] - rec["launches"]["flash_fwd_sm90"]}
                for path, rec in (("w8a8_capture", w8["capture"]),
                                  ("w8a8_generate", w8["generate"]))},
-            "train": {"sm90": train["launches"]["flash_fwd_sm90"],
-                      "mma": train["launches"]["flash_fwd"]
-                      - train["launches"]["flash_fwd_sm90"]},
+            **{path: {"sm90": launches["flash_fwd_sm90"],
+                      "mma": launches["flash_fwd"] - launches["flash_fwd_sm90"]}
+               for path, launches in _train_paths(train, md)},
             **{path: {"sm90": rec["launches"]["flash_fwd_sm90"],
                       "mma": rec["launches"]["flash_fwd"] - rec["launches"]["flash_fwd_sm90"]}
                for path, rec in (("checkpoint_capture", ckpt["capture"]),
@@ -4999,10 +5436,10 @@ def main(argv=None) -> int:
                     "mma": "tdax_torch/ops/csrc/flash_bwd.cu"},
         "replaces": f"tdax/ops/flash_attention.py:{line}",
         "launches": train["launches"][f"flash_bwd_{kind}"],
-        "launches_by_kernel": {"train": {
-            "sm90": train["launches"][f"flash_bwd_{kind}_sm90"],
-            "mma": train["launches"][f"flash_bwd_{kind}"]
-            - train["launches"][f"flash_bwd_{kind}_sm90"]}},
+        "launches_by_kernel": {path: {
+            "sm90": launches[f"flash_bwd_{kind}_sm90"],
+            "mma": launches[f"flash_bwd_{kind}"] - launches[f"flash_bwd_{kind}_sm90"]}
+            for path, launches in _train_paths(train, md)},
         "max_abs_err": max(s["max_abs_err"][o] for s in fbwd["sites"] for o in outs),
         "max_abs_err_mma": max(s["max_abs_err_mma"][o] for s in fbwd["sites"] for o in outs),
         "ms": dec[f"{kind}_ms"] * calls,

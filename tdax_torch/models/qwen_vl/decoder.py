@@ -14,8 +14,15 @@ quantized one.
 
 Under tp (``tdax_torch.parallel.mesh.shard_params``) a layer holds its
 rank's heads and MLP columns: the head count comes from the weights'
-shapes, and the two row-parallel products (``attn_proj_w``,
-``mlp_proj_w``) are summed over the tp group (``tp.tp_row_product``).
+shapes, the two row-parallel products (``attn_proj_w``, ``mlp_proj_w``)
+are summed over the tp group (``tp.tp_row_product``) and the inputs of
+the column-parallel ones pass through ``tp.tp_input`` (their gradient
+summed over tp).  ``seq_sharding`` (a ``(mesh, axis)`` pair, tdax's
+Megatron sequence parallelism) keeps each rank's T / tp rows of the
+residual stream between the products: the norms and the residual adds
+run on them, the sequence is gathered before the column-parallel
+products and reduce-scattered after the row-parallel ones, and
+attention runs on the whole sequence with its rotary positions.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import torch.utils.checkpoint
 
 from tdax_torch.models.qwen_vl.config import QwenVLConfig
 from tdax_torch.models.qwen_vl.quantize import is_quantized, layer_at, qdot
-from tdax_torch.models.qwen_vl.tp import tp_row_product
+from tdax_torch.models.qwen_vl.tp import seq_scatter, seq_weight, tp_input, tp_row_product
 from tdax_torch.ops.flash_attention import AttnSpec, mha
 
 
@@ -58,11 +65,14 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch
     return torch.cat([r1, r2], dim=-1).to(x.dtype)
 
 
+def _width(w) -> int:
+    return (w["q"] if is_quantized(w) else w).shape[-1]
+
+
 def local_heads(layers: dict, cfg: QwenVLConfig) -> int:
     """The attention heads the layer weights hold: ``cfg.num_heads``, or
     this rank's share under tp."""
-    w = layers["attn_qkv_w"]
-    return (w["q"] if is_quantized(w) else w).shape[-1] // (3 * cfg.head_dim)
+    return _width(layers["attn_qkv_w"]) // (3 * cfg.head_dim)
 
 
 def project_qkv(x: torch.Tensor, layer: dict, cfg: QwenVLConfig,
@@ -79,36 +89,40 @@ def project_qkv(x: torch.Tensor, layer: dict, cfg: QwenVLConfig,
     return q, k, v.reshape(shape)
 
 
-def attend(q, k, v, spec: AttnSpec, layer: dict, cfg: QwenVLConfig) -> torch.Tensor:
-    """Attention + output projection: [B, Tq, nh, hd] -> [B, Tq, H]."""
+def attend(q, k, v, spec: AttnSpec, layer: dict, cfg: QwenVLConfig,
+           seq=None) -> torch.Tensor:
+    """Attention + output projection: [B, Tq, nh, hd] -> [B, Tq, H]
+    (under ``seq`` the rank's rows of Tq)."""
     b, tq, nh, hd = q.shape
     out = mha(q, k, v, spec).reshape(b, tq, nh * hd)
     w = layer["attn_proj_w"]
-    return qdot(out, w) if nh == cfg.num_heads else tp_row_product(out, w)
+    return qdot(out, w) if nh == cfg.num_heads else tp_row_product(out, w, seq)
 
 
-def mlp(x: torch.Tensor, layer: dict, cfg: QwenVLConfig) -> torch.Tensor:
+def mlp(x: torch.Tensor, layer: dict, cfg: QwenVLConfig, seq=None) -> torch.Tensor:
     """QWen SwiGLU: c_proj(w1(x) * silu(w2(x)))."""
+    x = tp_input(x, _width(layer["mlp_w1"]) < cfg.ff_half, seq)
     a1 = qdot(x, layer["mlp_w1"])
     a2 = qdot(x, layer["mlp_w2"])
     inter = a1 * F.silu(a2.float()).to(x.dtype)
     w = layer["mlp_proj_w"]
-    return qdot(inter, w) if inter.shape[-1] == cfg.ff_half else tp_row_product(inter, w)
+    return qdot(inter, w) if inter.shape[-1] == cfg.ff_half else tp_row_product(inter, w, seq)
 
 
 def block_kv(x: torch.Tensor, layer: dict, cfg: QwenVLConfig,
-             cos: torch.Tensor, sin: torch.Tensor, spec: AttnSpec):
+             cos: torch.Tensor, sin: torch.Tensor, spec: AttnSpec, seq=None):
     """One block; returns (x, this layer's rotated k, v) for a KV cache."""
-    h1 = rms_norm(x, layer["ln_1"], cfg.layer_norm_eps)
+    h1 = rms_norm(x, seq_weight(layer["ln_1"], seq), cfg.layer_norm_eps)
+    h1 = tp_input(h1, local_heads(layer, cfg) < cfg.num_heads, seq)
     q, k, v = project_qkv(h1, layer, cfg, cos, sin)
-    x = x + attend(q, k, v, spec, layer, cfg)
-    h2 = rms_norm(x, layer["ln_2"], cfg.layer_norm_eps)
-    return x + mlp(h2, layer, cfg), k, v
+    x = x + attend(q, k, v, spec, layer, cfg, seq)
+    h2 = rms_norm(x, seq_weight(layer["ln_2"], seq), cfg.layer_norm_eps)
+    return x + mlp(h2, layer, cfg, seq), k, v
 
 
 def block(x: torch.Tensor, layer: dict, cfg: QwenVLConfig,
-          cos: torch.Tensor, sin: torch.Tensor, spec: AttnSpec) -> torch.Tensor:
-    return block_kv(x, layer, cfg, cos, sin, spec)[0]
+          cos: torch.Tensor, sin: torch.Tensor, spec: AttnSpec, seq=None) -> torch.Tensor:
+    return block_kv(x, layer, cfg, cos, sin, spec, seq)[0]
 
 
 def _rotary_and_spec(x: torch.Tensor, cfg: QwenVLConfig, attn_mask: torch.Tensor):
@@ -134,20 +148,27 @@ def decoder_capture(stacked_layers: dict, x: torch.Tensor, cfg: QwenVLConfig,
 
 
 def decoder(stacked_layers, x: torch.Tensor, cfg: QwenVLConfig,
-            attn_mask: torch.Tensor, remat: bool = False) -> torch.Tensor:
+            attn_mask: torch.Tensor, remat: bool = False, seq_sharding=None) -> torch.Tensor:
     """Plain depth loop without capture (training / generation path).
 
     ``remat=True`` wraps each block in ``torch.utils.checkpoint``
     (non-reentrant): the backward keeps only each block's input and
-    replays the block, one more flash forward per layer included.  tdax
-    instead saves the dots and the flash residuals (``remat_policy``);
-    the values are the same, the recompute is not."""
+    replays the block, one more flash forward per layer included (and,
+    under tp, the block's collectives, in the forward's order on every
+    rank).  tdax instead saves the dots and the flash residuals
+    (``remat_policy``); the values are the same, the recompute is not.
+
+    ``seq_sharding`` (``(mesh, axis)``, x whole on every rank) returns
+    this rank's rows of the final hidden state: the sequence is split
+    over ``axis`` before the first block."""
     cos, sin, spec = _rotary_and_spec(x, cfg, attn_mask)
+    if seq_sharding is not None:
+        x = seq_scatter(x, seq_sharding)
     for i in range(cfg.num_layers):
         layer = layer_at(stacked_layers, i)
         if remat:
             x = torch.utils.checkpoint.checkpoint(block, x, layer, cfg, cos, sin, spec,
-                                                  use_reentrant=False)
+                                                  seq_sharding, use_reentrant=False)
         else:
-            x = block(x, layer, cfg, cos, sin, spec)
+            x = block(x, layer, cfg, cos, sin, spec, seq_sharding)
     return x

@@ -19,7 +19,7 @@ import torch
 from tdax_torch.models.qwen_vl.config import QwenVLConfig, VisualConfig
 from tdax_torch.models.qwen_vl.decoder import decoder, decoder_capture, rms_norm
 from tdax_torch.models.qwen_vl.quantize import _QUANT_KEYS, embed_lookup, qdot, quantize_weight
-from tdax_torch.models.qwen_vl.tp import tp_gather
+from tdax_torch.models.qwen_vl.tp import seq_weight, tp_gather, tp_input
 from tdax_torch.models.qwen_vl.vit import interp_pos_embed, sincos_2d, visual_encode
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -163,23 +163,29 @@ def extract_layer_activations(params: dict, cfg: QwenVLConfig,
     return capture
 
 
-def lm_logits(x: torch.Tensor, params: dict, cfg: QwenVLConfig) -> torch.Tensor:
+def lm_logits(x: torch.Tensor, params: dict, cfg: QwenVLConfig, seq=None) -> torch.Tensor:
     """[..., H] final hidden states -> [..., vocab] f32 logits; under tp
-    each rank's vocab shard, gathered over the tp group."""
-    logits = qdot(x, params["lm_head"]).to(torch.float32)
-    return tp_gather(logits, logits.shape[-1] < cfg.vocab_size)
+    each rank's vocab shard, gathered over the tp group.  Under ``seq``
+    x is the rank's rows, the sequence gathered before the product."""
+    w = params["lm_head"]
+    sharded = (w["q"] if isinstance(w, dict) else w).shape[-1] < cfg.vocab_size
+    logits = qdot(tp_input(x, sharded, seq), w).to(torch.float32)
+    return tp_gather(logits, sharded)
 
 
 def forward(params: dict, cfg: QwenVLConfig, input_ids: torch.Tensor,
             attn_mask: torch.Tensor | None = None,
             images: torch.Tensor | None = None,
             image_positions: torch.Tensor | None = None,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, seq_sharding=None) -> torch.Tensor:
     """Logits [B, T, vocab] in f32 (the whole vocabulary on every rank
     under tp).  ``remat`` rematerializes decoder blocks in the backward
-    pass (see ``decoder``)."""
+    pass; ``seq_sharding`` (``(mesh, axis)``) turns on sequence
+    parallelism between the blocks, ``ln_f`` running on the rank's rows
+    (see ``decoder``)."""
     if attn_mask is None:
         attn_mask = torch.ones_like(input_ids)
     x = embed_inputs(params, cfg, input_ids, images, image_positions)
-    x = decoder(params["layers"], x, cfg, attn_mask, remat=remat)
-    return lm_logits(rms_norm(x, params["ln_f"], cfg.layer_norm_eps), params, cfg)
+    x = decoder(params["layers"], x, cfg, attn_mask, remat=remat, seq_sharding=seq_sharding)
+    x = rms_norm(x, seq_weight(params["ln_f"], seq_sharding), cfg.layer_norm_eps)
+    return lm_logits(x, params, cfg, seq_sharding)

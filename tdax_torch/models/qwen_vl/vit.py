@@ -13,7 +13,9 @@ dtype; GELU is ``jax.nn.gelu``'s default tanh approximation.
 Under tp a block and the resampler hold their rank's heads and MLP
 columns (the head count from the weights' shapes); the row-parallel
 products are summed over the tp group (``tp.tp_row_product``) and
-their biases, replicated, added once after the sum.
+their biases, replicated, added once after the sum; the inputs of the
+column-parallel products pass through ``tp.tp_input`` (their gradient
+summed over tp).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch.nn.functional as F
 
 from tdax_torch.models.qwen_vl.config import VisualConfig
 from tdax_torch.models.qwen_vl.quantize import layer_at, qdot
-from tdax_torch.models.qwen_vl.tp import tp_row_product
+from tdax_torch.models.qwen_vl.tp import tp_input, tp_row_product
 from tdax_torch.ops.flash_attention import AttnSpec, mha
 
 
@@ -68,15 +70,22 @@ def _row(x: torch.Tensor, w, width: int) -> torch.Tensor:
     return qdot(x, w) if x.shape[-1] == width else tp_row_product(x, w)
 
 
+def _col(x: torch.Tensor, w, width: int) -> torch.Tensor:
+    """A column-parallel product's input: the rank holds a shard of ``w``
+    when its output is narrower than ``width``."""
+    return tp_input(x, (w["q"] if isinstance(w, dict) else w).shape[-1] < width)
+
+
 def vit_block(x: torch.Tensor, layer: dict, cfg: VisualConfig) -> torch.Tensor:
     h = layer_norm(x, layer["ln_1_w"], layer["ln_1_b"], cfg.layer_norm_eps)
+    h = _col(h, layer["attn_qkv_w"], 3 * cfg.width)
     qkv = qdot(h, layer["attn_qkv_w"]) + layer["attn_qkv_b"]
     q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
     attn = _mha(q, k, v, cfg.width // cfg.heads)
     attn = _row(attn, layer["attn_proj_w"], cfg.width) + layer["attn_proj_b"]
     x = x + attn
     h = layer_norm(x, layer["ln_2_w"], layer["ln_2_b"], cfg.layer_norm_eps)
-    h = qdot(h, layer["mlp_fc_w"]) + layer["mlp_fc_b"]
+    h = qdot(_col(h, layer["mlp_fc_w"], cfg.mlp_dim), layer["mlp_fc_w"]) + layer["mlp_fc_b"]
     h = gelu_tanh(h)
     h = _row(h, layer["mlp_proj_w"], cfg.mlp_dim) + layer["mlp_proj_b"]
     return x + h
@@ -123,9 +132,9 @@ def resampler(x: torch.Tensor, params: dict, cfg: VisualConfig) -> torch.Tensor:
     kb = kv + params["kv_pos"].to(x.dtype)
     # qb is a broadcast view (stride 0 over the batch): qdot's int8 path
     # collapses it to rows, copying where it must
-    qh = qdot(qb, params["attn_q_w"]) + params["attn_q_b"]
-    kh = qdot(kb, params["attn_k_w"]) + params["attn_k_b"]
-    vh = qdot(kv, params["attn_v_w"]) + params["attn_v_b"]
+    qh = qdot(_col(qb, params["attn_q_w"], d), params["attn_q_w"]) + params["attn_q_b"]
+    kh = qdot(_col(kb, params["attn_k_w"], d), params["attn_k_w"]) + params["attn_k_b"]
+    vh = qdot(_col(kv, params["attn_v_w"], d), params["attn_v_w"]) + params["attn_v_b"]
     out = _mha(qh, kh, vh, d // cfg.resampler_heads)
     return _row(out, params["attn_out_w"], d) + params["attn_out_b"]
 

@@ -102,12 +102,14 @@ def flash_sharding(mesh, batch_axis: str | None = "dp", head_axis: str | None = 
     """Declare how attention inputs are sharded over ``mesh``
     (``tdax_torch.parallel.mesh.make_mesh``): the batch over
     ``batch_axis``, the heads over ``head_axis``.  Each rank runs the
-    flash kernels on its local q, k and v; the model's row-parallel
-    products sum over ``head_axis``'s group.  ``seq_axis`` (context
-    parallelism, ring attention) is not ported and raises."""
+    flash kernels on its local q, k and v; the model's tp collectives
+    (and the train step, which takes its mesh from here) run over
+    ``head_axis``'s group.  ``seq_axis`` (context parallelism, ring
+    attention) is not ported and raises; sequence parallelism over tp is
+    the train step's ``sp_mesh``."""
     if seq_axis is not None:
         raise NotImplementedError("flash_sharding: seq_axis (context parallelism, ring "
-                                  "attention) comes with the port's multi-device training")
+                                  "attention) is not ported")
     _SHARD_CTX.append((mesh, batch_axis, head_axis, seq_axis))
     try:
         yield

@@ -29,8 +29,20 @@ draws, as the tests inject tdax's.
 Every sum over an edge list is a segmented sum over the sorted heads
 (``torch.segment_reduce``): one thread per output element adds its
 edges in order, so a run repeats bitwise on the card, where
-``index_add_`` uses atomics.  The mesh variants of tdax's module are
-not ported (no ``mesh=``).
+``index_add_`` uses atomics.
+
+With ``mesh=`` (tdax's mesh variants) the work splits over a process
+group's ``axis`` in the idiom of ``tdax_torch.parallel.sharded_ops``:
+each rank holds local tensors and takes its block by
+``mesh.local_rank(axis)``, and results come back gathered in rank
+order.  The kNN takes each rank's rows against the whole cloud in the
+one-device block arithmetic; ``optimize_layout_edges_sharded`` gives
+each rank a contiguous shard of the sorted edge list and sums the
+per-point attraction table over the axis every epoch, the embedding
+updating in lockstep; ``optimize_layout_edges_fixed_tail_sharded``
+splits the new points, with no collective in the epoch loop.  Every
+such call is collective: every rank of the group makes it with the
+same arguments.
 """
 
 from __future__ import annotations
@@ -41,9 +53,11 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tdax_torch.ops.umap.fuzzy import membership_strengths_knn, smooth_knn_dist
 from tdax_torch.ops.umap.lobpcg import lobpcg_standard
+from tdax_torch.parallel import mesh as pm
 from tdax_torch.runtime import as_device_f32, get_device
 
 NEG_POOL = 16
@@ -78,7 +92,8 @@ def _block_knn(rows: torch.Tensor, full: torch.Tensor, sq_full, k: int, metric: 
     to [0, 2], or Euclidean in expansion form); with ``row0`` the first
     ``n_real`` rows are points row0.. of ``full``, whose self-distance is
     pinned to exactly 0 (the expansion form leaves cancellation residue
-    there, and the calibration skips column 0 as the self entry)."""
+    there, and the calibration skips column 0 as the self entry) where
+    that point exists: a padded row past ``full``'s last is not pinned."""
     d = rows @ full.T
     if metric == "cosine":
         d.neg_().add_(1.0).clamp_(0.0, 2.0)
@@ -86,29 +101,57 @@ def _block_knn(rows: torch.Tensor, full: torch.Tensor, sq_full, k: int, metric: 
         sq_r = (rows * rows).sum(1)
         d = (sq_r[:, None] + sq_full[None, :]).sub_(d.mul_(2.0)).clamp_min_(0.0).sqrt_()
     if row0 is not None:
-        r = torch.arange(n_real, device=d.device)
+        r = torch.arange(max(0, min(n_real, full.shape[0] - row0)), device=d.device)
         d[r, row0 + r] = 0.0
     dist, idx = torch.topk(d, k, dim=1, largest=False)
     return idx[:n_real], dist[:n_real]
 
 
 def _knn(rows_all: torch.Tensor, full: torch.Tensor, k: int, metric: str, block_rows: int,
-         self_pin: bool) -> tuple[torch.Tensor, torch.Tensor]:
+         row0: int | None) -> tuple[torch.Tensor, torch.Tensor]:
     """Row blocks of ``block_rows``; the tail block is padded with the
-    leading rows (tdax's fixed block shape) and their results dropped."""
+    leading rows (tdax's fixed block shape) and their results dropped.
+    ``row0``: the index in ``full`` of ``rows_all``'s first row (the self
+    pin), None for a cross kNN."""
     n = rows_all.shape[0]
     sq_full = (full * full).sum(1) if metric != "cosine" else None
     if n <= block_rows:
-        return _block_knn(rows_all, full, sq_full, k, metric, 0 if self_pin else None, n)
+        return _block_knn(rows_all, full, sq_full, k, metric, row0, n)
     idxs, dists = [], []
     for r0 in range(0, n, block_rows):
         hi = min(r0 + block_rows, n)
         pad = block_rows - (hi - r0)
         rows = torch.cat([rows_all[r0:hi], rows_all[:pad]]) if pad else rows_all[r0:hi]
-        i, d = _block_knn(rows, full, sq_full, k, metric, r0 if self_pin else None, hi - r0)
+        i, d = _block_knn(rows, full, sq_full, k, metric,
+                          None if row0 is None else row0 + r0, hi - r0)
         idxs.append(i)
         dists.append(d)
     return torch.cat(idxs), torch.cat(dists)
+
+
+def _knn_sharded(rows_all: torch.Tensor, full: torch.Tensor, k: int, metric: str,
+                 block_rows: int, mesh, axis: str, self_pin: bool):
+    """The rows split over ``axis``: rank r takes rows r*m .. (r+1)*m, m =
+    ceil(n / p), the last share padded with copies of row 0 (tdax's
+    padding), and runs ``_knn`` on them against the whole of ``full``;
+    the shares are gathered in rank order and the padding sliced off.
+
+    A share shorter than one device's block (min(n, block_rows) rows) is
+    padded to it with more copies of row 0, so that every product has one
+    device's row count: cuBLAS picks its kernel by the shape, and a
+    500-row block of a 2000-row cross kNN rounds apart from the 2000-row
+    product on an H100 (a 1000-row block does not).  A rank then does up
+    to one device's block of work, and each row gets one device's bits."""
+    n = rows_all.shape[0]
+    m = math.ceil(n / mesh.shape[axis])
+    width = max(m, min(n, block_rows))
+    r0 = mesh.local_rank(axis) * m
+    share = rows_all[r0:r0 + m]
+    if share.shape[0] < width:
+        share = torch.cat([share, rows_all[:1].expand(width - share.shape[0], -1)])
+    idx, dist = _knn(share, full, k, metric, block_rows, r0 if self_pin else None)
+    idx, dist = idx[:m].contiguous(), dist[:m].contiguous()
+    return pm.all_gather(idx, mesh, axis)[:n], pm.all_gather(dist, mesh, axis)[:n]
 
 
 def _check_metric(metric: str) -> None:
@@ -116,23 +159,31 @@ def _check_metric(metric: str) -> None:
         raise ValueError(f"unsupported metric {metric!r}")
 
 
-def knn_blocked(x: torch.Tensor, k: int, metric: str,
-                block_rows: int = KNN_BLOCK_ROWS) -> tuple[torch.Tensor, torch.Tensor]:
+def knn_blocked(x: torch.Tensor, k: int, metric: str, block_rows: int = KNN_BLOCK_ROWS,
+                mesh=None, axis: str = "dp") -> tuple[torch.Tensor, torch.Tensor]:
     """Exact kNN lists of x [n, D] among themselves: (idx [n, k] int64,
-    dist [n, k] f32), ascending, self first."""
+    dist [n, k] f32), ascending, self first.  With ``mesh`` the rows
+    split over ``axis`` (collective), each row's arithmetic and bits the
+    one device's (``_knn_sharded``)."""
     _check_metric(metric)
     xn = _normalize_rows(x) if metric == "cosine" else x
-    return _knn(xn, xn, k, metric, block_rows, self_pin=True)
+    if mesh is not None:
+        return _knn_sharded(xn, xn, k, metric, block_rows, mesh, axis, self_pin=True)
+    return _knn(xn, xn, k, metric, block_rows, row0=0)
 
 
 def knn_blocked_cross(x_new: torch.Tensor, x_train: torch.Tensor, k: int, metric: str,
-                      block_rows: int = KNN_BLOCK_ROWS) -> tuple[torch.Tensor, torch.Tensor]:
+                      block_rows: int = KNN_BLOCK_ROWS, mesh=None,
+                      axis: str = "dp") -> tuple[torch.Tensor, torch.Tensor]:
     """kNN lists of x_new among x_train (idx [n_new, k], dist [n_new, k]);
-    no self semantics: the two clouds are distinct."""
+    no self semantics: the two clouds are distinct.  With ``mesh`` the
+    new points' rows split over ``axis`` (collective)."""
     _check_metric(metric)
     if metric == "cosine":
         x_new, x_train = _normalize_rows(x_new), _normalize_rows(x_train)
-    return _knn(x_new, x_train, k, metric, block_rows, self_pin=False)
+    if mesh is not None:
+        return _knn_sharded(x_new, x_train, k, metric, block_rows, mesh, axis, self_pin=False)
+    return _knn(x_new, x_train, k, metric, block_rows, row0=None)
 
 
 def build_sym_edges(knn_idx: np.ndarray, w: np.ndarray, set_op_mix_ratio: float = 1.0
@@ -307,10 +358,27 @@ def _f32(v) -> float:
     return float(np.float32(v))
 
 
-def _schedules(w: torch.Tensor, n_epochs: int, negative_sample_rate: int):
+def _pow(x: torch.Tensor, e: float) -> torch.Tensor:
+    """``torch.pow(x, e)`` whose value at an element does not depend on
+    the length of the call.  On the CPU torch computes a call's last
+    numel mod 32 elements in a scalar loop (``std::pow``) and the rest in
+    a vector loop (SLEEF), which round apart by an ulp: padding the call
+    to a multiple of 64 elements sends every element down the vector
+    loop, so a rank's shard of an edge list or of the new points gets
+    one device's bits.  A card's elementwise kernel has no such split."""
+    if x.device.type != "cpu":
+        return torch.pow(x, e)
+    flat = x.reshape(-1)
+    pad = -flat.numel() % 64
+    return torch.pow(F.pad(flat, (0, pad), value=1.0), e)[:flat.numel()].reshape(x.shape)
+
+
+def _schedules(w: torch.Tensor, n_epochs: int, negative_sample_rate: int, wmax=None):
     """(eps, epns, edge_on, eons, eonns): umap's epochs_per_sample after
-    the wmax / n_epochs prune, true f32 divisions as tdax's."""
-    wmax = w.max()
+    the wmax / n_epochs prune, true f32 divisions as tdax's.  ``wmax``:
+    the whole edge list's largest weight where ``w`` is a shard of it
+    (tdax's ``pmax``), else ``w``'s own."""
+    wmax = w.max() if wmax is None else wmax
     w = torch.where(w < wmax / n_epochs, 0.0, w)
     n_samples = n_epochs * (w / wmax.clamp_min(1e-30))
     eps = torch.where(n_samples > 0, w.new_tensor(n_epochs) / n_samples.clamp_min(1e-30),
@@ -326,7 +394,7 @@ def _attraction(diff, active, a32, b32, eons_epoch_minus, epns):
     owed negatives [E]) for one epoch."""
     d2 = (diff * diff).sum(-1)
     d2c = d2.clamp_min(1e-12)
-    pd2b = torch.pow(d2c, float(b32))
+    pd2b = _pow(d2c, float(b32))
     att_coeff = torch.where(d2 > 0.0,
                             (_f32(np.float32(-2.0) * a32 * b32) * pd2b / d2c)
                             / (float(a32) * pd2b + 1.0), 0.0)
@@ -341,7 +409,7 @@ def _repulsion(emb, en, a32, b32, g32):
     """Clipped repulsive gradients [rows, NEG_POOL, d] and the squared distances."""
     ndiff = emb[:, None, :] - en
     nd2 = (ndiff * ndiff).sum(-1)
-    npd2b = torch.pow(nd2.clamp_min(1e-12), float(b32))
+    npd2b = _pow(nd2.clamp_min(1e-12), float(b32))
     num = nd2.new_tensor(_f32(np.float32(2.0) * g32 * b32))
     rep_coeff = num / ((0.001 + nd2) * (float(a32) * npd2b + 1.0))
     return (rep_coeff[..., None] * ndiff).clamp(-4.0, 4.0), nd2
@@ -358,25 +426,14 @@ def _negative_draws(_negatives, gen, rows: int, high: int, device):
     return lambda epoch: torch.randint(0, high, (rows, NEG_POOL), generator=gen, device=device)
 
 
-def optimize_layout_edges(init: torch.Tensor, head: torch.Tensor, tail: torch.Tensor,
-                          w: torch.Tensor, n: int, n_epochs: int, random_state: int,
-                          a: float, b: float, gamma: float = 1.0, initial_alpha: float = 1.0,
-                          negative_sample_rate: int = 5, *, _negatives=None) -> torch.Tensor:
-    """layout.py's epoch-synchronous SGD on a SYMMETRIC edge list (both
-    directions of every edge, equal weights: what build_sym_edges emits).
-
-    Per-edge epochs_per_sample schedules; attraction -2ab d^(2b-2) /
-    (1 + a d^2b) clipped to [-4, 4], the tails' recoil being exactly
-    minus the mirror edge's attraction, so the head segment sum doubled
-    is the whole attraction.  Negatives per POINT: each epoch every
-    point draws NEG_POOL uniform points, and its repulsion 2 gamma b /
-    ((0.001 + d^2)(1 + a d^2b)) (clipped; +4 at zero distance; a
-    zero-distance draw of itself skipped) is the pool's mean scaled by
-    the negatives its edges owe.  One mean-force update an epoch, alpha
-    falling linearly to 0."""
+def _layout_edges(init, head, tail, w, n, n_epochs, random_state, a, b, gamma, initial_alpha,
+                  negative_sample_rate, _negatives, wmax=None, total=None) -> torch.Tensor:
+    """The epoch loop of ``optimize_layout_edges`` on ``head``/``tail``/``w``
+    (the whole list, or a rank's shard of it with the whole list's
+    ``wmax``); ``total`` sums a shard's per-point table over the ranks."""
     a32, b32, g32 = np.float32(a), np.float32(b), np.float32(gamma)
     device = init.device
-    eps, epns, edge_on, eons, eonns = _schedules(w, n_epochs, negative_sample_rate)
+    eps, epns, edge_on, eons, eonns = _schedules(w, n_epochs, negative_sample_rate, wmax)
     seg = _Segments(head, n)
     self_ix = torch.arange(n, device=device)[:, None]
     draw = _negative_draws(_negatives, _generator(random_state, LAYOUT_STREAM, device), n, n,
@@ -388,6 +445,8 @@ def optimize_layout_edges(init: torch.Tensor, head: torch.Tensor, tail: torch.Te
         payload, n_neg = _attraction(emb[head] - emb[tail], active, a32, b32,
                                      float(epoch) - eonns, epns)
         s = seg.sum(payload)
+        if total is not None:
+            s = total(s)
         force = 2.0 * s[:, :-2]
         cnt = 2.0 * s[:, -2]
         owed = s[:, -1]
@@ -409,24 +468,70 @@ def optimize_layout_edges(init: torch.Tensor, head: torch.Tensor, tail: torch.Te
     return emb
 
 
-def optimize_layout_edges_fixed_tail(init: torch.Tensor, tail_emb: torch.Tensor,
-                                     head: torch.Tensor, tail: torch.Tensor, w: torch.Tensor,
-                                     n_epochs: int, random_state: int, a: float, b: float,
-                                     gamma: float = 1.0, initial_alpha: float = 1.0,
-                                     negative_sample_rate: int = 5, *,
-                                     _negatives=None) -> torch.Tensor:
-    """optimize_layout_edges in transform mode: the tails stay at
-    ``tail_emb`` (the fitted embedding), only the heads (new points)
-    move, and each new point's NEG_POOL negatives are train points.
-    Every zero-distance draw takes the +4 kick (no tail to exempt)."""
+def optimize_layout_edges(init: torch.Tensor, head: torch.Tensor, tail: torch.Tensor,
+                          w: torch.Tensor, n: int, n_epochs: int, random_state: int,
+                          a: float, b: float, gamma: float = 1.0, initial_alpha: float = 1.0,
+                          negative_sample_rate: int = 5, *, _negatives=None) -> torch.Tensor:
+    """layout.py's epoch-synchronous SGD on a SYMMETRIC edge list (both
+    directions of every edge, equal weights: what build_sym_edges emits).
+
+    Per-edge epochs_per_sample schedules; attraction -2ab d^(2b-2) /
+    (1 + a d^2b) clipped to [-4, 4], the tails' recoil being exactly
+    minus the mirror edge's attraction, so the head segment sum doubled
+    is the whole attraction.  Negatives per POINT: each epoch every
+    point draws NEG_POOL uniform points, and its repulsion 2 gamma b /
+    ((0.001 + d^2)(1 + a d^2b)) (clipped; +4 at zero distance; a
+    zero-distance draw of itself skipped) is the pool's mean scaled by
+    the negatives its edges owe.  One mean-force update an epoch, alpha
+    falling linearly to 0."""
+    return _layout_edges(init, head, tail, w, n, n_epochs, random_state, a, b, gamma,
+                         initial_alpha, negative_sample_rate, _negatives)
+
+
+def optimize_layout_edges_sharded(init: torch.Tensor, head: torch.Tensor, tail: torch.Tensor,
+                                  w: torch.Tensor, n: int, n_epochs: int, random_state: int,
+                                  a: float, b: float, mesh, axis: str = "dp",
+                                  gamma: float = 1.0, initial_alpha: float = 1.0,
+                                  negative_sample_rate: int = 5, *,
+                                  _negatives=None) -> torch.Tensor:
+    """``optimize_layout_edges`` with the EDGES split over ``axis``
+    (collective): rank r owns the r-th contiguous shard of the sorted
+    list, its schedule state with it, and each epoch sums its shard's
+    [n, d + 2] attraction table (``_Segments.sum``) over the axis with
+    one ``all_reduce``; the repulsion and the update run on the whole
+    embedding on every rank in lockstep, every rank drawing the same
+    negatives (the same seeded generator on the same device type).
+
+    The schedule normalizer is the whole list's largest weight (tdax's
+    ``pmax``).  The list is padded to a multiple of the axis size with
+    weight-0 edges on its last head, which keeps each shard sorted (tdax
+    pads with head 0; ``_Segments`` needs sorted heads) and which the
+    wmax / n_epochs cut keeps inactive.  Only the points whose edges
+    straddle a shard boundary add in another order than one device's;
+    with one rank there is no pad and the layout is one device's."""
+    p = mesh.shape[axis]
+    e = head.shape[0]
+    per = math.ceil(e / p)
+    pad = per * p - e
+    wmax = w.max()
+    if pad:
+        head = torch.cat([head, head[-1:].expand(pad)])
+        tail = torch.cat([tail, head[-1:].expand(pad)])
+        w = torch.cat([w, w.new_zeros(pad)])
+    sl = slice(mesh.local_rank(axis) * per, (mesh.local_rank(axis) + 1) * per)
+    return _layout_edges(init, head[sl], tail[sl], w[sl], n, n_epochs, random_state, a, b,
+                         gamma, initial_alpha, negative_sample_rate, _negatives, wmax=wmax,
+                         total=lambda s: pm.all_reduce(s, mesh, axis))
+
+
+def _layout_fixed_tail(init, tail_emb, head, tail, w, n_epochs, a, b, gamma, initial_alpha,
+                       negative_sample_rate, draw, wmax=None) -> torch.Tensor:
+    """The epoch loop of ``optimize_layout_edges_fixed_tail`` for the new
+    points ``init`` (their edges' heads 0 ..), negatives from ``draw``."""
     a32, b32, g32 = np.float32(a), np.float32(b), np.float32(gamma)
-    device = init.device
-    n_head, n_tail = init.shape[0], tail_emb.shape[0]
     tail_fixed = tail_emb.to(torch.float32)
-    eps, epns, edge_on, eons, eonns = _schedules(w, n_epochs, negative_sample_rate)
-    seg = _Segments(head, n_head)
-    draw = _negative_draws(_negatives, _generator(random_state, TRANSFORM_STREAM, device),
-                           n_head, n_tail, device)
+    eps, epns, edge_on, eons, eonns = _schedules(w, n_epochs, negative_sample_rate, wmax)
+    seg = _Segments(head, init.shape[0])
     emb = init.to(torch.float32)
     for epoch in range(n_epochs):
         alpha = _alpha(initial_alpha, epoch, n_epochs)
@@ -447,19 +552,88 @@ def optimize_layout_edges_fixed_tail(init: torch.Tensor, tail_emb: torch.Tensor,
     return emb
 
 
+def optimize_layout_edges_fixed_tail(init: torch.Tensor, tail_emb: torch.Tensor,
+                                     head: torch.Tensor, tail: torch.Tensor, w: torch.Tensor,
+                                     n_epochs: int, random_state: int, a: float, b: float,
+                                     gamma: float = 1.0, initial_alpha: float = 1.0,
+                                     negative_sample_rate: int = 5, *,
+                                     _negatives=None) -> torch.Tensor:
+    """optimize_layout_edges in transform mode: the tails stay at
+    ``tail_emb`` (the fitted embedding), only the heads (new points)
+    move, and each new point's NEG_POOL negatives are train points.
+    Every zero-distance draw takes the +4 kick (no tail to exempt)."""
+    device = init.device
+    draw = _negative_draws(_negatives, _generator(random_state, TRANSFORM_STREAM, device),
+                           init.shape[0], tail_emb.shape[0], device)
+    return _layout_fixed_tail(init, tail_emb, head, tail, w, n_epochs, a, b, gamma,
+                              initial_alpha, negative_sample_rate, draw)
+
+
+def optimize_layout_edges_fixed_tail_sharded(init: torch.Tensor, tail_emb: torch.Tensor,
+                                             head: torch.Tensor, tail: torch.Tensor,
+                                             w: torch.Tensor, n_epochs: int, random_state: int,
+                                             a: float, b: float, mesh, axis: str = "dp",
+                                             gamma: float = 1.0, initial_alpha: float = 1.0,
+                                             negative_sample_rate: int = 5, *,
+                                             _negatives=None) -> torch.Tensor:
+    """The transform layout with the NEW POINTS split over ``axis``
+    (collective): the tails are fixed, so each new point moves on its
+    own; rank r embeds rows r*m .. (r+1)*m (m = ceil(n_new / p)) against
+    the whole train embedding with no collective in the epoch loop, and
+    the rows are gathered in rank order.  The negatives are drawn in
+    their one-device shape and sliced to the rank's rows, and the
+    schedule normalizer is the whole list's, so the result is the one
+    device's bit for bit.  Needs the transform's edge layout (k edges a
+    new point, heads contiguous: what ``transform_sparse`` builds); the
+    padded rows (zero init, k weight-0 edges on tail 0) are dropped."""
+    n_new, dim = init.shape
+    e = head.shape[0]
+    if e % n_new:
+        raise ValueError(f"fixed-tail sharding needs k edges a new point: {e} edges, "
+                         f"{n_new} points")
+    k = e // n_new
+    m = math.ceil(n_new / mesh.shape[axis])
+    pad = m * mesh.shape[axis] - n_new
+    wmax = w.max()
+    if pad:
+        init = torch.cat([init, init.new_zeros(pad, dim)])
+        head = torch.cat([head, torch.arange(n_new, n_new + pad, device=head.device,
+                                             dtype=head.dtype).repeat_interleave(k)])
+        tail = torch.cat([tail, tail.new_zeros(pad * k)])
+        w = torch.cat([w, w.new_zeros(pad * k)])
+    row0 = mesh.local_rank(axis) * m
+    device = init.device
+    one_device = _negative_draws(_negatives, _generator(random_state, TRANSFORM_STREAM, device),
+                                 n_new, tail_emb.shape[0], device)
+
+    def draw(epoch):
+        ridx = one_device(epoch)
+        if pad:
+            ridx = torch.cat([ridx, ridx.new_zeros(pad, NEG_POOL)])
+        return ridx[row0:row0 + m]
+
+    edges = slice(row0 * k, (row0 + m) * k)
+    emb = _layout_fixed_tail(init[row0:row0 + m], tail_emb, head[edges] - row0, tail[edges],
+                             w[edges], n_epochs, a, b, gamma, initial_alpha,
+                             negative_sample_rate, draw, wmax=wmax)
+    return pm.all_gather(emb, mesh, axis)[:n_new]
+
+
 def transform_sparse(x_new, train_x: torch.Tensor, train_emb, n_neighbors: int, metric: str,
                      n_epochs: int, random_state: int, a: float, b: float,
                      learning_rate: float, negative_sample_rate: int,
-                     repulsion_strength: float, local_connectivity: float, *,
+                     repulsion_strength: float, local_connectivity: float, mesh=None, *,
                      _negatives=None) -> np.ndarray:
     """Embed new points against a fitted reducer on the edge list
     (umap.UMAP.transform: cross-kNN calibration, weighted-mean init,
-    fixed-tail SGD at alpha/4), on train_x's device."""
+    fixed-tail SGD at alpha/4), on train_x's device.  With ``mesh`` the
+    new points split over its ``"dp"`` axis for the kNN and the layout
+    (collective); the result is the one device's."""
     device = train_x.device
     get_device(device)  # the precision switches (TF32 off), for tensors passed in too
     xj = as_device_f32(x_new, device)
     n_new, k = xj.shape[0], n_neighbors
-    idx, dists = knn_blocked_cross(xj, train_x, k, metric)
+    idx, dists = knn_blocked_cross(xj, train_x, k, metric, mesh=mesh)
 
     # no self column in a cross-kNN: a zero column keeps the
     # calibration's skip-self convention (as the dense transform)
@@ -473,21 +647,27 @@ def transform_sparse(x_new, train_x: torch.Tensor, train_emb, n_neighbors: int, 
     # init: the weighted mean of the neighbours' embeddings
     wsum = w.sum(1).clamp_min(1e-12)
     init = (w[:, :, None] * emb_t[idx]).sum(1) / wsum[:, None]
-    emb = optimize_layout_edges_fixed_tail(
-        init, emb_t, head, idx.reshape(-1), w.reshape(-1), n_epochs, random_state, a, b,
-        gamma=repulsion_strength, initial_alpha=learning_rate / 4.0,
-        negative_sample_rate=negative_sample_rate, _negatives=_negatives)
+    kw = dict(gamma=repulsion_strength, initial_alpha=learning_rate / 4.0,
+              negative_sample_rate=negative_sample_rate, _negatives=_negatives)
+    edges = (head, idx.reshape(-1), w.reshape(-1), n_epochs, random_state, a, b)
+    if mesh is not None:
+        emb = optimize_layout_edges_fixed_tail_sharded(init, emb_t, *edges, mesh, **kw)
+    else:
+        emb = optimize_layout_edges_fixed_tail(init, emb_t, *edges, **kw)
     return emb.cpu().numpy()
 
 
 def embed_sparse(x, n_neighbors: int, n_components: int, metric: str, n_epochs: int,
                  random_state: int, a: float, b: float, learning_rate: float,
                  negative_sample_rate: int, repulsion_strength: float,
-                 local_connectivity: float, set_op_mix_ratio: float, device=None, *,
-                 _x0=None, _negatives=None) -> np.ndarray:
+                 local_connectivity: float, set_op_mix_ratio: float, device=None,
+                 mesh=None, *, _x0=None, _negatives=None) -> np.ndarray:
     """One large cloud -> its [n, n_components] embedding on the edge
     list, on the card unless ``device="cpu"`` (a tensor stays where it
-    lies).  Stage times land in ``LAST_TIMINGS``."""
+    lies).  With ``mesh`` the kNN rows and the layout's edges split over
+    its ``"dp"`` axis (collective); the COO merge and the spectral init
+    run on every rank on the gathered lists, as in tdax.  Stage times
+    land in ``LAST_TIMINGS``."""
     t = {}
     t0 = time.perf_counter()
     xj = as_device_f32(x, device)
@@ -497,7 +677,7 @@ def embed_sparse(x, n_neighbors: int, n_components: int, metric: str, n_epochs: 
     n = xj.shape[0]
 
     t0 = time.perf_counter()
-    idx, dists = knn_blocked(xj, n_neighbors, metric)
+    idx, dists = knn_blocked(xj, n_neighbors, metric, mesh=mesh)
     sigma, rho = smooth_knn_dist(dists, float(n_neighbors), local_connectivity=local_connectivity)
     w_knn = membership_strengths_knn(idx, dists, sigma, rho)
     idx_h, w_h = idx.cpu().numpy(), w_knn.cpu().numpy()
@@ -522,10 +702,13 @@ def embed_sparse(x, n_neighbors: int, n_components: int, metric: str, n_epochs: 
     t["init_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    emb = optimize_layout_edges(init, head, tail, wgt, n, n_epochs, random_state, a, b,
-                                gamma=repulsion_strength, initial_alpha=learning_rate,
-                                negative_sample_rate=negative_sample_rate,
-                                _negatives=_negatives)
+    kw = dict(gamma=repulsion_strength, initial_alpha=learning_rate,
+              negative_sample_rate=negative_sample_rate, _negatives=_negatives)
+    edges = (init, head, tail, wgt, n, n_epochs, random_state, a, b)
+    if mesh is not None:
+        emb = optimize_layout_edges_sharded(*edges, mesh, **kw)
+    else:
+        emb = optimize_layout_edges(*edges, **kw)
     out = emb.cpu().numpy()
     t["layout_s"] = time.perf_counter() - t0
     t["init_iterations"] = iterations

@@ -6,17 +6,21 @@ dp x tp mesh, sharding rules and ``shard_params``, with the collectives
 the model's tp sites, the extraction's dp gather and the sweep's layer
 split run; ``sharded_ops`` the row-sharded distances, kNN and sparse
 edge extraction of the scale paths (a module of its own, as in tdax,
-whose ``__all__`` does not name them); ``train`` the single-device step
-and loop.  tdax's FSDP rules, hybrid mesh, sequence and context
-parallelism and the 1F1B pipeline are not ported yet.
+whose ``__all__`` does not name them); ``train`` the training step and
+loop, on one device or over a dp x tp mesh with sequence parallelism.
+tdax's FSDP rules, hybrid mesh, context parallelism and the 1F1B
+pipeline are not ported yet.
 
-Names resolve on first use, so that the model can import ``mesh``
-without importing the training step (which imports the model).
+``__all__`` holds the tdax names ported so far.  ``train``'s own names
+(``AdamW``, ``OptState``, ``masked_ce``, ``masked_ce_parts``) resolve
+here too, as attributes.  Names resolve on first use, so that the model
+can import ``mesh`` without importing the training step (which imports
+the model).
 """
 
 _MESH = ("make_mesh", "param_sharding_rules", "shard_params")
-_TRAIN = ("AdamW", "OptState", "default_optimizer", "lm_loss", "make_train_step",
-          "masked_ce", "masked_ce_parts", "train_loop", "warmup_cosine_lr")
+_TRAIN = ("default_optimizer", "lm_loss", "make_train_step", "train_loop", "warmup_cosine_lr")
+_TRAIN_OWN = ("AdamW", "OptState", "masked_ce", "masked_ce_parts")
 
 __all__ = [*_MESH, *_TRAIN]
 
@@ -25,7 +29,7 @@ def __getattr__(name):
     if name in _MESH:
         from tdax_torch.parallel import mesh
         return getattr(mesh, name)
-    if name in _TRAIN:
+    if name in _TRAIN or name in _TRAIN_OWN:
         from tdax_torch.parallel import train
         return getattr(train, name)
     raise AttributeError(f"module 'tdax_torch.parallel' has no attribute {name!r}")

@@ -23,7 +23,14 @@ copies a CUDA tensor through the host, by rule.  A failed collective
 raises; nothing here catches it.
 
 ``COLLECTIVES`` counts the collectives run, by backend and kind
-(``"nccl.all_gather"``, ...), so a run can show which ran.
+(``"nccl.all_gather"``, ...), so a run can show which ran;
+``COLLECTIVE_BYTES`` adds up the bytes of the tensors they took or
+gave this rank, under the same keys.  Under gloo ``reduce_scatter`` is
+an all_reduce of the whole tensor and this rank's slice of the sum,
+counted as ``"gloo.reduce_scatter"`` with the whole tensor's bytes: it
+adds in the all_reduce's order, so a sequence-parallel forward over gloo
+is the plain tp forward bit for bit, at tp times the bytes of gloo's
+own ``reduce_scatter_tensor``.
 
 Every collective here, and every function of the port that runs one
 (``sharded_ops``, the sweep and scale paths under a process group), is
@@ -41,6 +48,7 @@ import torch.distributed as dist
 from tdax_torch.runtime import get_device
 
 COLLECTIVES: dict[str, int] = {}
+COLLECTIVE_BYTES: dict[str, int] = {}
 
 
 class P(tuple):
@@ -155,23 +163,53 @@ def make_mesh(dp: int | None = None, tp: int = 1, cp: int = 1) -> Mesh:
         raise ValueError(f"dp*tp*cp = {dp}*{tp}*{cp} != {n} ranks")
     if cp > 1:
         raise NotImplementedError("make_mesh: cp > 1 (context parallelism, ring attention) "
-                                  "comes with the port's multi-device training")
+                                  "is not ported")
     from torch.distributed.device_mesh import init_device_mesh
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return Mesh(init_device_mesh(device_type, (dp, tp), mesh_dim_names=("dp", "tp")))
 
 
-def _count(kind: str, group) -> None:
+def _count(kind: str, group, nbytes: int = 0) -> None:
     key = f"{dist.get_backend(group)}.{kind}"
     COLLECTIVES[key] = COLLECTIVES.get(key, 0) + 1
+    COLLECTIVE_BYTES[key] = COLLECTIVE_BYTES.get(key, 0) + nbytes
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """The sum of ``x`` over ``axis``'s group, in place; returns ``x``."""
     group = mesh.group(axis)
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
-    _count("all_reduce", group)
+    _count("all_reduce", group, _nbytes(x))
     return x
+
+
+def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """This rank's 1/p of ``x``'s sum over ``axis``'s group along ``dim``
+    (p the group's size, which must divide it), a new contiguous tensor;
+    ``x`` is left as it was.  NCCL runs ``reduce_scatter_tensor``; gloo
+    an all_reduce of a copy of the whole tensor, then the slice (the
+    module's docstring has why)."""
+    group = mesh.group(axis)
+    p, r = mesh.shape[axis], mesh.local_rank(axis)
+    if x.shape[dim] % p:
+        raise ValueError(f"reduce_scatter: {x.shape[dim]} does not divide over the {p} ranks "
+                         f"of mesh axis {axis!r}")
+    per = x.shape[dim] // p
+    if dist.get_backend(group) == "gloo":
+        buf = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+        out = buf.narrow(dim, r * per, per).contiguous()
+    else:
+        src = x.movedim(dim, 0).contiguous()
+        part = src.new_empty((per,) + tuple(src.shape[1:]))
+        dist.reduce_scatter_tensor(part, src, op=dist.ReduceOp.SUM, group=group)
+        out = part.movedim(0, dim).contiguous()
+    _count("reduce_scatter", group, _nbytes(x))
+    return out
 
 
 def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:
@@ -183,7 +221,7 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Te
     src = (x.cpu() if staged else x).contiguous()
     parts = [torch.empty_like(src) for _ in range(mesh.shape[axis])]
     dist.all_gather(parts, src, group=group)
-    _count("all_gather", group)
+    _count("all_gather", group, _nbytes(src) * len(parts))
     out = torch.cat(parts, dim=dim)
     return out.to(x.device) if staged else out
 
@@ -193,7 +231,7 @@ def broadcast(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     in place; returns ``x``."""
     group = mesh.group(axis)
     dist.broadcast(x, src=dist.get_global_rank(group, 0), group=group)
-    _count("broadcast", group)
+    _count("broadcast", group, _nbytes(x))
     return x
 
 
@@ -298,24 +336,72 @@ def _tp_divisor(path: tuple, cfg) -> int:
     raise ValueError(f"shard_params: no tp site for {'.'.join(path)}")
 
 
-def _shard_leaf(leaf: torch.Tensor, spec: P, path: tuple, mesh: Mesh, cfg):
+def _splits(spec: P, path: tuple, mesh: Mesh, cfg) -> bool:
+    """Whether ``shard_params`` splits the leaf at ``path`` (under
+    ``spec``) over tp: its rule names tp, tp > 1 and tp divides its site."""
     axes = [a for a in spec if a is not None]
     if not axes:
-        return leaf
+        return False
     if axes != ["tp"]:
         raise NotImplementedError(f"shard_params: {'.'.join(path)} is sharded over {axes}; "
                                   "only tp is ported")
-    if isinstance(leaf, dict):
+    n = mesh.shape["tp"]
+    return n > 1 and _tp_divisor(path, cfg) % n == 0  # else the site runs replicated
+
+
+def tp_split(path: tuple, mesh: Mesh, cfg) -> bool:
+    """Whether this rank holds a tp shard of the leaf at ``path`` (a
+    tuple of keys of ``param_sharding_rules``), not the whole leaf."""
+    spec = param_sharding_rules()
+    for key in path:
+        spec = spec[key]
+    return _splits(spec, path, mesh, cfg)
+
+
+def _shard_leaf(leaf: torch.Tensor, spec: P, path: tuple, mesh: Mesh, cfg):
+    if isinstance(leaf, dict) and any(a is not None for a in spec):
         raise NotImplementedError(f"shard_params: {'.'.join(path)} is int8; int8 weights "
                                   "under tp are not ported (tdax's rules describe fp leaves)")
+    if not _splits(spec, path, mesh, cfg):
+        return leaf
     n, r = mesh.shape["tp"], mesh.local_rank("tp")
-    if n == 1 or _tp_divisor(path, cfg) % n:
-        return leaf  # a site whose heads tp does not divide runs replicated
     dim = spec.index("tp")
     if path in _FUSED_QKV:
         thirds = leaf.chunk(3, dim=dim)
         return torch.cat([t.chunk(n, dim=dim)[r] for t in thirds], dim=dim)
     return leaf.chunk(n, dim=dim)[r].clone(memory_format=torch.contiguous_format)
+
+
+def _unshard_leaf(leaf: torch.Tensor, spec: P, path: tuple, mesh: Mesh, cfg):
+    if not _splits(spec, path, mesh, cfg):
+        return leaf
+    dim = spec.index("tp")
+    whole = all_gather(leaf, mesh, "tp", dim=dim)
+    if path in _FUSED_QKV:  # [q_0 k_0 v_0 | q_1 k_1 v_1 | ...] -> [q | k | v]
+        thirds = [part.chunk(3, dim=dim) for part in whole.chunk(mesh.shape["tp"], dim=dim)]
+        whole = torch.cat([t[j] for j in range(3) for t in thirds], dim=dim)
+    return whole
+
+
+def _walk(tree: dict, spec_tree: dict, path: tuple, fn) -> dict:
+    out = {}
+    for key, leaf in tree.items():
+        spec = spec_tree[key]
+        if isinstance(spec, dict):
+            out[key] = _walk(leaf, spec, path + (key,), fn)
+        else:
+            out[key] = fn(leaf, spec, path + (key,))
+    return out
+
+
+def unshard_params(tree: dict, mesh: Mesh, cfg, rules: dict | None = None) -> dict:
+    """``shard_params``' inverse: every tp-sharded leaf of this rank's
+    tree gathered whole over the tp group (collective), the fused qkv
+    put back in [q | k | v] order; replicated leaves as they are.  Any
+    tree in the params' layout (AdamW's moments too)."""
+    rules = rules or param_sharding_rules("visual" in tree)
+    return _walk(tree, rules, (), lambda leaf, spec, path: _unshard_leaf(
+        leaf, spec, path, mesh, cfg))
 
 
 def shard_params(params: dict, mesh: Mesh, rules: dict | None = None, *, cfg) -> dict:
@@ -328,15 +414,5 @@ def shard_params(params: dict, mesh: Mesh, rules: dict | None = None, *, cfg) ->
     weights and runs replicated: the model sees whole shapes there and
     sums nothing."""
     rules = rules or param_sharding_rules("visual" in params)
-
-    def walk(tree, spec_tree, path):
-        out = {}
-        for key, leaf in tree.items():
-            spec = spec_tree[key]
-            if isinstance(spec, dict):
-                out[key] = walk(leaf, spec, path + (key,))
-            else:
-                out[key] = _shard_leaf(leaf, spec, path + (key,), mesh, cfg)
-        return out
-
-    return walk(params, rules, ())
+    return _walk(params, rules, (), lambda leaf, spec, path: _shard_leaf(
+        leaf, spec, path, mesh, cfg))

@@ -24,6 +24,17 @@ Trainable leaves are per-layer views of each stacked [L, ...] weight:
 autograd's backward of a stacked weight's ``w[i]`` would allocate a
 zero tensor of the whole stack for every layer (O(L^2) bytes a step);
 a per-layer leaf gets a gradient of its own size.
+
+Under a dp x tp mesh (``mesh.make_mesh``) each rank holds its dp rows of
+the batch and its tp shard of the params (``mesh.shard_params``); the
+step takes the mesh from the active ``flash_sharding`` context (or from
+``sp_mesh``) and runs inside ``flash_sharding(mesh, "dp", "tp")``, where
+tdax's GSPMD reads it from the arrays' shardings.  The loss is tdax's
+token-weighted global mean (the CE numerator and the token count summed
+over dp before the division), the gradients are summed over dp, the
+clip's global norm sums the squares of the tp-sharded leaves over tp and
+counts every replicated or whole leaf once, and AdamW updates each
+rank's shard.  The tp collectives' backward is ``models/qwen_vl/tp.py``'s.
 """
 
 from __future__ import annotations
@@ -38,6 +49,9 @@ import torch
 from tdax_torch.models.qwen_vl.config import QwenVLConfig
 from tdax_torch.models.qwen_vl.model import forward
 from tdax_torch.models.qwen_vl.quantize import is_quantized
+from tdax_torch.models.qwen_vl.tp import sum_over
+from tdax_torch.ops.flash_attention import current_flash_sharding, flash_sharding
+from tdax_torch.parallel import mesh as pm
 from tdax_torch.runtime import get_device
 
 # dict nodes whose leaves are stacked over the layer axis
@@ -66,11 +80,30 @@ def masked_ce(logits, input_ids, attn_mask) -> torch.Tensor:
     return ce_sum / n.clamp_min(1.0)
 
 
+def _global_parts(ce_sum: torch.Tensor, n: torch.Tensor, mesh):
+    """(CE numerator, token count) summed over the mesh's dp ranks; the
+    numerator's gradient reaches each rank's own as it is."""
+    return sum_over(ce_sum, mesh, "dp"), pm.all_reduce(n.clone(), mesh, "dp")
+
+
+def _context_mesh():
+    ctx = current_flash_sharding()
+    return None if ctx is None else ctx[0]
+
+
 def lm_loss(params: dict, cfg: QwenVLConfig, input_ids, attn_mask, images=None,
-            image_positions=None, remat: bool = False) -> torch.Tensor:
-    """Masked next-token cross entropy (mean over real target tokens)."""
-    logits = forward(params, cfg, input_ids, attn_mask, images, image_positions, remat=remat)
-    return masked_ce(logits, input_ids, attn_mask)
+            image_positions=None, remat: bool = False, seq_sharding=None) -> torch.Tensor:
+    """Masked next-token cross entropy (mean over real target tokens).
+    Inside ``flash_sharding`` over a dp x tp mesh, the mean over every dp
+    rank's tokens, each rank passing its rows; ``seq_sharding``
+    (``(mesh, "tp")``) turns on sequence parallelism (``forward``)."""
+    logits = forward(params, cfg, input_ids, attn_mask, images, image_positions, remat=remat,
+                     seq_sharding=seq_sharding)
+    ce_sum, n = masked_ce_parts(logits, input_ids, attn_mask)
+    mesh = _context_mesh()
+    if mesh is not None:
+        ce_sum, n = _global_parts(ce_sum, n, mesh)
+    return ce_sum / n.clamp_min(1.0)
 
 
 def warmup_cosine_lr(peak_lr: float, warmup_steps: int, total_steps: int,
@@ -165,13 +198,20 @@ class OptState:
                 "exp_avg_sq": nu if i is None else nu[i]}
 
     @torch.no_grad()
-    def update(self, grads: list) -> None:
+    def update(self, grads: list, tp=None) -> None:
         """Clip ``grads`` (one per leaf, modified in place) by their global
-        norm, then one AdamW step on the params."""
+        norm, then one AdamW step on the params.  ``tp``: (mesh, one flag
+        a leaf, True where this rank holds a tp shard of it); the shards'
+        squares are summed over tp, the other leaves counted once."""
         device = self.leaves[0].device
         total = torch.zeros((), dtype=torch.float32, device=device)
-        for g in grads:
-            total += torch.linalg.vector_norm(g, dtype=torch.float32).square()
+        split = torch.zeros((), dtype=torch.float32, device=device)
+        flags = [False] * len(grads) if tp is None else tp[1]
+        for g, flag in zip(grads, flags):
+            (split if flag else total).add_(
+                torch.linalg.vector_norm(g, dtype=torch.float32).square())
+        if tp is not None:
+            total += pm.all_reduce(split, tp[0], "tp")
         norm = total.sqrt()
         clip = norm >= CLIP_NORM  # optax: keep where |g| < max
         denom = torch.where(clip, norm, 1.0)
@@ -199,12 +239,15 @@ class OptState:
             node[name] = torch.cat(ts) if len(ts) > 1 else ts[0]
         return tree
 
-    def to_flat(self) -> dict:
-        """Flat checkpoint keys: ``mu/<path>``, ``nu/<path>``, ``count``."""
+    def to_flat(self, gather=None) -> dict:
+        """Flat checkpoint keys: ``mu/<path>``, ``nu/<path>``, ``count``;
+        ``gather`` maps each moment tree first (under tp:
+        ``mesh.unshard_params``)."""
         from tdax_torch.utils.checkpoint import _flatten
 
-        flat = _flatten(self.mu, "mu/", {})
-        _flatten(self.nu, "nu/", flat)
+        gather = gather or (lambda tree: tree)
+        flat = _flatten(gather(self.mu), "mu/", {})
+        _flatten(gather(self.nu), "nu/", flat)
         flat["count"] = np.asarray(self.count, dtype=np.int64)
         return flat
 
@@ -249,8 +292,24 @@ def default_optimizer(lr=1e-4) -> AdamW:
     return AdamW(lr)
 
 
+def _step_mesh(sp_mesh, cp_mesh):
+    """The step's dp x tp mesh: ``sp_mesh``, else the active
+    ``flash_sharding`` context's, else None (one device)."""
+    if sp_mesh is not None and cp_mesh is not None:
+        raise ValueError("sp_mesh and cp_mesh are mutually exclusive: both shard the "
+                         "sequence axis (over tp and cp respectively)")
+    if cp_mesh is not None:
+        raise NotImplementedError("cp_mesh: context parallelism (ring attention) is not "
+                                  "ported")
+    mesh = _context_mesh()
+    if sp_mesh is not None and mesh is not None and mesh is not sp_mesh:
+        raise ValueError("sp_mesh is not the mesh of the active flash_sharding context")
+    return sp_mesh if sp_mesh is not None else mesh
+
+
 def make_train_step(cfg: QwenVLConfig, optimizer: AdamW, with_images: bool = False,
-                    remat: bool = False, accum_steps: int = 1, device=None):
+                    remat: bool = False, sp_mesh=None, cp_mesh=None, accum_steps: int = 1,
+                    device=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     loss), ``opt_state = optimizer.init(params)``.  The params are updated
     in place; the loss stays on the device.
@@ -264,31 +323,47 @@ def make_train_step(cfg: QwenVLConfig, optimizer: AdamW, with_images: bool = Fal
     denominator and f32 gradient sums accumulate over the microbatches,
     then ONE update applies the full-batch gradient, cast once to the
     params' dtype.  ``train_step.loss_and_grads`` is the step without its
-    update (``opt_state.update(grads)`` completes it)."""
+    update (``opt_state.update(grads, train_step.tp_flags(opt_state))``
+    completes it).
+
+    Called inside ``flash_sharding(mesh, "dp", "tp")`` (the mesh read at
+    each call) or with ``sp_mesh`` (the dp x tp mesh the params are
+    sharded over), the step runs over that mesh: the params are this
+    rank's ``shard_params`` tree and the batch this rank's dp rows (see
+    the module's docstring).  ``sp_mesh`` also turns on sequence
+    parallelism: the residual stream between blocks sharded over tp on
+    the sequence axis.  ``cp_mesh`` (context parallelism) is not ported
+    and raises; with ``sp_mesh`` it raises ValueError, as tdax's."""
     device = get_device(device)
+    _step_mesh(sp_mesh, cp_mesh)
+    seq = None if sp_mesh is None else (sp_mesh, "tp")
 
     def loss_parts(tree, b):
         logits = forward(tree, cfg, b["input_ids"], b["attn_mask"],
                          b.get("images") if with_images else None,
-                         b.get("image_positions") if with_images else None, remat=remat)
+                         b.get("image_positions") if with_images else None, remat=remat,
+                         seq_sharding=seq)
         return masked_ce_parts(logits, b["input_ids"], b["attn_mask"])
 
     def grads_of(out, leaves):
         grads = torch.autograd.grad(out, leaves, allow_unused=True)
         return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
 
-    def loss_and_grads(params, opt_state: OptState, batch: dict):
-        """(loss, one gradient per ``opt_state.leaves``): the step before
-        its update."""
-        if opt_state.params is not params:
-            raise ValueError("opt_state was made by optimizer.init() of another params tree")
+    def dp_sum(grads, mesh):
+        """Each gradient summed over dp in f32, in place."""
+        for g in grads:
+            g.copy_(pm.all_reduce(g.float() if g.dtype != torch.float32 else g, mesh, "dp"))
+
+    def run(params, opt_state: OptState, batch: dict, mesh):
         leaves = opt_state.leaves
-        if leaves[0].device.type != device.type:
-            raise ValueError(f"train step: params on {leaves[0].device}, step on {device}")
         if accum_steps == 1:
             ce_sum, n = loss_parts(opt_state.tree, batch)
+            if mesh is not None:
+                ce_sum, n = _global_parts(ce_sum, n, mesh)
             loss = ce_sum / n.clamp_min(1.0)
             grads = grads_of(loss, leaves)
+            if mesh is not None:
+                dp_sum(grads, mesh)
         else:
             for name, leaf in batch.items():
                 if leaf.shape[0] != accum_steps:
@@ -303,26 +378,71 @@ def make_train_step(cfg: QwenVLConfig, optimizer: AdamW, with_images: bool = Fal
                     a += g.float()
                 ce_tot += ce_sum.detach()
                 n_tot += n
+            if mesh is not None:
+                ce_tot, n_tot = (pm.all_reduce(t, mesh, "dp") for t in (ce_tot, n_tot))
+                dp_sum(acc, mesh)
             n_tot = n_tot.clamp_min(1.0)
             loss = ce_tot / n_tot
             grads = [(a / n_tot).to(p.dtype) for a, p in zip(acc, leaves)]
             del acc
         return loss.detach(), grads
 
+    def loss_and_grads(params, opt_state: OptState, batch: dict):
+        """(loss, one gradient per ``opt_state.leaves``): the step before
+        its update."""
+        if opt_state.params is not params:
+            raise ValueError("opt_state was made by optimizer.init() of another params tree")
+        if opt_state.leaves[0].device.type != device.type:
+            raise ValueError(f"train step: params on {opt_state.leaves[0].device}, step on "
+                             f"{device}")
+        mesh = _step_mesh(sp_mesh, None)
+        if mesh is None:
+            return run(params, opt_state, batch, None)
+        with flash_sharding(mesh, "dp", "tp"):
+            return run(params, opt_state, batch, mesh)
+
+    def tp_flags(opt_state: OptState):
+        """``OptState.update``'s ``tp``: (mesh, which leaves are tp
+        shards), or None on one device."""
+        mesh = _step_mesh(sp_mesh, None)
+        if mesh is None:
+            return None
+        return mesh, [pm.tp_split(tuple(path.split("/")), mesh, cfg)
+                      for path, _ in opt_state.names]
+
     def step(params, opt_state: OptState, batch: dict):
         loss, grads = loss_and_grads(params, opt_state, batch)
-        opt_state.update(grads)
+        opt_state.update(grads, tp_flags(opt_state))
         return params, opt_state, loss
 
     step.loss_and_grads = loss_and_grads
+    step.tp_flags = tp_flags
     return step
+
+
+def _save_state(path: str, params: dict, opt_state: OptState, step: int, mesh, cfg) -> None:
+    """The train state to ``path + ".npz"``; under a mesh the tp shards
+    gathered whole (every rank) and written by rank 0 alone, the others
+    waiting at a barrier for the file."""
+    from tdax_torch.utils.checkpoint import save_train_state
+    if mesh is None:
+        save_train_state(path, params, opt_state, step)
+        return
+
+    def gather(tree):
+        return pm.unshard_params(tree, mesh, cfg)
+
+    whole, flat = gather(params), opt_state.to_flat(gather)
+    if pm.is_writer():
+        save_train_state(path, whole, flat, step)
+    pm.barrier()
 
 
 def train_loop(params: dict, cfg: QwenVLConfig, batches, n_steps: int,
                optimizer: AdamW | None = None, checkpoint_path: str | None = None,
                checkpoint_every: int = 100, resume: bool = True, with_images: bool = False,
-               remat: bool = False, accum_steps: int = 1, log_every: int = 50,
-               verbose: bool = False, device=None):
+               remat: bool = False, sp_mesh=None, cp_mesh=None, accum_steps: int = 1,
+               log_every: int = 50, verbose: bool = False, device=None):
     """Minimal fit loop with crash resume (tdax's ``train_loop``).
 
     ``batches`` is a callable ``step -> batch dict``, so a resumed run
@@ -332,20 +452,29 @@ def train_loop(params: dict, cfg: QwenVLConfig, batches, n_steps: int,
     step (its params replace ``params``).  Losses stay on the device
     until the loop ends; every ``log_every`` steps a ``train_window``
     event goes to the JSONL log.  Returns (params, opt_state, losses) for
-    the steps this call ran.  Runs on the card unless ``device="cpu"``."""
-    from tdax_torch.utils.checkpoint import load_train_state, save_train_state
+    the steps this call ran.  Runs on the card unless ``device="cpu"``.
+
+    Over a mesh (``sp_mesh``, or the active ``flash_sharding`` context's,
+    as ``make_train_step``) ``params`` is this rank's shard and
+    ``batches`` gives this rank's dp rows; the checkpoint holds the whole
+    tree (``mesh.unshard_params``), written by rank 0 with a barrier
+    after it, and a resume shards it again (``mesh.shard_params``) and
+    continues bitwise.  Rank 0 alone prints and logs."""
+    from tdax_torch.utils.checkpoint import load_train_state
     from tdax_torch.utils.log import log_event
 
     device = get_device(device)
+    mesh = _step_mesh(sp_mesh, cp_mesh)
     opt = optimizer if optimizer is not None else default_optimizer()
     start = 0
     if checkpoint_path and resume and os.path.exists(checkpoint_path + ".npz"):
-        params, opt_state, start = load_train_state(checkpoint_path, opt, device)
-        if verbose:
+        shard = None if mesh is None else (lambda tree: pm.shard_params(tree, mesh, cfg=cfg))
+        params, opt_state, start = load_train_state(checkpoint_path, opt, device, shard=shard)
+        if verbose and pm.is_writer():
             print(f"[tdax_torch.train] resumed from step {start}", flush=True)
     else:
         opt_state = opt.init(params)
-    step_fn = make_train_step(cfg, opt, with_images=with_images, remat=remat,
+    step_fn = make_train_step(cfg, opt, with_images=with_images, remat=remat, sp_mesh=sp_mesh,
                               accum_steps=accum_steps, device=device)
     device_losses = []
     t_window, tokens_window = time.time(), 0
@@ -354,15 +483,15 @@ def train_loop(params: dict, cfg: QwenVLConfig, batches, n_steps: int,
         params, opt_state, loss = step_fn(params, opt_state, batch)
         device_losses.append(loss)
         tokens_window += batch["input_ids"].numel()
-        if verbose:
+        if verbose and pm.is_writer():
             print(f"[tdax_torch.train] step {i + 1}/{n_steps} loss {float(loss):.4f}",
                   flush=True)
-        if log_every and (i + 1) % log_every == 0:
+        if log_every and (i + 1) % log_every == 0 and pm.is_writer():
             dt = time.time() - t_window
             # dispatched tokens (padding included), one sync per window
             log_event("train_window", step=i + 1, loss=float(loss), wall_s=round(dt, 4),
                       dispatched_tokens_per_s=round(tokens_window / max(dt, 1e-9), 1))
             t_window, tokens_window = time.time(), 0
         if checkpoint_path and (i + 1) % checkpoint_every == 0:
-            save_train_state(checkpoint_path, params, opt_state, i + 1)
+            _save_state(checkpoint_path, params, opt_state, i + 1, mesh, cfg)
     return params, opt_state, [float(x) for x in device_losses]

@@ -101,19 +101,23 @@ def load_params(path: str) -> dict:
 
 
 def save_train_state(path: str, params: dict, opt_state, step: int) -> None:
-    """Crash-resumable training checkpoint: params, optimizer state and
-    step in ``path + ".npz"``, written atomically."""
+    """Crash-resumable training checkpoint: params, optimizer state (an
+    ``OptState`` or its ``to_flat()`` dict) and step in ``path +
+    ".npz"``, written atomically."""
+    opt_flat = opt_state if isinstance(opt_state, dict) else opt_state.to_flat()
     flat = _flatten(params, "p/", {})
-    flat.update({f"o/{key}": value for key, value in opt_state.to_flat().items()})
+    flat.update({f"o/{key}": value for key, value in opt_flat.items()})
     flat["step"] = np.asarray(step, dtype=np.int64)
     _savez_atomic(path + ".npz", flat)
 
 
-def load_train_state(path: str, optimizer, device) -> tuple[dict, object, int]:
+def load_train_state(path: str, optimizer, device, shard=None) -> tuple[dict, object, int]:
     """Inverse of ``save_train_state``: (params on ``device``, the
     optimizer state ``optimizer.init(params)`` with the saved moments and
-    count, step)."""
+    count, step).  ``shard`` maps the params' and each moment's tree
+    first (under tp: ``mesh.shard_params``)."""
     params: dict = {}
+    moments: dict = {"mu": {}, "nu": {}}
     opt_flat = {}
     step = 0
     for key, t in _read(path + ".npz").items():
@@ -121,8 +125,16 @@ def load_train_state(path: str, optimizer, device) -> tuple[dict, object, int]:
             step = int(t)
         elif key.startswith("p/"):
             _insert(params, key[2:], t.to(device))
+        elif key.split("/")[:2] in (["o", "mu"], ["o", "nu"]):
+            which, rest = key[2:].split("/", 1)
+            _insert(moments[which], rest, t)
         elif key.startswith("o/"):
             opt_flat[key[2:]] = t
+    if shard is not None:
+        params = shard(params)
+        moments = {which: shard(tree) for which, tree in moments.items()}
+    for which, tree in moments.items():
+        _flatten(tree, f"{which}/", opt_flat)
     opt_state = optimizer.init(params)
     opt_state.load_flat(opt_flat)
     return params, opt_state, step

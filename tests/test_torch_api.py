@@ -51,3 +51,14 @@ def test_pipeline_names_import_from_the_package():
     with pytest.raises(AttributeError, match="'tdax_torch.pipeline' has no attribute 'nope'"):
         import tdax_torch.pipeline
         tdax_torch.pipeline.nope
+
+
+def test_parallel_names_are_tdax_names():
+    """``tdax_torch.parallel`` names only tdax's names (the mesh helpers
+    the port adds stay in ``tdax_torch.parallel.mesh``), each resolving
+    to the port's."""
+    import tdax.parallel as jpar
+    import tdax_torch.parallel as par
+    assert set(par.__all__) <= set(jpar.__all__)
+    for name in par.__all__:
+        assert getattr(par, name).__module__.startswith("tdax_torch.parallel."), name

@@ -162,6 +162,18 @@ with tempfile.TemporaryDirectory() as tmp:
                                   mesh=mesh.make_mesh())
         assert sp["n_edges"] > 0
         assert mesh.COLLECTIVES == {"gloo.all_gather": 4, "gloo.broadcast_object": 1}
+        # a sequence-parallel training step and the edge-list UMAP over the group
+        from tdax_torch.ops.umap.sparse_path import embed_sparse
+        from tdax_torch.parallel import make_train_step
+        m = mesh.make_mesh()
+        p = mesh.shard_params(init_params(cfg, "cpu", with_visual=False), m, cfg=cfg)
+        opt = default_optimizer(1e-3)
+        _, _, loss = make_train_step(cfg, opt, sp_mesh=m, remat=True, device="cpu")(
+            p, opt.init(p), {"input_ids": ids, "attn_mask": torch.ones_like(ids)})
+        assert np.isfinite(float(loss)) and mesh.COLLECTIVES["gloo.reduce_scatter"] > 0
+        emb = embed_sparse(rng.normal(size=(40, 6)), 5, 2, "euclidean", 5, 0, 1.58, 0.9, 1.0,
+                           5, 1.0, 1.0, 1.0, device="cpu", mesh=m)
+        assert emb.shape == (40, 2) and np.isfinite(emb).all()
     finally:
         mesh.shutdown()
 bad = sorted(m for m in sys.modules

@@ -293,15 +293,17 @@ def test_shard_params_refuses_int8_under_tp():
 
 def test_sharded_weights_need_the_tp_context():
     """A tp-sharded tree outside flash_sharding(head_axis=...) raises, and
-    so does tp training (the collectives' backward is not ported)."""
+    so do int8 weights under tp, in training too (tp training itself runs:
+    tests/test_torch_parallel_train.py)."""
     local = pm.shard_params(params_from_numpy(_tree(0, False), "cpu", "float32"),
                             _Grid(2, 0), cfg=CFG)
     ids = torch.randint(1, CFG.vocab_size, (1, 8))
     with torch.inference_mode(), pytest.raises(RuntimeError, match="flash_sharding"):
         forward(local, CFG, ids)
-    local["layers"]["attn_proj_w"].requires_grad_()
+    local["layers"]["attn_qkv_w"].requires_grad_()
+    local["layers"]["attn_proj_w"] = quantize_weight(local["layers"]["attn_proj_w"])
     with fa.flash_sharding(_Grid(2, 0), "dp", "tp"), \
-            pytest.raises(NotImplementedError, match="training"):
+            pytest.raises(NotImplementedError, match="int8 weights under tp"):
         forward(local, CFG, ids)
 
 

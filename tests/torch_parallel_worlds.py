@@ -425,3 +425,186 @@ def one_scale_world(rank: int, world: int, store_path: str, inp_path: str,
         return {"single": single, "grouped": grouped, "collectives": dict(pm.COLLECTIVES)}
     finally:
         pm.shutdown()
+
+
+# ---- the edge-list UMAP's mesh variants (tests/test_torch_parallel_umap.py) -----------
+
+def _draws(arrays: list):
+    return lambda epoch: arrays[epoch]
+
+
+def umap_calls(inp: dict, mesh) -> dict:
+    """Every mesh variant of sparse_path on the test's inputs: the kNN
+    (both metrics, both clouds, self and cross), the edge layout from the
+    port's draws and from tdax's, the fixed-tail layout, embed_sparse and
+    transform_sparse.  Every call is collective."""
+    from tdax_torch.ops.umap import sparse_path as ts
+    out = {}
+    train = _t(inp["train"])
+    for name, x in inp["clouds"].items():
+        for metric in ("euclidean", "cosine"):
+            out[f"knn_{name}_{metric}"] = [t.numpy() for t in ts.knn_blocked(
+                _t(x), inp["k"], metric, mesh=mesh)]
+            out[f"cross_{name}_{metric}"] = [t.numpy() for t in ts.knn_blocked_cross(
+                _t(x), train, inp["k"], metric, mesh=mesh)]
+    for name, lay in inp["layouts"].items():
+        neg = _draws(lay["draws"]) if "draws" in lay else None
+        out[f"layout_{name}"] = ts.optimize_layout_edges_sharded(
+            _t(lay["init"]), _t(lay["head"], True), _t(lay["tail"], True), _t(lay["wgt"]),
+            lay["n"], lay["epochs"], 2, *inp["ab"], mesh, _negatives=neg).numpy()
+    for name, ft in inp["fixed_tail"].items():
+        out[f"fixed_tail_{name}"] = ts.optimize_layout_edges_fixed_tail_sharded(
+            _t(ft["init"]), _t(ft["train_emb"]), _t(ft["head"], True), _t(ft["tail"], True),
+            _t(ft["wgt"]), ft["epochs"], 3, *inp["ab"], mesh, initial_alpha=0.25).numpy()
+    e = inp["embed"]
+    out["embed"] = ts.embed_sparse(e["x"], *e["args"], device="cpu", mesh=mesh)
+    out["transform"] = ts.transform_sparse(e["x_new"], _t(e["x"]), e["train_emb"],
+                                           *e["transform_args"], mesh=mesh)
+    return out
+
+
+def umap_world(rank: int, world: int, store_path: str, inp_path: str) -> dict:
+    """A world of ``world`` ranks at dp=world: embed_sparse and
+    transform_sparse on one device first (in this process, before the
+    group), then every mesh variant."""
+    from tdax_torch.ops.umap import sparse_path as ts
+    with open(inp_path, "rb") as f:
+        inp = pickle.load(f)
+    e = inp["embed"]
+    single = {"embed": ts.embed_sparse(e["x"], *e["args"], device="cpu"),
+              "transform": ts.transform_sparse(e["x_new"], _t(e["x"]), e["train_emb"],
+                                               *e["transform_args"])}
+    _join(rank, world, store_path)
+    try:
+        return {**umap_calls(inp, pm.make_mesh(dp=world)), "single": single,
+                "collectives": dict(pm.COLLECTIVES)}
+    finally:
+        pm.shutdown()
+
+
+# ---- dp x tp training and sequence parallelism (tests/test_torch_parallel_train.py) ---
+
+def _batch_rows(batch: dict, mesh, accum: int = 1) -> dict:
+    """This rank's dp rows of a numpy batch as tensors; with ``accum`` the
+    rows split into that many microbatches along a new leading axis."""
+    out = {}
+    for key, v in batch.items():
+        t = pm.split_batch(_t(v, long=key in ("input_ids", "image_positions")), mesh)
+        out[key] = t.reshape(accum, t.shape[0] // accum, *t.shape[1:]) if accum > 1 else t
+    return out
+
+
+def _trained(tree: dict, batch: dict, mesh, n_steps: int = 1, accum: int = 1,
+             **step_kw) -> dict:
+    """``n_steps`` steps of make_train_step over ``mesh`` from ``tree``
+    (lr 1e-3), inside flash_sharding: each step's loss, the whole tree and
+    AdamW's first moment after them, and the steps' collectives."""
+    from tdax_torch.models.qwen_vl.convert import params_to_numpy
+    from tdax_torch.parallel import train as tr
+    params = pm.shard_params(params_from_numpy(tree, "cpu", "float32"), mesh, cfg=CFG)
+    opt = tr.default_optimizer(1e-3)
+    state = opt.init(params)
+    step = tr.make_train_step(CFG, opt, accum_steps=accum, device="cpu", **step_kw)
+    rows = _batch_rows(batch, mesh, accum)
+    losses = []
+    pm.COLLECTIVES.clear()
+    with flash_sharding(mesh, "dp", "tp"):
+        for _ in range(n_steps):
+            _, state, loss = step(params, state, rows)
+            losses.append(float(loss))
+    counts = dict(pm.COLLECTIVES)
+    return {"losses": losses, "collectives": counts,
+            "params": params_to_numpy(pm.unshard_params(params, mesh, CFG)),
+            "mu": params_to_numpy(pm.unshard_params(state.mu, mesh, CFG))}
+
+
+def _lm_loss(tree: dict, batch: dict, mesh) -> float:
+    from tdax_torch.parallel.train import lm_loss
+    params = pm.shard_params(params_from_numpy(tree, "cpu", "float32"), mesh, cfg=CFG)
+    rows = _batch_rows(batch, mesh)
+    with torch.no_grad(), flash_sharding(mesh, "dp", "tp"):
+        return float(lm_loss(params, CFG, rows["input_ids"], rows["attn_mask"]))
+
+
+def _loop(tree: dict, batch: dict, mesh, work: Path) -> dict:
+    """train_loop over the mesh, 4 steps with a checkpoint every 2:
+    uninterrupted, and stopped after 2 then resumed from its checkpoint."""
+    from tdax_torch.models.qwen_vl.convert import params_to_numpy
+    from tdax_torch.parallel import train as tr
+    from tdax_torch.utils.checkpoint import load_params
+    rows = _batch_rows(batch, mesh)
+
+    def run(name, n_steps):
+        params = pm.shard_params(params_from_numpy(tree, "cpu", "float32"), mesh, cfg=CFG)
+        with flash_sharding(mesh, "dp", "tp"):
+            params, state, losses = tr.train_loop(
+                params, CFG, lambda i: rows, n_steps, tr.default_optimizer(1e-3),
+                checkpoint_path=str(work / name), checkpoint_every=2, log_every=0,
+                device="cpu")
+            whole = params_to_numpy(pm.unshard_params(params, mesh, CFG))
+        return whole, losses, state.count
+
+    full, full_losses, count = run("full", 4)
+    run("crash", 2)
+    resumed, resumed_losses, resumed_count = run("crash", 4)
+    saved = load_params(str(work / "full"))["p"]  # the whole tree rank 0 wrote
+    return {"full": full, "full_losses": full_losses, "count": count, "resumed": resumed,
+            "resumed_losses": resumed_losses, "resumed_count": resumed_count,
+            "saved_params": params_to_numpy(saved)}
+
+
+def train_world(rank: int, world: int, store_path: str, inp_path: str, work: str) -> dict:
+    """The 8-rank world at dp=2 tp=4: one step against tdax's (text and
+    with images), eight steps, the sequence-parallel step against the
+    plain one, accumulation, lm_loss and train_loop with resume."""
+    _join(rank, world, store_path)
+    try:
+        with open(inp_path, "rb") as f:
+            inp = pickle.load(f)
+        mesh = pm.make_mesh(dp=2, tp=4)
+        work = Path(work)
+        tree, batch, sp = inp["tree"], inp["batch"], inp["batch_sp"]
+        out = {"step": _trained(tree, batch, mesh),
+               "steps": _trained(tree, batch, mesh, n_steps=8),
+               "plain_sp_batch": _trained(tree, sp, mesh),
+               "sp": _trained(tree, sp, mesh, sp_mesh=mesh, remat=True),
+               "images": _trained(inp["tree_visual"], inp["batch_images"], mesh,
+                                  with_images=True),
+               "accum": _trained(tree, inp["batch_accum"], mesh, accum=2),
+               "full_batch": _trained(tree, inp["batch_accum"], mesh),
+               "lm_loss": _lm_loss(tree, sp, mesh)}
+        if rank == 0:
+            (work / "loop").mkdir()
+        dist.barrier()
+        out["loop"] = _loop(tree, batch, mesh, work / "loop")
+        return out
+    finally:
+        pm.shutdown()
+
+
+def one_train_world(rank: int, world: int, store_path: str, inp_path: str) -> dict:
+    """The world of one: the plain step and lm_loss without a process
+    group (one device), then the plain and the sequence-parallel step and
+    lm_loss in a group of one at dp=1 tp=1, in the same process."""
+    from tdax_torch.models.qwen_vl.convert import params_to_numpy
+    from tdax_torch.parallel import train as tr
+    with open(inp_path, "rb") as f:
+        inp = pickle.load(f)
+    tree, sp = inp["tree"], inp["batch_sp"]
+    batch = {k: _t(v, long=k == "input_ids") for k, v in sp.items()}
+    params = params_from_numpy(tree, "cpu", "float32")
+    opt = tr.default_optimizer(1e-3)
+    state = opt.init(params)
+    _, state, loss = tr.make_train_step(CFG, opt, device="cpu")(params, state, batch)
+    with torch.no_grad():
+        value = float(tr.lm_loss(params_from_numpy(tree, "cpu", "float32"), CFG,
+                                 batch["input_ids"], batch["attn_mask"]))
+    one = {"losses": [float(loss)], "params": params_to_numpy(params),
+           "mu": params_to_numpy(state.mu), "lm_loss": value}
+    _join(rank, world, store_path)
+    try:
+        mesh = pm.make_mesh(dp=1, tp=1)
+        return {"one": one, "plain": _trained(tree, sp, mesh),
+                "sp": _trained(tree, sp, mesh, sp_mesh=mesh), "lm_loss": _lm_loss(tree, sp, mesh)}
+    finally:
+        pm.shutdown()
