@@ -177,8 +177,10 @@ and runs these phases, printing JSON lines:
             weights are far from a trained model's: see the phase's
             record).
 5c. adversarial  on the same loaded weights: the 720 adversarial pairs
-            (36/180/180/324), their capture with save_interval 50
-            through the .tmp.npz checkpointing path ([8, 720, 4096],
+            (36/180/180/324), their capture with save_interval
+            ADV_SMOKE_SAVE_INTERVAL (240: 3 rewrites, where the
+            reference's 50 makes 11) through the .tmp.npz checkpointing
+            path ([8, 720, 4096],
             finite, tdax's schemas, 765 flash launches all sm90, the
             forward's device time and the file writes timed apart), the
             4-condition run_adversarial_sweep of it on the card
@@ -266,7 +268,32 @@ and runs these phases, printing JSON lines:
             flash launches all sm90; the max relative error of each leaf
             of rank 0's updated shard, each run's collectives by axis
             (count, bytes, seconds), step walls and every rank's peak
-            memory reported.
+            memory reported.  Then tdax's dry-run stages 11 and 12: FSDP
+            (fsdp_sharding_rules, param_shardings) and the hybrid mesh.
+            (a) In the NCCL world: phase train's first step once more
+            under FSDP at dp=1 (every large leaf's rule names dp, so each
+            is gathered where a block reads it and its gradient
+            reduce-scattered, over a group of one), bitwise phase train's
+            as above, the same launches, its gathers and reduce-scatters
+            counted and its peak memory reported.  (b) In the gloo world:
+            the same 2-layer config at dp=2 tp=2 under FSDP with
+            MD_FSDP_ACCUM microbatches and remat (stage 11's recipe), a
+            cold and a warm step: each loss within MD_TRAIN_LOSS_RTOL of
+            rank 0's one-device steps', equal on every rank, the flash
+            launches all sm90, layers/attn_qkv_w and both its moments at
+            1/4 a rank on every rank, each rank's peak memory below its
+            plain dp=2 tp=2 step's; the updated shard's error by leaf,
+            the collectives by axis and the step walls reported.  The
+            hybrid mesh at dcn=2 dp=2 tp=1 (two slices of two ranks):
+            stage 12's capture of the 48 samples on the model's own init
+            at the snapshot's shape, the batch over (dcn, dp) (4 rows of
+            each batch of 16 a rank), 51 flash launches all sm90 a rank,
+            each captured vector's cosine against rank 0's one-device
+            capture >= MD_MIN_COSINE; and one FSDP step within the slice
+            on the 2-layer config (1 row a rank): its loss within
+            MD_TRAIN_LOSS_RTOL of one device's, attn_qkv_w at 1/2 a rank,
+            every weight all_gather over dp, the gradients' all_reduces
+            over dcn, no collective but an all_reduce over dcn.
             embed_sparse(mesh=) at dp=4 on UMAP_N x 4096: planted-cluster
             silhouette above UMAP_SIL_MIN, a transform_sparse(mesh=)
             against it placing at least UMAP_PLACED_MIN, its pairwise-
@@ -570,6 +597,12 @@ SNAPSHOT_SHARD_BYTES = 2 << 30
 ADV_COUNTS = {"matched": 36, "color_mismatch": 180, "shape_mismatch": 180,
               "both_mismatch": 324}
 ADV_SAVE_INTERVAL = 50  # extract_adversarial_activations.py:58
+# the smoke run's adversarial capture checkpoints every 240 samples (3
+# .tmp.npz writes of the 720 pairs) where the reference's 50 gives 11:
+# each write rewrites the whole compressed archive (128 s of its 158 s
+# in PR 17's final run), and 3 still exercise the checkpointing path;
+# phase_adversarial_full_depth keeps the reference's 50
+ADV_SMOKE_SAVE_INTERVAL = 240
 ADV_STATS_KEYS = ["layer", "n_h1_features", "max_h1_persistence", "max_h0_persistence",
                   "silhouette_img_color", "silhouette_img_shape", "silhouette_txt_color",
                   "silhouette_txt_shape"]
@@ -633,6 +666,10 @@ MD_SPARSE_KW = dict(maxdim=MD_SCALE_MAXDIM, target_degree=SCALE_DEGREE, fused_ma
 MD_TRAIN_LAYERS, MD_TRAIN_STEPS, MD_TRAIN_LR = 2, 2, 1e-4
 MD_TRAIN_BATCH, MD_TRAIN_SEQ, MD_TRAIN_MASKED = 4, 256, 32
 MD_TRAIN_LOSS_RTOL = 1e-3
+# phase multidevice's FSDP steps (tdax's dry-run stage 11): the gloo
+# world's dp=2 tp=2 steps take the batch in MD_FSDP_ACCUM microbatches;
+# the hybrid mesh's FSDP step (stage 12) runs MD_HYBRID_STEPS step
+MD_FSDP_ACCUM, MD_HYBRID_STEPS = 2, 1
 
 # (name, B, Tq, Tk, nh, hd, causal, calls per batch on the main path)
 MAIN_SHAPES = [
@@ -2097,7 +2134,7 @@ def phase_adversarial(tmp: Path, smi: str, ckpt: dict, seed: int) -> dict:
         raise AssertionError(f"adversarial metadata: {len(metadata)} samples, {counts}")
 
     ecfg = ExtractConfig(model_dir=ckpt["snapshot"], batch_size=16,
-                         save_interval=ADV_SAVE_INTERVAL)
+                         save_interval=ADV_SMOKE_SAVE_INTERVAL)
     out_path = ds.adversarial_activations_path
     results, capture = capture_timed(metadata, out_path, cfg, ecfg, params=ckpt["params"])
     _check_capture(out_path, metadata, results, "adversarial capture", cfg.num_layers,
@@ -2106,7 +2143,7 @@ def phase_adversarial(tmp: Path, smi: str, ckpt: dict, seed: int) -> dict:
     sites = cfg.visual.layers + 1 + cfg.num_layers
     expected = {"flash_fwd": len(batches) * sites, "flash_fwd_sm90": len(batches) * sites,
                 "qmm": 0, "qmm_sm90": 0}
-    expected_writes = _checkpoint_writes(batches, ADV_SAVE_INTERVAL)
+    expected_writes = _checkpoint_writes(batches, ADV_SMOKE_SAVE_INTERVAL)
 
     rendered = importlib.util.find_spec("matplotlib") is not None
     out_dir = tmp / "tda_adversarial_output"
@@ -4176,7 +4213,7 @@ class _FlashCalls:
 class _TimedCollectives:
     """Count, bytes and host seconds of every mesh all_reduce, all_gather
     and reduce_scatter while active, by axis and kind ("tp.all_reduce",
-    "dp.all_gather", ...): the bytes of each result on this rank, the
+    "dp.all_gather", "dcn+dp.all_reduce", ...): the bytes of each result on this rank, the
     device synchronised before and after each, so the time is the
     collective's, gloo's host staging included.  ``total(kind)`` sums a
     kind over the axes."""
@@ -4198,8 +4235,8 @@ class _TimedCollectives:
             t0 = time.perf_counter()
             out = fn(x, mesh, axis, *args, **kw)
             torch.cuda.synchronize()
-            rec = self.stats.setdefault(f"{axis}.{kind}", {"count": 0, "bytes": 0,
-                                                            "seconds": 0.0})
+            rec = self.stats.setdefault(f"{self.pm.axis_label(axis)}.{kind}",
+                                        {"count": 0, "bytes": 0, "seconds": 0.0})
             rec["count"] += 1
             rec["bytes"] += out.numel() * out.element_size()
             rec["seconds"] += time.perf_counter() - t0
@@ -4531,13 +4568,15 @@ def _md_nccl_umap(device, ref: dict) -> dict:
     return rec
 
 
-def _md_nccl_train(device, ref: dict) -> dict:
+def _md_nccl_train(device, ref: dict, fsdp: bool = False) -> dict:
     """(a) phase train's first step in the NCCL world of one: the full
     QwenVLConfig() decoder (text-only, bf16, remat), its init and batch
     from ``ref['seed']``, inside flash_sharding over the dp=1 tp=1 mesh;
     its loss and fingerprint against phase train's after its warm step
     (whose learning rate is 0: the params are the init, AdamW's moments
-    carry the gradient's bits)."""
+    carry the gradient's bits).  With ``fsdp`` the step runs under
+    fsdp_sharding_rules at dp=1: every large leaf gathered (over a group
+    of one) where a block reads it, its gradient reduce-scattered."""
     import torch
     from tdax_torch.models.qwen_vl.config import QwenVLConfig
     from tdax_torch.models.qwen_vl.model import init_params
@@ -4549,12 +4588,18 @@ def _md_nccl_train(device, ref: dict) -> dict:
     mesh = pm.make_mesh()
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, device, seed=ref["seed"], with_visual=False)
+    kw = {}
+    if fsdp:
+        rules = pm.fsdp_sharding_rules(params, mesh)
+        params = pm.shard_params(params, mesh, rules, cfg=cfg)  # dp = 1: the same tensors
+        kw["param_shardings"] = pm.named_shardings(mesh, rules)
     opt = default_optimizer(warmup_cosine_lr(1e-4, 2, 8))
     state = opt.init(params)
-    step = make_train_step(cfg, opt, remat=True, device=device)
+    step = make_train_step(cfg, opt, remat=True, device=device, **kw)
     batch = _train_batch(cfg, ref["seed"], device)
     _zero_train_launches()
     pm.COLLECTIVES.clear()
+    pm.COLLECTIVES_BY_AXIS.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with flash_sharding(mesh, "dp", "tp"):
@@ -4567,6 +4612,7 @@ def _md_nccl_train(device, ref: dict) -> dict:
             "fingerprint_bitwise_phase_train": fingerprint == ref["fingerprint"],
             "leaves_fingerprinted": len(fingerprint), "launches": _train_launches(),
             "collectives": dict(pm.COLLECTIVES),
+            "collectives_by_axis": dict(pm.COLLECTIVES_BY_AXIS),
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
 
 
@@ -4580,15 +4626,32 @@ def _max_rel_err(got, want) -> float:
     return err / max(top, 1e-30)
 
 
+def _md_train_rows(whole: dict, mesh, accum: int) -> dict:
+    """This rank's rows of the training batch over the mesh's batch axis;
+    with ``accum`` the batch cut into that many microbatches first, each
+    split over the batch axis (tdax's [accum, b / accum, ...] batch)."""
+    import torch
+    from tdax_torch.parallel import mesh as pm
+    if accum == 1:
+        return {k: pm.split_batch(v, mesh) for k, v in whole.items()}
+    return {k: torch.stack([pm.split_batch(m, mesh)
+                            for m in v.reshape(accum, v.shape[0] // accum, *v.shape[1:])])
+            for k, v in whole.items()}
+
+
 def _md_gloo_train(rank: int, device) -> dict:
-    """(b) dp=2 tp=2 training on the four gloo ranks (MD_TRAIN_* constants):
-    rank 0's one-device reference steps first (its shard of the updated
-    tree kept, the rest freed), then every rank's plain steps and its
-    sequence-parallel steps, each from the seed-0 init sharded; per run
-    the losses, each step's wall, the flash launches, the collectives by
-    axis (count, bytes, seconds) and the peak memory; rank 0 also each
-    step's loss error and each leaf of its updated shard's max relative
-    error against one device."""
+    """(b) Training on the four gloo ranks (MD_TRAIN_* constants): rank 0's
+    one-device reference steps first (its updated tree kept as each run's
+    shard, the rest freed), then every rank's runs, each from the seed-0
+    init sharded: at dp=2 tp=2 the plain steps, the sequence-parallel
+    steps and the FSDP steps (MD_FSDP_ACCUM microbatches, tdax's stage
+    11), then the FSDP step on the hybrid mesh at dcn=2 dp=2 tp=1 (stage
+    12, MD_HYBRID_STEPS step).  Per run the losses, each step's wall, the
+    flash launches, the collectives by axis (count, bytes, seconds) and
+    the peak memory; under FSDP the local and whole sizes of
+    layers/attn_qkv_w and its moments; rank 0 also each step's loss error
+    and each leaf of its updated shard's max relative error against one
+    device."""
     import dataclasses
     import numpy as np
     import torch
@@ -4601,13 +4664,22 @@ def _md_gloo_train(rank: int, device) -> dict:
 
     cfg = dataclasses.replace(QwenVLConfig(), num_layers=MD_TRAIN_LAYERS)
     mesh = pm.make_mesh(dp=2, tp=2)
+    hybrid = pm.make_hybrid_mesh(dcn=2, dp=2, tp=1)
     rng = np.random.default_rng(0)
     ids = rng.integers(1, cfg.vocab_size, (MD_TRAIN_BATCH, MD_TRAIN_SEQ))
     mask = np.ones((MD_TRAIN_BATCH, MD_TRAIN_SEQ), np.int32)
     mask[-1, -MD_TRAIN_MASKED:] = 0
     whole = {"input_ids": torch.as_tensor(ids, device=device).long(),
              "attn_mask": torch.as_tensor(mask, device=device)}
-    rows = {k: pm.split_batch(v, mesh) for k, v in whole.items()}
+    # (name, mesh, FSDP or not, microbatches, steps, step keywords)
+    runs = [("plain", mesh, False, 1, MD_TRAIN_STEPS, {}),
+            ("sp", mesh, False, 1, MD_TRAIN_STEPS, {"sp_mesh": mesh}),
+            ("fsdp", mesh, True, MD_FSDP_ACCUM, MD_TRAIN_STEPS, {}),
+            ("hybrid_fsdp", hybrid, True, 1, MD_HYBRID_STEPS, {})]
+
+    def rules_of(tree, m, fsdp):
+        return pm.fsdp_sharding_rules(tree, m) if fsdp else None
+
     gc.collect()
     torch.cuda.empty_cache()
     out = {"mem_free_before_bytes": torch.cuda.mem_get_info()[0]}
@@ -4622,24 +4694,32 @@ def _md_gloo_train(rank: int, device) -> dict:
         out["one_device"] = {"losses": ref_losses, "wall_s": time.perf_counter() - t0,
                              "params": sum(t.numel() for t in _md_leaves(params)),
                              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
-        ref_local = pm.shard_params(params, mesh, cfg=cfg)
+        # rank 0's shard of the updated tree under each run's mesh and rules
+        # (no collective: shard_params only slices)
+        ref_local = {name: pm.shard_params(params, m, rules_of(params, m, fsdp), cfg=cfg)
+                     for name, m, fsdp, _, _, _ in runs}
         del params, state, step
     gc.collect()
     torch.cuda.empty_cache()
     dist.barrier()
-    for name, kw in (("plain", {}), ("sp", {"sp_mesh": mesh})):
+    for name, m, fsdp, accum, n_steps, kw in runs:
         torch.cuda.reset_peak_memory_stats()
-        local = pm.shard_params(init_params(cfg, device, seed=0, with_visual=False), mesh,
-                                cfg=cfg)
+        full = init_params(cfg, device, seed=0, with_visual=False)
+        rules = rules_of(full, m, fsdp)
+        local = pm.shard_params(full, m, rules, cfg=cfg)
+        del full
         gc.collect()
         torch.cuda.empty_cache()
         opt = default_optimizer(MD_TRAIN_LR)
         state = opt.init(local)
-        step = make_train_step(cfg, opt, remat=True, device=device, **kw)
+        if rules is not None:
+            kw = {**kw, "param_shardings": pm.named_shardings(m, rules)}
+        step = make_train_step(cfg, opt, remat=True, device=device, accum_steps=accum, **kw)
+        rows = _md_train_rows(whole, m, accum)
         _zero_train_launches()
         losses, walls = [], []
-        with flash_sharding(mesh, "dp", "tp"), _TimedCollectives() as tc:
-            for _ in range(MD_TRAIN_STEPS):
+        with flash_sharding(m, m.batch_axis, "tp"), _TimedCollectives() as tc:
+            for _ in range(n_steps):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 _, state, loss = step(local, state, rows)
@@ -4649,6 +4729,11 @@ def _md_gloo_train(rank: int, device) -> dict:
                "local_params": sum(t.numel() for t in _md_leaves(local)),
                "collectives": tc.stats,
                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        if rules is not None:
+            rec["attn_qkv_w"] = {
+                "whole": cfg.num_layers * cfg.hidden_size * 3 * cfg.hidden_size,
+                **{k: t["layers"]["attn_qkv_w"].numel()
+                   for k, t in (("params", local), ("mu", state.mu), ("nu", state.nu))}}
         if rank == 0:
             rec["loss_rel_err"] = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
             # a zero-init bias whose gradient is zero in exact arithmetic
@@ -4656,7 +4741,7 @@ def _md_gloo_train(rank: int, device) -> dict:
             # on rounding noise: relative errors near 2 there
             rec["param_rel_err_by_leaf"] = {
                 path: _max_rel_err(a, b) for (path, a), (_, b) in zip(
-                    _md_named_leaves(local), _md_named_leaves(ref_local))}
+                    _md_named_leaves(local), _md_named_leaves(ref_local[name]))}
         out[name] = rec
         del local, state, step
         gc.collect()
@@ -4736,7 +4821,7 @@ def _md_nccl_rank(rank: int, world: int, store: str, work: Path, data_dir: str,
     16 under the process group (its dp path: the rows gathered by an
     NCCL all_gather); then the sweep and scale stages, the edge-list
     UMAP's mesh calls against phase umap_sparse's ``umap_ref`` and phase
-    train's first step against its ``train_ref``."""
+    train's first step against its ``train_ref``, plain and under FSDP."""
     import torch
     import tdax_torch.ops.flash_attention as fa
     from tdax_torch.config import ExtractConfig
@@ -4772,6 +4857,9 @@ def _md_nccl_rank(rank: int, world: int, store: str, work: Path, data_dir: str,
         gc.collect()
         torch.cuda.empty_cache()
         out["train"] = _md_nccl_train(device, train_ref)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["train_fsdp"] = _md_nccl_train(device, train_ref, fsdp=True)
         return out
     finally:
         pm.shutdown()
@@ -4997,6 +5085,36 @@ def _md_sharded(local, cfg, batches, device, mesh, timed: bool) -> dict:
     return out
 
 
+def _md_hybrid_capture(full, cfg, batches, device) -> dict:
+    """(b) tdax's stage-12 capture: the hybrid mesh at dcn=2 dp=2 tp=1
+    (two slices of two ranks), every rank the whole tree, the batch over
+    (dcn, dp): each rank 4 rows of each batch of 16, gathered; the flash
+    launches and the collectives by axis noted."""
+    import torch
+    import tdax_torch.ops.flash_attention as fa
+    from tdax_torch.models.qwen_vl.model import extract_layer_activations
+    from tdax_torch.ops.flash_attention import flash_sharding
+    from tdax_torch.parallel import mesh as pm
+
+    mesh = pm.make_hybrid_mesh(dcn=2, dp=2, tp=1)
+    local = pm.shard_params(full, mesh, cfg=cfg)  # tp = 1: the same tensors
+    fa.LAUNCHES = fa.LAUNCHES_SM90 = 0
+    pm.COLLECTIVES_BY_AXIS.clear()
+    acts, forward_s = [], []
+    with torch.inference_mode(), flash_sharding(mesh, mesh.batch_axis, "tp"):
+        for batch in batches:
+            rows = _md_to(batch, device, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a = extract_layer_activations(local, cfg, *rows)
+            torch.cuda.synchronize()
+            forward_s.append(time.perf_counter() - t0)
+            acts.append(pm.gather_batch(a.float(), mesh, dim=1).cpu().numpy())
+    return {"acts": acts, "forward_s": forward_s, "local_rows": rows[0].shape[0],
+            "launches": {"flash_fwd": fa.LAUNCHES, "flash_fwd_sm90": fa.LAUNCHES_SM90},
+            "collectives_by_axis": dict(pm.COLLECTIVES_BY_AXIS)}
+
+
 def _md_compare(got: dict, one: dict) -> dict:
     """Rank 0's comparison of a tree's dp x tp run with one device."""
     import numpy as np
@@ -5022,10 +5140,11 @@ def _md_gloo_rank(rank: int, world: int, store: str, work: Path, snap: str, data
     weights, then the weights sharded dp=2 tp=2 for the capture of the
     48 samples (each rank 8 rows of each batch of 16) and generation.
     The same for a tree of the model's own init at the snapshot's shape
-    (init_params, seed 0), then the tiny f32 model, then the sweep and
-    scale stages at dp=4, dp=2 tp=2 training and the edge-list UMAP at
-    dp=4.  Rank 0 computes each one-device reference before the
-    sharded run."""
+    (init_params, seed 0), whose capture also runs on the hybrid mesh at
+    dcn=2 dp=2 tp=1; then the tiny f32 model, then the sweep and scale
+    stages at dp=4, training (dp=2 tp=2 plain, sequence-parallel and
+    FSDP; FSDP on the hybrid mesh) and the edge-list UMAP at dp=4.  Rank
+    0 computes each one-device reference before the sharded run."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -5057,6 +5176,13 @@ def _md_gloo_rank(rank: int, world: int, store: str, work: Path, snap: str, data
                                                  "flash_fwd_sm90": fa.LAUNCHES_SM90}
             one = _md_one_device(full, cfg, batches, device) if rank == 0 else None
             dist.barrier()
+            if name == "init":
+                hybrid = _md_hybrid_capture(full, cfg, batches, device)
+                acts = np.concatenate(hybrid.pop("acts"), axis=1)
+                if rank == 0:
+                    hybrid["cosine"] = _cosines(one["acts"], acts)
+                out["hybrid_capture"] = hybrid
+                del acts
             local = pm.shard_params(full, mesh, cfg=cfg)
             del full
             gc.collect()
@@ -5175,9 +5301,11 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
                                                    for r in scale_by_rank)},
             "gloo_dp2_tp2_train": {
                 "layers": MD_TRAIN_LAYERS, "batch": [MD_TRAIN_BATCH, MD_TRAIN_SEQ],
+                "fsdp_accum_steps": MD_FSDP_ACCUM,
                 "one_device_rank0": train_by_rank[0].get("one_device"),
                 "by_rank": [{k: v for k, v in r.items() if k != "one_device"}
                             for r in train_by_rank]},
+            "gloo_hybrid_capture_by_rank": [r["hybrid_capture"] for r in ranks],
             "gloo_dp4_umap": {
                 "compared": umap_by_rank[0]["compared"],
                 "stages_by_rank": [r["stages"] for r in umap_by_rank],
@@ -5188,6 +5316,8 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
     emit(info)
     _md_check_sweep_scale(a["sweep_scale"], info["gloo_dp4_sweep_scale"], scale_by_rank)
     _md_check_train_umap(a, info["gloo_dp2_tp2_train"], info["gloo_dp4_umap"])
+    _md_check_fsdp_hybrid(a, info["gloo_dp2_tp2_train"], info["gloo_hybrid_capture_by_rank"],
+                          len(heads))
     if a["backend"] != "nccl" or a["collectives"].get("nccl.all_gather", 0) < 1:
         raise AssertionError(f"multidevice (a): backend {a['backend']}, collectives "
                              f"{a['collectives']}: no NCCL gather ran")
@@ -5248,6 +5378,63 @@ def _md_check_train_umap(a: dict, train: dict, umap: dict) -> None:
         raise AssertionError(f"multidevice (b) umap at dp=4: {umap}")
 
 
+def _md_check_fsdp_hybrid(a: dict, train: dict, hybrid_capture: list,
+                          capture_launches: int) -> None:
+    """The gates of the FSDP and hybrid-mesh stages (see the module's
+    docstring)."""
+    t = a["train_fsdp"]
+    if not (t["loss_bitwise_phase_train"] and t["fingerprint_bitwise_phase_train"]):
+        raise AssertionError(f"multidevice (a) FSDP train: not bitwise phase train's first "
+                             f"step: {t}")
+    if t["launches"] != _expected_train_launches(32, 1):
+        raise AssertionError(f"multidevice (a) FSDP train: launches {t['launches']}")
+    if not (t["collectives_by_axis"].get("dp.all_gather", 0) > 0
+            and t["collectives_by_axis"].get("dp.reduce_scatter", 0) > 0):
+        raise AssertionError(f"multidevice (a) FSDP train: no weight gather or gradient "
+                             f"reduce-scatter over dp: {t['collectives_by_axis']}")
+    runs = train["by_rank"]
+    for name, micro_steps, share in (("fsdp", MD_TRAIN_STEPS * MD_FSDP_ACCUM, 4),
+                                     ("hybrid_fsdp", MD_HYBRID_STEPS, 2)):
+        want = _expected_train_launches(MD_TRAIN_LAYERS, micro_steps)
+        for i, r in enumerate(runs):
+            rec = r[name]
+            if rec["launches"] != want:
+                raise AssertionError(f"multidevice (b) {name} rank {i}: launches "
+                                     f"{rec['launches']}, expected {want}")
+            if rec["losses"] != runs[0][name]["losses"]:
+                raise AssertionError(f"multidevice (b) {name}: the ranks' losses differ")
+            q = rec["attn_qkv_w"]
+            if not q["params"] == q["mu"] == q["nu"] == q["whole"] // share:
+                raise AssertionError(f"multidevice (b) {name} rank {i}: attn_qkv_w and its "
+                                     f"moments {q}, expected 1/{share} each")
+            keys = set(rec["collectives"])
+            if name == "hybrid_fsdp" and not (
+                    {k for k in keys if k.startswith("dcn.")} == {"dcn.all_reduce"}
+                    and {"dp.all_gather", "dp.reduce_scatter"} <= keys):
+                raise AssertionError(f"multidevice (b) {name} rank {i}: collectives {keys}: "
+                                     "the weights must be gathered over dp and only the "
+                                     "gradients' all_reduce may cross dcn")
+        errs = runs[0][name]["loss_rel_err"]
+        if not max(errs) <= MD_TRAIN_LOSS_RTOL:
+            raise AssertionError(f"multidevice (b) {name}: loss relative errors {errs} against "
+                                 f"one device (limit {MD_TRAIN_LOSS_RTOL})")
+    for i, r in enumerate(runs):
+        fsdp, plain = (r[k]["max_memory_allocated_bytes"] for k in ("fsdp", "plain"))
+        if not fsdp < plain:
+            raise AssertionError(f"multidevice (b) FSDP rank {i}: peak {fsdp} bytes, not below "
+                                 f"the plain dp=2 tp=2 step's {plain}")
+    for i, h in enumerate(hybrid_capture):
+        if h["launches"] != {"flash_fwd": capture_launches, "flash_fwd_sm90": capture_launches}:
+            raise AssertionError(f"multidevice (b) hybrid capture rank {i}: launches "
+                                 f"{h['launches']}, expected {capture_launches}, all sm90")
+        if [k for k in h["collectives_by_axis"] if not k.startswith("dcn+dp.")]:
+            raise AssertionError(f"multidevice (b) hybrid capture rank {i}: collectives "
+                                 f"{h['collectives_by_axis']}")
+    if hybrid_capture[0]["cosine"]["min"] < MD_MIN_COSINE:
+        raise AssertionError(f"multidevice (b) hybrid capture: min cosine "
+                             f"{hybrid_capture[0]['cosine']['min']} < {MD_MIN_COSINE}")
+
+
 def _md_check_sweep_scale(a: dict, b: dict, ranks: list) -> None:
     """The gates of the sweep and scale stages (see the module's docstring)."""
     sw = a["sweep"]
@@ -5304,13 +5491,16 @@ def _qmm_totals(sites, calls_key) -> dict:
 
 def _train_paths(train: dict, md: dict) -> list:
     """(path, flash launches) of every training run: phase train's five
-    timed steps, the NCCL world's step, rank 0's dp=2 tp=2 plain and
-    sequence-parallel steps."""
+    timed steps, the NCCL world's plain and FSDP steps, rank 0's dp=2 tp=2
+    plain, sequence-parallel and FSDP steps and its hybrid FSDP step."""
     runs = md["gloo_dp2_tp2_train"]["by_rank"][0]
     return [("train", train["launches"]),
             ("multidevice_nccl_train", md["nccl_world_of_one"]["train"]["launches"]),
+            ("multidevice_nccl_train_fsdp", md["nccl_world_of_one"]["train_fsdp"]["launches"]),
             ("multidevice_dp2_tp2_train_rank0", runs["plain"]["launches"]),
-            ("multidevice_dp2_tp2_train_sp_rank0", runs["sp"]["launches"])]
+            ("multidevice_dp2_tp2_train_sp_rank0", runs["sp"]["launches"]),
+            ("multidevice_dp2_tp2_train_fsdp_rank0", runs["fsdp"]["launches"]),
+            ("multidevice_hybrid_train_fsdp_rank0", runs["hybrid_fsdp"]["launches"])]
 
 
 def main(argv=None) -> int:
@@ -5409,6 +5599,8 @@ def main(argv=None) -> int:
                                  ("multidevice_nccl_capture", md["nccl_world_of_one"]),
                                  ("multidevice_dp4_extraction_rank0",
                                   md["gloo_dp2_tp2"]["extraction"]),
+                                 ("multidevice_hybrid_capture_rank0",
+                                  md["gloo_hybrid_capture_by_rank"][0]),
                                  *((f"multidevice_dp2_tp2_{name}_{what}_rank0",
                                     md["gloo_dp2_tp2"][name][what])
                                    for name in ("snapshot", "init")

@@ -23,6 +23,8 @@ residual stream between the products: the norms and the residual adds
 run on them, the sequence is gathered before the column-parallel
 products and reduce-scattered after the row-parallel ones, and
 attention runs on the whole sequence with its rotary positions.
+Under FSDP (``fsdp.gathering``) a block gathers its layer's dp-sharded
+weights at its start.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from tdax_torch.models.qwen_vl import fsdp
 from tdax_torch.models.qwen_vl.config import QwenVLConfig
 from tdax_torch.models.qwen_vl.quantize import is_quantized, layer_at, qdot
 from tdax_torch.models.qwen_vl.tp import seq_scatter, seq_weight, tp_input, tp_row_product
@@ -111,7 +114,10 @@ def mlp(x: torch.Tensor, layer: dict, cfg: QwenVLConfig, seq=None) -> torch.Tens
 
 def block_kv(x: torch.Tensor, layer: dict, cfg: QwenVLConfig,
              cos: torch.Tensor, sin: torch.Tensor, spec: AttnSpec, seq=None):
-    """One block; returns (x, this layer's rotated k, v) for a KV cache."""
+    """One block; returns (x, this layer's rotated k, v) for a KV cache.
+    Under FSDP the layer's dp-sharded weights are gathered here, inside
+    what remat replays (``fsdp.leaves``)."""
+    layer = fsdp.leaves(layer, ("layers",))
     h1 = rms_norm(x, seq_weight(layer["ln_1"], seq), cfg.layer_norm_eps)
     h1 = tp_input(h1, local_heads(layer, cfg) < cfg.num_heads, seq)
     q, k, v = project_qkv(h1, layer, cfg, cos, sin)

@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from tdax_torch.models.qwen_vl import fsdp
 from tdax_torch.models.qwen_vl.config import QwenVLConfig, VisualConfig
 from tdax_torch.models.qwen_vl.decoder import decoder, decoder_capture, rms_norm
 from tdax_torch.models.qwen_vl.quantize import _QUANT_KEYS, embed_lookup, qdot, quantize_weight
@@ -136,7 +137,7 @@ def embed_inputs(params: dict, cfg: QwenVLConfig, input_ids: torch.Tensor,
     image_positions [B, n_queries]: sequence indices of the image-pad
     span per sample; -1 disables fusion for that sample (text-only).
     As in tdax, the pad span is zeroed and the visual tokens added."""
-    x = embed_lookup(params["wte"], input_ids, torch_dtype(cfg.dtype))
+    x = embed_lookup(fsdp.leaf(params["wte"], ("wte",)), input_ids, torch_dtype(cfg.dtype))
     if images is not None:
         vis = visual_encode(images, params["visual"], cfg.visual)  # [B, nq, H]
         b = x.shape[0]
@@ -166,8 +167,9 @@ def extract_layer_activations(params: dict, cfg: QwenVLConfig,
 def lm_logits(x: torch.Tensor, params: dict, cfg: QwenVLConfig, seq=None) -> torch.Tensor:
     """[..., H] final hidden states -> [..., vocab] f32 logits; under tp
     each rank's vocab shard, gathered over the tp group.  Under ``seq``
-    x is the rank's rows, the sequence gathered before the product."""
-    w = params["lm_head"]
+    x is the rank's rows, the sequence gathered before the product.
+    Under FSDP ``lm_head`` is gathered over dp here."""
+    w = fsdp.leaf(params["lm_head"], ("lm_head",))
     sharded = (w["q"] if isinstance(w, dict) else w).shape[-1] < cfg.vocab_size
     logits = qdot(tp_input(x, sharded, seq), w).to(torch.float32)
     return tp_gather(logits, sharded)
@@ -187,5 +189,6 @@ def forward(params: dict, cfg: QwenVLConfig, input_ids: torch.Tensor,
         attn_mask = torch.ones_like(input_ids)
     x = embed_inputs(params, cfg, input_ids, images, image_positions)
     x = decoder(params["layers"], x, cfg, attn_mask, remat=remat, seq_sharding=seq_sharding)
-    x = rms_norm(x, seq_weight(params["ln_f"], seq_sharding), cfg.layer_norm_eps)
+    ln_f = fsdp.leaf(params["ln_f"], ("ln_f",))
+    x = rms_norm(x, seq_weight(ln_f, seq_sharding), cfg.layer_norm_eps)
     return lm_logits(x, params, cfg, seq_sharding)

@@ -15,7 +15,9 @@ columns (the head count from the weights' shapes); the row-parallel
 products are summed over the tp group (``tp.tp_row_product``) and
 their biases, replicated, added once after the sum; the inputs of the
 column-parallel products pass through ``tp.tp_input`` (their gradient
-summed over tp).
+summed over tp).  Under FSDP (``fsdp.gathering``) a block, the
+resampler and the tower gather their dp-sharded leaves where they read
+them.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tdax_torch.models.qwen_vl import fsdp
 from tdax_torch.models.qwen_vl.config import VisualConfig
 from tdax_torch.models.qwen_vl.quantize import layer_at, qdot
 from tdax_torch.models.qwen_vl.tp import tp_input, tp_row_product
@@ -77,6 +80,7 @@ def _col(x: torch.Tensor, w, width: int) -> torch.Tensor:
 
 
 def vit_block(x: torch.Tensor, layer: dict, cfg: VisualConfig) -> torch.Tensor:
+    layer = fsdp.leaves(layer, ("visual", "blocks"))
     h = layer_norm(x, layer["ln_1_w"], layer["ln_1_b"], cfg.layer_norm_eps)
     h = _col(h, layer["attn_qkv_w"], 3 * cfg.width)
     qkv = qdot(h, layer["attn_qkv_w"]) + layer["attn_qkv_b"]
@@ -123,6 +127,7 @@ def interp_pos_embed(pos: np.ndarray, dst_grid: int) -> np.ndarray:
 
 def resampler(x: torch.Tensor, params: dict, cfg: VisualConfig) -> torch.Tensor:
     """x [B, n_patches, width] -> [B, n_queries, output_dim]."""
+    params = fsdp.leaves(params, ("visual", "resampler"))
     d = cfg.output_dim
     kv = qdot(x, params["kv_proj_w"])
     kv = layer_norm(kv, params["ln_kv_w"], params["ln_kv_b"], cfg.layer_norm_eps)
@@ -144,6 +149,7 @@ def visual_encode(images: torch.Tensor, params: dict, cfg: VisualConfig) -> torc
 
     The tower computes in the model's dtype (that of the ln_pre
     weights), not the input images' dtype, as tdax does."""
+    params = fsdp.leaves(params, ("visual",))
     dtype = params["ln_pre_w"].dtype
     x = patch_embed(images.to(dtype), params["patch_w"], cfg)
     x = x + params["pos_embed"].to(x.dtype)

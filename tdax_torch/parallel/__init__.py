@@ -2,14 +2,15 @@
 ``tdax.parallel``).
 
 ``mesh`` joins a ``torch.distributed`` process group and holds tdax's
-dp x tp mesh, sharding rules and ``shard_params``, with the collectives
-the model's tp sites, the extraction's dp gather and the sweep's layer
-split run; ``sharded_ops`` the row-sharded distances, kNN and sparse
-edge extraction of the scale paths (a module of its own, as in tdax,
-whose ``__all__`` does not name them); ``train`` the training step and
-loop, on one device or over a dp x tp mesh with sequence parallelism.
-tdax's FSDP rules, hybrid mesh, context parallelism and the 1F1B
-pipeline are not ported yet.
+dp x tp mesh and its hybrid dcn x dp x tp mesh, the Megatron and FSDP
+sharding rules and ``shard_params``, with the collectives the model's
+tp sites and FSDP gathers, the extraction's dp gather and the sweep's
+layer split run; ``sharded_ops`` the row-sharded distances, kNN and
+sparse edge extraction of the scale paths (a module of its own, as in
+tdax, whose ``__all__`` does not name them); ``train`` the training
+step and loop, on one device or over a mesh with sequence parallelism,
+FSDP (ZeRO-3) and gradient accumulation.  tdax's context parallelism
+and its 1F1B pipeline are not ported yet.
 
 ``__all__`` holds the tdax names ported so far.  ``train``'s own names
 (``AdamW``, ``OptState``, ``masked_ce``, ``masked_ce_parts``) resolve
@@ -18,7 +19,8 @@ can import ``mesh`` without importing the training step (which imports
 the model).
 """
 
-_MESH = ("make_mesh", "param_sharding_rules", "shard_params")
+_MESH = ("make_mesh", "make_hybrid_mesh", "hybrid_batch_sharding", "param_sharding_rules",
+         "shard_params", "fsdp_sharding_rules", "named_shardings")
 _TRAIN = ("default_optimizer", "lm_loss", "make_train_step", "train_loop", "warmup_cosine_lr")
 _TRAIN_OWN = ("AdamW", "OptState", "masked_ce", "masked_ce_parts")
 

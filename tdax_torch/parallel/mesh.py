@@ -32,6 +32,18 @@ adds in the all_reduce's order, so a sequence-parallel forward over gloo
 is the plain tp forward bit for bit, at tp times the bytes of gloo's
 own ``reduce_scatter_tensor``.
 
+``COLLECTIVES_BY_AXIS`` counts the same calls by mesh axis and kind
+(``"dp.all_gather"``, ``"dcn.all_reduce"``, ``"dcn+dp.all_reduce"`` for
+the combined batch axes of a hybrid mesh), so a run shows which axis
+each crossed.
+
+FSDP (ZeRO-3): ``fsdp_sharding_rules`` adds a ``"dp"`` dim to the large
+leaves' specs, ``shard_params`` keeps this rank's contiguous share of it
+(after its tp split) and ``unshard_params`` gathers it back; the model
+gathers such a leaf where a block reads it (``models/qwen_vl/fsdp.py``).
+``make_hybrid_mesh`` lays the ranks out as (dcn, dp, tp) slices, its
+batch over the combined ``("dcn", "dp")`` axes.
+
 Every collective here, and every function of the port that runs one
 (``sharded_ops``, the sweep and scale paths under a process group), is
 called by every rank of the group with the same arguments: a rank that
@@ -40,7 +52,9 @@ skips the call leaves the others waiting until the group's timeout.
 
 from __future__ import annotations
 
+import math
 import os
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -49,6 +63,7 @@ from tdax_torch.runtime import get_device
 
 COLLECTIVES: dict[str, int] = {}
 COLLECTIVE_BYTES: dict[str, int] = {}
+COLLECTIVES_BY_AXIS: dict[str, int] = {}
 
 
 class P(tuple):
@@ -64,20 +79,55 @@ class P(tuple):
 
 
 class Mesh:
-    """A dp x tp grid of the process group's ranks (``make_mesh``), over a
-    ``DeviceMesh`` whose sub-groups carry the collectives.  ``shape`` maps
-    each axis name to its size, as ``jax.sharding.Mesh.shape`` does."""
+    """A grid of the process group's ranks (``make_mesh``: dp x tp;
+    ``make_hybrid_mesh``: dcn x dp x tp), over a ``DeviceMesh`` whose
+    sub-groups carry the collectives.  ``shape`` maps each axis name to
+    its size and ``axis_names`` lists them, as ``jax.sharding.Mesh``'s
+    do.  An axis argument is one name or a tuple of names (their ranks
+    together, outer axis first), such as ``batch_axis``: the axes the
+    batch is split over, ``"dp"``, or ``("dcn", "dp")`` on a hybrid
+    mesh."""
 
-    def __init__(self, device_mesh):
+    def __init__(self, device_mesh, batch_axis="dp", groups: dict | None = None):
         self.device_mesh = device_mesh
-        self.shape = dict(zip(device_mesh.mesh_dim_names, device_mesh.shape))
+        self.axis_names = tuple(device_mesh.mesh_dim_names)
+        self.shape = dict(zip(self.axis_names, device_mesh.shape))
+        self.batch_axis = batch_axis
+        self._groups = groups or {}
 
-    def group(self, axis: str):
+    def group(self, axis):
+        if isinstance(axis, tuple):
+            return self._groups[axis]
         return self.device_mesh.get_group(axis)
 
-    def local_rank(self, axis: str) -> int:
-        """This rank's index along ``axis``."""
-        return self.device_mesh.get_local_rank(axis)
+    def size(self, axis) -> int:
+        """The number of ranks along ``axis``."""
+        return math.prod(self.shape[a] for a in _axes(axis))
+
+    def local_rank(self, axis) -> int:
+        """This rank's index along ``axis`` (row-major over a tuple)."""
+        r = 0
+        for a in _axes(axis):
+            r = r * self.shape[a] + self.device_mesh.get_local_rank(a)
+        return r
+
+
+class NamedSharding(NamedTuple):
+    """A partition spec bound to a mesh: where tdax has
+    ``jax.sharding.NamedSharding`` (``named_shardings``,
+    ``batch_sharding``, ``replicated``)."""
+
+    mesh: Mesh
+    spec: P
+
+
+def _axes(axis) -> tuple:
+    return axis if isinstance(axis, tuple) else (axis,)
+
+
+def axis_label(axis) -> str:
+    """``"dp"``, or ``"dcn+dp"`` for the combined axes ``("dcn", "dp")``."""
+    return "+".join(_axes(axis))
 
 
 def launched_by_torchrun() -> bool:
@@ -164,15 +214,53 @@ def make_mesh(dp: int | None = None, tp: int = 1, cp: int = 1) -> Mesh:
     if cp > 1:
         raise NotImplementedError("make_mesh: cp > 1 (context parallelism, ring attention) "
                                   "is not ported")
+    return Mesh(_device_mesh((dp, tp), ("dp", "tp")))
+
+
+def _device_mesh(shape: tuple, names: tuple):
     from torch.distributed.device_mesh import init_device_mesh
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return Mesh(init_device_mesh(device_type, (dp, tp), mesh_dim_names=("dp", "tp")))
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
-def _count(kind: str, group, nbytes: int = 0) -> None:
+def make_hybrid_mesh(dcn: int, dp: int | None = None, tp: int = 1) -> Mesh:
+    """dcn x dp x tp mesh over the process group's ranks (tdax's hybrid
+    ICI x DCN mesh for multi-slice topologies): ``dcn`` slices of
+    ``dp * tp`` consecutive ranks each, tp innermost.  Only collectives
+    over ``"dcn"`` cross slices.  The batch is split over the combined
+    ``("dcn", "dp")`` axes (``hybrid_batch_sharding``, the mesh's
+    ``batch_axis``); FSDP rules built on this mesh shard over the
+    within-slice ``"dp"`` only, so a weight gather never crosses a
+    slice and a gradient's one cross-slice collective is its all_reduce
+    over ``"dcn"``.  tdax places slices by the devices' ``slice_index``;
+    here a slice is a block of consecutive ranks, as tdax's virtual
+    devices are."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("make_hybrid_mesh: no process group; call init_distributed first")
+    n = dist.get_world_size()
+    if dcn < 1 or n % dcn:
+        raise ValueError(f"{n} devices do not divide into dcn={dcn} slices")
+    per_slice = n // dcn
+    if dp is None:
+        dp = per_slice // tp
+    if dp * tp != per_slice:
+        raise ValueError(f"dp*tp = {dp}*{tp} != {per_slice} devices/slice "
+                         f"({n} devices / dcn={dcn})")
+    device_mesh = _device_mesh((dcn, dp, tp), ("dcn", "dp", "tp"))
+    # the combined (dcn, dp) group of each tp index, ranks in (dcn, dp) order;
+    # every rank creates every group, in one order
+    batch_group, _ = dist.new_subgroups_by_enumeration(
+        [[(s * dp + d) * tp + t for s in range(dcn) for d in range(dp)] for t in range(tp)])
+    return Mesh(device_mesh, batch_axis=("dcn", "dp"), groups={("dcn", "dp"): batch_group})
+
+
+def _count(kind: str, group, nbytes: int = 0, axis=None) -> None:
     key = f"{dist.get_backend(group)}.{kind}"
     COLLECTIVES[key] = COLLECTIVES.get(key, 0) + 1
     COLLECTIVE_BYTES[key] = COLLECTIVE_BYTES.get(key, 0) + nbytes
+    if axis is not None:
+        key = f"{axis_label(axis)}.{kind}"
+        COLLECTIVES_BY_AXIS[key] = COLLECTIVES_BY_AXIS.get(key, 0) + 1
 
 
 def _nbytes(x: torch.Tensor) -> int:
@@ -183,24 +271,25 @@ def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """The sum of ``x`` over ``axis``'s group, in place; returns ``x``."""
     group = mesh.group(axis)
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
-    _count("all_reduce", group, _nbytes(x))
+    _count("all_reduce", group, _nbytes(x), axis)
     return x
 
 
 def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:
     """This rank's 1/p of ``x``'s sum over ``axis``'s group along ``dim``
-    (p the group's size, which must divide it), a new contiguous tensor;
-    ``x`` is left as it was.  NCCL runs ``reduce_scatter_tensor``; gloo
-    an all_reduce of a copy of the whole tensor, then the slice (the
-    module's docstring has why)."""
+    (p the group's size, which must divide it), a contiguous tensor.
+    ``x`` is the caller's scratch (every caller's is a fresh f32 buffer):
+    gloo sums in it when it is contiguous, and the result may view it.
+    NCCL runs ``reduce_scatter_tensor``; gloo an all_reduce of the whole
+    tensor, then the slice (the module's docstring has why)."""
     group = mesh.group(axis)
-    p, r = mesh.shape[axis], mesh.local_rank(axis)
+    p, r = mesh.size(axis), mesh.local_rank(axis)
     if x.shape[dim] % p:
         raise ValueError(f"reduce_scatter: {x.shape[dim]} does not divide over the {p} ranks "
                          f"of mesh axis {axis!r}")
     per = x.shape[dim] // p
     if dist.get_backend(group) == "gloo":
-        buf = x.clone(memory_format=torch.contiguous_format)
+        buf = x.contiguous()
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
         out = buf.narrow(dim, r * per, per).contiguous()
     else:
@@ -208,7 +297,7 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torc
         part = src.new_empty((per,) + tuple(src.shape[1:]))
         dist.reduce_scatter_tensor(part, src, op=dist.ReduceOp.SUM, group=group)
         out = part.movedim(0, dim).contiguous()
-    _count("reduce_scatter", group, _nbytes(x))
+    _count("reduce_scatter", group, _nbytes(x), axis)
     return out
 
 
@@ -219,9 +308,9 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Te
     group = mesh.group(axis)
     staged = x.is_cuda and dist.get_backend(group) == "gloo"
     src = (x.cpu() if staged else x).contiguous()
-    parts = [torch.empty_like(src) for _ in range(mesh.shape[axis])]
+    parts = [torch.empty_like(src) for _ in range(mesh.size(axis))]
     dist.all_gather(parts, src, group=group)
-    _count("all_gather", group, _nbytes(src) * len(parts))
+    _count("all_gather", group, _nbytes(src) * len(parts), axis)
     out = torch.cat(parts, dim=dim)
     return out.to(x.device) if staged else out
 
@@ -231,7 +320,7 @@ def broadcast(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     in place; returns ``x``."""
     group = mesh.group(axis)
     dist.broadcast(x, src=dist.get_global_rank(group, 0), group=group)
-    _count("broadcast", group, _nbytes(x))
+    _count("broadcast", group, _nbytes(x), axis)
     return x
 
 
@@ -255,19 +344,21 @@ def is_first_rank(mesh: Mesh) -> bool:
 
 
 def split_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """This rank's contiguous share of ``x``'s rows (dim 0) over dp, whose
-    size must divide them."""
-    n = mesh.shape["dp"]
+    """This rank's contiguous share of ``x``'s rows (dim 0) over the mesh's
+    ``batch_axis`` (dp, or dcn x dp on a hybrid mesh), whose size must
+    divide them."""
+    n, r = mesh.size(mesh.batch_axis), mesh.local_rank(mesh.batch_axis)
     if x.shape[0] % n:
-        raise ValueError(f"split_batch: batch {x.shape[0]} does not divide over dp={n}")
+        raise ValueError(f"split_batch: batch {x.shape[0]} does not divide over "
+                         f"{axis_label(mesh.batch_axis)}={n}")
     per = x.shape[0] // n
-    return x[mesh.local_rank("dp") * per:(mesh.local_rank("dp") + 1) * per]
+    return x[r * per:(r + 1) * per]
 
 
 def gather_batch(x: torch.Tensor, mesh: Mesh, dim: int = 0) -> torch.Tensor:
-    """The whole batch back from every dp rank's share along ``dim``
+    """The whole batch back from every batch rank's share along ``dim``
     (``split_batch``'s inverse)."""
-    return all_gather(x, mesh, "dp", dim)
+    return all_gather(x, mesh, mesh.batch_axis, dim)
 
 
 def param_sharding_rules(with_visual: bool = True) -> dict:
@@ -340,39 +431,67 @@ def _splits(spec: P, path: tuple, mesh: Mesh, cfg) -> bool:
     """Whether ``shard_params`` splits the leaf at ``path`` (under
     ``spec``) over tp: its rule names tp, tp > 1 and tp divides its site."""
     axes = [a for a in spec if a is not None]
-    if not axes:
-        return False
-    if axes != ["tp"]:
+    if any(a not in ("tp", "dp") for a in axes):
         raise NotImplementedError(f"shard_params: {'.'.join(path)} is sharded over {axes}; "
-                                  "only tp is ported")
+                                  "only tp and dp are ported")
+    if "tp" not in axes:
+        return False
     n = mesh.shape["tp"]
     return n > 1 and _tp_divisor(path, cfg) % n == 0  # else the site runs replicated
+
+
+def dp_dim(spec: P) -> int | None:
+    """The dimension ``spec`` shards over dp (an FSDP rule), or None."""
+    return spec.index("dp") if "dp" in spec else None
+
+
+def spec_at(rules: dict, path: tuple) -> P:
+    """The spec of the leaf at ``path`` (a tuple of keys) in ``rules``."""
+    for key in path:
+        rules = rules[key]
+    return rules
 
 
 def tp_split(path: tuple, mesh: Mesh, cfg) -> bool:
     """Whether this rank holds a tp shard of the leaf at ``path`` (a
     tuple of keys of ``param_sharding_rules``), not the whole leaf."""
-    spec = param_sharding_rules()
-    for key in path:
-        spec = spec[key]
-    return _splits(spec, path, mesh, cfg)
+    return _splits(spec_at(param_sharding_rules(), path), path, mesh, cfg)
+
+
+def dp_split(path: tuple, mesh: Mesh, rules: dict) -> bool:
+    """Whether this rank holds a dp share of the leaf at ``path`` under
+    ``rules`` (FSDP): its rule names dp and dp > 1."""
+    return dp_dim(spec_at(rules, path)) is not None and mesh.shape["dp"] > 1
 
 
 def _shard_leaf(leaf: torch.Tensor, spec: P, path: tuple, mesh: Mesh, cfg):
     if isinstance(leaf, dict) and any(a is not None for a in spec):
         raise NotImplementedError(f"shard_params: {'.'.join(path)} is int8; int8 weights "
-                                  "under tp are not ported (tdax's rules describe fp leaves)")
-    if not _splits(spec, path, mesh, cfg):
-        return leaf
-    n, r = mesh.shape["tp"], mesh.local_rank("tp")
-    dim = spec.index("tp")
-    if path in _FUSED_QKV:
-        thirds = leaf.chunk(3, dim=dim)
-        return torch.cat([t.chunk(n, dim=dim)[r] for t in thirds], dim=dim)
-    return leaf.chunk(n, dim=dim)[r].clone(memory_format=torch.contiguous_format)
+                                  "under tp or dp are not ported (tdax's rules describe fp "
+                                  "leaves)")
+    if _splits(spec, path, mesh, cfg):
+        n, r = mesh.shape["tp"], mesh.local_rank("tp")
+        dim = spec.index("tp")
+        if path in _FUSED_QKV:
+            thirds = leaf.chunk(3, dim=dim)
+            leaf = torch.cat([t.chunk(n, dim=dim)[r] for t in thirds], dim=dim)
+        else:
+            leaf = leaf.chunk(n, dim=dim)[r].clone(memory_format=torch.contiguous_format)
+    dim, n = dp_dim(spec), mesh.shape["dp"]
+    if dim is not None and n > 1:
+        if leaf.shape[dim] % n:
+            raise ValueError(f"shard_params: {'.'.join(path)}'s dim {dim} "
+                             f"({leaf.shape[dim]}) does not divide over dp={n}")
+        per = leaf.shape[dim] // n
+        leaf = leaf.narrow(dim, mesh.local_rank("dp") * per, per).clone(
+            memory_format=torch.contiguous_format)
+    return leaf
 
 
 def _unshard_leaf(leaf: torch.Tensor, spec: P, path: tuple, mesh: Mesh, cfg):
+    dim = dp_dim(spec)
+    if dim is not None and mesh.shape["dp"] > 1:
+        leaf = all_gather(leaf, mesh, "dp", dim=dim)
     if not _splits(spec, path, mesh, cfg):
         return leaf
     dim = spec.index("tp")
@@ -395,10 +514,10 @@ def _walk(tree: dict, spec_tree: dict, path: tuple, fn) -> dict:
 
 
 def unshard_params(tree: dict, mesh: Mesh, cfg, rules: dict | None = None) -> dict:
-    """``shard_params``' inverse: every tp-sharded leaf of this rank's
-    tree gathered whole over the tp group (collective), the fused qkv
-    put back in [q | k | v] order; replicated leaves as they are.  Any
-    tree in the params' layout (AdamW's moments too)."""
+    """``shard_params``' inverse: every sharded leaf of this rank's tree
+    gathered whole (collective), over dp first (FSDP rules), then over
+    tp, the fused qkv put back in [q | k | v] order; replicated leaves as
+    they are.  Any tree in the params' layout (AdamW's moments too)."""
     rules = rules or param_sharding_rules("visual" in tree)
     return _walk(tree, rules, (), lambda leaf, spec, path: _unshard_leaf(
         leaf, spec, path, mesh, cfg))
@@ -412,7 +531,71 @@ def shard_params(params: dict, mesh: Mesh, rules: dict | None = None, *, cfg) ->
     heads within each of q, k and v.  A site whose head count (MLP
     width, vocabulary) ``cfg``'s tp does not divide keeps its whole
     weights and runs replicated: the model sees whole shapes there and
-    sums nothing."""
+    sums nothing.  Under FSDP rules (``fsdp_sharding_rules``) a leaf
+    whose spec names dp then keeps this rank's contiguous 1/dp of that
+    dimension (with dp > 1)."""
     rules = rules or param_sharding_rules("visual" in params)
     return _walk(params, rules, (), lambda leaf, spec, path: _shard_leaf(
         leaf, spec, path, mesh, cfg))
+
+
+def fsdp_sharding_rules(params: dict, dp, base_rules: dict | None = None,
+                        min_size: int = 2 ** 14) -> dict:
+    """ZeRO-3 parameter sharding rules (FSDP), tdax's: each large leaf of
+    ``base_rules`` (default ``param_sharding_rules``) is also sharded over
+    dp on its largest dimension that carries no mesh axis and that
+    ``dp`` divides, so params, gradients and AdamW's moments live 1/dp
+    on each rank.  ``dp`` is the dp size or a ``Mesh`` (its own ``"dp"``
+    size: on a hybrid mesh the within-slice dp).
+    - a leaf of fewer than ``min_size`` elements keeps its base rule;
+    - a stacked leaf (under ``layers`` / ``blocks``) never shards dim 0,
+      the layer axis;
+    - the dim carrying tp is skipped;
+    - the spec's trailing Nones are trimmed (P(a, None) is P(a)).
+    ``params`` may be any tree of objects with a ``shape``."""
+    if isinstance(dp, Mesh):
+        dp = dp.shape["dp"]
+    base = base_rules or param_sharding_rules("visual" in params)
+
+    def extend(leaf, spec, path):
+        if isinstance(leaf, dict):
+            raise NotImplementedError(f"fsdp_sharding_rules: {'.'.join(path)} is int8; FSDP "
+                                      "takes floating-point parameters")
+        shape = tuple(leaf.shape)
+        full = tuple(spec) + (None,) * (len(shape) - len(spec))
+        if math.prod(shape) < min_size:
+            return spec
+        first = 1 if any(key in ("layers", "blocks") for key in path) else 0
+        cand = [(shape[d], d) for d in range(first, len(shape))
+                if full[d] is None and shape[d] % dp == 0]
+        if not cand:
+            return spec
+        d = max(cand)[1]
+        out = ["dp" if i == d else a for i, a in enumerate(full)]
+        while out and out[-1] is None:
+            out.pop()
+        return P(*out)
+
+    return _walk(params, base, (), extend)
+
+
+def named_shardings(mesh: Mesh, rules: dict) -> dict:
+    """Partition-spec tree -> ``NamedSharding`` tree over ``mesh`` (what
+    ``make_train_step``'s ``param_shardings`` takes)."""
+    return {key: named_shardings(mesh, spec) if isinstance(spec, dict)
+            else NamedSharding(mesh, spec) for key, spec in rules.items()}
+
+
+def batch_sharding(mesh: Mesh) -> NamedSharding:
+    """The batch over dp."""
+    return NamedSharding(mesh, P("dp"))
+
+
+def replicated(mesh: Mesh) -> NamedSharding:
+    return NamedSharding(mesh, P())
+
+
+def hybrid_batch_sharding(mesh: Mesh) -> NamedSharding:
+    """The batch over every data-parallel degree of a hybrid mesh: slices
+    x within-slice dp (``split_batch`` splits over it)."""
+    return NamedSharding(mesh, P(("dcn", "dp")))

@@ -35,10 +35,23 @@ over dp before the division), the gradients are summed over dp, the
 clip's global norm sums the squares of the tp-sharded leaves over tp and
 counts every replicated or whole leaf once, and AdamW updates each
 rank's shard.  The tp collectives' backward is ``models/qwen_vl/tp.py``'s.
+
+``param_shardings`` (``mesh.named_shardings`` of ``fsdp_sharding_rules``)
+turns on FSDP / ZeRO-3: the params are this rank's ``shard_params``
+tree under those rules, so its training view, AdamW's moments and the
+accumulator are shard-sized; the model gathers each dp-sharded weight
+where a block reads it and reduce-scatters its gradient over dp in f32
+(``models/qwen_vl/fsdp.py``), so such a leaf skips the dp gradient sum,
+and the clip sums its squares over dp (over tp too for a dp x tp
+shard), after the other leaves'.  On a hybrid mesh (``make_hybrid_mesh``)
+the batch is split over ``("dcn", "dp")``: the loss and the replicated
+leaves' gradients are summed over both, a dp-sharded gradient over dp
+then over dcn.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import time
@@ -46,6 +59,7 @@ import time
 import numpy as np
 import torch
 
+from tdax_torch.models.qwen_vl import fsdp
 from tdax_torch.models.qwen_vl.config import QwenVLConfig
 from tdax_torch.models.qwen_vl.model import forward
 from tdax_torch.models.qwen_vl.quantize import is_quantized
@@ -80,10 +94,11 @@ def masked_ce(logits, input_ids, attn_mask) -> torch.Tensor:
     return ce_sum / n.clamp_min(1.0)
 
 
-def _global_parts(ce_sum: torch.Tensor, n: torch.Tensor, mesh):
-    """(CE numerator, token count) summed over the mesh's dp ranks; the
-    numerator's gradient reaches each rank's own as it is."""
-    return sum_over(ce_sum, mesh, "dp"), pm.all_reduce(n.clone(), mesh, "dp")
+def _global_parts(ce_sum: torch.Tensor, n: torch.Tensor, mesh, axis):
+    """(CE numerator, token count) summed over the batch ranks of ``axis``
+    (dp, or ("dcn", "dp")); the numerator's gradient reaches each rank's
+    own as it is."""
+    return sum_over(ce_sum, mesh, axis), pm.all_reduce(n.clone(), mesh, axis)
 
 
 def _context_mesh():
@@ -94,15 +109,16 @@ def _context_mesh():
 def lm_loss(params: dict, cfg: QwenVLConfig, input_ids, attn_mask, images=None,
             image_positions=None, remat: bool = False, seq_sharding=None) -> torch.Tensor:
     """Masked next-token cross entropy (mean over real target tokens).
-    Inside ``flash_sharding`` over a dp x tp mesh, the mean over every dp
-    rank's tokens, each rank passing its rows; ``seq_sharding``
+    Inside ``flash_sharding`` over a mesh, the mean over every rank of its
+    batch axis (dp, or ("dcn", "dp")), each rank passing its rows;
+    ``seq_sharding``
     (``(mesh, "tp")``) turns on sequence parallelism (``forward``)."""
     logits = forward(params, cfg, input_ids, attn_mask, images, image_positions, remat=remat,
                      seq_sharding=seq_sharding)
     ce_sum, n = masked_ce_parts(logits, input_ids, attn_mask)
-    mesh = _context_mesh()
-    if mesh is not None:
-        ce_sum, n = _global_parts(ce_sum, n, mesh)
+    ctx = current_flash_sharding()
+    if ctx is not None and ctx[1] is not None:
+        ce_sum, n = _global_parts(ce_sum, n, ctx[0], ctx[1])
     return ce_sum / n.clamp_min(1.0)
 
 
@@ -198,20 +214,26 @@ class OptState:
                 "exp_avg_sq": nu if i is None else nu[i]}
 
     @torch.no_grad()
-    def update(self, grads: list, tp=None) -> None:
+    def update(self, grads: list, tp=None, dp=None) -> None:
         """Clip ``grads`` (one per leaf, modified in place) by their global
-        norm, then one AdamW step on the params.  ``tp``: (mesh, one flag
-        a leaf, True where this rank holds a tp shard of it); the shards'
-        squares are summed over tp, the other leaves counted once."""
+        norm, then one AdamW step on the params.  ``tp`` and ``dp``:
+        (mesh, one flag a leaf, True where this rank holds a tp, resp. dp,
+        shard of it) or None.  The tp shards' squares are summed over tp,
+        the dp shards' over dp (a dp x tp shard's over both), after the
+        whole leaves', which count once."""
         device = self.leaves[0].device
-        total = torch.zeros((), dtype=torch.float32, device=device)
-        split = torch.zeros((), dtype=torch.float32, device=device)
-        flags = [False] * len(grads) if tp is None else tp[1]
-        for g, flag in zip(grads, flags):
-            (split if flag else total).add_(
-                torch.linalg.vector_norm(g, dtype=torch.float32).square())
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        total, by_tp, by_dp, by_both = (zero.clone() for _ in range(4))
+        tp_flags = [False] * len(grads) if tp is None else tp[1]
+        dp_flags = [False] * len(grads) if dp is None else dp[1]
+        for g, t, d in zip(grads, tp_flags, dp_flags):
+            acc = (by_both if d else by_tp) if t else (by_dp if d else total)
+            acc.add_(torch.linalg.vector_norm(g, dtype=torch.float32).square())
         if tp is not None:
-            total += pm.all_reduce(split, tp[0], "tp")
+            total += pm.all_reduce(by_tp, tp[0], "tp")
+        if dp is not None:
+            by_dp += pm.all_reduce(by_both, dp[0], "tp")
+            total += pm.all_reduce(by_dp, dp[0], "dp")
         norm = total.sqrt()
         clip = norm >= CLIP_NORM  # optax: keep where |g| < max
         denom = torch.where(clip, norm, 1.0)
@@ -292,24 +314,29 @@ def default_optimizer(lr=1e-4) -> AdamW:
     return AdamW(lr)
 
 
-def _step_mesh(sp_mesh, cp_mesh):
-    """The step's dp x tp mesh: ``sp_mesh``, else the active
-    ``flash_sharding`` context's, else None (one device)."""
+def _step_mesh(sp_mesh, cp_mesh, param_shardings=None):
+    """The step's mesh: ``sp_mesh``, else ``param_shardings``' mesh, else
+    the active ``flash_sharding`` context's, else None (one device); the
+    ones given must be one mesh."""
     if sp_mesh is not None and cp_mesh is not None:
         raise ValueError("sp_mesh and cp_mesh are mutually exclusive: both shard the "
                          "sequence axis (over tp and cp respectively)")
     if cp_mesh is not None:
         raise NotImplementedError("cp_mesh: context parallelism (ring attention) is not "
                                   "ported")
-    mesh = _context_mesh()
-    if sp_mesh is not None and mesh is not None and mesh is not sp_mesh:
-        raise ValueError("sp_mesh is not the mesh of the active flash_sharding context")
-    return sp_mesh if sp_mesh is not None else mesh
+    given = [(name, m) for name, m in (
+        ("sp_mesh", sp_mesh),
+        ("param_shardings", None if param_shardings is None else fsdp.mesh_of(param_shardings)),
+        ("the active flash_sharding context", _context_mesh())) if m is not None]
+    for name, m in given[1:]:
+        if m is not given[0][1]:
+            raise ValueError(f"{given[0][0]} and {name} name two meshes")
+    return given[0][1] if given else None
 
 
 def make_train_step(cfg: QwenVLConfig, optimizer: AdamW, with_images: bool = False,
-                    remat: bool = False, sp_mesh=None, cp_mesh=None, accum_steps: int = 1,
-                    device=None):
+                    remat: bool = False, sp_mesh=None, cp_mesh=None, param_shardings=None,
+                    accum_steps: int = 1, device=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     loss), ``opt_state = optimizer.init(params)``.  The params are updated
     in place; the loss stays on the device.
@@ -323,20 +350,25 @@ def make_train_step(cfg: QwenVLConfig, optimizer: AdamW, with_images: bool = Fal
     denominator and f32 gradient sums accumulate over the microbatches,
     then ONE update applies the full-batch gradient, cast once to the
     params' dtype.  ``train_step.loss_and_grads`` is the step without its
-    update (``opt_state.update(grads, train_step.tp_flags(opt_state))``
+    update (``opt_state.update(grads, **train_step.shards(opt_state))``
     completes it).
 
     Called inside ``flash_sharding(mesh, "dp", "tp")`` (the mesh read at
-    each call) or with ``sp_mesh`` (the dp x tp mesh the params are
-    sharded over), the step runs over that mesh: the params are this
-    rank's ``shard_params`` tree and the batch this rank's dp rows (see
+    each call), with ``sp_mesh`` (the mesh the params are sharded over)
+    or with ``param_shardings`` (``named_shardings`` over the mesh), the
+    step runs over that mesh: the params are this rank's ``shard_params``
+    tree (under ``param_shardings``' rules when given) and the batch this
+    rank's rows of the mesh's ``batch_axis`` (``mesh.split_batch``; see
     the module's docstring).  ``sp_mesh`` also turns on sequence
     parallelism: the residual stream between blocks sharded over tp on
-    the sequence axis.  ``cp_mesh`` (context parallelism) is not ported
-    and raises; with ``sp_mesh`` it raises ValueError, as tdax's."""
+    the sequence axis.  ``param_shardings`` turns on FSDP and composes
+    with ``remat``, ``accum_steps`` and ``sp_mesh``.  ``cp_mesh``
+    (context parallelism) is not ported and raises; with ``sp_mesh`` it
+    raises ValueError, as tdax's."""
     device = get_device(device)
-    _step_mesh(sp_mesh, cp_mesh)
+    _step_mesh(sp_mesh, cp_mesh, param_shardings)
     seq = None if sp_mesh is None else (sp_mesh, "tp")
+    specs = None if param_shardings is None else fsdp.specs_of(param_shardings)
 
     def loss_parts(tree, b):
         logits = forward(tree, cfg, b["input_ids"], b["attn_mask"],
@@ -349,21 +381,32 @@ def make_train_step(cfg: QwenVLConfig, optimizer: AdamW, with_images: bool = Fal
         grads = torch.autograd.grad(out, leaves, allow_unused=True)
         return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
 
-    def dp_sum(grads, mesh):
-        """Each gradient summed over dp in f32, in place."""
-        for g in grads:
-            g.copy_(pm.all_reduce(g.float() if g.dtype != torch.float32 else g, mesh, "dp"))
+    def gathered(names) -> list:
+        """Per leaf: whether the model gathers it over dp (its FSDP rule
+        names dp), so that its gradient comes reduce-scattered, summed."""
+        if specs is None:
+            return [False] * len(names)
+        return [pm.dp_dim(pm.spec_at(specs, tuple(path.split("/")))) is not None
+                for path, _ in names]
+
+    def dp_sum(grads, mesh, skip):
+        """Each gradient not in ``skip`` summed over the batch axis in f32,
+        in place."""
+        for g, done in zip(grads, skip):
+            if not done:
+                g.copy_(pm.all_reduce(g.float() if g.dtype != torch.float32 else g, mesh,
+                                      mesh.batch_axis))
 
     def run(params, opt_state: OptState, batch: dict, mesh):
         leaves = opt_state.leaves
         if accum_steps == 1:
             ce_sum, n = loss_parts(opt_state.tree, batch)
             if mesh is not None:
-                ce_sum, n = _global_parts(ce_sum, n, mesh)
+                ce_sum, n = _global_parts(ce_sum, n, mesh, mesh.batch_axis)
             loss = ce_sum / n.clamp_min(1.0)
             grads = grads_of(loss, leaves)
             if mesh is not None:
-                dp_sum(grads, mesh)
+                dp_sum(grads, mesh, gathered(opt_state.names))
         else:
             for name, leaf in batch.items():
                 if leaf.shape[0] != accum_steps:
@@ -379,8 +422,9 @@ def make_train_step(cfg: QwenVLConfig, optimizer: AdamW, with_images: bool = Fal
                 ce_tot += ce_sum.detach()
                 n_tot += n
             if mesh is not None:
-                ce_tot, n_tot = (pm.all_reduce(t, mesh, "dp") for t in (ce_tot, n_tot))
-                dp_sum(acc, mesh)
+                ce_tot, n_tot = (pm.all_reduce(t, mesh, mesh.batch_axis)
+                                 for t in (ce_tot, n_tot))
+                dp_sum(acc, mesh, gathered(opt_state.names))
             n_tot = n_tot.clamp_min(1.0)
             loss = ce_tot / n_tot
             grads = [(a / n_tot).to(p.dtype) for a, p in zip(acc, leaves)]
@@ -395,42 +439,51 @@ def make_train_step(cfg: QwenVLConfig, optimizer: AdamW, with_images: bool = Fal
         if opt_state.leaves[0].device.type != device.type:
             raise ValueError(f"train step: params on {opt_state.leaves[0].device}, step on "
                              f"{device}")
-        mesh = _step_mesh(sp_mesh, None)
+        mesh = _step_mesh(sp_mesh, None, param_shardings)
         if mesh is None:
             return run(params, opt_state, batch, None)
-        with flash_sharding(mesh, "dp", "tp"):
+        gathers = (contextlib.nullcontext() if param_shardings is None
+                   else fsdp.gathering(param_shardings))
+        with flash_sharding(mesh, mesh.batch_axis, "tp"), gathers:
             return run(params, opt_state, batch, mesh)
 
-    def tp_flags(opt_state: OptState):
-        """``OptState.update``'s ``tp``: (mesh, which leaves are tp
-        shards), or None on one device."""
-        mesh = _step_mesh(sp_mesh, None)
+    def shards(opt_state: OptState) -> dict:
+        """``OptState.update``'s ``tp`` and ``dp``: (mesh, which leaves are
+        tp shards) and (mesh, which are dp shards), each None where there
+        are none (one device; no FSDP, or dp = 1)."""
+        mesh = _step_mesh(sp_mesh, None, param_shardings)
         if mesh is None:
-            return None
-        return mesh, [pm.tp_split(tuple(path.split("/")), mesh, cfg)
-                      for path, _ in opt_state.names]
+            return {}
+        paths = [tuple(path.split("/")) for path, _ in opt_state.names]
+        out = {"tp": (mesh, [pm.tp_split(path, mesh, cfg) for path in paths])}
+        if specs is not None:
+            flags = [pm.dp_split(path, mesh, specs) for path in paths]
+            if any(flags):
+                out["dp"] = (mesh, flags)
+        return out
 
     def step(params, opt_state: OptState, batch: dict):
         loss, grads = loss_and_grads(params, opt_state, batch)
-        opt_state.update(grads, tp_flags(opt_state))
+        opt_state.update(grads, **shards(opt_state))
         return params, opt_state, loss
 
     step.loss_and_grads = loss_and_grads
-    step.tp_flags = tp_flags
+    step.shards = shards
     return step
 
 
-def _save_state(path: str, params: dict, opt_state: OptState, step: int, mesh, cfg) -> None:
-    """The train state to ``path + ".npz"``; under a mesh the tp shards
-    gathered whole (every rank) and written by rank 0 alone, the others
-    waiting at a barrier for the file."""
+def _save_state(path: str, params: dict, opt_state: OptState, step: int, mesh, cfg,
+                rules) -> None:
+    """The train state to ``path + ".npz"``; under a mesh the shards
+    gathered whole under ``rules`` (every rank) and written by rank 0
+    alone, the others waiting at a barrier for the file."""
     from tdax_torch.utils.checkpoint import save_train_state
     if mesh is None:
         save_train_state(path, params, opt_state, step)
         return
 
     def gather(tree):
-        return pm.unshard_params(tree, mesh, cfg)
+        return pm.unshard_params(tree, mesh, cfg, rules)
 
     whole, flat = gather(params), opt_state.to_flat(gather)
     if pm.is_writer():
@@ -441,8 +494,8 @@ def _save_state(path: str, params: dict, opt_state: OptState, step: int, mesh, c
 def train_loop(params: dict, cfg: QwenVLConfig, batches, n_steps: int,
                optimizer: AdamW | None = None, checkpoint_path: str | None = None,
                checkpoint_every: int = 100, resume: bool = True, with_images: bool = False,
-               remat: bool = False, sp_mesh=None, cp_mesh=None, accum_steps: int = 1,
-               log_every: int = 50, verbose: bool = False, device=None):
+               remat: bool = False, sp_mesh=None, cp_mesh=None, param_shardings=None,
+               accum_steps: int = 1, log_every: int = 50, verbose: bool = False, device=None):
     """Minimal fit loop with crash resume (tdax's ``train_loop``).
 
     ``batches`` is a callable ``step -> batch dict``, so a resumed run
@@ -454,28 +507,32 @@ def train_loop(params: dict, cfg: QwenVLConfig, batches, n_steps: int,
     event goes to the JSONL log.  Returns (params, opt_state, losses) for
     the steps this call ran.  Runs on the card unless ``device="cpu"``.
 
-    Over a mesh (``sp_mesh``, or the active ``flash_sharding`` context's,
-    as ``make_train_step``) ``params`` is this rank's shard and
-    ``batches`` gives this rank's dp rows; the checkpoint holds the whole
-    tree (``mesh.unshard_params``), written by rank 0 with a barrier
-    after it, and a resume shards it again (``mesh.shard_params``) and
-    continues bitwise.  Rank 0 alone prints and logs."""
+    Over a mesh (``sp_mesh``, ``param_shardings``' or the active
+    ``flash_sharding`` context's, as ``make_train_step``) ``params`` is
+    this rank's shard and ``batches`` gives this rank's rows; the
+    checkpoint holds the whole tree (``mesh.unshard_params``, under
+    ``param_shardings``' rules when given), written by rank 0 with a
+    barrier after it, and a resume shards it again (``mesh.shard_params``)
+    and continues bitwise.  Rank 0 alone prints and logs."""
     from tdax_torch.utils.checkpoint import load_train_state
     from tdax_torch.utils.log import log_event
 
     device = get_device(device)
-    mesh = _step_mesh(sp_mesh, cp_mesh)
+    mesh = _step_mesh(sp_mesh, cp_mesh, param_shardings)
+    rules = None if param_shardings is None else fsdp.specs_of(param_shardings)
     opt = optimizer if optimizer is not None else default_optimizer()
     start = 0
     if checkpoint_path and resume and os.path.exists(checkpoint_path + ".npz"):
-        shard = None if mesh is None else (lambda tree: pm.shard_params(tree, mesh, cfg=cfg))
+        shard = None if mesh is None else (lambda tree: pm.shard_params(tree, mesh, rules,
+                                                                        cfg=cfg))
         params, opt_state, start = load_train_state(checkpoint_path, opt, device, shard=shard)
         if verbose and pm.is_writer():
             print(f"[tdax_torch.train] resumed from step {start}", flush=True)
     else:
         opt_state = opt.init(params)
     step_fn = make_train_step(cfg, opt, with_images=with_images, remat=remat, sp_mesh=sp_mesh,
-                              accum_steps=accum_steps, device=device)
+                              param_shardings=param_shardings, accum_steps=accum_steps,
+                              device=device)
     device_losses = []
     t_window, tokens_window = time.time(), 0
     for i in range(start, n_steps):
@@ -493,5 +550,5 @@ def train_loop(params: dict, cfg: QwenVLConfig, batches, n_steps: int,
                       dispatched_tokens_per_s=round(tokens_window / max(dt, 1e-9), 1))
             t_window, tokens_window = time.time(), 0
         if checkpoint_path and (i + 1) % checkpoint_every == 0:
-            _save_state(checkpoint_path, params, opt_state, i + 1, mesh, cfg)
+            _save_state(checkpoint_path, params, opt_state, i + 1, mesh, cfg, rules)
     return params, opt_state, [float(x) for x in device_losses]

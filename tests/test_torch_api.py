@@ -56,9 +56,14 @@ def test_pipeline_names_import_from_the_package():
 def test_parallel_names_are_tdax_names():
     """``tdax_torch.parallel`` names only tdax's names (the mesh helpers
     the port adds stay in ``tdax_torch.parallel.mesh``), each resolving
-    to the port's."""
+    to the port's: 12 of tdax's 17, all but context parallelism's and the
+    1F1B pipeline's."""
     import tdax.parallel as jpar
     import tdax_torch.parallel as par
     assert set(par.__all__) <= set(jpar.__all__)
+    assert set(jpar.__all__) - set(par.__all__) == {
+        "make_pp_mesh", "pipeline_forward", "shard_params_pp", "make_train_step_pp",
+        "pipeline_1f1b_grads"}
+    assert len(par.__all__) == 12
     for name in par.__all__:
         assert getattr(par, name).__module__.startswith("tdax_torch.parallel."), name

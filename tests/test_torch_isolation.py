@@ -171,6 +171,15 @@ with tempfile.TemporaryDirectory() as tmp:
         _, _, loss = make_train_step(cfg, opt, sp_mesh=m, remat=True, device="cpu")(
             p, opt.init(p), {"input_ids": ids, "attn_mask": torch.ones_like(ids)})
         assert np.isfinite(float(loss)) and mesh.COLLECTIVES["gloo.reduce_scatter"] > 0
+        # an FSDP step: the weights gathered per layer over dp
+        whole = init_params(cfg, "cpu", with_visual=False)
+        rules = mesh.fsdp_sharding_rules(whole, m)
+        p = mesh.shard_params(whole, m, rules, cfg=cfg)
+        mesh.COLLECTIVES_BY_AXIS.clear()
+        _, _, loss = make_train_step(cfg, opt, remat=True, device="cpu",
+                                     param_shardings=mesh.named_shardings(m, rules))(
+            p, opt.init(p), {"input_ids": ids, "attn_mask": torch.ones_like(ids)})
+        assert np.isfinite(float(loss)) and mesh.COLLECTIVES_BY_AXIS["dp.all_gather"] > 0
         emb = embed_sparse(rng.normal(size=(40, 6)), 5, 2, "euclidean", 5, 0, 1.58, 0.9, 1.0,
                            5, 1.0, 1.0, 1.0, device="cpu", mesh=m)
         assert emb.shape == (40, 2) and np.isfinite(emb).all()

@@ -220,11 +220,12 @@ def test_param_sharding_rules_match_tdax(with_visual):
 def test_parallel_exports_tdax_names():
     import tdax.parallel as jpar
     import tdax_torch.parallel as par
-    for name in ("make_mesh", "param_sharding_rules", "shard_params"):
+    for name in ("make_mesh", "param_sharding_rules", "shard_params", "fsdp_sharding_rules",
+                 "named_shardings", "make_hybrid_mesh", "hybrid_batch_sharding"):
         assert name in jpar.__all__ and name in par.__all__
         assert getattr(par, name) is getattr(pm, name)
     with pytest.raises(AttributeError):
-        par.fsdp_sharding_rules  # the training slices' names are not ported yet
+        par.make_pp_mesh  # the 1F1B pipeline's names are not ported yet
 
 
 class _Grid:

@@ -608,3 +608,167 @@ def one_train_world(rank: int, world: int, store_path: str, inp_path: str) -> di
                 "sp": _trained(tree, sp, mesh, sp_mesh=mesh), "lm_loss": _lm_loss(tree, sp, mesh)}
     finally:
         pm.shutdown()
+
+
+# ---- FSDP and the hybrid mesh (tests/test_torch_parallel_fsdp.py) --------------------
+
+def _micro_rows(batch: dict, mesh, accum: int = 1) -> dict:
+    """This rank's rows of a numpy batch over the mesh's batch axis; with
+    ``accum`` the whole batch is first cut into that many microbatches
+    along a new leading axis, each split over the batch axis (tdax's
+    [accum, b / accum, ...] batch sharded P(None, "dp"))."""
+    out = {}
+    for key, v in batch.items():
+        t = _t(v, long=key in ("input_ids", "image_positions"))
+        if accum == 1:
+            out[key] = pm.split_batch(t, mesh)
+        else:
+            micro = t.reshape(accum, t.shape[0] // accum, *t.shape[1:])
+            out[key] = torch.stack([pm.split_batch(m, mesh) for m in micro])
+    return out
+
+
+def _spec_tuples(rules: dict) -> dict:
+    return {k: _spec_tuples(v) if isinstance(v, dict) else tuple(v) for k, v in rules.items()}
+
+
+def _fsdp_trained(tree: dict, batch: dict, mesh, n_steps: int = 1, accum: int = 1,
+                  **step_kw) -> dict:
+    """``n_steps`` FSDP steps (remat on, lr 1e-3) over ``mesh`` from
+    ``tree`` sharded under ``fsdp_sharding_rules(tree, mesh)``, the step
+    taking its mesh from ``param_shardings`` (no flash_sharding context):
+    each step's loss, the whole tree and AdamW's first moment after them,
+    the local sizes of ``layers/attn_qkv_w`` and its moments, and the
+    steps' collectives by backend and by axis."""
+    from tdax_torch.models.qwen_vl.convert import params_to_numpy
+    from tdax_torch.parallel import train as tr
+    whole = params_from_numpy(tree, "cpu", "float32")
+    rules = pm.fsdp_sharding_rules(whole, mesh)
+    params = pm.shard_params(whole, mesh, rules, cfg=CFG)
+    opt = tr.default_optimizer(1e-3)
+    state = opt.init(params)
+    step = tr.make_train_step(CFG, opt, remat=True, param_shardings=pm.named_shardings(
+        mesh, rules), accum_steps=accum, device="cpu", **step_kw)
+    rows = _micro_rows(batch, mesh, accum)
+    losses = []
+    pm.COLLECTIVES.clear()
+    pm.COLLECTIVES_BY_AXIS.clear()
+    for _ in range(n_steps):
+        _, state, loss = step(params, state, rows)
+        losses.append(float(loss))
+    local = {name: tree_["layers"]["attn_qkv_w"].numel()
+             for name, tree_ in (("params", params), ("mu", state.mu), ("nu", state.nu))}
+    return {"losses": losses, "collectives": dict(pm.COLLECTIVES),
+            "by_axis": dict(pm.COLLECTIVES_BY_AXIS), "local_qkv": local,
+            "rules": _spec_tuples(rules),
+            "params": params_to_numpy(pm.unshard_params(params, mesh, CFG, rules)),
+            "mu": params_to_numpy(pm.unshard_params(state.mu, mesh, CFG, rules))}
+
+
+def _fsdp_loop(tree: dict, batch: dict, mesh, work: Path) -> dict:
+    """train_loop(param_shardings=) over the mesh, 4 steps with a
+    checkpoint every 2: uninterrupted, and stopped after 2 then resumed."""
+    from tdax_torch.models.qwen_vl.convert import params_to_numpy
+    from tdax_torch.parallel import train as tr
+    from tdax_torch.utils.checkpoint import load_params
+    rows = _micro_rows(batch, mesh)
+
+    def run(name, n_steps):
+        whole = params_from_numpy(tree, "cpu", "float32")
+        rules = pm.fsdp_sharding_rules(whole, mesh)
+        params = pm.shard_params(whole, mesh, rules, cfg=CFG)
+        params, state, losses = tr.train_loop(
+            params, CFG, lambda i: rows, n_steps, tr.default_optimizer(1e-3),
+            checkpoint_path=str(work / name), checkpoint_every=2, log_every=0, remat=True,
+            param_shardings=pm.named_shardings(mesh, rules), device="cpu")
+        return (params_to_numpy(pm.unshard_params(params, mesh, CFG, rules)), losses,
+                state.count, params["layers"]["attn_qkv_w"].numel())
+
+    full, full_losses, count, local = run("full", 4)
+    run("crash", 2)
+    resumed, resumed_losses, resumed_count, resumed_local = run("crash", 4)
+    saved = load_params(str(work / "full"))["p"]  # the whole tree rank 0 wrote
+    return {"full": full, "full_losses": full_losses, "count": count, "resumed": resumed,
+            "resumed_losses": resumed_losses, "resumed_count": resumed_count,
+            "local_qkv": [local, resumed_local], "saved_params": params_to_numpy(saved)}
+
+
+def _refusals() -> dict:
+    """make_hybrid_mesh's errors for layouts the ranks do not fit."""
+    out = {}
+    for label, kw in (("dcn3", dict(dcn=3)), ("dp4_tp2", dict(dcn=2, dp=4, tp=2))):
+        try:
+            pm.make_hybrid_mesh(**kw)
+            out[label] = None
+        except ValueError as e:
+            out[label] = str(e)
+    return out
+
+
+def fsdp_world(rank: int, world: int, store_path: str, inp_path: str, work: str) -> dict:
+    """The 8-rank world: the FSDP rules on a mesh, the FSDP step at dp=4
+    tp=2 (text, with images, with sp_mesh), accumulation at dp=2 tp=4,
+    train_loop with resume, and the hybrid mesh at dcn=2 dp=2 tp=2 (its
+    step and its capture) with its refusals."""
+    _join(rank, world, store_path)
+    try:
+        with open(inp_path, "rb") as f:
+            inp = pickle.load(f)
+        work = Path(work)
+        tree = inp["tree"]
+        whole = params_from_numpy(tree, "cpu", "float32")
+        dp4 = pm.make_mesh(dp=4, tp=2)
+        dp2 = pm.make_mesh(dp=2, tp=4)
+        hybrid = pm.make_hybrid_mesh(dcn=2, dp=2, tp=2)
+        out = {"rules_on_meshes": {
+            label: _spec_tuples(pm.fsdp_sharding_rules(whole, mesh))
+            for label, mesh in (("dp4_tp2", dp4), ("dp2_tp4", dp2), ("hybrid", hybrid))},
+            "hybrid_mesh": {"axis_names": hybrid.axis_names, "shape": hybrid.shape,
+                            "batch_rank": hybrid.local_rank(hybrid.batch_axis)},
+            "refusals": _refusals()}
+        out["fsdp"] = _fsdp_trained(tree, inp["batch"], dp4)
+        out["images"] = _fsdp_trained(inp["tree_visual"], inp["batch_images"], dp4,
+                                      with_images=True)
+        out["sp"] = _fsdp_trained(tree, inp["batch_sp"], dp4, sp_mesh=dp4)
+        out["accum"] = _fsdp_trained(tree, inp["batch_accum"], dp2, accum=2)
+        out["hybrid"] = _fsdp_trained(tree, inp["batch_hybrid"], hybrid)
+        capture = pm.shard_params(params_from_numpy(inp["tree_capture"], "cpu", "float32"),
+                                  hybrid, cfg=CFG)
+        rows = [pm.split_batch(x, hybrid) for x in _capture_inputs(inp)]
+        pm.COLLECTIVES_BY_AXIS.clear()
+        with torch.inference_mode(), flash_sharding(hybrid, hybrid.batch_axis, "tp"):
+            acts = extract_layer_activations(capture, CFG, *rows)
+        out["hybrid_capture"] = {"acts": pm.gather_batch(acts, hybrid, dim=1).numpy(),
+                                 "local_rows": rows[0].shape[0],
+                                 "by_axis": dict(pm.COLLECTIVES_BY_AXIS)}
+        if rank == 0:
+            (work / "loop").mkdir()
+        dist.barrier()
+        out["loop"] = _fsdp_loop(tree, inp["batch"], dp4, work / "loop")
+        return out
+    finally:
+        pm.shutdown()
+
+
+def one_fsdp_world(rank: int, world: int, store_path: str, inp_path: str) -> dict:
+    """The world of one: the step without a process group (remat on),
+    then the FSDP step at dp=1 tp=1 and on a hybrid mesh of one, in the
+    same process."""
+    from tdax_torch.models.qwen_vl.convert import params_to_numpy
+    from tdax_torch.parallel import train as tr
+    with open(inp_path, "rb") as f:
+        inp = pickle.load(f)
+    tree, batch = inp["tree"], inp["batch_sp"]
+    params = params_from_numpy(tree, "cpu", "float32")
+    opt = tr.default_optimizer(1e-3)
+    state = opt.init(params)
+    rows = {k: _t(v, long=k == "input_ids") for k, v in batch.items()}
+    _, state, loss = tr.make_train_step(CFG, opt, remat=True, device="cpu")(params, state, rows)
+    one = {"losses": [float(loss)], "params": params_to_numpy(params),
+           "mu": params_to_numpy(state.mu)}
+    _join(rank, world, store_path)
+    try:
+        return {"one": one, "fsdp": _fsdp_trained(tree, batch, pm.make_mesh(dp=1, tp=1)),
+                "hybrid": _fsdp_trained(tree, batch, pm.make_hybrid_mesh(dcn=1))}
+    finally:
+        pm.shutdown()
