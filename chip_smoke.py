@@ -301,8 +301,39 @@ and runs these phases, printing JSON lines:
             transform_sparse(mesh=) against phase umap_sparse's
             embedding bitwise its transform; knn_blocked(mesh=) every row
             exact or its disputed neighbours within MD_KNN_TIE; every
-            rank's results equal.  Phases 6, 6b, 6c and 9 run before this
-            one, inside the run's temp dir.
+            rank's results equal.  Then tdax's dry-run stage 10, context
+            parallelism, on the four gloo ranks alone: NCCL refuses two
+            ranks on one card, and a world of one has no cp axis (tdax's
+            make_mesh at cp = 1 has none), so the NCCL world runs no cp
+            stage.  The ring alone at dp=1 tp=1 cp=MD_RING_CP: q, k, v
+            MD_RING_SHAPE bf16 (the full decoder's heads; local chunks of
+            2048, zigzag halves of 1024, so every step takes
+            flash_fwd_sm90.cu and flash_bwd_sm90.cu, at Tq != Tk off the
+            diagonal), MD_RING_CASES (causal zigzag, causal contiguous
+            under TDAX_NO_ZIGZAG=1, dense, causal with ragged key validity
+            and one chunk wholly invalid for one row), each rank's output
+            and gradients of sum(sin(o) * valid) against one device's
+            FlashAttention of the whole sequence within the ring's bf16
+            bound (MD_RING_CASES' note; rows that see no key masked); the
+            same cases in f32 at MD_RING_F32_SHAPE on flash_fwd.cu and
+            flash_bwd.cu within tdax's ring gates (MD_RING_FWD_TOL,
+            MD_RING_GRAD_TOL); each rank's sm90 and mma launches gated at
+            the schedule's count (one of each kind a step, a causal
+            contiguous rank my + 1), the permutes' count, bytes and
+            seconds reported.  Then the cp training step: MD_TRAIN_LAYERS
+            full-width layers at dp=1 tp=2 cp=2 (heads over tp inside the
+            ring), remat, MD_CP_BATCH x MD_CP_SEQ ids with the last
+            MD_CP_MASKED positions of every row masked, MD_TRAIN_STEPS
+            steps against rank 0's one-device steps (computed and freed
+            first): each loss within MD_TRAIN_LOSS_RTOL of one device's
+            and equal on every rank, every flash launch on sm90 (two a
+            layer and step for each forward, replay and backward kernel),
+            cp permutes and the (dp, cp) all_reduce run; the collectives
+            by axis, the step walls and every rank's peak memory reported
+            (tp = 2 because four replicas of the 1.65B-parameter config
+            with AdamW's moments do not fit one card side by side).
+            Phases 6, 6b, 6c and 9 run before this one, inside the run's
+            temp dir.
 6. scale    rips_at_scale on bench_scale.py's seeded 3-sphere cloud,
             10000 x 4096, threshold for ~40 neighbours, maxdim
             SCALE_MAXDIM: the distance matrix through sqdist_sm90.cu (its
@@ -670,6 +701,38 @@ MD_TRAIN_LOSS_RTOL = 1e-3
 # world's dp=2 tp=2 steps take the batch in MD_FSDP_ACCUM microbatches;
 # the hybrid mesh's FSDP step (stage 12) runs MD_HYBRID_STEPS step
 MD_FSDP_ACCUM, MD_HYBRID_STEPS = 2, 1
+# phase multidevice's context parallelism (tdax's dry-run stage 10) on the
+# four gloo ranks.  The ring alone on a dp=1 tp=1 cp=4 mesh at the full
+# decoder's heads: q, k, v MD_RING_SHAPE bf16 (local chunks of 2048, zigzag
+# halves of 1024: flash_fwd_sm90.cu and flash_bwd_sm90.cu at Tq != Tk), four
+# cases (MD_RING_CASES: causal zigzag, causal contiguous under
+# TDAX_NO_ZIGZAG=1, dense, causal with ragged key validity and one chunk
+# wholly invalid for one row), and the same four in f32 at
+# MD_RING_F32_SHAPE on flash_fwd.cu and flash_bwd.cu.  Each against one
+# device's FlashAttention of the whole sequence (every rank computes it on
+# the same seeded inputs and compares its own chunk): the output, rows that
+# see no key masked as tdax's tests mask them, and the gradients of tdax's
+# test loss sum(sin(o) * valid).  f32: tdax's ring gates (1e-5 on the
+# output, rtol 1e-4 + atol 1e-5 on the gradients).  bf16: phase flash_bwd's
+# bound (BWD_BF16_*) with its absolute part once for each of the cp partial
+# results: the ring rounds each step's o, dq, dk and dv to bf16 apart
+# (the kernels write bf16) before it merges o in f32 or autograd adds the
+# gradients in bf16, where one device rounds each output once; a partial's
+# rounding is 2^-8 of its size and its size is of the order of the row's,
+# so |ring - one| <= BWD_BF16_RTOL |one| + cp (BWD_BF16_ATOL_OF_MAX +
+# BWD_BF16_TERMS) max|one| over the row (a query row of o and dq, a key
+# row of dk and dv: its heads and head dims).  A ring that lost a chunk
+# moves a late row by a sizeable share of its own magnitude, far past it.
+MD_RING_CP = 4
+MD_RING_SHAPE, MD_RING_F32_SHAPE = (2, 8192, 32, 128), (2, 1024, 4, 64)
+MD_RING_CASES = (("causal_zigzag", True, False, False), ("causal_contiguous", True, False, True),
+                 ("dense", False, False, False), ("causal_ragged", True, True, False))
+MD_RING_FWD_TOL, MD_RING_GRAD_TOL = 1e-5, dict(rtol=1e-4, atol=1e-5)
+# the cp training step: MD_TRAIN_LAYERS full-width layers at dp=1 tp=2 cp=2
+# with remat, MD_CP_BATCH x MD_CP_SEQ ids whose last MD_CP_MASKED positions
+# are masked in every row (stage 10's mask, __graft_entry__.py:417),
+# MD_TRAIN_STEPS steps against rank 0's one-device steps (MD_TRAIN_LOSS_RTOL)
+MD_CP_BATCH, MD_CP_SEQ, MD_CP_MASKED = 2, 2048, 5
 
 # (name, B, Tq, Tk, nh, hd, causal, calls per batch on the main path)
 MAIN_SHAPES = [
@@ -4211,20 +4274,24 @@ class _FlashCalls:
 
 
 class _TimedCollectives:
-    """Count, bytes and host seconds of every mesh all_reduce, all_gather
-    and reduce_scatter while active, by axis and kind ("tp.all_reduce",
-    "dp.all_gather", "dcn+dp.all_reduce", ...): the bytes of each result on this rank, the
+    """Count, bytes and host seconds of every mesh all_reduce, all_gather,
+    reduce_scatter and ppermute while active, by axis and kind
+    ("tp.all_reduce", "dp.all_gather", "dcn+dp.all_reduce",
+    "cp.ppermute", ...): the bytes of each result on this rank (a
+    ppermute's: of every tensor it moved, counted once per op), the
     device synchronised before and after each, so the time is the
     collective's, gloo's host staging included.  ``total(kind)`` sums a
     kind over the axes."""
 
+    _KINDS = {"all_reduce": "all_reduce", "all_gather": "all_gather",
+              "reduce_scatter": "reduce_scatter", "_exchange": "ppermute"}
+
     def __enter__(self):
         from tdax_torch.parallel import mesh as pm
         self.pm, self.stats = pm, {}
-        self.orig = {kind: getattr(pm, kind)
-                     for kind in ("all_reduce", "all_gather", "reduce_scatter")}
-        for kind, fn in self.orig.items():
-            setattr(pm, kind, self._timed(kind, fn))
+        self.orig = {name: getattr(pm, name) for name in self._KINDS}
+        for name, fn in self.orig.items():
+            setattr(pm, name, self._timed(self._KINDS[name], fn))
         return self
 
     def _timed(self, kind, fn):
@@ -4238,7 +4305,8 @@ class _TimedCollectives:
             rec = self.stats.setdefault(f"{self.pm.axis_label(axis)}.{kind}",
                                         {"count": 0, "bytes": 0, "seconds": 0.0})
             rec["count"] += 1
-            rec["bytes"] += out.numel() * out.element_size()
+            rec["bytes"] += sum(t.numel() * t.element_size()
+                                for t in (out if isinstance(out, list) else [out]))
             rec["seconds"] += time.perf_counter() - t0
             return out
 
@@ -4814,6 +4882,189 @@ def _md_gloo_umap(rank: int, device, ref: dict) -> dict:
     return {"stages": rec, "compared": cmp, "digests": digests}
 
 
+def _visible_rows(kv, causal: bool):
+    """[B, T] bool: the query rows that see a valid key (tdax's _row_ok)."""
+    import torch
+    if causal:
+        return torch.cumsum(kv, dim=1) > 0
+    return kv.any(dim=1, keepdim=True).expand_as(kv)
+
+
+def _ring_bf16_excess(got, want, cp: int) -> float:
+    """max over the elements of |got - want| / the ring's bf16 bound (see
+    MD_RING_CASES' note): at most 1 where the bound holds.  Rows: dim 1."""
+    import torch
+    want, got = want.float(), got.float()
+    row = want.abs().amax(dim=(2, 3), keepdim=True)
+    bound = (BWD_BF16_RTOL * want.abs()
+             + cp * (BWD_BF16_ATOL_OF_MAX + BWD_BF16_TERMS) * row)
+    return float(((got - want).abs() / bound.clamp_min(torch.finfo(torch.float32).tiny)).max())
+
+
+def _ring_expected(case_causal: bool, contiguous: bool, cp: int, my: int) -> int:
+    """The flash launches of each kind one rank's ring makes in a forward
+    (and its dq and dk/dv launches in the backward): one a step, but a
+    causal contiguous ring skips the my + 1 .. cp - 1 chunks."""
+    return my + 1 if case_causal and contiguous else cp
+
+
+def _md_ring_case(mesh, device, shape, dtype, causal, ragged, contiguous, seed) -> dict:
+    """One ring case on this rank (see MD_RING_CASES): the one-device
+    FlashAttention of the whole sequence first, then the ring on this
+    rank's chunk, its launches counted (set to 0 just before, read just
+    after), its permutes timed; this rank's errors against one device."""
+    import os
+    import torch
+    import tdax_torch.ops.flash_attention as fa
+    from tdax_torch.parallel import mesh as pm
+
+    b, t, nh, hd = shape
+    cp, my = mesh.shape["cp"], mesh.local_rank("cp")
+    tl = t // cp
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=device).to(dtype) for _ in range(3))
+    kv = torch.ones((b, t), dtype=torch.int32, device=device)
+    if ragged:
+        kv = (torch.rand((b, t), generator=gen, device=device) > 0.2).to(torch.int32)
+        kv[1, :tl] = 0  # one chunk wholly invalid for one row
+    w = kv[:, :, None, None].float()
+    one = [x.clone().requires_grad_() for x in (q, k, v)]
+    o_one = fa.mha(*one, fa.AttnSpec(kv_valid=kv, causal=causal))
+    (torch.sin(o_one.float()) * w).sum().backward()
+    rows = slice(my * tl, (my + 1) * tl)
+    loc = [x[:, rows].clone().requires_grad_() for x in (q, k, v)]
+    if contiguous:
+        os.environ["TDAX_NO_ZIGZAG"] = "1"
+    torch.cuda.synchronize()
+    _zero_train_launches()
+    try:
+        with _TimedCollectives() as tc:
+            t0 = time.perf_counter()
+            with fa.flash_sharding(mesh, "dp", "tp", seq_axis="cp"):
+                o = fa.mha(*loc, fa.AttnSpec(kv_valid=kv[:, rows], causal=causal))
+            (torch.sin(o.float()) * w[:, rows]).sum().backward()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("TDAX_NO_ZIGZAG", None)
+    launches = _train_launches()
+    seen = _visible_rows(kv, causal)[:, rows, None, None]
+    want = [o_one[:, rows].detach() * seen] + [x.grad[:, rows] for x in one]
+    got = [o.detach() * seen] + [x.grad for x in loc]
+    rec = {"wall_s": wall, "launches": launches, "permutes": tc.stats,
+           "max_abs_err": {name: float((a.float() - b.float()).abs().max())
+                           for name, a, b in zip(("o", "dq", "dk", "dv"), got, want)}}
+    if dtype == torch.float32:
+        fwd_ok = rec["max_abs_err"]["o"] <= MD_RING_FWD_TOL
+        grads_ok = all(torch.allclose(a, b, **MD_RING_GRAD_TOL) for a, b in zip(got[1:], want[1:]))
+        rec["within_tol"] = bool(fwd_ok and grads_ok)
+    else:
+        rec["bound_excess"] = {name: _ring_bf16_excess(a, b, cp)
+                               for name, a, b in zip(("o", "dq", "dk", "dv"), got, want)}
+        rec["within_tol"] = max(rec["bound_excess"].values()) <= 1.0
+    n = _ring_expected(causal, contiguous, cp, my)
+    sm90 = n if dtype == torch.bfloat16 else 0
+    rec["launches_as_scheduled"] = launches == {
+        "flash_fwd": n, "flash_fwd_sm90": sm90, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+        "flash_bwd_dq_sm90": sm90, "flash_bwd_dkv_sm90": sm90}
+    return rec
+
+
+def _md_gloo_ring(rank: int, device) -> dict:
+    """(b) The ring alone on the four gloo ranks at dp=1 tp=1 cp=MD_RING_CP:
+    MD_RING_CASES in bf16 at MD_RING_SHAPE, then in f32 at
+    MD_RING_F32_SHAPE; each case's record from every rank."""
+    import torch
+    import torch.distributed as dist
+    from tdax_torch.parallel import mesh as pm
+
+    mesh = pm.make_mesh(dp=1, tp=1, cp=MD_RING_CP)
+    out = {}
+    for dtype, shape in ((torch.bfloat16, MD_RING_SHAPE), (torch.float32, MD_RING_F32_SHAPE)):
+        for i, (name, causal, ragged, contiguous) in enumerate(MD_RING_CASES):
+            label = f"{name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"
+            out[label] = _md_ring_case(mesh, device, shape, dtype, causal, ragged, contiguous,
+                                       seed=100 + i)
+            gc.collect()
+            torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _md_gloo_cp_train(rank: int, device) -> dict:
+    """(b) The cp training step on the four gloo ranks: MD_TRAIN_LAYERS
+    full-width layers at dp=1 tp=2 cp=2, remat, MD_CP_BATCH x MD_CP_SEQ ids
+    with the last MD_CP_MASKED positions of every row masked;
+    MD_TRAIN_STEPS steps from the seed-0 init against rank 0's one-device
+    steps (computed and freed first).  Per rank the losses, each step's
+    wall, the flash launches, the collectives by axis (count, bytes,
+    seconds) and the peak memory; rank 0 also each loss's relative error."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    from tdax_torch.models.qwen_vl.model import init_params
+    from tdax_torch.parallel import default_optimizer, make_train_step
+    from tdax_torch.parallel import mesh as pm
+
+    cfg = dataclasses.replace(QwenVLConfig(), num_layers=MD_TRAIN_LAYERS)
+    mesh = pm.make_mesh(dp=1, tp=2, cp=2)
+    rng = np.random.default_rng(0)
+    mask = np.ones((MD_CP_BATCH, MD_CP_SEQ), np.int32)
+    mask[:, -MD_CP_MASKED:] = 0
+    whole = {"input_ids": torch.as_tensor(rng.integers(1, cfg.vocab_size, mask.shape),
+                                          device=device).long(),
+             "attn_mask": torch.as_tensor(mask, device=device)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"mesh": dict(mesh.shape), "cp_rank": mesh.local_rank("cp"),
+           "tp_rank": mesh.local_rank("tp")}
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, device, seed=0, with_visual=False)
+        opt = default_optimizer(MD_TRAIN_LR)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, remat=True, device=device)
+        t0 = time.perf_counter()
+        ref = [float(step(params, state, whole)[2]) for _ in range(MD_TRAIN_STEPS)]
+        out["one_device"] = {"losses": ref, "wall_s": time.perf_counter() - t0,
+                             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    full = init_params(cfg, device, seed=0, with_visual=False)
+    local = pm.shard_params(full, mesh, cfg=cfg)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = default_optimizer(MD_TRAIN_LR)
+    state = opt.init(local)
+    step = make_train_step(cfg, opt, remat=True, cp_mesh=mesh, device=device)
+    rows = {k: pm.split_batch(v, mesh) for k, v in whole.items()}
+    _zero_train_launches()
+    losses, walls = [], []
+    with _TimedCollectives() as tc:
+        for _ in range(MD_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, state, loss = step(local, state, rows)
+            losses.append(float(loss))
+            walls.append(time.perf_counter() - t0)
+    out.update(losses=losses, step_s=walls, launches=_train_launches(), collectives=tc.stats,
+               local_params=sum(t.numel() for t in _md_leaves(local)),
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    if rank == 0:
+        out["loss_rel_err"] = [abs(a - b) / abs(b)
+                               for a, b in zip(losses, out["one_device"]["losses"])]
+    del local, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _md_nccl_rank(rank: int, world: int, store: str, work: Path, data_dir: str,
                   sweep_dir: str, umap_ref: dict, train_ref: dict) -> dict:
     """(a) The world of one over NCCL: the full QwenVLConfig() in bf16 from
@@ -5143,8 +5394,10 @@ def _md_gloo_rank(rank: int, world: int, store: str, work: Path, snap: str, data
     (init_params, seed 0), whose capture also runs on the hybrid mesh at
     dcn=2 dp=2 tp=1; then the tiny f32 model, then the sweep and scale
     stages at dp=4, training (dp=2 tp=2 plain, sequence-parallel and
-    FSDP; FSDP on the hybrid mesh) and the edge-list UMAP at dp=4.  Rank
-    0 computes each one-device reference before the sharded run."""
+    FSDP; FSDP on the hybrid mesh), the edge-list UMAP at dp=4, and
+    context parallelism: the ring alone at cp=4, then the cp training
+    step at dp=1 tp=2 cp=2.  Rank 0 computes each one-device reference
+    before the sharded run (the ring's: every rank)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -5212,6 +5465,10 @@ def _md_gloo_rank(rank: int, world: int, store: str, work: Path, snap: str, data
         torch.cuda.empty_cache()
         out["train"] = _md_gloo_train(rank, device)
         out["umap"] = _md_gloo_umap(rank, device, umap_ref)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["ring"] = _md_gloo_ring(rank, device)
+        out["cp_train"] = _md_gloo_cp_train(rank, device)
         return out
     finally:
         pm.shutdown()
@@ -5283,6 +5540,8 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
     scale_by_rank = [r.pop("sweep_scale") for r in ranks]
     train_by_rank = [r.pop("train") for r in ranks]
     umap_by_rank = [r.pop("umap") for r in ranks]
+    ring_by_rank = [r.pop("ring") for r in ranks]
+    cp_by_rank = [r.pop("cp_train") for r in ranks]
     info = {"phase": "multidevice", "nvidia_smi": smi,
             "mem_get_info_before_spawn": {"free_bytes": free, "total_bytes": total},
             "nccl_world_of_one": a,
@@ -5311,9 +5570,17 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
                 "stages_by_rank": [r["stages"] for r in umap_by_rank],
                 "results_equal_on_every_rank": all(r["digests"] == umap_by_rank[0]["digests"]
                                                    for r in umap_by_rank)},
+            "gloo_cp": {
+                "ring": {"cp": MD_RING_CP, "shape_bf16": list(MD_RING_SHAPE),
+                         "shape_f32": list(MD_RING_F32_SHAPE), "by_rank": ring_by_rank},
+                "train": {"layers": MD_TRAIN_LAYERS, "batch": [MD_CP_BATCH, MD_CP_SEQ],
+                          "one_device_rank0": cp_by_rank[0].get("one_device"),
+                          "by_rank": [{k: v for k, v in r.items() if k != "one_device"}
+                                      for r in cp_by_rank]}},
             "phase_s": time.perf_counter() - t_phase,
             "note": "times of four ranks sharing one card: they say nothing of scaling"}
     emit(info)
+    _md_check_cp(info["gloo_cp"])
     _md_check_sweep_scale(a["sweep_scale"], info["gloo_dp4_sweep_scale"], scale_by_rank)
     _md_check_train_umap(a, info["gloo_dp2_tp2_train"], info["gloo_dp4_umap"])
     _md_check_fsdp_hybrid(a, info["gloo_dp2_tp2_train"], info["gloo_hybrid_capture_by_rank"],
@@ -5345,6 +5612,35 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
         raise AssertionError(f"multidevice (b): min cosine {b['init']['cosine']['min']} "
                              f"< {MD_MIN_COSINE} on the model's init")
     return info
+
+
+def _md_check_cp(cp: dict) -> None:
+    """The gates of the context-parallel stages (see MD_RING_CASES' note)."""
+    for i, r in enumerate(cp["ring"]["by_rank"]):
+        for label, rec in r.items():
+            if not rec["launches_as_scheduled"]:
+                raise AssertionError(f"multidevice (b) ring {label} rank {i}: launches "
+                                     f"{rec['launches']} are not the schedule's")
+            if not rec["within_tol"]:
+                raise AssertionError(f"multidevice (b) ring {label} rank {i}: errors "
+                                     f"{rec['max_abs_err']} {rec.get('bound_excess')} against "
+                                     "one device")
+    t = cp["train"]["by_rank"]
+    want = _expected_train_launches(MD_TRAIN_LAYERS, MD_TRAIN_STEPS)
+    want = {k: n * 2 for k, n in want.items()}  # the ring: one launch a step, cp = 2 steps
+    for i, r in enumerate(t):
+        if r["launches"] != want:
+            raise AssertionError(f"multidevice (b) cp train rank {i}: launches {r['launches']}, "
+                                 f"expected {want}")
+        if r["losses"] != t[0]["losses"]:
+            raise AssertionError("multidevice (b) cp train: the ranks' losses differ")
+        if not {"cp.ppermute", "dp+cp.all_reduce"} <= set(r["collectives"]):
+            raise AssertionError(f"multidevice (b) cp train rank {i}: collectives "
+                                 f"{sorted(r['collectives'])}")
+    errs = t[0]["loss_rel_err"]
+    if not max(errs) <= MD_TRAIN_LOSS_RTOL:
+        raise AssertionError(f"multidevice (b) cp train: loss relative errors {errs} against one "
+                             f"device (limit {MD_TRAIN_LOSS_RTOL})")
 
 
 def _md_check_train_umap(a: dict, train: dict, umap: dict) -> None:
@@ -5492,7 +5788,8 @@ def _qmm_totals(sites, calls_key) -> dict:
 def _train_paths(train: dict, md: dict) -> list:
     """(path, flash launches) of every training run: phase train's five
     timed steps, the NCCL world's plain and FSDP steps, rank 0's dp=2 tp=2
-    plain, sequence-parallel and FSDP steps and its hybrid FSDP step."""
+    plain, sequence-parallel and FSDP steps, its hybrid FSDP step, its cp
+    step and each of its ring cases (forward and backward once)."""
     runs = md["gloo_dp2_tp2_train"]["by_rank"][0]
     return [("train", train["launches"]),
             ("multidevice_nccl_train", md["nccl_world_of_one"]["train"]["launches"]),
@@ -5500,7 +5797,10 @@ def _train_paths(train: dict, md: dict) -> list:
             ("multidevice_dp2_tp2_train_rank0", runs["plain"]["launches"]),
             ("multidevice_dp2_tp2_train_sp_rank0", runs["sp"]["launches"]),
             ("multidevice_dp2_tp2_train_fsdp_rank0", runs["fsdp"]["launches"]),
-            ("multidevice_hybrid_train_fsdp_rank0", runs["hybrid_fsdp"]["launches"])]
+            ("multidevice_hybrid_train_fsdp_rank0", runs["hybrid_fsdp"]["launches"]),
+            ("multidevice_cp2_tp2_train_rank0", md["gloo_cp"]["train"]["by_rank"][0]["launches"]),
+            *((f"multidevice_ring_cp{MD_RING_CP}_{label}_rank0", rec["launches"])
+              for label, rec in md["gloo_cp"]["ring"]["by_rank"][0].items())]
 
 
 def main(argv=None) -> int:

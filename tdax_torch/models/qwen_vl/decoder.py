@@ -24,7 +24,10 @@ run on them, the sequence is gathered before the column-parallel
 products and reduce-scattered after the row-parallel ones, and
 attention runs on the whole sequence with its rotary positions.
 Under FSDP (``fsdp.gathering``) a block gathers its layer's dp-sharded
-weights at its start.
+weights at its start.  Under context parallelism (``flash_sharding``'s
+``seq_axis``) ``decoder`` keeps each rank's contiguous chunk of the
+sequence from the first block to the last, attention running as the ring
+(``tdax_torch.ops.ring_attention``).
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ from tdax_torch.models.qwen_vl import fsdp
 from tdax_torch.models.qwen_vl.config import QwenVLConfig
 from tdax_torch.models.qwen_vl.quantize import is_quantized, layer_at, qdot
 from tdax_torch.models.qwen_vl.tp import seq_scatter, seq_weight, tp_input, tp_row_product
-from tdax_torch.ops.flash_attention import AttnSpec, mha
+from tdax_torch.ops.flash_attention import AttnSpec, current_flash_sharding, mha
+from tdax_torch.ops.ring_attention import local_chunk
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -131,11 +135,26 @@ def block(x: torch.Tensor, layer: dict, cfg: QwenVLConfig,
     return block_kv(x, layer, cfg, cos, sin, spec, seq)[0]
 
 
-def _rotary_and_spec(x: torch.Tensor, cfg: QwenVLConfig, attn_mask: torch.Tensor):
+def _rotary_and_spec(x: torch.Tensor, cfg: QwenVLConfig, attn_mask: torch.Tensor,
+                     chunk: tuple[int, int] | None = None):
+    """Rotary cos / sin and the causal spec of x's whole sequence, or with
+    ``chunk`` (offset, length: context parallelism) of this rank's chunk
+    of it: the chunk's global positions and its rows of the mask.  The
+    whole sequence under an active seq axis is refused: there ``mha``
+    takes its q, k and v for a chunk."""
     b, t, _ = x.shape
-    positions = torch.arange(t, device=x.device)[None, :].expand(b, t)
+    if chunk is None:
+        ctx = current_flash_sharding()
+        if ctx is not None and ctx[3] is not None:
+            raise NotImplementedError("under flash_sharding(seq_axis=) only the training "
+                                      "forward (model.forward) is ported; the capture and "
+                                      "generation run without a seq axis")
+        chunk = (0, t)
+    start, n = chunk
+    positions = torch.arange(start, start + n, device=x.device)[None, :].expand(b, n)
     cos, sin = rotary_cos_sin(positions, cfg.head_dim, cfg.rope_base)
-    return cos, sin, AttnSpec(kv_valid=attn_mask, causal=True)
+    kv_valid = attn_mask if n == t else attn_mask.narrow(1, start, n)
+    return cos, sin, AttnSpec(kv_valid=kv_valid, causal=True)
 
 
 def decoder_capture(stacked_layers: dict, x: torch.Tensor, cfg: QwenVLConfig,
@@ -166,10 +185,24 @@ def decoder(stacked_layers, x: torch.Tensor, cfg: QwenVLConfig,
 
     ``seq_sharding`` (``(mesh, axis)``, x whole on every rank) returns
     this rank's rows of the final hidden state: the sequence is split
-    over ``axis`` before the first block."""
-    cos, sin, spec = _rotary_and_spec(x, cfg, attn_mask)
+    over ``axis`` before the first block.
+
+    Under ``flash_sharding(..., seq_axis=)`` (context parallelism; x
+    whole on every rank) it returns this rank's contiguous chunk of the
+    final hidden state: the chunk is taken before the first block, its
+    rotary angles come from its global positions, and each block's
+    attention is the ring over the seq axis on the chunk's rows of
+    ``attn_mask``.  Norms and the MLP run on the chunk; no block gathers
+    the sequence."""
+    chunk = local_chunk(x.shape[1])
+    if chunk is not None and seq_sharding is not None:
+        raise ValueError("context parallelism (flash_sharding seq_axis) and sequence "
+                         "parallelism (seq_sharding) both shard the sequence")
+    cos, sin, spec = _rotary_and_spec(x, cfg, attn_mask, chunk)
     if seq_sharding is not None:
         x = seq_scatter(x, seq_sharding)
+    if chunk is not None:
+        x = x.narrow(1, *chunk)
     for i in range(cfg.num_layers):
         layer = layer_at(stacked_layers, i)
         if remat:

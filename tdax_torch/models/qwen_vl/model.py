@@ -22,6 +22,7 @@ from tdax_torch.models.qwen_vl.decoder import decoder, decoder_capture, rms_norm
 from tdax_torch.models.qwen_vl.quantize import _QUANT_KEYS, embed_lookup, qdot, quantize_weight
 from tdax_torch.models.qwen_vl.tp import seq_weight, tp_gather, tp_input
 from tdax_torch.models.qwen_vl.vit import interp_pos_embed, sincos_2d, visual_encode
+from tdax_torch.ops.flash_attention import without_seq_axis
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -136,10 +137,13 @@ def embed_inputs(params: dict, cfg: QwenVLConfig, input_ids: torch.Tensor,
 
     image_positions [B, n_queries]: sequence indices of the image-pad
     span per sample; -1 disables fusion for that sample (text-only).
-    As in tdax, the pad span is zeroed and the visual tokens added."""
+    As in tdax, the pad span is zeroed and the visual tokens added.
+    Under context parallelism the whole sequence is embedded on every
+    rank, the visual tower outside the ring (``without_seq_axis``)."""
     x = embed_lookup(fsdp.leaf(params["wte"], ("wte",)), input_ids, torch_dtype(cfg.dtype))
     if images is not None:
-        vis = visual_encode(images, params["visual"], cfg.visual)  # [B, nq, H]
+        with without_seq_axis():  # the visual tower runs whole on every rank, off the ring
+            vis = visual_encode(images, params["visual"], cfg.visual)  # [B, nq, H]
         b = x.shape[0]
         ok = image_positions >= 0
         safe_pos = image_positions.clamp(min=0)
@@ -184,7 +188,9 @@ def forward(params: dict, cfg: QwenVLConfig, input_ids: torch.Tensor,
     under tp).  ``remat`` rematerializes decoder blocks in the backward
     pass; ``seq_sharding`` (``(mesh, axis)``) turns on sequence
     parallelism between the blocks, ``ln_f`` running on the rank's rows
-    (see ``decoder``)."""
+    (see ``decoder``).  Under ``flash_sharding(..., seq_axis=)``
+    (context parallelism) the logits are this rank's chunk, [B, T / cp,
+    vocab] at the chunk's positions (``ring_attention.local_chunk``)."""
     if attn_mask is None:
         attn_mask = torch.ones_like(input_ids)
     x = embed_inputs(params, cfg, input_ids, images, image_positions)

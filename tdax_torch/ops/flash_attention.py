@@ -28,7 +28,10 @@ keys; ``csrc/flash_bwd.cu`` (``mma.sync`` bf16, FMA f32) the rest.
 ``custom_vjp`` in ``_build_flash``: its forward asks the forward kernel
 for lse too, its backward computes delta = rowsum(dO * O) in f32 (tdax
 does this outside the kernels, ``flash_attention.py:748-753``), then
-launches the dq kernel, then the dk/dv kernel.
+launches the dq kernel, then the dk/dv kernel.  ``FlashAttentionLse``
+(tdax's ``_build_flash_lse``) returns lse too and folds its cotangent
+into the same kernels (delta' = delta - dlse): the ring attention's
+per-step attention.
 
 ``mha`` is what the model calls.  On CPU tensors it takes the plain
 PyTorch versions (``flash_attention_plain``, which materializes the
@@ -39,11 +42,14 @@ other.  It goes through ``FlashAttention`` only when autograd needs it
 (grad mode on and q, k or v requiring grad); under ``inference_mode``
 the call is the plain forward launch.
 
-``flash_sharding(mesh, batch_axis, head_axis)`` declares how a
-multi-device run shards attention (tdax's context of that name).  In the
-port each rank already holds its shard: q, k and v are its dp rows and
-its tp heads, so ``mha`` runs the same route on them; the model's
-row-parallel sites read the tp group from the context.
+``flash_sharding(mesh, batch_axis, head_axis, seq_axis)`` declares how
+a multi-device run shards attention (tdax's context of that name).  In
+the port each rank already holds its shard: q, k and v are its dp rows
+and its tp heads, so ``mha`` runs the same route on them; the model's
+row-parallel sites read the tp group from the context.  With
+``seq_axis`` (context parallelism) they are also the rank's chunk of the
+sequence, and ``mha`` runs the ring (``ring_attention``), each of its
+steps on the kernels above.
 
 ``LAUNCHES`` (both forward kernels), ``LAUNCHES_SM90`` (the Hopper one
 alone), ``BWD_DQ_LAUNCHES`` and ``BWD_DKV_LAUNCHES`` (both backward
@@ -101,15 +107,14 @@ def flash_sharding(mesh, batch_axis: str | None = "dp", head_axis: str | None = 
                    seq_axis: str | None = None):
     """Declare how attention inputs are sharded over ``mesh``
     (``tdax_torch.parallel.mesh.make_mesh``): the batch over
-    ``batch_axis``, the heads over ``head_axis``.  Each rank runs the
-    flash kernels on its local q, k and v; the model's tp collectives
+    ``batch_axis``, the heads over ``head_axis``, and with ``seq_axis``
+    (context parallelism) the sequence over that axis.  Each rank runs
+    the flash kernels on its local q, k and v; the model's tp collectives
     (and the train step, which takes its mesh from here) run over
-    ``head_axis``'s group.  ``seq_axis`` (context parallelism, ring
-    attention) is not ported and raises; sequence parallelism over tp is
-    the train step's ``sp_mesh``."""
-    if seq_axis is not None:
-        raise NotImplementedError("flash_sharding: seq_axis (context parallelism, ring "
-                                  "attention) is not ported")
+    ``head_axis``'s group.  Under ``seq_axis`` each rank holds its
+    contiguous chunk of the sequence, and ``mha`` sends self-attention
+    on it to the ring (``tdax_torch.ops.ring_attention``); sequence
+    parallelism over tp is the train step's ``sp_mesh``."""
     _SHARD_CTX.append((mesh, batch_axis, head_axis, seq_axis))
     try:
         yield
@@ -119,6 +124,19 @@ def flash_sharding(mesh, batch_axis: str | None = "dp", head_axis: str | None = 
 
 def current_flash_sharding():
     return _SHARD_CTX[-1] if _SHARD_CTX else None
+
+
+@contextlib.contextmanager
+def without_seq_axis():
+    """The active ``flash_sharding`` without its seq axis, while inside:
+    attention that is not the sequence's (the visual tower's) runs whole
+    on each rank under context parallelism."""
+    ctx = current_flash_sharding()
+    if ctx is None or ctx[3] is None:
+        yield
+        return
+    with flash_sharding(*ctx[:3]):
+        yield
 
 
 class AttnSpec:
@@ -483,6 +501,37 @@ def flash_bwd_dkv(q, k, v, bias, lse, delta, do, causal: bool, *, _kernel: str |
     return dk, dv
 
 
+def _forward_lse(ctx, q, k, v, bias, causal: bool):
+    """(o, lse) of the forward kernel (the plain version on CPU tensors),
+    both saved for the backward with q, k, v and the bias."""
+    fwd = flash_attention if q.device.type == "cuda" else flash_attention_plain
+    o, lse = fwd(q, k, v, bias, causal, return_lse=True)
+    ctx.save_for_backward(q, k, v, bias, o, lse)
+    ctx.causal = causal
+    return o, lse
+
+
+def _backward(ctx, do, dlse):
+    """dq, dk, dv from the dq and dk/dv kernels (the plain versions on CPU
+    tensors), with delta = rowsum(dO * O) - dlse: lse's cotangent folds
+    into the kernels' per-row constant (tdax's ``_build_flash_lse``,
+    ``flash_attention.py:767-810``)."""
+    q, k, v, bias, o, lse = ctx.saved_tensors
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    delta = delta.contiguous()
+    if q.device.type == "cuda":
+        dq = flash_bwd_dq(q, k, v, bias, lse, delta, do, ctx.causal)
+        dk, dv = flash_bwd_dkv(q, k, v, bias, lse, delta, do, ctx.causal)
+    else:
+        dq = flash_bwd_dq_plain(q, k, v, bias, lse, delta, do, ctx.causal)
+        dk, dv = flash_bwd_dkv_plain(q, k, v, bias, lse, delta, do, ctx.causal)
+    return dq, dk, dv, None, None
+
+
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention: the forward kernel with lse, the
     dq and dk/dv kernels in the backward (plain versions on CPU
@@ -490,25 +539,42 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, causal: bool):
-        fwd = flash_attention if q.device.type == "cuda" else flash_attention_plain
-        o, lse = fwd(q, k, v, bias, causal, return_lse=True)
-        ctx.save_for_backward(q, k, v, bias, o, lse)
-        ctx.causal = causal
-        return o
+        return _forward_lse(ctx, q, k, v, bias, causal)[0]
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, bias, o, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
-            do = do.contiguous()
-        delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
-        if q.device.type == "cuda":
-            dq = flash_bwd_dq(q, k, v, bias, lse, delta, do, ctx.causal)
-            dk, dv = flash_bwd_dkv(q, k, v, bias, lse, delta, do, ctx.causal)
-        else:
-            dq = flash_bwd_dq_plain(q, k, v, bias, lse, delta, do, ctx.causal)
-            dk, dv = flash_bwd_dkv_plain(q, k, v, bias, lse, delta, do, ctx.causal)
-        return dq, dk, dv, None, None
+        return _backward(ctx, do, None)
+
+
+class FlashAttentionLse(torch.autograd.Function):
+    """Differentiable ``(o, lse)``: tdax's ``_build_flash_lse``, whose
+    per-chunk log-normalizer the ring's merge differentiates.  The same
+    kernels as ``FlashAttention``; the backward runs them with delta' =
+    rowsum(dO * O) - dlse (with p = exp(s - lse), d lse / d s = p, so
+    lse's cotangent is a per-row constant beside delta; dv has no lse
+    term).  The residual is the kernel's own lse, 0 on a row that sees
+    no key, whose p = exp(s - 0) then vanishes; a caller that rewrites
+    such rows (the ring, to NEG_INF) does so on the output, never on
+    what the backward reads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal: bool):
+        return _forward_lse(ctx, q, k, v, bias, causal)
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        return _backward(ctx, do, dlse)
+
+
+def flash_attention_lse(q, k, v, bias, causal: bool):
+    """(o [B, Tq, nh, hd] in q.dtype, lse [B, nh, Tq] f32): the forward
+    kernel with its log-normalizer (the plain version on CPU tensors),
+    through ``FlashAttentionLse`` when autograd will need its
+    gradient."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionLse.apply(q, k, v, bias, causal)
+    fwd = flash_attention if q.device.type == "cuda" else flash_attention_plain
+    return fwd(q, k, v, bias, causal, return_lse=True)
 
 
 def mha(q, k, v, spec: AttnSpec) -> torch.Tensor:
@@ -517,12 +583,24 @@ def mha(q, k, v, spec: AttnSpec) -> torch.Tensor:
     q [B, Tq, nh, hd], k/v [B, Tk, nh, hd] -> [B, Tq, nh, hd].  CPU
     tensors take the plain versions; CUDA tensors take the kernels.
     ``FlashAttention`` carries the call when autograd will need its
-    gradient."""
+    gradient.  Under ``flash_sharding(..., seq_axis=...)`` q, k and v
+    are this rank's chunk of the sequence and the call is the ring
+    (``ring_attention``); tdax warns and attends replicated where the
+    dimensions do not divide, but a rank here holds only its chunk, so
+    anything but self-attention on it raises ValueError."""
     if not isinstance(spec, AttnSpec):
         raise TypeError("mha: the mask must be an AttnSpec")
-    bias = spec.bias(q.shape[0], k.shape[1], q.device)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mha: unsupported device {q.device}")
+    ctx = current_flash_sharding()
+    if ctx is not None and ctx[3] is not None:
+        mesh, b_ax, h_ax, s_ax = ctx
+        if q.shape[1] != k.shape[1]:
+            raise ValueError(f"mha: flash_sharding seq_axis={s_ax!r} takes self-attention on "
+                             f"each rank's chunk; got Tq={q.shape[1]}, Tk={k.shape[1]}")
+        from tdax_torch.ops.ring_attention import ring_attention
+        return ring_attention(q, k, v, spec.kv_valid, spec.causal, mesh, b_ax, h_ax, s_ax)
+    bias = spec.bias(q.shape[0], k.shape[1], q.device)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, bias, spec.causal)
     if q.device.type == "cpu":

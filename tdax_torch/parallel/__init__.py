@@ -9,8 +9,9 @@ layer split run; ``sharded_ops`` the row-sharded distances, kNN and
 sparse edge extraction of the scale paths (a module of its own, as in
 tdax, whose ``__all__`` does not name them); ``train`` the training
 step and loop, on one device or over a mesh with sequence parallelism,
-FSDP (ZeRO-3) and gradient accumulation.  tdax's context parallelism
-and its 1F1B pipeline are not ported yet.
+FSDP (ZeRO-3), gradient accumulation and context parallelism
+(``make_mesh(cp=)``, ``cp_mesh=``; it adds no name to tdax's
+``__all__``).  tdax's 1F1B pipeline is not ported yet.
 
 ``__all__`` holds the tdax names ported so far.  ``train``'s own names
 (``AdamW``, ``OptState``, ``masked_ce``, ``masked_ce_parts``) resolve

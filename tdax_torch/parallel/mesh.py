@@ -44,6 +44,14 @@ gathers such a leaf where a block reads it (``models/qwen_vl/fsdp.py``).
 ``make_hybrid_mesh`` lays the ranks out as (dcn, dp, tp) slices, its
 batch over the combined ``("dcn", "dp")`` axes.
 
+Context parallelism: ``make_mesh(cp > 1)`` adds tdax's innermost "cp"
+axis and the combined ``("dp", "cp")`` group the loss and the gradients
+are summed over; ``ppermute`` is tdax's ``lax.ppermute`` over a mesh
+axis (point-to-point sends, differentiable: its backward sends each
+gradient along the inverse permutation), which the ring attention's
+rotations and zigzag relayout run (``tdax_torch.ops.ring_attention``),
+counted as ``"<backend>.ppermute"`` and ``"cp.ppermute"``.
+
 Every collective here, and every function of the port that runs one
 (``sharded_ops``, the sweep and scale paths under a process group), is
 called by every rank of the group with the same arguments: a rank that
@@ -79,8 +87,8 @@ class P(tuple):
 
 
 class Mesh:
-    """A grid of the process group's ranks (``make_mesh``: dp x tp;
-    ``make_hybrid_mesh``: dcn x dp x tp), over a ``DeviceMesh`` whose
+    """A grid of the process group's ranks (``make_mesh``: dp x tp, or dp
+    x tp x cp; ``make_hybrid_mesh``: dcn x dp x tp), over a ``DeviceMesh`` whose
     sub-groups carry the collectives.  ``shape`` maps each axis name to
     its size and ``axis_names`` lists them, as ``jax.sharding.Mesh``'s
     do.  An axis argument is one name or a tuple of names (their ranks
@@ -202,8 +210,13 @@ def dp_mesh(n: int) -> "Mesh | None":
 
 def make_mesh(dp: int | None = None, tp: int = 1, cp: int = 1) -> Mesh:
     """dp x tp mesh over the process group's ranks, tp innermost (a tp
-    group is ``tp`` consecutive ranks).  ``cp > 1`` (context parallelism)
-    is not ported."""
+    group is ``tp`` consecutive ranks).  ``cp > 1`` adds the
+    context-parallel axis innermost, as tdax's: the mesh ("dp", "tp",
+    "cp"), rank (d * tp + t) * cp + c, a cp ring being ``cp``
+    consecutive ranks.  Its batch is split over dp; the loss and the
+    gradients are summed over the combined ("dp", "cp") group
+    (``mesh.group(("dp", "cp"))``), one a tp index.  At cp = 1 the mesh
+    has no "cp" axis, as tdax's."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("make_mesh: no process group; call init_distributed first")
     n = dist.get_world_size()
@@ -211,10 +224,14 @@ def make_mesh(dp: int | None = None, tp: int = 1, cp: int = 1) -> Mesh:
         dp = n // (tp * cp)
     if dp * tp * cp != n:
         raise ValueError(f"dp*tp*cp = {dp}*{tp}*{cp} != {n} ranks")
-    if cp > 1:
-        raise NotImplementedError("make_mesh: cp > 1 (context parallelism, ring attention) "
-                                  "is not ported")
-    return Mesh(_device_mesh((dp, tp), ("dp", "tp")))
+    if cp == 1:
+        return Mesh(_device_mesh((dp, tp), ("dp", "tp")))
+    device_mesh = _device_mesh((dp, tp, cp), ("dp", "tp", "cp"))
+    # the combined (dp, cp) group of each tp index, ranks in (dp, cp) order;
+    # every rank creates every group, in one order
+    sum_group, _ = dist.new_subgroups_by_enumeration(
+        [[(d * tp + t) * cp + c for d in range(dp) for c in range(cp)] for t in range(tp)])
+    return Mesh(device_mesh, groups={("dp", "cp"): sum_group})
 
 
 def _device_mesh(shape: tuple, names: tuple):
@@ -322,6 +339,90 @@ def broadcast(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     dist.broadcast(x, src=dist.get_global_rank(group, 0), group=group)
     _count("broadcast", group, _nbytes(x), axis)
     return x
+
+
+def _exchange(xs: list, mesh: Mesh, axis: str, perms: list) -> list:
+    """``ppermute``'s collective: every tensor sent along its perm in one
+    batch of point-to-point ops (tensor i tagged i, so gloo cannot swap
+    two tensors of one shape); a pair from this rank to itself is a copy."""
+    group = mesh.group(axis)
+    backend = dist.get_backend(group)
+    me = mesh.local_rank(axis)
+    staged = backend == "gloo"
+    outs, ops, sent = [None] * len(xs), [], 0
+    for i, (x, perm) in enumerate(zip(xs, perms)):
+        dst = [d for s, d in perm if s == me]
+        src = [s for s, d in perm if d == me]
+        if len(dst) != 1 or len(src) != 1:
+            raise ValueError(f"ppermute: {perm} is not a permutation of mesh axis {axis!r}")
+        if src == [me]:
+            outs[i] = x.clone(memory_format=torch.contiguous_format)
+            continue  # a permutation's fixed point: no send, no receive
+        src_x = (x.cpu() if staged and x.is_cuda else x).contiguous()
+        outs[i] = torch.empty_like(src_x)
+        ops += [dist.P2POp(dist.isend, src_x, dist.get_global_rank(group, dst[0]), group, tag=i),
+                dist.P2POp(dist.irecv, outs[i], dist.get_global_rank(group, src[0]), group,
+                           tag=i)]
+        sent += _nbytes(src_x)
+    if ops:
+        works = (dist.batch_isend_irecv(ops) if backend == "nccl"
+                 else [op.op(op.tensor, op.peer, op.group, op.tag) for op in ops])
+        for work in works:
+            work.wait()
+    _count("ppermute", group, sent, axis)
+    return [out.to(x.device) if out.device != x.device else out for out, x in zip(outs, xs)]
+
+
+def _inverse(perm) -> list:
+    return [(d, s) for s, d in perm]
+
+
+class _PPermute(torch.autograd.Function):
+    """``_exchange`` with the inverse permutations in the backward; a
+    tensor that needs no gradient (a key bias) is not sent back."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, perms, *xs):
+        ctx.mesh, ctx.axis, ctx.perms = mesh, axis, perms
+        ctx.shapes, ctx.dtypes = [x.shape for x in xs], [x.dtype for x in xs]
+        ctx.device = xs[0].device
+        ctx.set_materialize_grads(False)
+        outs = _exchange(list(xs), mesh, axis, perms)
+        ctx.mark_non_differentiable(*[o for o, x in zip(outs, xs) if not x.requires_grad])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        idx = [i for i, need in enumerate(ctx.needs_input_grad[3:]) if need]
+        # a gradient autograd left undefined is zero: every rank sends each
+        # tensor that needs one, whatever its own graph used
+        back = _exchange([torch.zeros(ctx.shapes[i], dtype=ctx.dtypes[i], device=ctx.device)
+                          if gs[i] is None else gs[i] for i in idx],
+                         ctx.mesh, ctx.axis, [_inverse(ctx.perms[i]) for i in idx])
+        grads = [None] * len(gs)
+        for i, g in zip(idx, back):
+            grads[i] = g
+        return (None, None, None, *grads)
+
+
+def ppermute(x, mesh: Mesh, axis: str, perm):
+    """``x`` moved along ``axis`` as ``lax.ppermute`` moves it: for each
+    (src, dst) pair of ``perm`` (a permutation of the indices along the
+    axis) the rank at src sends its ``x`` to the rank at dst.  ``x`` may
+    be a list of tensors, sent together in one batch
+    of point-to-point ops (the same sends in the same order on every
+    rank); ``perm`` is then one permutation for all or a list of them,
+    one a tensor.  Differentiable: the backward sends each gradient
+    along the inverse permutation.  Under gloo a CUDA tensor goes
+    through the host.  Collective over ``axis``'s group, counted as
+    ``"<backend>.ppermute"`` with the bytes this rank sent."""
+    xs = [x] if isinstance(x, torch.Tensor) else list(x)
+    perms = list(perm) if isinstance(perm[0][0], (list, tuple)) else [list(perm)] * len(xs)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in xs):
+        outs = list(_PPermute.apply(mesh, axis, perms, *xs))
+    else:
+        outs = _exchange(xs, mesh, axis, perms)
+    return outs[0] if isinstance(x, torch.Tensor) else outs
 
 
 def _first_rank(mesh: Mesh) -> int:

@@ -47,6 +47,16 @@ shard), after the other leaves'.  On a hybrid mesh (``make_hybrid_mesh``)
 the batch is split over ``("dcn", "dp")``: the loss and the replicated
 leaves' gradients are summed over both, a dp-sharded gradient over dp
 then over dcn.
+
+``cp_mesh`` (a ``make_mesh(dp, tp, cp)`` mesh) turns on context
+parallelism, tdax's dry-run stage 10: inside ``flash_sharding(mesh,
+"dp", "tp", seq_axis="cp")`` each rank embeds its dp rows of the whole
+sequence, keeps its contiguous T / cp chunk from the first block to the
+loss (rotary from the chunk's global positions, attention the ring over
+cp, heads over tp inside it), and takes its CE targets from the whole
+``input_ids`` and ``attn_mask`` at positions + 1.  Every gradient is then
+a partial sum on each cp rank: the loss parts and every gradient (the tp
+shards' too) are summed over ("dp", "cp") in f32 before the clip.
 """
 
 from __future__ import annotations
@@ -65,6 +75,7 @@ from tdax_torch.models.qwen_vl.model import forward
 from tdax_torch.models.qwen_vl.quantize import is_quantized
 from tdax_torch.models.qwen_vl.tp import sum_over
 from tdax_torch.ops.flash_attention import current_flash_sharding, flash_sharding
+from tdax_torch.ops.ring_attention import local_chunk
 from tdax_torch.parallel import mesh as pm
 from tdax_torch.runtime import get_device
 
@@ -75,14 +86,19 @@ _STACKED = ("layers", "blocks")
 CLIP_NORM, B1, B2, EPS, WEIGHT_DECAY = 1.0, 0.9, 0.95, 1e-8, 0.01
 
 
-def masked_ce_parts(logits: torch.Tensor, input_ids: torch.Tensor,
-                    attn_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def masked_ce_parts(logits: torch.Tensor, input_ids: torch.Tensor, attn_mask: torch.Tensor,
+                    offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """(sum of masked next-token CE, number of real target tokens), the
     unreduced form that makes gradient accumulation exact.  Written as
-    ``logsumexp(logits) - logits[target]``, as tdax does."""
-    targets = input_ids[:, 1:].long()
-    logits = logits[:, :-1].float()
-    mask = (attn_mask[:, 1:] > 0).float()
+    ``logsumexp(logits) - logits[target]``, as tdax does.  ``offset``:
+    the global position of the logits' first row (a rank's chunk under
+    context parallelism), whose targets are the whole ``input_ids`` and
+    ``attn_mask`` at positions + 1; the sequence's last position has
+    none."""
+    n = min(logits.shape[1], input_ids.shape[1] - 1 - offset)
+    targets = input_ids[:, offset + 1:offset + 1 + n].long()
+    logits = logits[:, :n].float()
+    mask = (attn_mask[:, offset + 1:offset + 1 + n] > 0).float()
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, targets[..., None])[..., 0]
     return ((lse - picked) * mask).sum(), mask.sum()
@@ -106,19 +122,37 @@ def _context_mesh():
     return None if ctx is None else ctx[0]
 
 
+def _sum_axis(batch_axis, seq_axis):
+    """The axes a loss part and a gradient are summed over: the batch
+    axis, with the seq axis beside it under context parallelism
+    (("dp", "cp"), whose group ``make_mesh(cp=)`` builds)."""
+    if seq_axis is None:
+        return batch_axis
+    return seq_axis if batch_axis is None else (batch_axis, seq_axis)
+
+
+def _offset(input_ids: torch.Tensor) -> int:
+    """The global position of this rank's first logits row: its chunk's
+    under context parallelism, else 0."""
+    chunk = local_chunk(input_ids.shape[1])
+    return 0 if chunk is None else chunk[0]
+
+
 def lm_loss(params: dict, cfg: QwenVLConfig, input_ids, attn_mask, images=None,
             image_positions=None, remat: bool = False, seq_sharding=None) -> torch.Tensor:
     """Masked next-token cross entropy (mean over real target tokens).
     Inside ``flash_sharding`` over a mesh, the mean over every rank of its
-    batch axis (dp, or ("dcn", "dp")), each rank passing its rows;
-    ``seq_sharding``
-    (``(mesh, "tp")``) turns on sequence parallelism (``forward``)."""
+    batch axis (dp, or ("dcn", "dp")), each rank passing its rows, and
+    with a seq axis (context parallelism) over its chunks too;
+    ``seq_sharding`` (``(mesh, "tp")``) turns on sequence parallelism
+    (``forward``)."""
     logits = forward(params, cfg, input_ids, attn_mask, images, image_positions, remat=remat,
                      seq_sharding=seq_sharding)
-    ce_sum, n = masked_ce_parts(logits, input_ids, attn_mask)
+    ce_sum, n = masked_ce_parts(logits, input_ids, attn_mask, _offset(input_ids))
     ctx = current_flash_sharding()
-    if ctx is not None and ctx[1] is not None:
-        ce_sum, n = _global_parts(ce_sum, n, ctx[0], ctx[1])
+    axis = None if ctx is None else _sum_axis(ctx[1], ctx[3])
+    if axis is not None:
+        ce_sum, n = _global_parts(ce_sum, n, ctx[0], axis)
     return ce_sum / n.clamp_min(1.0)
 
 
@@ -315,17 +349,21 @@ def default_optimizer(lr=1e-4) -> AdamW:
 
 
 def _step_mesh(sp_mesh, cp_mesh, param_shardings=None):
-    """The step's mesh: ``sp_mesh``, else ``param_shardings``' mesh, else
-    the active ``flash_sharding`` context's, else None (one device); the
-    ones given must be one mesh."""
+    """The step's mesh: ``sp_mesh`` or ``cp_mesh``, else
+    ``param_shardings``' mesh, else the active ``flash_sharding``
+    context's, else None (one device); the ones given must be one mesh."""
     if sp_mesh is not None and cp_mesh is not None:
         raise ValueError("sp_mesh and cp_mesh are mutually exclusive: both shard the "
                          "sequence axis (over tp and cp respectively)")
     if cp_mesh is not None:
-        raise NotImplementedError("cp_mesh: context parallelism (ring attention) is not "
-                                  "ported")
+        if "cp" not in cp_mesh.shape:
+            raise ValueError(f"cp_mesh: the mesh's axes {tuple(cp_mesh.shape)} have no 'cp' "
+                             "(make_mesh(dp, tp, cp) with cp > 1)")
+        if param_shardings is not None:
+            raise NotImplementedError("cp_mesh with param_shardings (FSDP under context "
+                                      "parallelism) is not ported")
     given = [(name, m) for name, m in (
-        ("sp_mesh", sp_mesh),
+        ("sp_mesh", sp_mesh), ("cp_mesh", cp_mesh),
         ("param_shardings", None if param_shardings is None else fsdp.mesh_of(param_shardings)),
         ("the active flash_sharding context", _context_mesh())) if m is not None]
     for name, m in given[1:]:
@@ -362,12 +400,21 @@ def make_train_step(cfg: QwenVLConfig, optimizer: AdamW, with_images: bool = Fal
     the module's docstring).  ``sp_mesh`` also turns on sequence
     parallelism: the residual stream between blocks sharded over tp on
     the sequence axis.  ``param_shardings`` turns on FSDP and composes
-    with ``remat``, ``accum_steps`` and ``sp_mesh``.  ``cp_mesh``
-    (context parallelism) is not ported and raises; with ``sp_mesh`` it
-    raises ValueError, as tdax's."""
+    with ``remat``, ``accum_steps`` and ``sp_mesh``.  ``cp_mesh`` (a
+    ``make_mesh(dp, tp, cp)`` mesh with cp > 1) turns on context
+    parallelism instead: the step runs inside ``flash_sharding(mesh,
+    "dp", "tp", seq_axis="cp")``, each rank passing its dp rows of the
+    whole sequence; the model keeps the rank's T / cp chunk from the
+    first block to the loss, attention is the ring over cp (heads over
+    tp inside it), and the loss parts and every gradient are summed over
+    ("dp", "cp").  It composes with ``remat`` and ``accum_steps``; with
+    ``sp_mesh`` it raises ValueError, as tdax's, and so does a mesh
+    with no "cp" axis; with ``param_shardings`` it raises
+    NotImplementedError."""
     device = get_device(device)
     _step_mesh(sp_mesh, cp_mesh, param_shardings)
     seq = None if sp_mesh is None else (sp_mesh, "tp")
+    seq_axis = None if cp_mesh is None else "cp"
     specs = None if param_shardings is None else fsdp.specs_of(param_shardings)
 
     def loss_parts(tree, b):
@@ -375,7 +422,7 @@ def make_train_step(cfg: QwenVLConfig, optimizer: AdamW, with_images: bool = Fal
                          b.get("images") if with_images else None,
                          b.get("image_positions") if with_images else None, remat=remat,
                          seq_sharding=seq)
-        return masked_ce_parts(logits, b["input_ids"], b["attn_mask"])
+        return masked_ce_parts(logits, b["input_ids"], b["attn_mask"], _offset(b["input_ids"]))
 
     def grads_of(out, leaves):
         grads = torch.autograd.grad(out, leaves, allow_unused=True)
@@ -389,24 +436,25 @@ def make_train_step(cfg: QwenVLConfig, optimizer: AdamW, with_images: bool = Fal
         return [pm.dp_dim(pm.spec_at(specs, tuple(path.split("/")))) is not None
                 for path, _ in names]
 
-    def dp_sum(grads, mesh, skip):
-        """Each gradient not in ``skip`` summed over the batch axis in f32,
-        in place."""
+    def dp_sum(grads, mesh, axis, skip):
+        """Each gradient not in ``skip`` summed over ``axis`` (the batch
+        axis, and cp) in f32, in place."""
         for g, done in zip(grads, skip):
             if not done:
                 g.copy_(pm.all_reduce(g.float() if g.dtype != torch.float32 else g, mesh,
-                                      mesh.batch_axis))
+                                      axis))
 
     def run(params, opt_state: OptState, batch: dict, mesh):
         leaves = opt_state.leaves
+        axis = None if mesh is None else _sum_axis(mesh.batch_axis, seq_axis)
         if accum_steps == 1:
             ce_sum, n = loss_parts(opt_state.tree, batch)
             if mesh is not None:
-                ce_sum, n = _global_parts(ce_sum, n, mesh, mesh.batch_axis)
+                ce_sum, n = _global_parts(ce_sum, n, mesh, axis)
             loss = ce_sum / n.clamp_min(1.0)
             grads = grads_of(loss, leaves)
             if mesh is not None:
-                dp_sum(grads, mesh, gathered(opt_state.names))
+                dp_sum(grads, mesh, axis, gathered(opt_state.names))
         else:
             for name, leaf in batch.items():
                 if leaf.shape[0] != accum_steps:
@@ -422,9 +470,8 @@ def make_train_step(cfg: QwenVLConfig, optimizer: AdamW, with_images: bool = Fal
                 ce_tot += ce_sum.detach()
                 n_tot += n
             if mesh is not None:
-                ce_tot, n_tot = (pm.all_reduce(t, mesh, mesh.batch_axis)
-                                 for t in (ce_tot, n_tot))
-                dp_sum(acc, mesh, gathered(opt_state.names))
+                ce_tot, n_tot = (pm.all_reduce(t, mesh, axis) for t in (ce_tot, n_tot))
+                dp_sum(acc, mesh, axis, gathered(opt_state.names))
             n_tot = n_tot.clamp_min(1.0)
             loss = ce_tot / n_tot
             grads = [(a / n_tot).to(p.dtype) for a, p in zip(acc, leaves)]
@@ -439,19 +486,19 @@ def make_train_step(cfg: QwenVLConfig, optimizer: AdamW, with_images: bool = Fal
         if opt_state.leaves[0].device.type != device.type:
             raise ValueError(f"train step: params on {opt_state.leaves[0].device}, step on "
                              f"{device}")
-        mesh = _step_mesh(sp_mesh, None, param_shardings)
+        mesh = _step_mesh(sp_mesh, cp_mesh, param_shardings)
         if mesh is None:
             return run(params, opt_state, batch, None)
         gathers = (contextlib.nullcontext() if param_shardings is None
                    else fsdp.gathering(param_shardings))
-        with flash_sharding(mesh, mesh.batch_axis, "tp"), gathers:
+        with flash_sharding(mesh, mesh.batch_axis, "tp", seq_axis), gathers:
             return run(params, opt_state, batch, mesh)
 
     def shards(opt_state: OptState) -> dict:
         """``OptState.update``'s ``tp`` and ``dp``: (mesh, which leaves are
         tp shards) and (mesh, which are dp shards), each None where there
         are none (one device; no FSDP, or dp = 1)."""
-        mesh = _step_mesh(sp_mesh, None, param_shardings)
+        mesh = _step_mesh(sp_mesh, cp_mesh, param_shardings)
         if mesh is None:
             return {}
         paths = [tuple(path.split("/")) for path, _ in opt_state.names]
@@ -507,8 +554,8 @@ def train_loop(params: dict, cfg: QwenVLConfig, batches, n_steps: int,
     event goes to the JSONL log.  Returns (params, opt_state, losses) for
     the steps this call ran.  Runs on the card unless ``device="cpu"``.
 
-    Over a mesh (``sp_mesh``, ``param_shardings``' or the active
-    ``flash_sharding`` context's, as ``make_train_step``) ``params`` is
+    Over a mesh (``sp_mesh``, ``cp_mesh``, ``param_shardings``' or the
+    active ``flash_sharding`` context's, as ``make_train_step``) ``params`` is
     this rank's shard and ``batches`` gives this rank's rows; the
     checkpoint holds the whole tree (``mesh.unshard_params``, under
     ``param_shardings``' rules when given), written by rank 0 with a
@@ -531,8 +578,8 @@ def train_loop(params: dict, cfg: QwenVLConfig, batches, n_steps: int,
     else:
         opt_state = opt.init(params)
     step_fn = make_train_step(cfg, opt, with_images=with_images, remat=remat, sp_mesh=sp_mesh,
-                              param_shardings=param_shardings, accum_steps=accum_steps,
-                              device=device)
+                              cp_mesh=cp_mesh, param_shardings=param_shardings,
+                              accum_steps=accum_steps, device=device)
     device_losses = []
     t_window, tokens_window = time.time(), 0
     for i in range(start, n_steps):

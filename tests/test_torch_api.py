@@ -56,8 +56,9 @@ def test_pipeline_names_import_from_the_package():
 def test_parallel_names_are_tdax_names():
     """``tdax_torch.parallel`` names only tdax's names (the mesh helpers
     the port adds stay in ``tdax_torch.parallel.mesh``), each resolving
-    to the port's: 12 of tdax's 17, all but context parallelism's and the
-    1F1B pipeline's."""
+    to the port's: 12 of tdax's 17, all but the 1F1B pipeline's five
+    (context parallelism adds no name: it is ``make_mesh(cp=)``,
+    ``flash_sharding(seq_axis=)`` and ``cp_mesh=``)."""
     import tdax.parallel as jpar
     import tdax_torch.parallel as par
     assert set(par.__all__) <= set(jpar.__all__)

@@ -194,10 +194,22 @@ def test_make_mesh_shapes(results, case, want):
         assert (got["dp_rank"], got["tp_rank"]) == divmod(rank, want["tp"])  # tp innermost
 
 
-@pytest.mark.parametrize("case,want", [("value_error", "ValueError: dp*tp*cp = 3*2*1 != 8"),
-                                       ("cp", "NotImplementedError")])
+@pytest.mark.parametrize("case,want", [("value_error", "ValueError: dp*tp*cp = 3*2*1 != 8")])
 def test_make_mesh_errors(results, case, want):
     assert all(out["meshes"][case].startswith(want) for out in results["serve"])
+
+
+def test_make_mesh_cp_innermost(results):
+    """make_mesh(dp=2, tp=2, cp=2): tdax's ("dp", "tp", "cp") with cp
+    innermost, rank (d * tp + t) * cp + c, and the (dp, cp) group of the
+    rank's tp index in (dp, cp) order."""
+    for rank, out in enumerate(results["serve"]):
+        got = out["meshes"]["cp"]
+        assert got["axis_names"] == ("dp", "tp", "cp")
+        assert got["shape"] == {"dp": 2, "tp": 2, "cp": 2}
+        d, t, c = got["ranks"]
+        assert (d * 2 + t) * 2 + c == rank
+        assert got["dp_cp_group"] == [(dd * 2 + t) * 2 + cc for dd in range(2) for cc in range(2)]
 
 
 def _leaves(tree, path=()):
@@ -308,10 +320,15 @@ def test_sharded_weights_need_the_tp_context():
         forward(local, CFG, ids)
 
 
-def test_context_parallelism_is_not_ported():
-    with pytest.raises(NotImplementedError, match="seq_axis"):
-        with fa.flash_sharding(None, batch_axis="dp", seq_axis="cp"):
-            pass
+def test_flash_sharding_seq_axis_is_accepted_and_scoped():
+    """Context parallelism: flash_sharding(seq_axis=) is pushed and popped
+    like the other axes, and without_seq_axis drops it for the calls
+    inside (the visual tower's attention)."""
+    with fa.flash_sharding("mesh", batch_axis="dp", head_axis="tp", seq_axis="cp"):
+        assert fa.current_flash_sharding() == ("mesh", "dp", "tp", "cp")
+        with fa.without_seq_axis():
+            assert fa.current_flash_sharding() == ("mesh", "dp", "tp", None)
+        assert fa.current_flash_sharding() == ("mesh", "dp", "tp", "cp")
     assert fa.current_flash_sharding() is None
 
 

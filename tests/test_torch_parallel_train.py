@@ -324,10 +324,12 @@ class _Grid:
 
 
 def test_sp_mesh_and_cp_mesh_are_refused_as_in_tdax():
+    """Both shard the sequence (tdax's ValueError); a cp_mesh must have a
+    "cp" axis (this dp x tp grid has none)."""
     from tdax_torch.parallel import default_optimizer, make_train_step
     with pytest.raises(ValueError, match="mutually exclusive"):
         make_train_step(CFG, default_optimizer(), sp_mesh=_Grid(), cp_mesh=_Grid(), device="cpu")
-    with pytest.raises(NotImplementedError, match="cp_mesh"):
+    with pytest.raises(ValueError, match="no 'cp'"):
         make_train_step(CFG, default_optimizer(), cp_mesh=_Grid(), device="cpu")
 
 

@@ -139,13 +139,16 @@ def _meshes() -> dict:
         mesh = pm.make_mesh(**kw)
         out[label] = {"shape": mesh.shape, "dp_rank": mesh.local_rank("dp"),
                       "tp_rank": mesh.local_rank("tp")}
-    for label, kw, exc in (("value_error", dict(dp=3, tp=2), ValueError),
-                           ("cp", dict(dp=4, tp=1, cp=2), NotImplementedError)):
-        try:
-            pm.make_mesh(**kw)
-            out[label] = "no error"
-        except exc as e:
-            out[label] = f"{type(e).__name__}: {e}"
+    try:
+        pm.make_mesh(dp=3, tp=2)
+        out["value_error"] = "no error"
+    except ValueError as e:
+        out["value_error"] = f"{type(e).__name__}: {e}"
+    mesh = pm.make_mesh(dp=2, tp=2, cp=2)
+    group = mesh.group(("dp", "cp"))
+    out["cp"] = {"axis_names": mesh.axis_names, "shape": mesh.shape,
+                 "ranks": tuple(mesh.local_rank(a) for a in ("dp", "tp", "cp")),
+                 "dp_cp_group": [dist.get_global_rank(group, i) for i in range(group.size())]}
     return out
 
 
@@ -770,5 +773,138 @@ def one_fsdp_world(rank: int, world: int, store_path: str, inp_path: str) -> dic
     try:
         return {"one": one, "fsdp": _fsdp_trained(tree, batch, pm.make_mesh(dp=1, tp=1)),
                 "hybrid": _fsdp_trained(tree, batch, pm.make_hybrid_mesh(dcn=1))}
+    finally:
+        pm.shutdown()
+
+
+# ---- context parallelism: the ring (tests/test_torch_ring_attention.py) ----------------
+
+def _ring_case(mesh, case: dict) -> dict:
+    """The ring on this rank's block of a case (its dp rows, cp chunk and
+    tp heads), under flash_sharding(seq_axis="cp"): its output and the
+    gradients of sum(sin(o) * valid) for q, k and v, with the block's
+    slices, and the ring's collectives by axis."""
+    import os
+    q, k, v, kv = (_t(case[n]) for n in ("q", "k", "v", "kv"))
+    b, t, nh, _ = q.shape
+    dp, tp, cp = (mesh.shape.get(a, 1) for a in ("dp", "tp", "cp"))
+    d, h, c = (mesh.local_rank(a) if a in mesh.shape else 0 for a in ("dp", "tp", "cp"))
+    sl = (slice(d * b // dp, (d + 1) * b // dp), slice(c * t // cp, (c + 1) * t // cp),
+          slice(h * nh // tp, (h + 1) * nh // tp))
+    loc = [x[sl].clone().requires_grad_() for x in (q, k, v)]
+    kv_loc = kv[sl[0], sl[1]]
+    if case.get("no_zigzag"):
+        os.environ["TDAX_NO_ZIGZAG"] = "1"
+    pm.COLLECTIVES_BY_AXIS.clear()
+    try:
+        with flash_sharding(mesh, "dp", "tp", seq_axis="cp"):
+            o = fa.mha(*loc, fa.AttnSpec(kv_valid=kv_loc, causal=case["causal"]))
+        (torch.sin(o) * kv_loc[:, :, None, None]).sum().backward()
+    finally:
+        os.environ.pop("TDAX_NO_ZIGZAG", None)
+    return {"slices": sl, "o": o.detach().numpy(), "grads": [x.grad.numpy() for x in loc],
+            "by_axis": dict(pm.COLLECTIVES_BY_AXIS)}
+
+
+def _relayout(mesh) -> dict:
+    """to_zigzag of the positions 0 .. T-1 (T = 8 cp, as [2, T, 1, 1]) on
+    this rank's contiguous chunk, and from_zigzag of the result."""
+    from tdax_torch.ops import ring_attention as ring
+    cp, c = mesh.shape["cp"], mesh.local_rank("cp")
+    x = torch.arange(8 * cp, dtype=torch.float32)[None, :, None, None].expand(2, -1, 1, 1)
+    mine = x[:, c * 8:(c + 1) * 8].contiguous()
+    (z,) = ring._to_zigzag([mine], mesh, "cp")
+    return {"zigzag": z[0, :, 0, 0].numpy(), "back": ring._from_zigzag(z, mesh, "cp").numpy(),
+            "mine": mine.numpy(), "cp_rank": c}
+
+
+def ring_world(rank: int, world: int, store_path: str, inp_path: str) -> dict:
+    """The 8-rank world: every ring case of the test on its mesh (dp=2
+    cp=4 or dp=2 tp=2 cp=2), and the zigzag relayout's round trip."""
+    _join(rank, world, store_path)
+    try:
+        with open(inp_path, "rb") as f:
+            inp = pickle.load(f)
+        meshes = {"dp2_cp4": pm.make_mesh(dp=2, tp=1, cp=4),
+                  "dp2_tp2_cp2": pm.make_mesh(dp=2, tp=2, cp=2)}
+        return {"cases": {name: _ring_case(meshes[case["mesh"]], case)
+                          for name, case in inp["cases"].items()},
+                "relayout": _relayout(meshes["dp2_cp4"])}
+    finally:
+        pm.shutdown()
+
+
+# ---- context parallelism: the training step (tests/test_torch_parallel_cp.py) ---------
+
+def _cp_trained(tree: dict, batch: dict, mesh, n_steps: int = 1, accum: int = 1,
+                **step_kw) -> dict:
+    """``n_steps`` steps of make_train_step(cp_mesh=mesh) from ``tree`` (lr
+    1e-3), each rank passing its dp rows of the whole sequence (of each
+    microbatch with ``accum``): each step's loss, the whole tree and AdamW's
+    first moment after them, and the steps' collectives by axis."""
+    from tdax_torch.models.qwen_vl.convert import params_to_numpy
+    from tdax_torch.parallel import train as tr
+    params = pm.shard_params(params_from_numpy(tree, "cpu", "float32"), mesh, cfg=CFG)
+    opt = tr.default_optimizer(1e-3)
+    state = opt.init(params)
+    step = tr.make_train_step(CFG, opt, cp_mesh=mesh, accum_steps=accum, device="cpu", **step_kw)
+    rows = _micro_rows(batch, mesh, accum)
+    losses = []
+    pm.COLLECTIVES_BY_AXIS.clear()
+    for _ in range(n_steps):
+        _, state, loss = step(params, state, rows)
+        losses.append(float(loss))
+    return {"losses": losses, "by_axis": dict(pm.COLLECTIVES_BY_AXIS),
+            "params": params_to_numpy(pm.unshard_params(params, mesh, CFG)),
+            "mu": params_to_numpy(pm.unshard_params(state.mu, mesh, CFG))}
+
+
+def _cp_loop(tree: dict, batch: dict, mesh, work: Path) -> dict:
+    """train_loop(cp_mesh=) with remat, 2 steps with a checkpoint after
+    each: uninterrupted, and stopped after 1 then resumed."""
+    from tdax_torch.models.qwen_vl.convert import params_to_numpy
+    from tdax_torch.parallel import train as tr
+    from tdax_torch.utils.checkpoint import load_params
+    rows = _micro_rows(batch, mesh)
+
+    def run(name, n_steps):
+        params = pm.shard_params(params_from_numpy(tree, "cpu", "float32"), mesh, cfg=CFG)
+        params, state, losses = tr.train_loop(
+            params, CFG, lambda i: rows, n_steps, tr.default_optimizer(1e-3),
+            checkpoint_path=str(work / name), checkpoint_every=1, log_every=0, remat=True,
+            cp_mesh=mesh, device="cpu")
+        return params_to_numpy(pm.unshard_params(params, mesh, CFG)), losses, state.count
+
+    full, full_losses, count = run("full", 2)
+    run("crash", 1)
+    resumed, resumed_losses, resumed_count = run("crash", 2)
+    saved = load_params(str(work / "full"))["p"]  # the whole tree rank 0 wrote
+    return {"full": full, "full_losses": full_losses, "count": count, "resumed": resumed,
+            "resumed_losses": resumed_losses, "resumed_count": resumed_count,
+            "saved_params": params_to_numpy(saved),
+            "files": sorted(p.name for p in work.iterdir())}
+
+
+def cp_world(rank: int, world: int, store_path: str, inp_path: str, work: str) -> dict:
+    """The 8-rank world: tdax's stage 10 (dp=2 cp=4, remat), dp=2 tp=2
+    cp=2, accumulation and images at dp=2 cp=4, train_loop with resume."""
+    _join(rank, world, store_path)
+    try:
+        with open(inp_path, "rb") as f:
+            inp = pickle.load(f)
+        cp4 = pm.make_mesh(dp=2, tp=1, cp=4)
+        tp2 = pm.make_mesh(dp=2, tp=2, cp=2)
+        tree = inp["tree"]
+        out = {"stage10": _cp_trained(tree, inp["batch"], cp4, remat=True),
+               "tp": _cp_trained(tree, inp["batch"], tp2),
+               "accum": _cp_trained(tree, inp["batch"], cp4, accum=2, remat=True),
+               "images": _cp_trained(inp["tree_visual"], inp["batch_images"], cp4,
+                                     with_images=True)}
+        work = Path(work) / "loop"
+        if rank == 0:
+            work.mkdir()
+        dist.barrier()
+        out["loop"] = _cp_loop(tree, inp["batch"], cp4, work)
+        return out
     finally:
         pm.shutdown()
