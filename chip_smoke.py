@@ -332,6 +332,37 @@ and runs these phases, printing JSON lines:
             by axis, the step walls and every rank's peak memory reported
             (tp = 2 because four replicas of the 1.65B-parameter config
             with AdamW's moments do not fit one card side by side).
+            Then tdax's dry-run stage 9, pipeline parallelism, on the four
+            gloo ranks alone (the NCCL world of one would be one stage,
+            which sends nothing): make_pp_mesh(pp=4, dp=1), the full
+            widths cut to MD_PP_LAYERS decoder layers (one a stage;
+            2,054,246,400 params), text-only, bf16, seed 0, remat, AdamW
+            at MD_TRAIN_LR, each stage holding its layer and only the
+            leaves it reads (wte on the first, ln_f and lm_head on the
+            last).  Rank 0 first runs the one-device forward and
+            MD_TRAIN_STEPS one-device steps and frees them.  (i)
+            pipeline_forward on MD_PP_FWD_BATCH x MD_PP_FWD_SEQ ids at
+            MD_PP_FWD_MICRO microbatches: each position's logits' cosine
+            against one device >= MD_MIN_COSINE, the largest |delta| /
+            max|logit| and bitwise equality reported, each rank's
+            MD_PP_FWD_MICRO launches on flash_fwd_sm90.cu.  (ii)
+            MD_TRAIN_STEPS 1F1B steps (make_train_step_pp) on MD_PP_BATCH
+            x MD_PP_SEQ ids at MD_PP_MICRO microbatches (M = 2S: warm-up,
+            steady state and cool-down, 22 slots), the last row's final
+            MD_TRAIN_MASKED positions masked: each loss within
+            MD_TRAIN_LOSS_RTOL of one device's and equal on every rank;
+            a rank's launches a step and layer, all on the sm90 kernels,
+            3M forwards (a forward slot without grad, then the backward
+            slot's recompute and remat's replay; 2M on the last stage,
+            whose forward slot only saves its input) and M of each
+            backward kernel; its transfers M activations and M gradients
+            (none forward from the last stage, none back from the first),
+            2M(S - 1) a step over the group, 8 MiB each, with their bytes
+            and seconds; the loss's and the clip's all_reduce over pp.
+            (iii) One schedule="gpipe" step from the same init: its loss
+            beside the 1F1B step's, within MD_TRAIN_LOSS_RTOL of one
+            device's, the same launches.  Each step's wall, each rank's
+            params, memory after the init and peak memory reported.
             Phases 6, 6b, 6c and 9 run before this one, inside the run's
             temp dir.
 6. scale    rips_at_scale on bench_scale.py's seeded 3-sphere cloud,
@@ -733,6 +764,18 @@ MD_RING_FWD_TOL, MD_RING_GRAD_TOL = 1e-5, dict(rtol=1e-4, atol=1e-5)
 # are masked in every row (stage 10's mask, __graft_entry__.py:417),
 # MD_TRAIN_STEPS steps against rank 0's one-device steps (MD_TRAIN_LOSS_RTOL)
 MD_CP_BATCH, MD_CP_SEQ, MD_CP_MASKED = 2, 2048, 5
+# phase multidevice's pipeline (tdax's dry-run stage 9) on the four gloo
+# ranks at pp=4 dp=1: MD_PP_LAYERS full-width layers (one a stage); the
+# forward on MD_PP_FWD_BATCH x MD_PP_FWD_SEQ ids in MD_PP_FWD_MICRO
+# microbatches, gated at MD_MIN_COSINE against one device (the
+# microbatches' GEMMs have other shapes, so their sums other orders); the
+# 1F1B steps on MD_PP_BATCH x MD_PP_SEQ ids in MD_PP_MICRO microbatches
+# (M = 2S), MD_TRAIN_STEPS of them against one device's
+# (MD_TRAIN_LOSS_RTOL), the last row's final MD_TRAIN_MASKED positions
+# masked so the microbatches' token counts differ
+MD_PP, MD_PP_LAYERS = 4, 4
+MD_PP_FWD_BATCH, MD_PP_FWD_SEQ, MD_PP_FWD_MICRO = 4, 256, 4
+MD_PP_BATCH, MD_PP_SEQ, MD_PP_MICRO = 8, 1024, 8
 
 # (name, B, Tq, Tk, nh, hd, causal, calls per batch on the main path)
 MAIN_SHAPES = [
@@ -4275,16 +4318,19 @@ class _FlashCalls:
 
 class _TimedCollectives:
     """Count, bytes and host seconds of every mesh all_reduce, all_gather,
-    reduce_scatter and ppermute while active, by axis and kind
-    ("tp.all_reduce", "dp.all_gather", "dcn+dp.all_reduce",
-    "cp.ppermute", ...): the bytes of each result on this rank (a
-    ppermute's: of every tensor it moved, counted once per op), the
+    reduce_scatter, ppermute and send_recv while active, by
+    axis and kind ("tp.all_reduce", "dp.all_gather", "dcn+dp.all_reduce",
+    "cp.ppermute", "pp.ppermute" for a send_recv, ...), a call counted
+    once: the bytes of each result on this rank (a ppermute's: of every
+    tensor it moved, counted once per op; a send_recv's: of what it
+    received), the
     device synchronised before and after each, so the time is the
     collective's, gloo's host staging included.  ``total(kind)`` sums a
     kind over the axes."""
 
     _KINDS = {"all_reduce": "all_reduce", "all_gather": "all_gather",
-              "reduce_scatter": "reduce_scatter", "_exchange": "ppermute"}
+              "reduce_scatter": "reduce_scatter", "_exchange": "ppermute",
+              "send_recv": "ppermute"}
 
     def __enter__(self):
         from tdax_torch.parallel import mesh as pm
@@ -5065,6 +5111,147 @@ def _md_gloo_cp_train(rank: int, device) -> dict:
     return out
 
 
+def _md_pp_launches(last: bool, steps: int) -> dict:
+    """A pipeline stage's flash launches over ``steps`` remat steps of
+    MD_PP_MICRO microbatches, one layer a stage: a microbatch's forward
+    slot without grad, its backward slot's recompute and remat's replay
+    (3 forwards; 2 on the last stage, whose forward slot only saves its
+    input), one dq and one dk/dv launch; all on the sm90 kernels."""
+    fwd = (2 if last else 3) * MD_PP_MICRO * steps
+    bwd = MD_PP_MICRO * steps
+    return {"flash_fwd": fwd, "flash_fwd_sm90": fwd, "flash_bwd_dq": bwd,
+            "flash_bwd_dkv": bwd, "flash_bwd_dq_sm90": bwd, "flash_bwd_dkv_sm90": bwd}
+
+
+def _md_counts_since(before: dict, after: dict) -> dict:
+    return {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+
+
+def _md_gloo_pp(rank: int, device) -> dict:
+    """(b) tdax's dry-run stage 9 on the four gloo ranks at pp=4 dp=1 (see
+    the module's docstring): rank 0's one-device forward and steps first
+    (computed and freed), then (i) pipeline_forward, (ii) MD_TRAIN_STEPS
+    1F1B steps and (iii) one GPipe step from the same init.  Per rank its
+    stage, each run's flash launches, losses, walls and collectives (the
+    counters' sends by axis, the timed calls' count, bytes and seconds),
+    its params, memory after the init and peak memory; rank 0 also the
+    forward's cosines against one device and each loss's relative
+    error."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    from tdax_torch.models.qwen_vl.model import forward, init_params
+    from tdax_torch.parallel import (default_optimizer, make_pp_mesh, make_train_step,
+                                     make_train_step_pp, pipeline_forward, shard_params_pp)
+    from tdax_torch.parallel import mesh as pm
+
+    cfg = dataclasses.replace(QwenVLConfig(), num_layers=MD_PP_LAYERS)
+    mesh = make_pp_mesh(pp=MD_PP, dp=1)
+    rng = np.random.default_rng(0)
+    fwd_ids = torch.as_tensor(rng.integers(1, cfg.vocab_size, (MD_PP_FWD_BATCH, MD_PP_FWD_SEQ)),
+                              device=device).long()
+    mask = np.ones((MD_PP_BATCH, MD_PP_SEQ), np.int32)
+    mask[-1, -MD_TRAIN_MASKED:] = 0
+    batch = {"input_ids": torch.as_tensor(rng.integers(1, cfg.vocab_size, mask.shape),
+                                          device=device).long(),
+             "attn_mask": torch.as_tensor(mask, device=device)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"stage": mesh.local_rank("pp"), "mesh": dict(mesh.shape)}
+    one_logits = None
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, device, seed=0, with_visual=False)
+        with torch.no_grad():
+            one_logits = forward(params, cfg, fwd_ids, torch.ones_like(fwd_ids))
+        opt = default_optimizer(MD_TRAIN_LR)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, remat=True, device=device)
+        t0 = time.perf_counter()
+        ref = [float(step(params, state, batch)[2]) for _ in range(MD_TRAIN_STEPS)]
+        out["one_device"] = {"losses": ref, "wall_s": time.perf_counter() - t0,
+                             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    def stage_tree():
+        full = init_params(cfg, device, seed=0, with_visual=False)
+        local = shard_params_pp(full, mesh)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        return local
+
+    def run(name, fn):
+        """fn() timed with its launches and collectives, into out[name]."""
+        _zero_train_launches()
+        before = dict(pm.COLLECTIVES_BY_AXIS)
+        sent = pm.COLLECTIVE_BYTES.get("gloo.ppermute", 0)
+        with _TimedCollectives() as tc:
+            torch.cuda.synchronize()
+            t0, start = time.perf_counter(), time.time()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out[name] = {"wall_s": wall, "start_unix_s": start, "end_unix_s": time.time(),
+                     "launches": _train_launches(), "collectives": tc.stats,
+                     "by_axis": _md_counts_since(before, pm.COLLECTIVES_BY_AXIS),
+                     "sent_bytes": pm.COLLECTIVE_BYTES.get("gloo.ppermute", 0) - sent}
+        return res
+
+    torch.cuda.reset_peak_memory_stats()
+    local = stage_tree()
+    logits = run("forward", lambda: pipeline_forward(local, cfg, fwd_ids,
+                                                     torch.ones_like(fwd_ids), mesh,
+                                                     MD_PP_FWD_MICRO))
+    if rank == 0:
+        got, want = logits.flatten(0, 1), one_logits.flatten(0, 1)
+        cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+        out["forward"].update(cosine_min=float(cos.min()), cosine_mean=float(cos.mean()),
+                              max_abs_err_of_max=float((got - want).abs().max()
+                                                       / want.abs().max()),
+                              bitwise=bool(torch.equal(got, want)))
+    del logits, one_logits
+    opt = default_optimizer(MD_TRAIN_LR)
+    state = opt.init(local)
+    out.update(local_params=sum(t.numel() for t in _md_leaves(local)),
+               memory_after_init_bytes=torch.cuda.memory_allocated())
+    step = make_train_step_pp(cfg, opt, mesh, MD_PP_MICRO, remat=True)
+    walls = []
+
+    def steps():
+        losses = []
+        for _ in range(MD_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(local, state, batch)[2]))
+            walls.append((time.time(), time.perf_counter() - t0))
+        return losses
+
+    out["losses"] = run("train", steps)
+    out["train"].update(step_s=[w for _, w in walls], step_end_unix_s=[t for t, _ in walls],
+                        max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    del local, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    local = stage_tree()
+    state = opt.init(local)
+    gpipe = make_train_step_pp(cfg, opt, mesh, MD_PP_MICRO, remat=True, schedule="gpipe")
+    out["gpipe_loss"] = float(run("gpipe", lambda: gpipe(local, state, batch)[2]))
+    if rank == 0:
+        ref = out["one_device"]["losses"]
+        out["loss_rel_err"] = [abs(a - b) / abs(b) for a, b in zip(out["losses"], ref)]
+        out["gpipe_loss_rel_err"] = abs(out["gpipe_loss"] - ref[0]) / abs(ref[0])
+    del local, state, gpipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _md_nccl_rank(rank: int, world: int, store: str, work: Path, data_dir: str,
                   sweep_dir: str, umap_ref: dict, train_ref: dict) -> dict:
     """(a) The world of one over NCCL: the full QwenVLConfig() in bf16 from
@@ -5396,8 +5583,9 @@ def _md_gloo_rank(rank: int, world: int, store: str, work: Path, snap: str, data
     stages at dp=4, training (dp=2 tp=2 plain, sequence-parallel and
     FSDP; FSDP on the hybrid mesh), the edge-list UMAP at dp=4, and
     context parallelism: the ring alone at cp=4, then the cp training
-    step at dp=1 tp=2 cp=2.  Rank 0 computes each one-device reference
-    before the sharded run (the ring's: every rank)."""
+    step at dp=1 tp=2 cp=2, then the pipeline at pp=4.  Rank 0 computes
+    each one-device reference before the sharded run (the ring's: every
+    rank)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -5469,6 +5657,7 @@ def _md_gloo_rank(rank: int, world: int, store: str, work: Path, snap: str, data
         torch.cuda.empty_cache()
         out["ring"] = _md_gloo_ring(rank, device)
         out["cp_train"] = _md_gloo_cp_train(rank, device)
+        out["pp"] = _md_gloo_pp(rank, device)
         return out
     finally:
         pm.shutdown()
@@ -5542,6 +5731,7 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
     umap_by_rank = [r.pop("umap") for r in ranks]
     ring_by_rank = [r.pop("ring") for r in ranks]
     cp_by_rank = [r.pop("cp_train") for r in ranks]
+    pp_by_rank = [r.pop("pp") for r in ranks]
     info = {"phase": "multidevice", "nvidia_smi": smi,
             "mem_get_info_before_spawn": {"free_bytes": free, "total_bytes": total},
             "nccl_world_of_one": a,
@@ -5577,10 +5767,18 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
                           "one_device_rank0": cp_by_rank[0].get("one_device"),
                           "by_rank": [{k: v for k, v in r.items() if k != "one_device"}
                                       for r in cp_by_rank]}},
+            "gloo_pp": {"pp": MD_PP, "layers": MD_PP_LAYERS,
+                        "forward_batch": [MD_PP_FWD_BATCH, MD_PP_FWD_SEQ],
+                        "forward_micro": MD_PP_FWD_MICRO, "batch": [MD_PP_BATCH, MD_PP_SEQ],
+                        "micro": MD_PP_MICRO,
+                        "one_device_rank0": pp_by_rank[0].get("one_device"),
+                        "by_rank": [{k: v for k, v in r.items() if k != "one_device"}
+                                    for r in pp_by_rank]},
             "phase_s": time.perf_counter() - t_phase,
             "note": "times of four ranks sharing one card: they say nothing of scaling"}
     emit(info)
     _md_check_cp(info["gloo_cp"])
+    _md_check_pp(info["gloo_pp"])
     _md_check_sweep_scale(a["sweep_scale"], info["gloo_dp4_sweep_scale"], scale_by_rank)
     _md_check_train_umap(a, info["gloo_dp2_tp2_train"], info["gloo_dp4_umap"])
     _md_check_fsdp_hybrid(a, info["gloo_dp2_tp2_train"], info["gloo_hybrid_capture_by_rank"],
@@ -5640,6 +5838,39 @@ def _md_check_cp(cp: dict) -> None:
     errs = t[0]["loss_rel_err"]
     if not max(errs) <= MD_TRAIN_LOSS_RTOL:
         raise AssertionError(f"multidevice (b) cp train: loss relative errors {errs} against one "
+                             f"device (limit {MD_TRAIN_LOSS_RTOL})")
+
+
+def _md_check_pp(pp: dict) -> None:
+    """The gates of the pipeline stage (see the module's docstring)."""
+    ranks = pp["by_rank"]
+    r0 = ranks[0]
+    if not r0["forward"]["cosine_min"] >= MD_MIN_COSINE:
+        raise AssertionError(f"multidevice (b) pp forward: min cosine "
+                             f"{r0['forward']['cosine_min']} < {MD_MIN_COSINE}")
+    fwd = {k: 0 for k in _md_pp_launches(False, 1)}
+    fwd.update(flash_fwd=MD_PP_FWD_MICRO, flash_fwd_sm90=MD_PP_FWD_MICRO)
+    for r in ranks:
+        s, last = r["stage"], r["stage"] == MD_PP - 1
+        for name, want in (("forward", fwd), ("train", _md_pp_launches(last, MD_TRAIN_STEPS)),
+                           ("gpipe", _md_pp_launches(last, 1))):
+            if r[name]["launches"] != want:
+                raise AssertionError(f"multidevice (b) pp {name} stage {s}: launches "
+                                     f"{r[name]['launches']}, expected {want}")
+        sends = MD_PP_MICRO * ((s < MD_PP - 1) + (s > 0))
+        for name, steps in (("train", MD_TRAIN_STEPS), ("gpipe", 1)):
+            want = {"pp.ppermute": sends * steps, "pp.all_reduce": 2 * steps}
+            if r[name]["by_axis"] != want:
+                raise AssertionError(f"multidevice (b) pp {name} stage {s}: collectives "
+                                     f"{r[name]['by_axis']}, expected {want}")
+        if r["losses"] != r0["losses"] or r["gpipe_loss"] != r0["gpipe_loss"]:
+            raise AssertionError("multidevice (b) pp: the ranks' losses differ")
+    total = sum(r["train"]["by_axis"]["pp.ppermute"] for r in ranks)
+    if total != 2 * MD_PP_MICRO * (MD_PP - 1) * MD_TRAIN_STEPS:
+        raise AssertionError(f"multidevice (b) pp: {total} transfers over the group")
+    errs = r0["loss_rel_err"] + [r0["gpipe_loss_rel_err"]]
+    if not max(errs) <= MD_TRAIN_LOSS_RTOL:
+        raise AssertionError(f"multidevice (b) pp: loss relative errors {errs} against one "
                              f"device (limit {MD_TRAIN_LOSS_RTOL})")
 
 
@@ -5789,7 +6020,8 @@ def _train_paths(train: dict, md: dict) -> list:
     """(path, flash launches) of every training run: phase train's five
     timed steps, the NCCL world's plain and FSDP steps, rank 0's dp=2 tp=2
     plain, sequence-parallel and FSDP steps, its hybrid FSDP step, its cp
-    step and each of its ring cases (forward and backward once)."""
+    step and each of its ring cases (forward and backward once), and each
+    pipeline stage's forward, 1F1B steps and GPipe step."""
     runs = md["gloo_dp2_tp2_train"]["by_rank"][0]
     return [("train", train["launches"]),
             ("multidevice_nccl_train", md["nccl_world_of_one"]["train"]["launches"]),
@@ -5800,7 +6032,9 @@ def _train_paths(train: dict, md: dict) -> list:
             ("multidevice_hybrid_train_fsdp_rank0", runs["hybrid_fsdp"]["launches"]),
             ("multidevice_cp2_tp2_train_rank0", md["gloo_cp"]["train"]["by_rank"][0]["launches"]),
             *((f"multidevice_ring_cp{MD_RING_CP}_{label}_rank0", rec["launches"])
-              for label, rec in md["gloo_cp"]["ring"]["by_rank"][0].items())]
+              for label, rec in md["gloo_cp"]["ring"]["by_rank"][0].items()),
+            *((f"multidevice_pp{MD_PP}_{run}_stage{r['stage']}", r[run]["launches"])
+              for r in md["gloo_pp"]["by_rank"] for run in ("forward", "train", "gpipe"))]
 
 
 def main(argv=None) -> int:

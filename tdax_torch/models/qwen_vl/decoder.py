@@ -203,11 +203,29 @@ def decoder(stacked_layers, x: torch.Tensor, cfg: QwenVLConfig,
         x = seq_scatter(x, seq_sharding)
     if chunk is not None:
         x = x.narrow(1, *chunk)
-    for i in range(cfg.num_layers):
+    return blocks(stacked_layers, x, cfg, cos, sin, spec, remat, seq_sharding)
+
+
+def depth(stacked_layers) -> int:
+    """The number of blocks a stacked tree holds (its leaves' leading
+    dimension), or a training view's list of per-layer trees."""
+    if isinstance(stacked_layers, list):
+        return len(stacked_layers)
+    w = next(iter(stacked_layers.values()))
+    return (w["q"] if is_quantized(w) else w).shape[0]
+
+
+def blocks(stacked_layers, x: torch.Tensor, cfg: QwenVLConfig, cos: torch.Tensor,
+           sin: torch.Tensor, spec: AttnSpec, remat: bool = False, seq=None) -> torch.Tensor:
+    """Every block of ``stacked_layers`` in order, whatever its depth
+    (``depth``: a pipeline stage holds its [L / pp, ...] slice), on one
+    rotary cos / sin and attention spec, as tdax's ``_stage_apply``.
+    ``remat`` and ``seq`` as ``decoder``'s."""
+    for i in range(depth(stacked_layers)):
         layer = layer_at(stacked_layers, i)
         if remat:
-            x = torch.utils.checkpoint.checkpoint(block, x, layer, cfg, cos, sin, spec,
-                                                  seq_sharding, use_reentrant=False)
+            x = torch.utils.checkpoint.checkpoint(block, x, layer, cfg, cos, sin, spec, seq,
+                                                  use_reentrant=False)
         else:
-            x = block(x, layer, cfg, cos, sin, spec, seq_sharding)
+            x = block(x, layer, cfg, cos, sin, spec, seq)
     return x

@@ -11,9 +11,10 @@ tdax, whose ``__all__`` does not name them); ``train`` the training
 step and loop, on one device or over a mesh with sequence parallelism,
 FSDP (ZeRO-3), gradient accumulation and context parallelism
 (``make_mesh(cp=)``, ``cp_mesh=``; it adds no name to tdax's
-``__all__``).  tdax's 1F1B pipeline is not ported yet.
+``__all__``); ``pipeline`` the decoder's stages over a ``pp`` axis,
+tdax's GPipe forward and its 1F1B and GPipe training schedules.
 
-``__all__`` holds the tdax names ported so far.  ``train``'s own names
+``__all__`` holds tdax's 17 names.  ``train``'s own names
 (``AdamW``, ``OptState``, ``masked_ce``, ``masked_ce_parts``) resolve
 here too, as attributes.  Names resolve on first use, so that the model
 can import ``mesh`` without importing the training step (which imports
@@ -22,10 +23,12 @@ the model).
 
 _MESH = ("make_mesh", "make_hybrid_mesh", "hybrid_batch_sharding", "param_sharding_rules",
          "shard_params", "fsdp_sharding_rules", "named_shardings")
-_TRAIN = ("default_optimizer", "lm_loss", "make_train_step", "train_loop", "warmup_cosine_lr")
+_TRAIN = ("lm_loss", "make_train_step", "train_loop", "default_optimizer", "warmup_cosine_lr")
 _TRAIN_OWN = ("AdamW", "OptState", "masked_ce", "masked_ce_parts")
+_PIPELINE = ("make_pp_mesh", "pipeline_forward", "shard_params_pp", "make_train_step_pp",
+             "pipeline_1f1b_grads")
 
-__all__ = [*_MESH, *_TRAIN]
+__all__ = [*_MESH, *_TRAIN, *_PIPELINE]
 
 
 def __getattr__(name):
@@ -35,4 +38,7 @@ def __getattr__(name):
     if name in _TRAIN or name in _TRAIN_OWN:
         from tdax_torch.parallel import train
         return getattr(train, name)
+    if name in _PIPELINE:
+        from tdax_torch.parallel import pipeline
+        return getattr(pipeline, name)
     raise AttributeError(f"module 'tdax_torch.parallel' has no attribute {name!r}")

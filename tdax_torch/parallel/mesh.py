@@ -48,14 +48,19 @@ Context parallelism: ``make_mesh(cp > 1)`` adds tdax's innermost "cp"
 axis and the combined ``("dp", "cp")`` group the loss and the gradients
 are summed over; ``ppermute`` is tdax's ``lax.ppermute`` over a mesh
 axis (point-to-point sends, differentiable: its backward sends each
-gradient along the inverse permutation), which the ring attention's
+gradient along the inverse permutation; a partial permutation such as a
+chain gives zeros where no rank sends), which the ring attention's
 rotations and zigzag relayout run (``tdax_torch.ops.ring_attention``),
-counted as ``"<backend>.ppermute"`` and ``"cp.ppermute"``.
+counted as ``"<backend>.ppermute"`` and ``"cp.ppermute"``.  The
+pipeline (``tdax_torch.parallel.pipeline``) moves its activations and
+gradients with ``send_recv``: only the transfers its static schedule
+names, counted once a tensor sent (``"pp.ppermute"``).
 
 Every collective here, and every function of the port that runs one
 (``sharded_ops``, the sweep and scale paths under a process group), is
 called by every rank of the group with the same arguments: a rank that
 skips the call leaves the others waiting until the group's timeout.
+``send_recv`` is the exception: only the ranks it names take part.
 """
 
 from __future__ import annotations
@@ -88,7 +93,8 @@ class P(tuple):
 
 class Mesh:
     """A grid of the process group's ranks (``make_mesh``: dp x tp, or dp
-    x tp x cp; ``make_hybrid_mesh``: dcn x dp x tp), over a ``DeviceMesh`` whose
+    x tp x cp; ``make_hybrid_mesh``: dcn x dp x tp;
+    ``pipeline.make_pp_mesh``: dp x pp), over a ``DeviceMesh`` whose
     sub-groups carry the collectives.  ``shape`` maps each axis name to
     its size and ``axis_names`` lists them, as ``jax.sharding.Mesh``'s
     do.  An axis argument is one name or a tuple of names (their ranks
@@ -332,43 +338,84 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Te
     return out.to(x.device) if staged else out
 
 
-def broadcast(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
-    """``x`` of the first rank of ``axis``'s group on every rank of it,
-    in place; returns ``x``."""
+def broadcast(x: torch.Tensor, mesh: Mesh, axis: str, src: int = 0) -> torch.Tensor:
+    """``x`` of the rank at index ``src`` of ``axis``'s group (its first
+    by default) on every rank of it, in place; returns ``x``."""
     group = mesh.group(axis)
-    dist.broadcast(x, src=dist.get_global_rank(group, 0), group=group)
+    dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
     _count("broadcast", group, _nbytes(x), axis)
     return x
+
+
+def _post(group, sends: list, recvs: list) -> None:
+    """Every send ``(index, tensor, tag)`` and receive ``(index, buffer,
+    tag)`` (index: the peer's place in ``group``) posted as one batch of
+    point-to-point ops, then waited for.  A pair of ranks posts its
+    sends and receives in one order (gloo matches them by peer and tag,
+    NCCL by peer and order)."""
+    ops = [dist.P2POp(dist.isend, t, dist.get_global_rank(group, peer), group, tag=tag)
+           for peer, t, tag in sends]
+    ops += [dist.P2POp(dist.irecv, t, dist.get_global_rank(group, peer), group, tag=tag)
+            for peer, t, tag in recvs]
+    if not ops:
+        return
+    works = (dist.batch_isend_irecv(ops) if dist.get_backend(group) == "nccl"
+             else [op.op(op.tensor, op.peer, op.group, op.tag) for op in ops])
+    for work in works:
+        work.wait()
+
+
+def _staged(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as this group sends it: through the host when it is a CUDA
+    tensor under gloo; contiguous."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        x = x.cpu()
+    return x.contiguous()
+
+
+def _buffer(like: torch.Tensor, group) -> torch.Tensor:
+    """An empty tensor shaped like ``like`` where this group receives it
+    (the host for a CUDA tensor under gloo)."""
+    staged = like.is_cuda and dist.get_backend(group) == "gloo"
+    return torch.empty(like.shape, dtype=like.dtype, device="cpu" if staged else like.device)
+
+
+def _check_perm(perm, n: int, axis: str) -> None:
+    """A (partial) permutation of the ``n`` indices along ``axis``, as
+    ``lax.ppermute`` takes it: no index twice as a source or as a
+    destination."""
+    srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+    if (len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts)
+            or not all(0 <= i < n for i in srcs + dsts)):
+        raise ValueError(f"ppermute: {perm} is not a permutation of mesh axis {axis!r} "
+                         f"({n} ranks): an index is named twice as a source or a "
+                         "destination, or lies outside the axis")
 
 
 def _exchange(xs: list, mesh: Mesh, axis: str, perms: list) -> list:
     """``ppermute``'s collective: every tensor sent along its perm in one
     batch of point-to-point ops (tensor i tagged i, so gloo cannot swap
-    two tensors of one shape); a pair from this rank to itself is a copy."""
+    two tensors of one shape); a pair from this rank to itself is a copy,
+    a rank no pair sends to gets zeros."""
     group = mesh.group(axis)
-    backend = dist.get_backend(group)
     me = mesh.local_rank(axis)
-    staged = backend == "gloo"
-    outs, ops, sent = [None] * len(xs), [], 0
+    outs, sends, recvs, sent = [None] * len(xs), [], [], 0
     for i, (x, perm) in enumerate(zip(xs, perms)):
         dst = [d for s, d in perm if s == me]
         src = [s for s, d in perm if d == me]
-        if len(dst) != 1 or len(src) != 1:
-            raise ValueError(f"ppermute: {perm} is not a permutation of mesh axis {axis!r}")
         if src == [me]:
             outs[i] = x.clone(memory_format=torch.contiguous_format)
             continue  # a permutation's fixed point: no send, no receive
-        src_x = (x.cpu() if staged and x.is_cuda else x).contiguous()
-        outs[i] = torch.empty_like(src_x)
-        ops += [dist.P2POp(dist.isend, src_x, dist.get_global_rank(group, dst[0]), group, tag=i),
-                dist.P2POp(dist.irecv, outs[i], dist.get_global_rank(group, src[0]), group,
-                           tag=i)]
-        sent += _nbytes(src_x)
-    if ops:
-        works = (dist.batch_isend_irecv(ops) if backend == "nccl"
-                 else [op.op(op.tensor, op.peer, op.group, op.tag) for op in ops])
-        for work in works:
-            work.wait()
+        if dst:
+            src_x = _staged(x, group)
+            sends.append((dst[0], src_x, i))
+            sent += _nbytes(src_x)
+        if src:
+            outs[i] = _buffer(x, group)
+            recvs.append((src[0], outs[i], i))
+        else:
+            outs[i] = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+    _post(group, sends, recvs)
     _count("ppermute", group, sent, axis)
     return [out.to(x.device) if out.device != x.device else out for out, x in zip(outs, xs)]
 
@@ -408,16 +455,22 @@ class _PPermute(torch.autograd.Function):
 def ppermute(x, mesh: Mesh, axis: str, perm):
     """``x`` moved along ``axis`` as ``lax.ppermute`` moves it: for each
     (src, dst) pair of ``perm`` (a permutation of the indices along the
-    axis) the rank at src sends its ``x`` to the rank at dst.  ``x`` may
-    be a list of tensors, sent together in one batch
-    of point-to-point ops (the same sends in the same order on every
-    rank); ``perm`` is then one permutation for all or a list of them,
-    one a tensor.  Differentiable: the backward sends each gradient
-    along the inverse permutation.  Under gloo a CUDA tensor goes
-    through the host.  Collective over ``axis``'s group, counted as
-    ``"<backend>.ppermute"`` with the bytes this rank sent."""
+    axis, or a partial one: no index twice as a source or as a
+    destination) the rank at src sends its ``x`` to the rank at dst; a
+    rank no pair sends to gets zeros, a rank that is no pair's source
+    sends nothing (a chain ``[(i, i + 1) ...]``: the first rank gets
+    zeros, the last sends nothing).  ``x`` may be a list of tensors,
+    sent together in one batch of point-to-point ops (the same sends in
+    the same order on every rank); ``perm`` is then one permutation for
+    all or a list of them, one a tensor.  Differentiable: the backward
+    sends each gradient along the inverse permutation.  Under gloo a
+    CUDA tensor goes through the host.  Collective over ``axis``'s
+    group, counted as ``"<backend>.ppermute"`` with the bytes this rank
+    sent."""
     xs = [x] if isinstance(x, torch.Tensor) else list(x)
     perms = list(perm) if isinstance(perm[0][0], (list, tuple)) else [list(perm)] * len(xs)
+    for p in perms:
+        _check_perm(p, mesh.shape[axis], axis)
     if torch.is_grad_enabled() and any(t.requires_grad for t in xs):
         outs = list(_PPermute.apply(mesh, axis, perms, *xs))
     else:
@@ -425,17 +478,44 @@ def ppermute(x, mesh: Mesh, axis: str, perm):
     return outs[0] if isinstance(x, torch.Tensor) else outs
 
 
+def send_recv(sends: list, mesh: Mesh, axis: str, recvs: list) -> list:
+    """Point-to-point transfers along ``axis`` that a static schedule
+    names (the pipeline's): each ``(index, tensor, tag)`` of ``sends``
+    goes to the rank at that index of the axis, and for each ``(index,
+    like, tag)`` of ``recvs`` a tensor shaped like ``like`` (its dtype and
+    device) comes from the rank at that index; all posted as one batch,
+    then waited for.  Returns the received tensors in ``recvs``' order.
+    Only the ranks named take part: each peer posts the matching
+    receives and sends, with the same tags, in the same order.  Under
+    gloo a CUDA tensor goes through the host.  Counted as one
+    ``"<backend>.ppermute"`` a tensor sent, with its bytes."""
+    group = mesh.group(axis)
+    sends = [(peer, _staged(t, group), tag) for peer, t, tag in sends]
+    bufs = [_buffer(like, group) for _, like, _ in recvs]
+    _post(group, sends, [(peer, buf, tag) for (peer, _, tag), buf in zip(recvs, bufs)])
+    for _, t, _ in sends:
+        _count("ppermute", group, _nbytes(t), axis)
+    return [buf.to(like.device) for buf, (_, like, _) in zip(bufs, recvs)]
+
+
 def _first_rank(mesh: Mesh) -> int:
     return int(mesh.device_mesh.mesh.flatten()[0])
 
 
-def broadcast_object(obj, mesh: Mesh):
+def broadcast_object(obj, mesh: Mesh, axis: str | None = None, src: int = 0):
     """The mesh's first rank's ``obj`` (any picklable value) on every rank
-    of the process group, which ``make_mesh``'s meshes span; the other
-    ranks' ``obj`` is ignored."""
+    of the process group, which ``make_mesh``'s meshes span; with
+    ``axis``, the ``obj`` of the rank at index ``src`` of this rank's
+    group along it on every rank of that group.  The other ranks' ``obj``
+    is ignored."""
     box = [obj]
-    dist.broadcast_object_list(box, src=_first_rank(mesh))
-    _count("broadcast_object", None)
+    if axis is None:
+        dist.broadcast_object_list(box, src=_first_rank(mesh))
+        _count("broadcast_object", None)
+    else:
+        group = mesh.group(axis)
+        dist.broadcast_object_list(box, src=dist.get_global_rank(group, src), group=group)
+        _count("broadcast_object", group, axis=axis)
     return box[0]
 
 

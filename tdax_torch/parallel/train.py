@@ -248,13 +248,16 @@ class OptState:
                 "exp_avg_sq": nu if i is None else nu[i]}
 
     @torch.no_grad()
-    def update(self, grads: list, tp=None, dp=None) -> None:
+    def update(self, grads: list, tp=None, dp=None, pp=None) -> None:
         """Clip ``grads`` (one per leaf, modified in place) by their global
         norm, then one AdamW step on the params.  ``tp`` and ``dp``:
         (mesh, one flag a leaf, True where this rank holds a tp, resp. dp,
         shard of it) or None.  The tp shards' squares are summed over tp,
         the dp shards' over dp (a dp x tp shard's over both), after the
-        whole leaves', which count once."""
+        whole leaves', which count once.  ``pp``: a mesh whose "pp" ranks
+        hold disjoint leaves (a pipeline stage's tree,
+        ``pipeline.shard_params_pp``) or None; the total is then summed
+        over pp, last."""
         device = self.leaves[0].device
         zero = torch.zeros((), dtype=torch.float32, device=device)
         total, by_tp, by_dp, by_both = (zero.clone() for _ in range(4))
@@ -268,6 +271,8 @@ class OptState:
         if dp is not None:
             by_dp += pm.all_reduce(by_both, dp[0], "tp")
             total += pm.all_reduce(by_dp, dp[0], "dp")
+        if pp is not None:
+            total = pm.all_reduce(total, pp, "pp")
         norm = total.sqrt()
         clip = norm >= CLIP_NORM  # optax: keep where |g| < max
         denom = torch.where(clip, norm, 1.0)

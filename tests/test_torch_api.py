@@ -54,17 +54,17 @@ def test_pipeline_names_import_from_the_package():
 
 
 def test_parallel_names_are_tdax_names():
-    """``tdax_torch.parallel`` names only tdax's names (the mesh helpers
-    the port adds stay in ``tdax_torch.parallel.mesh``), each resolving
-    to the port's: 12 of tdax's 17, all but the 1F1B pipeline's five
-    (context parallelism adds no name: it is ``make_mesh(cp=)``,
-    ``flash_sharding(seq_axis=)`` and ``cp_mesh=``)."""
+    """``tdax_torch.parallel`` names tdax's 17 names, in tdax's order, and
+    no other (the mesh helpers the port adds stay in
+    ``tdax_torch.parallel.mesh``), each resolving to the port's, the 1F1B
+    pipeline's five among them (context parallelism adds no name: it is
+    ``make_mesh(cp=)``, ``flash_sharding(seq_axis=)`` and ``cp_mesh=``)."""
     import tdax.parallel as jpar
     import tdax_torch.parallel as par
-    assert set(par.__all__) <= set(jpar.__all__)
-    assert set(jpar.__all__) - set(par.__all__) == {
-        "make_pp_mesh", "pipeline_forward", "shard_params_pp", "make_train_step_pp",
-        "pipeline_1f1b_grads"}
-    assert len(par.__all__) == 12
+    assert par.__all__ == jpar.__all__
+    assert len(par.__all__) == 17
     for name in par.__all__:
         assert getattr(par, name).__module__.startswith("tdax_torch.parallel."), name
+    assert {getattr(par, name).__module__ for name in (
+        "make_pp_mesh", "pipeline_forward", "shard_params_pp", "make_train_step_pp",
+        "pipeline_1f1b_grads")} == {"tdax_torch.parallel.pipeline"}

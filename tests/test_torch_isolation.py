@@ -218,7 +218,8 @@ def _sources():
             "tdax_torch/ops/rips/reference.py", "tdax_torch/ops/rips/tiny_device.py",
             "tdax_torch/ops/rips/api.py", "tdax_torch/ops/distances.py",
             "tdax_torch/parallel/mesh.py", "tdax_torch/models/qwen_vl/tp.py",
-            "tdax_torch/parallel/sharded_ops.py", "tdax_torch/ops/ring_attention.py"} <= names
+            "tdax_torch/parallel/sharded_ops.py", "tdax_torch/ops/ring_attention.py",
+            "tdax_torch/parallel/pipeline.py"} <= names
     return files
 
 

@@ -236,8 +236,10 @@ def test_parallel_exports_tdax_names():
                  "named_shardings", "make_hybrid_mesh", "hybrid_batch_sharding"):
         assert name in jpar.__all__ and name in par.__all__
         assert getattr(par, name) is getattr(pm, name)
+    from tdax_torch.parallel import pipeline
+    assert "make_pp_mesh" in par.__all__ and par.make_pp_mesh is pipeline.make_pp_mesh
     with pytest.raises(AttributeError):
-        par.make_pp_mesh  # the 1F1B pipeline's names are not ported yet
+        par.nope  # a name tdax does not export
 
 
 class _Grid:

@@ -908,3 +908,110 @@ def cp_world(rank: int, world: int, store_path: str, inp_path: str, work: str) -
         return out
     finally:
         pm.shutdown()
+
+
+# ---- pipeline parallelism (tests/test_torch_parallel_pp.py) ----------------------------
+
+def _pp_forward(tree: dict, batch: dict, mesh, n_micro: int, **kw) -> dict:
+    """pipeline_forward on this rank's stage and dp rows, the whole batch's
+    logits gathered over dp; and the one-device forward of the whole
+    batch on this rank."""
+    from tdax_torch.models.qwen_vl.model import forward
+    from tdax_torch.parallel import pipeline as pl
+    params = params_from_numpy(tree, "cpu", "float32")
+    whole = {k: _t(v, long=k in ("input_ids", "image_positions")) for k, v in batch.items()}
+    with torch.no_grad():
+        one = forward(params, CFG, whole["input_ids"], whole["attn_mask"],
+                      whole.get("images"), whole.get("image_positions"))
+    rows = _micro_rows(batch, mesh)
+    images = {k: rows[k] for k in ("images", "image_positions") if k in rows}
+    logits = pl.pipeline_forward(pl.shard_params_pp(params, mesh), CFG, rows["input_ids"],
+                                 rows["attn_mask"], mesh, n_micro, **images, **kw)
+    return {"pipeline": pm.gather_batch(logits, mesh).numpy(), "one_device": one.numpy()}
+
+
+def _pp_trained(tree: dict, batch: dict, mesh, n_micro: int, dtype: str = "float32",
+                **step_kw) -> dict:
+    """One make_train_step_pp step (lr 1e-3) from ``tree`` on this rank's
+    stage and dp rows: the loss, the whole tree and AdamW's first moment
+    after it (unshard_params_pp), the step's collectives by axis, and the
+    stage tree's layout."""
+    from tdax_torch.models.qwen_vl.convert import params_to_numpy
+    from tdax_torch.parallel import pipeline as pl
+    from tdax_torch.parallel import train as tr
+    cfg = QwenVLConfig.tiny(dtype=dtype)
+    local = pl.shard_params_pp(params_from_numpy(tree, "cpu", dtype), mesh)
+    opt = tr.default_optimizer(1e-3)
+    state = opt.init(local)
+    step = pl.make_train_step_pp(cfg, opt, mesh, n_micro, **step_kw)
+    rows = _micro_rows(batch, mesh)
+    pm.COLLECTIVES_BY_AXIS.clear()
+    _, state, loss = step(local, state, rows)
+    by_axis = dict(pm.COLLECTIVES_BY_AXIS)
+    return {"loss": float(loss), "by_axis": by_axis,
+            "layout": {k: tuple(v["ln_1"].shape) if k == "layers" else None
+                       for k, v in local.items()},
+            "params": params_to_numpy(pl.unshard_params_pp(local, mesh)),
+            "mu": params_to_numpy(pl.unshard_params_pp(state.mu, mesh))}
+
+
+def _pp_grads(tree: dict, batch: dict, mesh, n_micro: int) -> dict:
+    """pipeline_1f1b_grads with remat on this rank's stage: ce and what the
+    rank holds of dlayers, dhead and dx."""
+    from tdax_torch.models.qwen_vl.model import embed_inputs
+    from tdax_torch.parallel import pipeline as pl
+    local = pl.shard_params_pp(params_from_numpy(tree, "cpu", "float32"), mesh)
+    rows = _micro_rows(batch, mesh)
+    first, last = mesh.local_rank("pp") == 0, mesh.local_rank("pp") == mesh.shape["pp"] - 1
+    x = embed_inputs(local, CFG, rows["input_ids"], None, None) if first else None
+    head = {k: local[k] for k in ("ln_f", "lm_head")} if last else None
+    ce, dlayers, dhead, dx = pl.pipeline_1f1b_grads(local["layers"], head, x, rows["input_ids"],
+                                                    rows["attn_mask"], CFG, mesh, n_micro,
+                                                    remat=True)
+    return {"ce": float(ce), "dlayers": {k: v.numpy() for k, v in dlayers.items()},
+            "dhead": None if dhead is None else {k: v.numpy() for k, v in dhead.items()},
+            "dx": None if dx is None else dx.numpy()}
+
+
+def _chain(mesh) -> dict:
+    """ppermute along the pp chain [(i, i + 1)] with its backward: the
+    first stage gets zeros, the last sends nothing and gets a zero
+    gradient."""
+    s = mesh.local_rank("pp")
+    x = torch.full((2, 3), float(dist.get_rank() + 1), requires_grad=True)
+    pm.COLLECTIVES_BY_AXIS.clear()
+    y = pm.ppermute(x, mesh, "pp", [(i, i + 1) for i in range(mesh.shape["pp"] - 1)])
+    (y * 10.0 * (s + 1)).sum().backward()
+    return {"y": y.detach().numpy(), "grad": x.grad.numpy(),
+            "by_axis": dict(pm.COLLECTIVES_BY_AXIS)}
+
+
+def pp_world(rank: int, world: int, store_path: str, inp_path: str) -> dict:
+    """The 8-rank world: tdax's stage 9 (dp=2 pp=4, 1F1B) and the other
+    pipeline cases of the test, on meshes dp=2 pp=4 and dp=4 pp=2."""
+    from tdax_torch.models.qwen_vl.convert import params_to_numpy
+    from tdax_torch.parallel import pipeline as pl
+    _join(rank, world, store_path)
+    try:
+        with open(inp_path, "rb") as f:
+            inp = pickle.load(f)
+        pp4, pp2 = pl.make_pp_mesh(pp=4, dp=2), pl.make_pp_mesh(pp=2, dp=4)
+        tree, tree_v = inp["tree"], inp["tree_visual"]
+        b8, b16, bi = inp["batch8"], inp["batch16"], inp["batch_images"]
+        whole = pl.unshard_params_pp(
+            pl.shard_params_pp(params_from_numpy(tree_v, "cpu", "float32"), pp4), pp4)
+        return {"stage": pp4.local_rank("pp"), "dp": pp4.local_rank("dp"),
+                "chain": _chain(pp4),
+                "roundtrip": params_to_numpy(whole),
+                "fwd_m2": _pp_forward(tree, b8, pp4, 2),
+                "fwd_m4_remat": _pp_forward(tree, b16, pp4, 4, remat=True),
+                "fwd_images": _pp_forward(tree_v, bi, pp4, 2),
+                "step_m2": _pp_trained(tree, b8, pp4, 2),
+                "step_m4_remat": _pp_trained(tree, b16, pp4, 4, remat=True),
+                "step_dp4_pp2": _pp_trained(tree, b16, pp2, 2),
+                "grads": _pp_grads(tree, b16, pp4, 4),
+                "gpipe": _pp_trained(tree, b16, pp4, 4, schedule="gpipe"),
+                "gpipe_visual": _pp_trained(tree_v, b8, pp4, 2, schedule="gpipe"),
+                "bf16": _pp_trained(tree, b8, pp4, 2, dtype="bfloat16")}
+    finally:
+        pm.shutdown()
