@@ -28,17 +28,20 @@ and runs these phases, printing JSON lines:
             kernel alone: f32 at the shapes of tests/test_flash_attention.py
             and the decode step's [16, 1, 352, 32, 128] with ragged key
             validity; fully masked rows on both (finite, lse 0).
-            sqdist (SQDIST_SHAPES, an aligned strided view and the scale
-            path's [10000, 4096]): sqdist.cu (forced by the private
-            _kernel="fma") at every case, sqdist_sm90.cu (3xTF32) where
-            TMA can read x; the route must send the scale path's x to
-            sqdist_sm90.cu; both within 1e-5 (|x_i|^2 + |x_j|^2) of the
-            plain version, exactly symmetric, the counters moving as the
+            sqdist (SQDIST_SHAPES, an aligned strided view,
+            SQDIST_ANY_LAYOUT and the scale path's [10000, 4096]):
+            sqdist.cu (forced by the private _kernel="fma") and
+            sqdist_sm90.cu (3xTF32) at every case; the route must send
+            the scale path's x and SQDIST_ANY_LAYOUT's view to
+            sqdist_sm90.cu, the view bitwise its contiguous copy's
+            result and within 1e-5 (|x_i|^2 + |x_j|^2) of f64; both
+            kernels within 1e-5 (|x_i|^2 + |x_j|^2) of the plain
+            version, exactly symmetric, the counters moving as the
             choice says; the split pass bitwise equal to
-            tf32_split_plain; two sm90 runs at the scale shape bitwise
-            equal; each kernel's error against f64 reported; the routed
-            call, the product and the split alone, sqdist.cu and
-            torch.cdist timed.  qmm:
+            tf32_split_plain (padded to d rounded up to 4); two sm90
+            runs at the scale shape bitwise equal; each kernel's error
+            against f64 reported; the routed call, the product and the
+            split alone, sqdist.cu and torch.cdist timed.  qmm:
             bf16 at every (M, K, N) of the int8 capture and of a decode
             step (QMM_SITES); the route must send every capture site but
             vit.patch_w (K = 588) to qmm_sm90.cu, which is checked and
@@ -47,7 +50,10 @@ and runs these phases, printing JSON lines:
             decode sites and vit.patch_w stay on qmm.cu.  Ragged bf16
             shapes (QMM_RAGGED_SHAPES: M, N, K off the 256 x 128 x 64
             tile) on both kernels, untimed; f32 at small ragged shapes on
-            qmm.cu.  Raises on a
+            qmm.cu; the gradient in x through qmm (QuantMatmul, tdax's
+            _qmm_bwd) at QMM_GRAD_SITES, one on each kernel: present,
+            one launch, within QMM_GRAD_TOL of the plain version's
+            autograd gradient.  Raises on a
             case outside its tolerance.  Times the kernel, the plain
             version and one PyTorch library call (SDPA; torch.cdist
             against the Euclidean wrapper; torch.matmul on the weight
@@ -332,6 +338,20 @@ and runs these phases, printing JSON lines:
             by axis, the step walls and every rank's peak memory reported
             (tp = 2 because four replicas of the 1.65B-parameter config
             with AdamW's moments do not fit one card side by side).
+            Then FSDP under context parallelism (make_train_step with
+            cp_mesh and param_shardings): the same config, init, batch
+            and steps at dp=2 tp=1 cp=2 under fsdp_sharding_rules (one
+            row a dp rank, 1024 positions a cp rank; each large leaf's
+            dp half the same on both cp ranks, gathered where a block
+            reads it, its f32 gradient reduce-scattered over dp and the
+            share all_reduced over cp): each loss within
+            MD_TRAIN_LOSS_RTOL of the cp stage's one-device losses and
+            of its plain cp losses, equal on every rank, the cp stage's
+            flash launches a rank, attn_qkv_w and both moments at half
+            the whole on every rank and the same on the two cp ranks of
+            a dp index, a cp all_reduce for each dp reduce-scatter; the
+            collectives by axis, the step walls, the local params and
+            every rank's peak memory reported.
             Then tdax's dry-run stage 9, pipeline parallelism, on the four
             gloo ranks alone (the NCCL world of one would be one stage,
             which sends nothing): make_pp_mesh(pp=4, dp=1), the full
@@ -526,6 +546,12 @@ QMM_SITES = [
     ("decode.lm_head", 16, 4096, 151936, 0, 1),
 ]
 QMM_PER_CAPTURE_BATCH, QMM_PER_DECODE_STEP = 359, 161
+# the int8 product's gradient in x (QuantMatmul, tdax's _qmm_bwd) at a
+# capture site on qmm_sm90.cu and a decode site on qmm.cu, against the
+# plain version's autograd gradient on the card within tdax's own
+# tolerance for that backward (tests/test_quantize.py:190)
+QMM_GRAD_SITES = ("decoder.attn_proj_w", "decode.mlp_proj_w")
+QMM_GRAD_TOL = 3e-2
 # of a capture batch's (and of generate's prefill's) 359 products, all but
 # vit.patch_w (K = 588, rows TMA cannot read) take qmm_sm90.cu
 QMM_SM90_PER_CAPTURE_BATCH = 358
@@ -565,10 +591,15 @@ W8A8_CACHE_TOL = KV_INT8_TOL
 # cores in sqdist_sm90.cu, against a library product), so the bound is
 # relative to the cancelled terms: 1e-5 * (|x_i|^2 + |x_j|^2).
 SQDIST_REL_TOL = 1e-5
-# + the scale path's and a strided view; sqdist.cu runs every case,
-# sqdist_sm90.cu those TMA can read (d % 4; n and d off its 128 x 32 tile)
+# + the scale path's, an aligned strided view and SQDIST_ANY_LAYOUT; both
+# kernels run every case (n and d on and off sqdist_sm90.cu's 128 x 32
+# tile; the split pass reads any layout, so the route reads n alone)
 SQDIST_SHAPES = [(36, 3), (100, 17), (130, 257), (1001, 333), (128, 4096), (129, 4096),
                  (1000, 4100), (1001, 332)]
+# (n, d, row stride, offset in floats): an odd d at an odd row stride
+# from a base one float past a 16-byte boundary, routed to
+# sqdist_sm90.cu and held bitwise to the result on its contiguous copy
+SQDIST_ANY_LAYOUT = (1000, 4095, 4097, 1)
 SCALE_N, SCALE_D, SCALE_DEGREE, SCALE_MAXDIM = 10_000, 4096, 40, 2
 # the sparse path (phase scale_sparse): the blocked branch's rows a block
 # (10000 = 4 x 2048 + 1808), the 10x point (README.md:310, bench_scale.py's
@@ -1132,11 +1163,43 @@ def _qmm_check(qm, x, w, label, kernel=None) -> float:
     return max_abs
 
 
+def _qmm_grad_check(qm, x, w, label: str) -> dict:
+    """x's gradient through ``qmm`` with grad on (QuantMatmul): present,
+    one kernel launch counted as the route says, and within QMM_GRAD_TOL
+    (relative and absolute) of the plain version's autograd gradient on
+    the card for the same dy."""
+    import torch
+    route = qm._route(x.reshape(-1, x.shape[-1]), w["q"], w["s"])
+    xg = x.detach().clone().requires_grad_()
+    before = (qm.LAUNCHES, qm.LAUNCHES_SM90)
+    out = qm.qmm(xg, w["q"], w["s"])
+    launched = [qm.LAUNCHES - before[0], qm.LAUNCHES_SM90 - before[1]]
+    dy = torch.randn(out.shape, generator=torch.Generator(device=x.device).manual_seed(7),
+                     device=x.device, dtype=out.dtype)
+    out.backward(dy)
+    xp = x.detach().clone().requires_grad_()
+    qm.quant_matmul_plain(xp, w["q"], w["s"]).backward(dy)
+    torch.cuda.synchronize()
+    if xg.grad is None or launched != [1, int(route == "sm90")]:
+        raise AssertionError(f"qmm grad {label}: x.grad {xg.grad is not None}, launches "
+                             f"{launched} on {route}")
+    err = (xg.grad.float() - xp.grad.float()).abs_()
+    ref = xp.grad.float().abs_()
+    excess = float((err - QMM_GRAD_TOL * (1.0 + ref)).max())
+    rec = {"site": label, "shape": [*x.shape, w["q"].shape[1]], "route": route,
+           "launches": launched, "max_abs_err": float(err.max()),
+           "max_abs_grad": float(ref.max())}
+    if excess > 0:
+        raise AssertionError(f"qmm grad {label}: {rec}")
+    return rec
+
+
 def phase_qmm() -> dict:
     """The int8 matmul kernels against their plain version at every site of
     the int8 capture and of a decode step, on the card: the kernel the
     route picks, and qmm.cu (forced) where that is qmm_sm90.cu, both
-    timed; ragged shapes on both, untimed; f32 on qmm.cu."""
+    timed; ragged shapes on both, untimed; f32 on qmm.cu; the gradient
+    through qmm at QMM_GRAD_SITES."""
     import torch
     from tdax_torch.models.qwen_vl.quantize import quantize_weight
     from tdax_torch.ops import quant_matmul as qm
@@ -1166,7 +1229,7 @@ def phase_qmm() -> dict:
     emit({"phase": "kernel_qmm_ragged", "cases": ragged,
           "tolerance": f"{QMM_BF16_RTOL} |plain| + {QMM_BF16_ATOL_OF_MAX} max|plain|"})
 
-    sites = []
+    sites, grads = [], []
     for name, m, k, n, per_batch, per_step in QMM_SITES:
         x = torch.randn((m, k), generator=gen, device=device, dtype=torch.bfloat16)
         w = quantize_weight(torch.randn((k, n), generator=gen, device=device) / math.sqrt(k))
@@ -1194,12 +1257,19 @@ def phase_qmm() -> dict:
         site["achieved_weight_gb_per_s"] = k * n / (site["ms"] * 1e-3) / 1e9
         emit({"phase": "kernel_case", "kernel": "qmm", **site})
         sites.append(site)
+        if name in QMM_GRAD_SITES:
+            grads.append(_qmm_grad_check(qm, x, w, name))
         del x, w, dense
         torch.cuda.empty_cache()
+    if [g["route"] for g in grads] != ["sm90", "mma"]:
+        raise AssertionError(f"qmm grad: routes {[g['route'] for g in grads]}, expected one "
+                             "site on each kernel")
+    emit({"phase": "kernel_qmm_grad", "sites": grads,
+          "tolerance": f"{QMM_GRAD_TOL} (1 + |plain|)"})
     errs = [s["max_abs_err"] for s in sites] + [r["max_abs_err"] for r in ragged]
     errs_mma = [s["max_abs_err_mma"] for s in sites] + [r["max_abs_err_mma"] for r in ragged]
-    return {"sites": sites, "ragged": ragged, "max_abs_err": max(*errs, *f32_errs),
-            "max_abs_err_mma": max(*errs_mma, *f32_errs)}
+    return {"sites": sites, "ragged": ragged, "grad": grads,
+            "max_abs_err": max(*errs, *f32_errs), "max_abs_err_mma": max(*errs_mma, *f32_errs)}
 
 
 def scale_cloud(n: int = SCALE_N):
@@ -1283,6 +1353,49 @@ def _split_check(sqdist, x, label):
     return sq_err
 
 
+def _sqdist_vs_f64(x, got) -> float:
+    """max |got - exact| / (|x_i|^2 + |x_j|^2), exact the expansion form
+    of x in f64."""
+    x64 = x.double()
+    sq64 = (x64 ** 2).sum(1)
+    scale = sq64[:, None] + sq64[None, :]
+    exact = (scale - 2.0 * (x64 @ x64.T)).clamp_min_(0.0)
+    return float((got.double() - exact).abs_().div_(scale).max())
+
+
+def _sqdist_any_layout(sqdist, gen, device) -> dict:
+    """SQDIST_ANY_LAYOUT's view through the route: sqdist_sm90.cu (one
+    split, one product), bitwise the result on its contiguous copy,
+    within SQDIST_REL_TOL of f64; both kernels against the plain version
+    and the split pass against its plain version."""
+    import torch
+    n, d, ld, offset = SQDIST_ANY_LAYOUT
+    base = torch.randn(n * ld + offset, generator=gen, device=device)
+    x = base[offset:].view(n, ld)[:, :d]
+    if sqdist._route(x) != "sm90" or x.data_ptr() % 16 == 0:
+        raise AssertionError(f"sqdist any layout: routed to {sqdist._route(x)}, base "
+                             f"{x.data_ptr() % 16} past 16 bytes")
+    before = _sqdist_counts(sqdist)
+    got = sqdist.sqdist(x)
+    if _sqdist_counts(sqdist) != (before[0] + 1, before[1] + 1, before[2] + 1):
+        raise AssertionError(f"sqdist any layout: counters {before} -> "
+                             f"{_sqdist_counts(sqdist)}")
+    bitwise = bool(torch.equal(got, sqdist.sqdist(x.contiguous())))
+    vs_f64 = _sqdist_vs_f64(x, got)
+    del got
+    if not bitwise or not vs_f64 <= SQDIST_REL_TOL:
+        raise AssertionError(f"sqdist any layout: bitwise the contiguous copy's {bitwise}, "
+                             f"{vs_f64:.3e} of f64 (limit {SQDIST_REL_TOL})")
+    case = {"shape": [n, d], "stride": ld, "offset_floats": offset, "route": "sm90",
+            "bitwise_contiguous_copy": bitwise, "max_err_over_scale_vs_f64": vs_f64}
+    for kernel in ("fma", "sm90"):
+        _, max_abs, ratio, _ = _sqdist_check(sqdist, x, "any layout", kernel)
+        case[f"max_abs_err_{kernel}"] = max_abs
+        case[f"max_err_over_scale_{kernel}"] = ratio
+    case["split_sq_rel_err"] = _split_check(sqdist, x, "any layout")
+    return case
+
+
 def phase_sqdist() -> dict:
     """Both sqdist kernels against the plain version, on the card; the
     split pass bitwise against its plain version; times at the scale
@@ -1301,14 +1414,14 @@ def phase_sqdist() -> dict:
     inputs.append(("strided [300, 4096] of [300, 4104]", wide[:, 4:4100]))
     for label, x in inputs:
         case = {"shape": list(x.shape), "stride": x.stride(0), "route": sqdist._route(x)}
-        for kernel in ("fma", "sm90") if sqdist._tma_readable(x) else ("fma",):
+        for kernel in ("fma", "sm90"):
             _, max_abs, ratio, _ = _sqdist_check(sqdist, x, f"{label}", kernel)
             case[f"max_abs_err_{kernel}"] = max_abs
             case[f"max_err_over_scale_{kernel}"] = ratio
-        if sqdist._tma_readable(x):
-            case["split_sq_rel_err"] = _split_check(sqdist, x, f"{label}")
+        case["split_sq_rel_err"] = _split_check(sqdist, x, f"{label}")
         cases.append(case)
     del inputs, wide
+    cases.append(_sqdist_any_layout(sqdist, gen, device))
     emit({"phase": "kernel_sqdist_cases", "cases": cases, "tolerance": SQDIST_REL_TOL})
 
     x_np, _ = scale_cloud()
@@ -1323,21 +1436,12 @@ def phase_sqdist() -> dict:
     del again
     # each kernel's and the plain version's error against the same
     # expansion form in f64 (reported, not gated)
-    x64 = x.double()
-    sq64 = (x64 ** 2).sum(1)
-    scale = sq64[:, None] + sq64[None, :]
-    exact = (scale - 2.0 * (x64 @ x64.T)).clamp_min_(0.0)
-    del x64
-
-    def f64_ratio(m):
-        return float((m.double() - exact).abs_().div_(scale).max())
-
-    vs_f64 = {"sm90": f64_ratio(got)}
+    vs_f64 = {"sm90": _sqdist_vs_f64(x, got)}
     del got
     fma_out, max_abs_fma, ratio_fma, _ = _sqdist_check(sqdist, x, "scale path", "fma")
-    vs_f64["fma"] = f64_ratio(fma_out)
-    vs_f64["plain"] = f64_ratio(sqdist.pairwise_sq_euclidean_plain(x))
-    del fma_out, exact, scale
+    vs_f64["fma"] = _sqdist_vs_f64(x, fma_out)
+    del fma_out
+    vs_f64["plain"] = _sqdist_vs_f64(x, sqdist.pairwise_sq_euclidean_plain(x))
     split_err = _split_check(sqdist, x, "scale path")
     torch.cuda.empty_cache()
     hi, lo, sq = sqdist.tf32_split_cuda(x)
@@ -5111,6 +5215,78 @@ def _md_gloo_cp_train(rank: int, device) -> dict:
     return out
 
 
+def _md_gloo_cp_fsdp_train(rank: int, device) -> dict:
+    """(b) FSDP under context parallelism on the four gloo ranks: the cp
+    stage's config and batch (MD_TRAIN_LAYERS full-width layers, remat,
+    MD_CP_BATCH x MD_CP_SEQ ids, the last MD_CP_MASKED of every row
+    masked, the seed-0 init, MD_TRAIN_LR) at dp=2 tp=1 cp=2 under
+    fsdp_sharding_rules at dp = 2: one row a dp rank, 1024 positions a cp
+    rank, each large leaf's dp share the same on both cp ranks.
+    MD_TRAIN_STEPS steps, held (by _md_check_cp_fsdp) to the one-device
+    losses the cp stage's rank 0 computed on the same batch.  Per rank
+    the losses, each step's wall, the flash launches, the collectives by
+    axis (count, bytes, seconds), the local parameter count, the sizes of
+    layers/attn_qkv_w and its moments with a digest of the local share
+    after the steps, and the peak memory."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from tdax_torch.models.qwen_vl.config import QwenVLConfig
+    from tdax_torch.models.qwen_vl.model import init_params
+    from tdax_torch.parallel import default_optimizer, make_train_step
+    from tdax_torch.parallel import mesh as pm
+
+    cfg = dataclasses.replace(QwenVLConfig(), num_layers=MD_TRAIN_LAYERS)
+    mesh = pm.make_mesh(dp=2, tp=1, cp=2)
+    rng = np.random.default_rng(0)
+    mask = np.ones((MD_CP_BATCH, MD_CP_SEQ), np.int32)
+    mask[:, -MD_CP_MASKED:] = 0
+    whole = {"input_ids": torch.as_tensor(rng.integers(1, cfg.vocab_size, mask.shape),
+                                          device=device).long(),
+             "attn_mask": torch.as_tensor(mask, device=device)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    full = init_params(cfg, device, seed=0, with_visual=False)
+    rules = pm.fsdp_sharding_rules(full, mesh)
+    local = pm.shard_params(full, mesh, rules, cfg=cfg)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = default_optimizer(MD_TRAIN_LR)
+    state = opt.init(local)
+    step = make_train_step(cfg, opt, remat=True, cp_mesh=mesh,
+                           param_shardings=pm.named_shardings(mesh, rules), device=device)
+    rows = {k: pm.split_batch(v, mesh) for k, v in whole.items()}
+    out = {"mesh": dict(mesh.shape), "dp_rank": mesh.local_rank("dp"),
+           "cp_rank": mesh.local_rank("cp"), "local_rows": int(rows["input_ids"].shape[0]),
+           "memory_after_init_bytes": torch.cuda.memory_allocated()}
+    _zero_train_launches()
+    losses, walls = [], []
+    with _TimedCollectives() as tc:
+        for _ in range(MD_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, state, loss = step(local, state, rows)
+            losses.append(float(loss))
+            walls.append(time.perf_counter() - t0)
+    qkv = local["layers"]["attn_qkv_w"]
+    out.update(losses=losses, step_s=walls, launches=_train_launches(), collectives=tc.stats,
+               local_params=sum(t.numel() for t in _md_leaves(local)),
+               attn_qkv_w={"whole": cfg.num_layers * cfg.hidden_size * 3 * cfg.hidden_size,
+                           **{k: t["layers"]["attn_qkv_w"].numel()
+                              for k, t in (("params", local), ("mu", state.mu),
+                                           ("nu", state.nu))}},
+               attn_qkv_w_digest=_digest(qkv.view(torch.int16).cpu().numpy()),
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    del local, state, step, qkv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _md_pp_launches(last: bool, steps: int) -> dict:
     """A pipeline stage's flash launches over ``steps`` remat steps of
     MD_PP_MICRO microbatches, one layer a stage: a microbatch's forward
@@ -5657,6 +5833,7 @@ def _md_gloo_rank(rank: int, world: int, store: str, work: Path, snap: str, data
         torch.cuda.empty_cache()
         out["ring"] = _md_gloo_ring(rank, device)
         out["cp_train"] = _md_gloo_cp_train(rank, device)
+        out["cp_fsdp_train"] = _md_gloo_cp_fsdp_train(rank, device)
         out["pp"] = _md_gloo_pp(rank, device)
         return out
     finally:
@@ -5731,6 +5908,7 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
     umap_by_rank = [r.pop("umap") for r in ranks]
     ring_by_rank = [r.pop("ring") for r in ranks]
     cp_by_rank = [r.pop("cp_train") for r in ranks]
+    cp_fsdp_by_rank = [r.pop("cp_fsdp_train") for r in ranks]
     pp_by_rank = [r.pop("pp") for r in ranks]
     info = {"phase": "multidevice", "nvidia_smi": smi,
             "mem_get_info_before_spawn": {"free_bytes": free, "total_bytes": total},
@@ -5766,7 +5944,17 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
                 "train": {"layers": MD_TRAIN_LAYERS, "batch": [MD_CP_BATCH, MD_CP_SEQ],
                           "one_device_rank0": cp_by_rank[0].get("one_device"),
                           "by_rank": [{k: v for k, v in r.items() if k != "one_device"}
-                                      for r in cp_by_rank]}},
+                                      for r in cp_by_rank]},
+                "fsdp_train": {
+                    "layers": MD_TRAIN_LAYERS, "batch": [MD_CP_BATCH, MD_CP_SEQ],
+                    "mesh": {"dp": 2, "tp": 1, "cp": 2},
+                    # rank 0's losses against the cp stage's one-device and
+                    # plain cp losses on the same batch
+                    "loss_rel_err": _rel_errs(cp_fsdp_by_rank[0]["losses"],
+                                              cp_by_rank[0]["one_device"]["losses"]),
+                    "loss_rel_err_vs_plain_cp": _rel_errs(cp_fsdp_by_rank[0]["losses"],
+                                                          cp_by_rank[0]["losses"]),
+                    "by_rank": cp_fsdp_by_rank}},
             "gloo_pp": {"pp": MD_PP, "layers": MD_PP_LAYERS,
                         "forward_batch": [MD_PP_FWD_BATCH, MD_PP_FWD_SEQ],
                         "forward_micro": MD_PP_FWD_MICRO, "batch": [MD_PP_BATCH, MD_PP_SEQ],
@@ -5839,6 +6027,46 @@ def _md_check_cp(cp: dict) -> None:
     if not max(errs) <= MD_TRAIN_LOSS_RTOL:
         raise AssertionError(f"multidevice (b) cp train: loss relative errors {errs} against one "
                              f"device (limit {MD_TRAIN_LOSS_RTOL})")
+    _md_check_cp_fsdp(cp["fsdp_train"], want)
+
+
+def _rel_errs(got: list, want: list) -> list:
+    return [abs(a - b) / abs(b) for a, b in zip(got, want)]
+
+
+def _md_check_cp_fsdp(f: dict, want: dict) -> None:
+    """The gates of the FSDP cp stage: the plain cp stage's launches a
+    rank (``want``), the losses equal on every rank and within
+    MD_TRAIN_LOSS_RTOL of the one-device losses and of the plain cp
+    step's, layers/attn_qkv_w and its moments at half the whole on every
+    rank, the same share on the two cp ranks of a dp index, and a dp
+    reduce-scatter and a cp all_reduce of each sharded gradient."""
+    by_rank = f["by_rank"]
+    for i, r in enumerate(by_rank):
+        if r["launches"] != want:
+            raise AssertionError(f"multidevice (b) cp fsdp rank {i}: launches {r['launches']}, "
+                                 f"expected {want}")
+        if r["losses"] != by_rank[0]["losses"]:
+            raise AssertionError("multidevice (b) cp fsdp: the ranks' losses differ")
+        q = r["attn_qkv_w"]
+        if not q["params"] == q["mu"] == q["nu"] == q["whole"] // 2:
+            raise AssertionError(f"multidevice (b) cp fsdp rank {i}: attn_qkv_w shares {q}, "
+                                 "expected half the whole")
+        c = r["collectives"]
+        if not ({"dp.all_gather", "dp.reduce_scatter", "cp.all_reduce", "cp.ppermute",
+                 "dp+cp.all_reduce"} <= set(c)
+                and c["cp.all_reduce"]["count"] == c["dp.reduce_scatter"]["count"]):
+            raise AssertionError(f"multidevice (b) cp fsdp rank {i}: collectives "
+                                 f"{ {k: v['count'] for k, v in c.items()} }")
+    for d in (0, 1):
+        digests = {r["attn_qkv_w_digest"] for r in by_rank if r["dp_rank"] == d}
+        if len(digests) != 1:
+            raise AssertionError(f"multidevice (b) cp fsdp: the cp ranks of dp index {d} hold "
+                                 "different shares")
+    errs = f["loss_rel_err"] + f["loss_rel_err_vs_plain_cp"]
+    if not max(errs) <= MD_TRAIN_LOSS_RTOL:
+        raise AssertionError(f"multidevice (b) cp fsdp: loss relative errors {errs} against one "
+                             f"device and the plain cp step (limit {MD_TRAIN_LOSS_RTOL})")
 
 
 def _md_check_pp(pp: dict) -> None:
@@ -6020,8 +6248,9 @@ def _train_paths(train: dict, md: dict) -> list:
     """(path, flash launches) of every training run: phase train's five
     timed steps, the NCCL world's plain and FSDP steps, rank 0's dp=2 tp=2
     plain, sequence-parallel and FSDP steps, its hybrid FSDP step, its cp
-    step and each of its ring cases (forward and backward once), and each
-    pipeline stage's forward, 1F1B steps and GPipe step."""
+    step, its FSDP cp step and each of its ring cases (forward and
+    backward once), and each pipeline stage's forward, 1F1B steps and
+    GPipe step."""
     runs = md["gloo_dp2_tp2_train"]["by_rank"][0]
     return [("train", train["launches"]),
             ("multidevice_nccl_train", md["nccl_world_of_one"]["train"]["launches"]),
@@ -6031,6 +6260,8 @@ def _train_paths(train: dict, md: dict) -> list:
             ("multidevice_dp2_tp2_train_fsdp_rank0", runs["fsdp"]["launches"]),
             ("multidevice_hybrid_train_fsdp_rank0", runs["hybrid_fsdp"]["launches"]),
             ("multidevice_cp2_tp2_train_rank0", md["gloo_cp"]["train"]["by_rank"][0]["launches"]),
+            ("multidevice_cp2_dp2_fsdp_train_rank0",
+             md["gloo_cp"]["fsdp_train"]["by_rank"][0]["launches"]),
             *((f"multidevice_ring_cp{MD_RING_CP}_{label}_rank0", rec["launches"])
               for label, rec in md["gloo_cp"]["ring"]["by_rank"][0].items()),
             *((f"multidevice_pp{MD_PP}_{run}_stage{r['stage']}", r[run]["launches"])
@@ -6234,6 +6465,7 @@ def main(argv=None) -> int:
                 - ckpt["int8_capture"]["launches"]["qmm_sm90"]}},
         "max_abs_err": qmm["max_abs_err"],
         "max_abs_err_mma": qmm["max_abs_err_mma"],
+        "grad": qmm["grad"],
         **_qmm_totals(qmm["sites"], "calls_per_capture_batch"),
         "per": f"one int8 capture batch of 16 ({QMM_PER_CAPTURE_BATCH} calls: "
                f"{QMM_SM90_PER_CAPTURE_BATCH} on qmm_sm90.cu and vit.patch_w on qmm.cu, as "

@@ -11,7 +11,10 @@ names dp goes through a conjugate pair:
 - backward: the gradient reduce-scattered over dp, summed in f32 and
   cast once (bf16 partials would add error, as at the tp sums); on a
   hybrid mesh the f32 share is then all_reduced over ``"dcn"``, the one
-  collective of a weight that crosses slices.
+  collective of a weight that crosses slices, and under context
+  parallelism (a ``make_mesh(dp, tp, cp)`` mesh) over ``"cp"``, since
+  each cp rank's gradient covers its own chunk of the sequence.  The
+  share is then the same on every cp rank, as the shard is.
 
 A block gathers its layer's weights at its start, inside the function
 that remat wraps (``decoder.block_kv``, ``vit.vit_block``), so the
@@ -68,7 +71,7 @@ def gathering(param_shardings: dict):
 
 class _GatherDp(torch.autograd.Function):
     """The leaf whole over dp along ``dim``; backward: the gradient's sum
-    over dp (and dcn) in f32, this rank's share, cast once."""
+    over dp (and dcn, and cp) in f32, this rank's share, cast once."""
 
     @staticmethod
     def forward(ctx, w, mesh, dim):
@@ -80,8 +83,9 @@ class _GatherDp(torch.autograd.Function):
         acc = g.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
         share = pm.reduce_scatter(acc, ctx.mesh, "dp", dim=ctx.dim)
         del acc
-        if "dcn" in ctx.mesh.shape:
-            pm.all_reduce(share, ctx.mesh, "dcn")
+        for axis in ("dcn", "cp"):
+            if axis in ctx.mesh.shape:
+                pm.all_reduce(share, ctx.mesh, axis)
         return share.to(g.dtype), None, None
 
 

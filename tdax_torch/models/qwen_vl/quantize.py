@@ -175,12 +175,13 @@ def quantized_bytes(params: dict) -> int:
     return total
 
 
-def init_params_quantized(cfg, device, seed: int = 0) -> dict:
+def init_params_quantized(cfg, device, seed: int = 0, with_visual: bool = True) -> dict:
     """Random parameters drawn straight into int8, leaf by leaf: the bf16
     tree never exists whole (19.3 GB for the full config), only one
     weight's draw at a time.  The draws are ``init_params``'s, in its
     order, from the same generator, so the result equals
-    ``quantize_params(init_params(cfg, device, seed))``."""
+    ``quantize_params(init_params(cfg, device, seed, with_visual=with_visual))``;
+    ``with_visual=False`` leaves out the visual tree, as tdax's flag."""
     from tdax_torch.models.qwen_vl.model import init_params
 
-    return init_params(cfg, device, seed, quantize=True)
+    return init_params(cfg, device, seed, quantize=True, with_visual=with_visual)

@@ -5,12 +5,13 @@
 // Replaces the Pallas TPU kernel tdax/ops/pallas_distances.py::_sqdist_kernel
 // (tdax/ops/pallas_distances.py:27; grid at :57, driven by
 // pairwise_sq_euclidean_pallas and pairwise_euclidean_pallas) for f32 x
-// that TMA can read.  The function is sqdist.cu's, unchanged:
+// of at least 128 rows, in any layout.  The function is sqdist.cu's,
+// unchanged:
 //
 //   out[i, j] = max(sq[i] + sq[j] - 2 * (x_i . x_j), 0),
 //
 // x [n, d] f32 -> [n, n] f32, sq[i] = |x_i|^2 in true f32.  sqdist.cu keeps
-// the inputs TMA cannot read (tdax_torch/ops/sqdist.py::_route).
+// fewer rows (tdax_torch/ops/sqdist.py::_route).
 //
 // Why 3xTF32 stands for Precision.HIGHEST.  tdax asks for HIGHEST
 // (pallas_distances.py:38), which on the TPU's matrix unit is f32 emulated
@@ -46,8 +47,11 @@
 // in L2.
 //
 // The design:
-// - A split pass (sqdist_split_kernel, one block a row) reads x once and
-//   writes hi and lo (contiguous [n, d], low 13 bits zero) and sq.
+// - A split pass (sqdist_split_kernel, one block a row) reads x once, in
+//   any row stride and from any base, and writes hi and lo (contiguous
+//   [n, dp], dp = d rounded up to 4, the pad columns zero; low 13 bits
+//   zero) and sq, so the product's TMA reads only the split pass's
+//   output.
 // - The product: one block per 128 x 128 output tile (I, J) with J >= I,
 //   384 threads.  Thread 0 of the producer warpgroup (setmaxnreg.dec)
 //   loads, by TMA with the 128-byte swizzle, hi and lo of row block I and
@@ -120,18 +124,33 @@ __device__ __forceinline__ void split(float v, float& h, float& l) {
   l = tf32_rna(v - h);  // exact difference
 }
 
-// One block of 256 threads a row: hi and lo (row stride d) and sq[row].
-// Needs d % 4 == 0, ldx % 4 == 0 and 16-byte bases (float4 access).
+// One block of 256 threads a row: hi and lo (row stride dp = d rounded up
+// to 4, the pad columns zero) and sq[row].  VEC reads x as float4 (d % 4
+// == 0, ldx % 4 == 0, a 16-byte base); otherwise as floats, in the same
+// groups of 4 columns and the same order, the columns past d read as 0
+// (fmaf(0, 0, s) == s), so every layout of the same values gives the same
+// bits.  hi and lo need 16-byte bases.
+template <bool VEC>
 __global__ void __launch_bounds__(256)
 sqdist_split_kernel(const float* __restrict__ x, long long ldx, int d, float* __restrict__ hi,
                     float* __restrict__ lo, float* __restrict__ sq) {
   const long long row = blockIdx.x;
-  const float4* xr = reinterpret_cast<const float4*>(x + row * ldx);
-  float4* hr = reinterpret_cast<float4*>(hi + row * d);
-  float4* lr = reinterpret_cast<float4*>(lo + row * d);
+  const float* xr = x + row * ldx;
+  const int groups = (d + 3) / 4;
+  float4* hr = reinterpret_cast<float4*>(hi + row * 4ll * groups);
+  float4* lr = reinterpret_cast<float4*>(lo + row * 4ll * groups);
   float s = 0.f;
-  for (int q = threadIdx.x; q < d / 4; q += 256) {
-    const float4 v = xr[q];
+  for (int q = threadIdx.x; q < groups; q += 256) {
+    float4 v;
+    if constexpr (VEC) {
+      v = reinterpret_cast<const float4*>(xr)[q];
+    } else {
+      const int c = 4 * q;  // c < d
+      v.x = xr[c];
+      v.y = c + 1 < d ? xr[c + 1] : 0.f;
+      v.z = c + 2 < d ? xr[c + 2] : 0.f;
+      v.w = c + 3 < d ? xr[c + 3] : 0.f;
+    }
     float4 h, l;
     split(v.x, h.x, l.x);
     split(v.y, h.y, l.y);
@@ -371,15 +390,20 @@ bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 =
 
 extern "C" {
 
-// x [n, d] f32 with row stride ldx -> hi, lo [n, d] f32 contiguous (tf32
-// values, the low 13 bits zero) and sq [n] = |x_i|^2.  Needs d % 4 == 0,
-// ldx % 4 == 0 and 16-byte bases.  Returns the cudaError_t of the launch.
+// x [n, d] f32 with any row stride ldx >= 0 and any (4-byte) base -> hi,
+// lo [n, dp] f32 contiguous, dp = d rounded up to 4 (tf32 values, the low
+// 13 bits zero; the pad columns zero) and sq [n] = |x_i|^2.  hi and lo
+// need 16-byte bases.  Returns the cudaError_t of the launch.
 int tdax_sqdist_split(const float* x, long long ldx, int n, int d, float* hi, float* lo,
                       float* sq, void* stream) {
-  if (n < 1 || d < 1 || d % 4 || ldx % 4 || ldx < d || !aligned16(x) || !aligned16(hi) ||
+  if (n < 1 || d < 1 || ldx < 0 || reinterpret_cast<uintptr_t>(x) % 4 || !aligned16(hi) ||
       !aligned16(lo))
     return (int)cudaErrorInvalidValue;
-  sqdist_split_kernel<<<n, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, ldx, d, hi, lo, sq);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d % 4 == 0 && ldx % 4 == 0 && aligned16(x))
+    sqdist_split_kernel<true><<<n, 256, 0, s>>>(x, ldx, d, hi, lo, sq);
+  else
+    sqdist_split_kernel<false><<<n, 256, 0, s>>>(x, ldx, d, hi, lo, sq);
   return (int)cudaGetLastError();
 }
 

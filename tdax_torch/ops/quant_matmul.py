@@ -30,6 +30,15 @@ dispatches on the device.  ``LAUNCHES`` counts launches of both kernels
 and ``LAUNCHES_SM90`` of the Hopper one alone (one per successful
 launch, and nowhere else).
 
+The product is differentiable in x as tdax's ``quant_matmul`` is (a
+``jax.custom_vjp`` whose ``_qmm_bwd`` dequantizes the weight and takes
+dy . (q s)^T outside the kernel): where grad mode is on and x requires
+a gradient, ``qmm`` runs its dispatch inside ``QuantMatmul``, an
+autograd Function with that backward on both devices.  The kernels
+write through raw pointers, so without it a CUDA product would carry no
+gradient at all.  Under ``inference_mode`` or ``no_grad`` (serving,
+capture) ``qmm`` calls the dispatch as it is.
+
 ``int8_mm`` is W8A8's int8 x int8 -> int32 product (tdax computes it as
 a plain ``dot_general`` outside any Pallas kernel): ``torch._int_mm``
 on either device, exact.  ``LAUNCHES_INT8`` counts its products.
@@ -178,13 +187,45 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, *,
     return out.reshape(*lead, n)
 
 
-def qmm(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """The plain version for CPU tensors, the kernel for CUDA tensors."""
+def _dispatch(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return quant_matmul_plain(x, q, s)
     if x.device.type == "cuda":
         return quant_matmul(x, q, s)
     raise ValueError(f"qmm: unsupported device {x.device}")
+
+
+class QuantMatmul(torch.autograd.Function):
+    """``qmm``'s product with tdax's ``_qmm_bwd`` as its backward.
+
+    Forward: the plain version on the CPU, the routed kernel on the card
+    (one launch, counted as any).  Backward, on both devices: w = q . s
+    in dy's type, dx = (dy @ w^T) in x's type, no gradient for q or s
+    (the weights are frozen, as in tdax).  tdax takes that product with
+    XLA outside any Pallas kernel; here it is ``torch.matmul``.  The
+    dequantized weight is a transient of K x N in dy's type: 1.24 GB in
+    bf16 for the LM head (4096 x 151936)."""
+
+    @staticmethod
+    def forward(ctx, x, q, s):
+        ctx.save_for_backward(q, s)
+        ctx.x_dtype = x.dtype
+        return _dispatch(x, q, s)
+
+    @staticmethod
+    def backward(ctx, dy):
+        q, s = ctx.saved_tensors
+        w = q.to(dy.dtype) * s.to(dy.dtype)
+        return torch.matmul(dy, w.t()).to(ctx.x_dtype), None, None
+
+
+def qmm(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The plain version for CPU tensors, the kernel for CUDA tensors;
+    through ``QuantMatmul`` when grad mode is on and x requires a
+    gradient."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return QuantMatmul.apply(x, q, s)
+    return _dispatch(x, q, s)
 
 
 def _round_up(v: int, m: int) -> int:

@@ -8,18 +8,21 @@ Pallas TPU kernel ``_sqdist_kernel`` (reached there as
 ``max(|x_i|^2 + |x_j|^2 - 2 x_i.x_j, 0)``, the norms, clamp and store
 fused into the epilogue.
 
-- ``csrc/sqdist_sm90.cu`` takes f32 x that TMA can read with at least
-  ``SM90_MIN_N`` rows: a split pass (x -> tf32 hi and lo, and the row
-  norms in true f32) and a product on the tensor cores in 3xTF32 (hi.hi^T
-  + hi.lo^T + lo.hi^T, f32 accumulators) over the tiles on and above the
-  diagonal, each written to both places, so the output is exactly
-  symmetric.  3xTF32 stands for tdax's ``Precision.HIGHEST`` within the
+- ``csrc/sqdist_sm90.cu`` takes f32 x of any layout with at least
+  ``SM90_MIN_N`` rows: a split pass (x, read in any row stride and from
+  any base -> tf32 hi and lo, contiguous and zero-padded to d rounded up
+  to 4, and the row norms in true f32) and a product on the tensor cores
+  in 3xTF32 (hi.hi^T + hi.lo^T + lo.hi^T, f32 accumulators) over the
+  tiles on and above the diagonal, each written to both places, so the
+  output is exactly symmetric.  3xTF32 stands for tdax's ``Precision.HIGHEST`` within the
   port's unchanged bound, 1e-5 (|x_i|^2 + |x_j|^2).
-- ``csrc/sqdist.cu`` takes the rest (odd d or row stride, an unaligned
-  base, few rows): the product accumulated in true f32 on the CUDA cores,
-  the row norms computed by the wrapper.
+- ``csrc/sqdist.cu`` takes fewer rows (and the private ``_kernel="fma"``):
+  the product accumulated in true f32 on the CUDA cores, the row norms
+  computed by the wrapper.
 
-``_route`` decides from the type, shapes, strides and alignment alone.
+``_route`` decides from the row count alone, so an input's precision
+does not hang on its layout: a strided or offset view takes the kernel
+its contiguous copy takes, with the same bits.
 ``sqdist`` dispatches: CPU tensors take the plain PyTorch version
 (``pairwise_sq_euclidean_plain``, the expansion form of
 ``ops/distances.py``), CUDA tensors launch the routed kernel
@@ -73,11 +76,15 @@ def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
 def tf32_split_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the split pass: x [n, d] f32 -> (hi, lo, sq) with
     hi = tf32(x), lo = tf32(x - hi) (the difference is exact), both
-    contiguous f32 with the low 13 bits zero, and sq [n] = |x_i|^2 in
-    f32.  |x - hi - lo| <= 2^-22 |x| for normal x."""
+    contiguous f32 [n, dp] with the low 13 bits zero, dp = d rounded up
+    to 4 (the pad columns zero), and sq [n] = |x_i|^2 in f32.
+    |x - hi - lo| <= 2^-22 |x| for normal x."""
     x = x.to(torch.float32)
     hi = _tf32_rna(x)
     lo = _tf32_rna(x - hi)
+    pad = -x.shape[1] % 4
+    if pad:
+        hi, lo = (torch.nn.functional.pad(t, (0, pad)) for t in (hi, lo))
     return hi, lo, (x * x).sum(1)
 
 
@@ -127,28 +134,18 @@ def _check(x: torch.Tensor) -> None:
         raise ValueError(f"pairwise_sq_euclidean_cuda: x must lie on a CUDA device, got {x.device}")
 
 
-def _tma_readable(x: torch.Tensor) -> bool:
-    """f32 [n, d] rows that TMA (and the split pass's 16-byte loads) can
-    read: d % 4, a row stride % 4 (no stride 0), a 16-byte base."""
-    return (x.dtype == torch.float32 and x.dim() == 2 and x.stride(1) == 1
-            and x.shape[1] % 4 == 0 and x.stride(0) % 4 == 0 and x.stride(0) >= x.shape[1]
-            and x.data_ptr() % 16 == 0)
-
-
 def _route(x: torch.Tensor) -> str:
-    """Which kernel takes x [n, d]: ``"sm90"`` for f32 that TMA can read
-    with n >= ``SM90_MIN_N``, ``"fma"`` for everything else."""
-    return "sm90" if _tma_readable(x) and x.shape[0] >= SM90_MIN_N else "fma"
+    """Which kernel takes x [n, d] f32: ``"sm90"`` with n >= ``SM90_MIN_N``
+    rows, whatever the row stride, base or d (the split pass reads any
+    layout), ``"fma"`` below."""
+    return "sm90" if x.shape[0] >= SM90_MIN_N else "fma"
 
 
 def _pick(x: torch.Tensor, forced: str | None) -> str:
     """The route, or the private ``_kernel`` choice of the wrapper:
-    ``"fma"`` always takes, ``"sm90"`` any input TMA can read."""
+    ``"fma"`` or ``"sm90"``, either for any input."""
     if forced not in (None, "fma", "sm90"):
         raise ValueError(f"pairwise_sq_euclidean_cuda: unknown kernel {forced!r}")
-    if forced == "sm90" and not _tma_readable(x):
-        raise ValueError("pairwise_sq_euclidean_cuda: the sm90 kernel does not take these "
-                         "inputs (TMA needs d % 4, a row stride % 4 and a 16-byte base)")
     return forced or _route(x)
 
 
@@ -158,16 +155,15 @@ def _raise(lib_errors, rc: int, what: str) -> None:
 
 
 def tf32_split_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the split pass of ``sqdist_sm90.cu`` on x [n, d] f32 that TMA
-    can read -> (hi, lo, sq), as ``tf32_split_plain``; hi and lo are the
-    two halves of one [2, n, d] allocation."""
+    """Launch the split pass of ``sqdist_sm90.cu`` on x [n, d] f32 of any
+    row stride and base -> (hi, lo, sq), as ``tf32_split_plain``; hi and
+    lo [n, dp] (dp = d rounded up to 4) are the two halves of one [2, n,
+    dp] allocation."""
     global SPLIT_LAUNCHES
     _check(x)
-    if not _tma_readable(x):
-        raise ValueError("tf32_split_cuda: x needs d % 4, a row stride % 4 and a 16-byte base")
     lib = _sm90_library()
     n, d = x.shape
-    hl = torch.empty((2, n, d), dtype=torch.float32, device=x.device)
+    hl = torch.empty((2, n, -(-d // 4) * 4), dtype=torch.float32, device=x.device)
     sq = torch.empty((n,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -181,9 +177,9 @@ def tf32_split_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.
 
 def sm90_product(hi: torch.Tensor, lo: torch.Tensor, sq: torch.Tensor) -> torch.Tensor:
     """Launch the product of ``sqdist_sm90.cu`` on the split pass's output
-    -> [n, n] f32, contiguous.  The output's rows are padded to a multiple
-    of 4 floats for TMA's 16-byte strides; where n % 4 != 0 the padded
-    result is copied out."""
+    (hi and lo [n, dp], zero-padded) -> [n, n] f32, contiguous.  The
+    output's rows are padded to a multiple of 4 floats for TMA's 16-byte
+    strides; where n % 4 != 0 the padded result is copied out."""
     global LAUNCHES, LAUNCHES_SM90
     if not (hi.dtype == lo.dtype == sq.dtype == torch.float32 and hi.dim() == 2
             and lo.shape == hi.shape and sq.shape == hi.shape[:1]

@@ -57,6 +57,16 @@ cp, heads over tp inside it), and takes its CE targets from the whole
 ``input_ids`` and ``attn_mask`` at positions + 1.  Every gradient is then
 a partial sum on each cp rank: the loss parts and every gradient (the tp
 shards' too) are summed over ("dp", "cp") in f32 before the clip.
+
+Both together (FSDP under context parallelism, ``param_shardings`` over
+the ``cp_mesh``): each leaf whose rule names dp is sharded over dp alone,
+the same share on every cp rank; the model gathers it over dp where a
+block reads it, and its f32 gradient is reduce-scattered over dp, then
+the share all_reduced over cp (``models/qwen_vl/fsdp.py``), where tdax's
+``constrain`` has GSPMD reduce-scatter the gradient into the dp-sharded
+layout.  The whole leaves are summed over ("dp", "cp") as above; the
+clip sums the dp shares' squares over dp alone (the ranks of one tp and
+cp index), since every cp rank holds the same shares.
 """
 
 from __future__ import annotations
@@ -248,16 +258,17 @@ class OptState:
                 "exp_avg_sq": nu if i is None else nu[i]}
 
     @torch.no_grad()
-    def update(self, grads: list, tp=None, dp=None, pp=None) -> None:
+    def update(self, grads: list, tp=None, dp=None, pp=None) -> torch.Tensor:
         """Clip ``grads`` (one per leaf, modified in place) by their global
-        norm, then one AdamW step on the params.  ``tp`` and ``dp``:
-        (mesh, one flag a leaf, True where this rank holds a tp, resp. dp,
-        shard of it) or None.  The tp shards' squares are summed over tp,
-        the dp shards' over dp (a dp x tp shard's over both), after the
-        whole leaves', which count once.  ``pp``: a mesh whose "pp" ranks
-        hold disjoint leaves (a pipeline stage's tree,
-        ``pipeline.shard_params_pp``) or None; the total is then summed
-        over pp, last."""
+        norm, then one AdamW step on the params; returns that norm (f32,
+        before the clip).  ``tp`` and ``dp``: (mesh, one flag a leaf, True
+        where this rank holds a tp, resp. dp, shard of it) or None.  The tp
+        shards' squares are summed over tp, the dp shards' over dp (a dp x
+        tp shard's over both; on a cp mesh the ranks of one cp index, as
+        every cp rank holds the same shares), after the whole leaves',
+        which count once.  ``pp``: a mesh whose "pp" ranks hold disjoint
+        leaves (a pipeline stage's tree, ``pipeline.shard_params_pp``) or
+        None; the total is then summed over pp, last."""
         device = self.leaves[0].device
         zero = torch.zeros((), dtype=torch.float32, device=device)
         total, by_tp, by_dp, by_both = (zero.clone() for _ in range(4))
@@ -284,6 +295,7 @@ class OptState:
         for leaf in self.leaves:
             leaf.grad = None
         self.count += 1
+        return norm
 
     def stack(self, per_leaf: list) -> dict:
         """One tensor per leaf (e.g. gradients) -> a tree in the params'
@@ -360,13 +372,9 @@ def _step_mesh(sp_mesh, cp_mesh, param_shardings=None):
     if sp_mesh is not None and cp_mesh is not None:
         raise ValueError("sp_mesh and cp_mesh are mutually exclusive: both shard the "
                          "sequence axis (over tp and cp respectively)")
-    if cp_mesh is not None:
-        if "cp" not in cp_mesh.shape:
-            raise ValueError(f"cp_mesh: the mesh's axes {tuple(cp_mesh.shape)} have no 'cp' "
-                             "(make_mesh(dp, tp, cp) with cp > 1)")
-        if param_shardings is not None:
-            raise NotImplementedError("cp_mesh with param_shardings (FSDP under context "
-                                      "parallelism) is not ported")
+    if cp_mesh is not None and "cp" not in cp_mesh.shape:
+        raise ValueError(f"cp_mesh: the mesh's axes {tuple(cp_mesh.shape)} have no 'cp' "
+                         "(make_mesh(dp, tp, cp) with cp > 1)")
     given = [(name, m) for name, m in (
         ("sp_mesh", sp_mesh), ("cp_mesh", cp_mesh),
         ("param_shardings", None if param_shardings is None else fsdp.mesh_of(param_shardings)),
@@ -405,17 +413,19 @@ def make_train_step(cfg: QwenVLConfig, optimizer: AdamW, with_images: bool = Fal
     the module's docstring).  ``sp_mesh`` also turns on sequence
     parallelism: the residual stream between blocks sharded over tp on
     the sequence axis.  ``param_shardings`` turns on FSDP and composes
-    with ``remat``, ``accum_steps`` and ``sp_mesh``.  ``cp_mesh`` (a
+    with ``remat``, ``accum_steps``, ``sp_mesh`` and ``cp_mesh``.  ``cp_mesh`` (a
     ``make_mesh(dp, tp, cp)`` mesh with cp > 1) turns on context
     parallelism instead: the step runs inside ``flash_sharding(mesh,
     "dp", "tp", seq_axis="cp")``, each rank passing its dp rows of the
     whole sequence; the model keeps the rank's T / cp chunk from the
     first block to the loss, attention is the ring over cp (heads over
     tp inside it), and the loss parts and every gradient are summed over
-    ("dp", "cp").  It composes with ``remat`` and ``accum_steps``; with
-    ``sp_mesh`` it raises ValueError, as tdax's, and so does a mesh
-    with no "cp" axis; with ``param_shardings`` it raises
-    NotImplementedError."""
+    ("dp", "cp").  It composes with ``remat``, ``accum_steps`` and
+    ``param_shardings`` over the same mesh (FSDP under context
+    parallelism: a dp-sharded leaf's gradient reduce-scattered over dp,
+    then its share summed over cp); with ``sp_mesh`` it raises
+    ValueError, as tdax's, and so does a mesh with no "cp" axis or a
+    ``param_shardings`` over another mesh."""
     device = get_device(device)
     _step_mesh(sp_mesh, cp_mesh, param_shardings)
     seq = None if sp_mesh is None else (sp_mesh, "tp")
@@ -561,9 +571,10 @@ def train_loop(params: dict, cfg: QwenVLConfig, batches, n_steps: int,
 
     Over a mesh (``sp_mesh``, ``cp_mesh``, ``param_shardings``' or the
     active ``flash_sharding`` context's, as ``make_train_step``) ``params`` is
-    this rank's shard and ``batches`` gives this rank's rows; the
-    checkpoint holds the whole tree (``mesh.unshard_params``, under
-    ``param_shardings``' rules when given), written by rank 0 with a
+    this rank's shard and ``batches`` gives this rank's rows (under
+    ``cp_mesh`` its dp rows of the whole sequence); the checkpoint holds
+    the whole tree (``mesh.unshard_params``, under ``param_shardings``'
+    rules when given, also with ``cp_mesh``), written by rank 0 with a
     barrier after it, and a resume shards it again (``mesh.shard_params``)
     and continues bitwise.  Rank 0 alone prints and logs."""
     from tdax_torch.utils.checkpoint import load_train_state

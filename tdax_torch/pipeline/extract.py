@@ -60,17 +60,17 @@ def _has_checkpoint(model_dir: str | None) -> bool:
         f.endswith((".bin", ".safetensors")) for f in os.listdir(model_dir))
 
 
-def load_or_init_params(model_dir: str | None, cfg: QwenVLConfig, device,
+def load_or_init_params(model_dir: str | None, cfg: QwenVLConfig, device, seed: int = 0,
                         quantize: bool = False) -> dict:
-    """The converted checkpoint when ``model_dir`` holds one, a random
-    init (seed 0) otherwise, on ``device`` in ``cfg.dtype``.  With
-    ``quantize`` the large matmul weights come out int8, each quantized
-    from its value as read (or as drawn) and the whole fp tree never
-    built."""
+    """The converted checkpoint when ``model_dir`` holds one (``seed`` is
+    then unused, as in tdax), a random init from ``seed`` otherwise, on
+    ``device`` in ``cfg.dtype``.  With ``quantize`` the large matmul
+    weights come out int8, each quantized from its value as read (or as
+    drawn) and the whole fp tree never built."""
     if _has_checkpoint(model_dir):
         from tdax_torch.models.qwen_vl.convert import load_qwen_checkpoint
         return load_qwen_checkpoint(model_dir, cfg, device, quantize=quantize)
-    return init_params(cfg, device, quantize=quantize)
+    return init_params(cfg, device, seed, quantize=quantize)
 
 
 def _load_checkpoint(tmp_path: str, metadata: list[dict], announce: bool = True):

@@ -15,6 +15,7 @@ import pytest
 
 import jax
 import jax.numpy as jnp
+import torch
 from PIL import Image
 
 from tdax.config import DatasetConfig as JDatasetConfig
@@ -171,3 +172,33 @@ def test_stale_checkpoint_is_ignored(dataset, params, tmp_path, capsys):
     assert "stale checkpoint" in capsys.readouterr().out
     assert list(results) == [m["id"] for m in port[:4]]
     assert not os.path.exists(out + ".tmp.npz")
+
+
+def _flat(tree: dict, prefix: str = ""):
+    for name, node in tree.items():
+        if isinstance(node, dict):
+            yield from _flat(node, f"{prefix}{name}/")
+        else:
+            yield prefix + name, node
+
+
+def _equal(a: dict, b: dict) -> bool:
+    fa, fb = dict(_flat(a)), dict(_flat(b))
+    return fa.keys() == fb.keys() and all(torch.equal(fa[k], fb[k]) for k in fa)
+
+
+def test_load_or_init_params_takes_a_seed(tmp_path):
+    """tdax's ``load_or_init_params(model_dir, cfg, seed)``: without a
+    checkpoint the init at ``seed``; a checkpoint ignores it."""
+    from safetensors.torch import save_file
+    from tdax_torch.models.qwen_vl.model import init_params
+    from tdax_torch.pipeline.extract import load_or_init_params
+    from tests.test_model import random_hf_state
+    one = load_or_init_params(None, CFG, "cpu", seed=1)
+    assert _equal(one, init_params(CFG, "cpu", 1))
+    assert not _equal(one, load_or_init_params(str(tmp_path), CFG, "cpu"))
+    assert _equal(load_or_init_params(None, CFG, "cpu"), init_params(CFG, "cpu", 0))
+    save_file({k: torch.from_numpy(np.ascontiguousarray(v))
+               for k, v in random_hf_state(JCFG).items()}, str(tmp_path / "model.safetensors"))
+    assert _equal(load_or_init_params(str(tmp_path), CFG, "cpu", seed=1),
+                  load_or_init_params(str(tmp_path), CFG, "cpu", seed=0))

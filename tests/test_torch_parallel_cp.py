@@ -38,11 +38,12 @@ Checks and their tolerances (tests/test_parallel.py:405-451):
   * ``train_loop(cp_mesh=)`` stopped after its first checkpoint and
     resumed: bitwise the uninterrupted run, its checkpoint the whole
     tree, written by rank 0;
-  * the refusals: ``sp_mesh`` with ``cp_mesh`` and a mesh with no "cp"
-    axis (ValueError), ``param_shardings`` with ``cp_mesh``
-    (NotImplementedError), a sequence the cp axis does not divide
-    (ValueError: tdax pads or replicates, a rank here holds its chunk
-    only), the capture under a seq axis (NotImplementedError).
+  * the refusals: ``sp_mesh`` with ``cp_mesh``, a mesh with no "cp"
+    axis and ``param_shardings`` over another mesh than ``cp_mesh``
+    (ValueError; FSDP under cp itself runs in
+    tests/test_torch_parallel_cp_fsdp.py), a sequence the cp axis does
+    not divide (ValueError: tdax pads or replicates, a rank here holds
+    its chunk only), the capture under a seq axis (NotImplementedError).
 """
 
 import concurrent.futures
@@ -279,8 +280,9 @@ def test_cp_mesh_refusals():
     with pytest.raises(ValueError, match="no 'cp'"):
         make_train_step(CFG, opt, cp_mesh=_Grid(dp=2, tp=4), device="cpu")
     rules = pm.fsdp_sharding_rules(init_params(CFG, "cpu", with_visual=False), 1)
-    with pytest.raises(NotImplementedError, match="param_shardings"):
-        make_train_step(CFG, opt, cp_mesh=cp, param_shardings=pm.named_shardings(cp, rules),
+    other = _Grid(dp=1, tp=1, cp=2)
+    with pytest.raises(ValueError, match="cp_mesh and param_shardings name two meshes"):
+        make_train_step(CFG, opt, cp_mesh=cp, param_shardings=pm.named_shardings(other, rules),
                         device="cpu")
 
 

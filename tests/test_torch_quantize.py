@@ -25,10 +25,12 @@ from tdax.models.qwen_vl import extract_layer_activations as j_extract_layer_act
 from tdax.models.qwen_vl import forward as j_forward
 from tdax.models.qwen_vl import init_params as j_init_params
 from tdax.models.qwen_vl.quantize import embed_lookup as j_embed_lookup
+from tdax.models.qwen_vl.quantize import init_params_quantized as j_init_params_quantized
 from tdax.models.qwen_vl.quantize import qdot as j_qdot
 from tdax.models.qwen_vl.quantize import quantize_params as j_quantize_params
 from tdax.models.qwen_vl.quantize import quantize_weight as j_quantize_weight
 from tdax.models.qwen_vl.quantize import quantized_bytes as j_quantized_bytes
+from tdax.ops.quant_matmul import _qmm_bwd as j_qmm_bwd
 from tdax.ops.quant_matmul import quant_matmul_interpret
 from tdax.pipeline.extract import extract_activations as j_extract_activations
 
@@ -227,6 +229,102 @@ def test_init_params_quantized_structure():
     assert quantized_bytes(q) == j_quantized_bytes(j_quantize_params(jfp))
     ids = torch.from_numpy(np.random.default_rng(5).integers(1, CFG.vocab_size, (1, 8)))
     assert torch.isfinite(forward(q, CFG, ids)).all()
+
+
+def _keys(tree: dict, prefix: str = "") -> set:
+    out = set()
+    for name, node in tree.items():
+        out |= _keys(node, f"{prefix}{name}/") if isinstance(node, dict) else {prefix + name}
+    return out
+
+
+def test_init_params_quantized_without_visual_is_tdaxs_text_tree():
+    """tdax's ``with_visual=False``: no "visual", its key set leaf for
+    leaf, and the draws of ``init_params(..., with_visual=False)``
+    quantized."""
+    q = init_params_quantized(CFG, "cpu", seed=0, with_visual=False)
+    assert "visual" not in q
+    assert _keys(q) == _keys(j_init_params_quantized(jax.random.PRNGKey(0), JCFG,
+                                                     with_visual=False))
+    want = quantize_params(init_params(CFG, "cpu", 0, with_visual=False))
+    assert _keys(want) == _keys(q)
+    flat_q, flat_want = dict(_flat(q)), dict(_flat(want))
+    for path, t in flat_want.items():
+        assert torch.equal(flat_q[path], t), path
+    assert _keys(init_params_quantized(CFG, "cpu", seed=0)) == _keys(
+        j_init_params_quantized(jax.random.PRNGKey(0), JCFG))
+
+
+def _flat(tree: dict, prefix: str = ""):
+    for name, node in tree.items():
+        if isinstance(node, dict):
+            yield from _flat(node, f"{prefix}{name}/")
+        else:
+            yield prefix + name, node
+
+
+def test_qmm_backward_matches_tdax_qmm_bwd():
+    """dx of ``qmm`` (``QuantMatmul``'s backward) against tdax's
+    ``_qmm_bwd`` on the same inputs: tests/test_quantize.py's shapes and
+    its 3e-2 tolerance; no gradient for the int8 weight or its scale."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(2, 3, 256)).astype(np.float32)
+    w = rng.normal(size=(256, 128)).astype(np.float32) / 16.0
+    dy = rng.normal(size=(2, 3, 128)).astype(np.float32)
+    jq = j_quantize_weight(jnp.asarray(w))
+    jx, jdy = jnp.asarray(x, jnp.bfloat16), jnp.asarray(dy, jnp.bfloat16)
+    want, _, _ = j_qmm_bwd((jx, jq["q"], jq["s"]), jdy)
+    tq = quantize_weight(torch.from_numpy(w))
+    tx = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    out = qm.qmm(tx, tq["q"], tq["s"])
+    assert out.grad_fn is not None and type(out.grad_fn).__name__ == "QuantMatmulBackward"
+    out.backward(torch.from_numpy(dy).to(torch.bfloat16))
+    assert tx.grad.dtype == torch.bfloat16 and tx.grad.shape == tx.shape
+    assert tq["q"].grad is None and tq["s"].grad is None
+    np.testing.assert_allclose(tx.grad.float().numpy(), np.asarray(want, np.float32),
+                               rtol=3e-2, atol=3e-2)
+    ref = np.einsum("btn,kn->btk", dy, tq["q"].float().numpy() * tq["s"].numpy())
+    np.testing.assert_allclose(tx.grad.float().numpy(), ref, rtol=3e-2, atol=3e-2)
+
+
+def test_qmm_without_grad_keeps_the_plain_call():
+    x = torch.randn(4, 64, requires_grad=True)
+    w = quantize_weight(torch.randn(64, 32))
+    with torch.inference_mode():
+        out = qm.qmm(x, w["q"], w["s"])
+    assert out.grad_fn is None
+    assert torch.equal(out, qm.quant_matmul_plain(x.detach(), w["q"], w["s"]))
+    assert qm.qmm(x.detach(), w["q"], w["s"]).grad_fn is None
+
+
+def _dequantized(tree: dict) -> dict:
+    """Every {"q", "s"} node as the f32 weight q * s."""
+    return {name: (node["q"].float() * node["s"].unsqueeze(-2) if is_quantized(node)
+                   else _dequantized(node) if isinstance(node, dict) else node)
+            for name, node in tree.items()}
+
+
+def test_int8_forward_gives_a_gradient_wrt_the_embeddings():
+    """An input saliency of the tiny int8 model: every ``qdot`` of the
+    decoder and the LM head passes the gradient on to the embeddings,
+    equal within TOL to the gradient through the dequantized f32
+    weights."""
+    from tdax_torch.models.qwen_vl.decoder import decoder, rms_norm
+    from tdax_torch.models.qwen_vl.model import embed_inputs, lm_logits
+    q = init_params_quantized(CFG, "cpu", seed=3, with_visual=False)
+    ids, mask, _, _, _ = _batch()
+    ids, mask = torch.from_numpy(ids).long(), torch.from_numpy(mask)
+
+    def saliency(params):
+        x = embed_inputs(params, CFG, ids, None, None).detach().requires_grad_()
+        h = decoder(params["layers"], x, CFG, mask)
+        logits = lm_logits(rms_norm(h, params["ln_f"], CFG.layer_norm_eps), params, CFG)
+        logits.logsumexp(-1).sum().backward()
+        return x.grad
+
+    got, want = saliency(q), saliency(_dequantized(q))
+    assert got is not None and torch.isfinite(got).all() and float(got.abs().max()) > 0
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
 
 
 def test_layer_at_indexes_quantized_nodes(trees):

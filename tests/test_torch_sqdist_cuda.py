@@ -56,7 +56,7 @@ def _counts():
     return sqdist.LAUNCHES, sqdist.LAUNCHES_SM90, sqdist.SPLIT_LAUNCHES
 
 
-# (n, d) that TMA can read: n and d on and off the 128 x 32 tile
+# (n, d) the route sends to sqdist_sm90.cu: n and d on and off the 128 x 32 tile
 SM90_SHAPES = [(128, 4096), (129, 4096), (1000, 4100), (300, 64), (257, 1000)]
 
 
@@ -74,7 +74,7 @@ def test_both_kernels_match_plain(device, n, d, kernel):
     assert torch.equal(got, got.T)
 
 
-@pytest.mark.parametrize("n,d", [(36, 3), (100, 17), (130, 257), (127, 4096)])
+@pytest.mark.parametrize("n,d", [(36, 3), (100, 17), (127, 257), (127, 4096)])
 def test_the_route_sends_the_rest_to_the_fma_kernel(device, n, d):
     x = torch.randn((n, d), device=device)
     before = _counts()
@@ -128,7 +128,7 @@ def _split_equal(x):
     assert ((sq - p_sq).abs() <= 1e-6 * p_sq.abs()).all()
 
 
-@pytest.mark.parametrize("n,d", [(129, 4096), (1000, 4100), (3, 8)])
+@pytest.mark.parametrize("n,d", [(129, 4096), (1000, 4100), (3, 8), (257, 1001)])
 def test_the_split_kernel_equals_its_plain_version_bitwise(device, n, d):
     x = torch.randn((n, d), generator=torch.Generator(device=device).manual_seed(n + d),
                     device=device) * 10
@@ -163,6 +163,23 @@ def test_both_kernels_read_an_aligned_strided_view(device, kernel):
     got = sqdist.pairwise_sq_euclidean_cuda(x, _kernel=kernel)
     _assert_close(got, x.contiguous())
     assert torch.equal(got, got.T)
+
+
+def test_the_hopper_kernel_reads_any_layout_as_its_contiguous_copy(device):
+    """d = 4095, rows 4097 floats apart, a base one float past a 16-byte
+    boundary, n = 1000: routed to sqdist_sm90.cu (one split, one product),
+    bitwise the result on the contiguous copy, within the bound; the
+    split pass bitwise its plain version, padded to 4096."""
+    base = torch.randn(1000 * 4097 + 1, generator=torch.Generator(device=device).manual_seed(9),
+                       device=device)
+    x = base[1:].view(1000, 4097)[:, :4095]
+    assert sqdist._route(x) == "sm90" and x.data_ptr() % 16 != 0
+    before = _counts()
+    got = sqdist.sqdist(x)
+    assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    assert torch.equal(got, sqdist.sqdist(x.contiguous()))
+    _assert_close(got, x.contiguous())
+    _split_equal(x)
 
 
 def test_euclidean_wrapper_zero_diagonal_and_cdist(device):
@@ -228,5 +245,3 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(device):
                                                       dtype=torch.float16))
     with pytest.raises(ValueError, match="contiguous"):
         sqdist.pairwise_sq_euclidean_cuda(torch.zeros((4, 4), device=device).T)
-    with pytest.raises(ValueError, match="sm90 kernel does not take"):
-        sqdist.pairwise_sq_euclidean_cuda(torch.zeros((256, 33), device=device), _kernel="sm90")

@@ -46,24 +46,30 @@ def _scale():
     return _meta(10_000, 4096)
 
 
-def _d4097():
-    return _meta(10_000, 4097)
+# layouts TMA cannot read from x itself, at n rows: the split pass reads
+# them, so the row count alone routes them
+def _d4097(n=10_000):
+    return _meta(n, 4097)
 
 
-def _stride4097():  # a column slice whose row stride is not a multiple of 4
-    return torch.empty((256, 4097))[:, :4096]
+def _stride4097(n=256):  # a column slice whose row stride is not a multiple of 4
+    return torch.empty((n, 4097))[:, :4096]
 
 
-def _off_grid():  # a base 4 bytes past a 16-byte boundary
-    return torch.empty(256 * 4096 + 4)[1:1 + 256 * 4096].view(256, 4096)
+def _off_grid(n=256):  # a base 4 bytes past a 16-byte boundary
+    return torch.empty(n * 4096 + 4)[1:1 + n * 4096].view(n, 4096)
 
 
-def _short():  # one row fewer than the Hopper kernel's tile
-    return _meta(sqdist.SM90_MIN_N - 1, 4096)
+def _short(n=sqdist.SM90_MIN_N - 1):  # fewer rows than the Hopper kernel's tile
+    return _meta(n, 4096)
 
 
-def _broadcast():  # one row over 256: stride 0 is not a tensor map's
-    return torch.empty((1, 4096)).expand(256, 4096)
+def _broadcast(n=256):  # one row over n: stride 0
+    return torch.empty((1, 4096)).expand(n, 4096)
+
+
+LAYOUTS = [_d4097, _stride4097, _off_grid, _short, _broadcast]
+LAYOUT_IDS = ["d4097", "stride4097", "off_grid", "n_short", "broadcast"]
 
 
 def test_the_scale_path_takes_the_hopper_kernel():
@@ -71,10 +77,19 @@ def test_the_scale_path_takes_the_hopper_kernel():
     assert sqdist._route(_meta(chip_smoke.SCALE_N, chip_smoke.SCALE_D)) == "sm90"
 
 
-@pytest.mark.parametrize("make", [_d4097, _stride4097, _off_grid, _short, _broadcast],
-                         ids=["d4097", "stride4097", "off_grid", "n_short", "broadcast"])
+@pytest.mark.parametrize("make", LAYOUTS, ids=LAYOUT_IDS)
 def test_everything_else_takes_the_fma_kernel(make):
-    assert sqdist._route(make()) == "fma"
+    """Below SM90_MIN_N rows every layout takes sqdist.cu."""
+    assert sqdist._route(make(sqdist.SM90_MIN_N - 1)) == "fma"
+
+
+@pytest.mark.parametrize("make", LAYOUTS, ids=LAYOUT_IDS)
+def test_every_layout_with_enough_rows_takes_the_hopper_kernel(make):
+    """The precision of a call does not hang on its input's layout: from
+    SM90_MIN_N rows an odd d, an odd row stride, an unaligned base and a
+    broadcast row all take sqdist_sm90.cu, as their contiguous copies do."""
+    assert sqdist._route(make(sqdist.SM90_MIN_N)) == "sm90"
+    assert sqdist._route(make(1000)) == "sm90"
 
 
 @pytest.mark.parametrize("n,d", [(128, 4096), (129, 4096), (1000, 4100), (1001, 332)])
@@ -99,9 +114,9 @@ def test_the_private_kernel_choice(forced, make, want):
 
 @pytest.mark.parametrize("make", [_d4097, _stride4097, _off_grid, _broadcast],
                          ids=["d4097", "stride4097", "off_grid", "broadcast"])
-def test_forcing_the_hopper_kernel_where_tma_cannot_read_raises(make):
-    with pytest.raises(ValueError, match="sm90 kernel does not take"):
-        sqdist._pick(make(), "sm90")
+def test_forcing_either_kernel_takes_any_layout(make):
+    assert sqdist._pick(make(), "sm90") == "sm90"
+    assert sqdist._pick(make(), "fma") == "fma"
 
 
 def test_an_unknown_kernel_raises():
@@ -147,6 +162,7 @@ def _bits(v):
 def test_tf32_rounding_of_bit_patterns(x_bits, hi_bits):
     x = _bits(x_bits)
     hi, lo, _ = sqdist.tf32_split_plain(x[None])
+    hi, lo = hi[:, :1], lo[:, :1]  # the split pads d = 1 to 4 columns
     assert int(hi.view(torch.int32)[0, 0]) & 0xFFFFFFFF == hi_bits
     if torch.isfinite(hi).all():
         # x - hi is exact and within half a tf32 place; lo is its tf32
@@ -160,8 +176,11 @@ def test_split_low_bits_zero_and_residual_bound():
     x[0, :4] = torch.tensor([1e30, -1e-30, 3.0, -0.75])
     hi, lo, sq = sqdist.tf32_split_plain(x)
     assert hi.dtype == lo.dtype == torch.float32 and hi.is_contiguous() and lo.is_contiguous()
+    assert hi.shape == lo.shape == (257, 1004)  # d rounded up to 4, the pad zero
+    assert not hi[:, 1001:].any() and not lo[:, 1001:].any()
     assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
     assert ((lo.view(torch.int32) & 0x1FFF) == 0).all()
+    hi, lo = hi[:, :1001], lo[:, :1001]
     resid = (x.double() - hi.double() - lo.double()).abs()
     assert (resid <= 2.0 ** -22 * x.double().abs()).all()
     torch.testing.assert_close(sq, (x * x).sum(1), rtol=0, atol=0)
@@ -173,6 +192,23 @@ def test_split_of_a_strided_view_equals_the_contiguous_copy():
     for got, want in zip(sqdist.tf32_split_plain(view),
                          sqdist.tf32_split_plain(view.contiguous())):
         assert torch.equal(got, want)
+
+
+def test_split_of_a_strided_odd_d_view_is_padded_and_equals_the_contiguous_copy():
+    """What the split pass gives for any layout (tests/test_torch_sqdist_cuda.py
+    and chip_smoke.py hold the kernel to it bitwise): an odd d read at an
+    odd row stride from an offset base, padded to d rounded up to 4, equal
+    to the split of its contiguous copy."""
+    base = torch.as_tensor(np.random.default_rng(6).normal(size=(40 * 141 + 3,)).astype(
+        np.float32))
+    view = base[3:].view(40, 141)[:, 2:135]
+    assert view.shape == (40, 133) and view.stride() == (141, 1)
+    assert view.storage_offset() % 4 != 0
+    got, want = sqdist.tf32_split_plain(view), sqdist.tf32_split_plain(view.contiguous())
+    assert got[0].shape == got[1].shape == (40, 136)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(got[0][:, :133], sqdist._tf32_rna(view))
 
 
 def _sq_3xtf32(x: np.ndarray) -> np.ndarray:

@@ -1015,3 +1015,120 @@ def pp_world(rank: int, world: int, store_path: str, inp_path: str) -> dict:
                 "bf16": _pp_trained(tree, b8, pp4, 2, dtype="bfloat16")}
     finally:
         pm.shutdown()
+
+
+# ---- FSDP under context parallelism (tests/test_torch_parallel_cp_fsdp.py) -------------
+
+def _cp_fsdp_step(tree: dict, batch: dict, mesh, fsdp: bool, accum: int = 1,
+                  **step_kw) -> dict:
+    """One step of make_train_step(cp_mesh=mesh) with remat (lr 1e-3) from
+    ``tree``, under FSDP (``param_shardings`` of ``fsdp_sharding_rules`` on
+    the mesh) or as the plain cp step; each rank passes its dp rows of the
+    whole sequence (of each microbatch with ``accum``).  The loss, the
+    clip's global norm, the whole tree and AdamW's first moment after the
+    step, this rank's share of layers/attn_qkv_w and of its two moments,
+    and the step's collectives by axis."""
+    from tdax_torch.models.qwen_vl.convert import params_to_numpy
+    from tdax_torch.parallel import train as tr
+    whole = params_from_numpy(tree, "cpu", "float32")
+    rules = pm.fsdp_sharding_rules(whole, mesh) if fsdp else None
+    params = pm.shard_params(whole, mesh, rules, cfg=CFG)
+    del whole
+    opt = tr.default_optimizer(1e-3)
+    state = opt.init(params)
+    if fsdp:
+        step_kw["param_shardings"] = pm.named_shardings(mesh, rules)
+    step = tr.make_train_step(CFG, opt, remat=True, cp_mesh=mesh, accum_steps=accum,
+                              device="cpu", **step_kw)
+    rows = _micro_rows(batch, mesh, accum)
+    pm.COLLECTIVES_BY_AXIS.clear()
+    loss, grads = step.loss_and_grads(params, state, rows)
+    norm = state.update(grads, **step.shards(state))
+    by_axis = dict(pm.COLLECTIVES_BY_AXIS)
+    return {"loss": float(loss), "norm": float(norm), "by_axis": by_axis,
+            "rules": None if rules is None else _spec_tuples(rules),
+            "local_qkv": {name: t["layers"]["attn_qkv_w"].numpy().copy()
+                          for name, t in (("params", params), ("mu", state.mu),
+                                          ("nu", state.nu))},
+            "params": params_to_numpy(pm.unshard_params(params, mesh, CFG, rules)),
+            "mu": params_to_numpy(pm.unshard_params(state.mu, mesh, CFG, rules))}
+
+
+def _one_device_norm(tree: dict, batch: dict, accum: int = 1, **step_kw) -> float:
+    """The clip's global norm of one step on one device (no mesh, remat)
+    on the whole batch (cut into ``accum`` microbatches)."""
+    from tdax_torch.parallel import train as tr
+    params = params_from_numpy(tree, "cpu", "float32")
+    opt = tr.default_optimizer(1e-3)
+    state = opt.init(params)
+    step = tr.make_train_step(CFG, opt, remat=True, accum_steps=accum, device="cpu", **step_kw)
+    rows = {k: _t(v, long=k in ("input_ids", "image_positions")) for k, v in batch.items()}
+    if accum > 1:
+        rows = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:]) for k, v in rows.items()}
+    _, grads = step.loss_and_grads(params, state, rows)
+    return float(state.update(grads))
+
+
+def _cp_fsdp_loop(tree: dict, batch: dict, mesh, work: Path) -> dict:
+    """train_loop(cp_mesh=, param_shardings=) with remat and a checkpoint
+    after every step: 3 steps straight, and 2 steps then a resume from
+    the checkpoint for the third."""
+    from tdax_torch.models.qwen_vl.convert import params_to_numpy
+    from tdax_torch.parallel import train as tr
+    from tdax_torch.utils.checkpoint import load_params
+    rows = _micro_rows(batch, mesh)
+
+    def run(name, n_steps):
+        whole = params_from_numpy(tree, "cpu", "float32")
+        rules = pm.fsdp_sharding_rules(whole, mesh)
+        params = pm.shard_params(whole, mesh, rules, cfg=CFG)
+        params, state, losses = tr.train_loop(
+            params, CFG, lambda i: rows, n_steps, tr.default_optimizer(1e-3),
+            checkpoint_path=str(work / name), checkpoint_every=1, log_every=0, remat=True,
+            cp_mesh=mesh, param_shardings=pm.named_shardings(mesh, rules), device="cpu")
+        return (params_to_numpy(pm.unshard_params(params, mesh, CFG, rules)), losses,
+                state.count, params["layers"]["attn_qkv_w"].numel())
+
+    full, full_losses, count, local = run("full", 3)
+    run("crash", 2)
+    resumed, resumed_losses, resumed_count, resumed_local = run("crash", 3)
+    saved = load_params(str(work / "full"))["p"]  # the whole tree rank 0 wrote
+    return {"full": full, "full_losses": full_losses, "count": count, "resumed": resumed,
+            "resumed_losses": resumed_losses, "resumed_count": resumed_count,
+            "local_qkv": [local, resumed_local], "saved_params": params_to_numpy(saved),
+            "files": sorted(p.name for p in work.iterdir())}
+
+
+def cp_fsdp_world(rank: int, world: int, store_path: str, inp_path: str, work: str) -> dict:
+    """A world of 4 ranks (dp=2 cp=2) or 8 (dp=2 tp=2 cp=2): the FSDP cp
+    step and the plain cp step, text-only and with images; at 4 ranks
+    also both with 2 microbatches, train_loop with resume, and rank 0's
+    one-device norms of the same batches."""
+    _join(rank, world, store_path)
+    try:
+        with open(inp_path, "rb") as f:
+            inp = pickle.load(f)
+        mesh = pm.make_mesh(dp=2, tp=world // 4, cp=2)
+        tree, tree_v = inp["tree"], inp["tree_visual"]
+        batch, images = inp["batch"], inp["batch_images"]
+        out = {"ranks": {a: mesh.local_rank(a) for a in ("dp", "tp", "cp")}}
+        for fsdp, suffix in ((True, ""), (False, "_plain")):
+            out["text" + suffix] = _cp_fsdp_step(tree, batch, mesh, fsdp)
+            out["images" + suffix] = _cp_fsdp_step(tree_v, images, mesh, fsdp,
+                                                   with_images=True)
+            if world == 4:
+                out["accum" + suffix] = _cp_fsdp_step(tree, batch, mesh, fsdp, accum=2)
+        if world == 4:
+            if rank == 0:
+                out["one_device_norm"] = {
+                    "text": _one_device_norm(tree, batch),
+                    "images": _one_device_norm(tree_v, images, with_images=True),
+                    "accum": _one_device_norm(tree, batch, accum=2)}
+            loop = Path(work) / "loop"
+            if rank == 0:
+                loop.mkdir()
+            dist.barrier()
+            out["loop"] = _cp_fsdp_loop(tree, batch, mesh, loop)
+        return out
+    finally:
+        pm.shutdown()
