@@ -13,8 +13,9 @@ and runs these phases, printing JSON lines:
             and the native Rips engine's g++ beside them); prints ptxas's
             register, spill, C7508 and setmaxnreg lines (and, for the
             Hopper sources, ptxas's wgmma warnings C75xx) and fails if
-            flash_fwd_sm90.cu, flash_bwd_sm90.cu, qmm_sm90.cu or
-            sqdist_sm90.cu spills or has setmaxnreg ignored (C7508).
+            flash_fwd_sm90.cu, flash_bwd_sm90.cu, qmm_sm90.cu,
+            sqdist_sm90.cu, flash_decode_sm90.cu or qmm_decode_sm90.cu
+            spills or has setmaxnreg ignored (C7508).
 2. kernels  each kernel's wrapper against its plain PyTorch version on
             the card.  flash_fwd, both kernels: the route must send the
             capture's three attention shapes (decoder, ViT, resampler;
@@ -24,10 +25,16 @@ and runs these phases, printing JSON lines:
             mma kernel (flash_fwd.cu, forced by the private _kernel="mma")
             and both are timed beside SDPA, the plain version and the
             bound (kernel_case lines: ms, ms_mma, library_ms, bound_ms);
-            the launch counters must move as the route says.  The mma
-            kernel alone: f32 at the shapes of tests/test_flash_attention.py
-            and the decode step's [16, 1, 352, 32, 128] with ragged key
-            validity; fully masked rows on both (finite, lse 0).
+            the launch counters must move as the route says.  The decode
+            step's [16, 1, 352, 32, 128] with ragged key validity: the
+            route must send it to flash_decode_sm90.cu (split-KV), checked
+            there (with and without lse, causal, one split's keys all
+            masked, [8, 1, 352, 16, 128] at a tp rank's 16 heads, a
+            bitwise repeat) and on flash_fwd.cu (forced), both timed by
+            the card's kernel time (torch.profiler) beside SDPA's and the
+            plain version's.  The mma kernel alone: f32 at the shapes of
+            tests/test_flash_attention.py; fully masked rows on both
+            (finite, lse 0).
             sqdist (SQDIST_SHAPES, an aligned strided view,
             SQDIST_ANY_LAYOUT and the scale path's [10000, 4096]):
             sqdist.cu (forced by the private _kernel="fma") and
@@ -47,11 +54,15 @@ and runs these phases, printing JSON lines:
             vit.patch_w (K = 588) to qmm_sm90.cu, which is checked and
             timed there and on qmm.cu (forced by the private
             _kernel="mma"), the counters moving as the choice says; the
-            decode sites and vit.patch_w stay on qmm.cu.  Ragged bf16
+            decode sites (M = 16) to qmm_decode_sm90.cu (split K), checked
+            and timed there and on qmm.cu by the card's kernel time, each
+            repeated bitwise; vit.patch_w stays on qmm.cu.  Ragged bf16
             shapes (QMM_RAGGED_SHAPES: M, N, K off the 256 x 128 x 64
-            tile) on both kernels, untimed; f32 at small ragged shapes on
-            qmm.cu; the gradient in x through qmm (QuantMatmul, tdax's
-            _qmm_bwd) at QMM_GRAD_SITES, one on each kernel: present,
+            tile) on both kernels, untimed, and QMM_DECODE_RAGGED_SHAPES
+            (M <= 64) on qmm_decode_sm90.cu and qmm.cu, repeated bitwise;
+            f32 at small ragged shapes on qmm.cu; the gradient in x
+            through qmm (QuantMatmul, tdax's _qmm_bwd) at QMM_GRAD_SITES,
+            one on qmm_sm90.cu and one on qmm_decode_sm90.cu: present,
             one launch, within QMM_GRAD_TOL of the plain version's
             autograd gradient.  Raises on a
             case outside its tolerance.  Times the kernel, the plain
@@ -90,10 +101,11 @@ and runs these phases, printing JSON lines:
             first 16 samples' prompts (images, ToyTokenizer, padded to
             320), greedy generate of 32 tokens with bf16 caches and with
             kv_int8: ids in range, qmm launches 360 + 31 x 161 = 5351
-            (the prefill's 358 on qmm_sm90.cu, its lm_head and every
-            decode step's on qmm.cu)
+            (the prefill's 358 on qmm_sm90.cu, its patch embedding on
+            qmm.cu, its lm_head and every decode step's, 1 + 31 x 161 =
+            4992, on qmm_decode_sm90.cu)
             and flash 81 + 31 x 32 = 1073 each, the prefill's 81 on the
-            sm90 kernel and the decode steps' 992 on the mma kernel
+            sm90 kernel and the decode steps' 992 on flash_decode_sm90.cu
             (Tq = 1); the prefill's and the
             first two decode steps' logits against the uncached forward
             (CACHE_TOL), kv_int8's first decode logits within 0.05 x
@@ -118,7 +130,7 @@ and runs these phases, printing JSON lines:
             weight-only int8 capture; one batch profiled, the quantize
             passes and int8_mm as ranges.  generate (16 x 32, bf16 caches):
             ids in range, int8 products 5351 and no qmm launch, flash 1073
-            (81 sm90), the prefill's and two decode steps' logits against
+            (81 sm90, 992 decode), the prefill's and two decode steps' logits against
             the uncached W8A8 forward within W8A8_CACHE_TOL, a decode step
             profiled.
 5. sweep    the port's run_tda_sweep on the activations the capture
@@ -547,7 +559,8 @@ QMM_SITES = [
 ]
 QMM_PER_CAPTURE_BATCH, QMM_PER_DECODE_STEP = 359, 161
 # the int8 product's gradient in x (QuantMatmul, tdax's _qmm_bwd) at a
-# capture site on qmm_sm90.cu and a decode site on qmm.cu, against the
+# capture site on qmm_sm90.cu and a decode site on qmm_decode_sm90.cu,
+# against the
 # plain version's autograd gradient on the card within tdax's own
 # tolerance for that backward (tests/test_quantize.py:190)
 QMM_GRAD_SITES = ("decoder.attn_proj_w", "decode.mlp_proj_w")
@@ -558,6 +571,10 @@ QMM_SM90_PER_CAPTURE_BATCH = 358
 # ragged bf16 products held on both kernels (not timed): M, N and K not
 # multiples of the Hopper kernel's 256 x 128 x 64 tile
 QMM_RAGGED_SHAPES = [(200, 1000, 1664), (129, 72, 272), (1000, 4104, 4112)]
+# bf16 products of at most 64 rows held on qmm_decode_sm90.cu and qmm.cu,
+# each repeated bitwise: M, N and K off its 16 x 128 x 128 tile (split 7
+# ways), and a dp rank's decode rows at a tp rank's qkv columns
+QMM_DECODE_RAGGED_SHAPES = [(40, 4104, 4112), (8, 4096, 6144)]
 # int8 capture against the bf16 capture of the same weights: tdax's gate
 # (tests/test_quantize.py:60)
 INT8_MIN_COSINE = 0.98
@@ -817,8 +834,10 @@ MAIN_SHAPES = [
 # the training step's attention: causal, with lse, 2 x 32 calls a step
 # (forward and remat replay)
 TRAIN_SHAPE = ("train", 4, 1024, 1024, 32, 128, True, 64)
-# the decode step's attention: one query row over the 352-row cache
+# the decode step's attention: one query row over the 352-row cache; and
+# at a tp rank's 16 heads (dp=2 tp=2: 8 rows)
 DECODE_SHAPE = ("decode", 16, 1, 352, 32, 128, False)
+DECODE_TP_SHAPE = ("decode_tp", 8, 1, 352, 16, 128, False)
 F32_SHAPES = [  # tests/test_flash_attention.py:37-50, batch 2, plus hd 104
     (40, 40, 2, 16, True), (40, 40, 2, 16, False), (8, 40, 2, 20, False),
     (130, 130, 1, 128, True), (16, 260, 1, 32, False), (64, 192, 2, 128, False),
@@ -865,7 +884,8 @@ TRAIN_LOSS_TOL = 0.1
 
 
 # the sources ptxas must compile without a spill and with setmaxnreg kept
-SM90_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "qmm_sm90", "sqdist_sm90")
+SM90_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "qmm_sm90", "sqdist_sm90",
+                "flash_decode_sm90", "qmm_decode_sm90")
 
 
 def emit(obj) -> None:
@@ -1073,30 +1093,7 @@ def phase_kernels() -> dict:
         del q, k, v, qt, kt, vt, mask
         torch.cuda.empty_cache()
 
-    # the decode step: q of one row, k/v the layer's cache, valid keys up
-    # to each sample's own position (one sample at the cache's last row)
-    name, b, tq, tk, nh, hd, causal = DECODE_SHAPE
-    q, k, v = _case_inputs(gen, b, tq, tk, nh, hd, torch.bfloat16, device, False, False)
-    cur = torch.randint(200, tk, (b,), generator=gen, device=device)
-    cur[0] = tk - 1
-    valid = (torch.arange(tk, device=device)[None] <= cur[:, None]).to(torch.int32)
-    if fa._route(q, k, v) != "mma":
-        raise AssertionError("the decode step is not routed to the mma kernel")
-    bias, max_abs, _, _, _ = _check_case(fa, q, k, v, valid, causal, BF16_ATOL, BF16_RTOL,
-                                         "bf16 decode")
-    mask = (valid > 0)[:, None, None, :]
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    decode = {"site": name, "shape": [b, tq, tk, nh, hd], "causal": causal, "dtype": "bfloat16",
-              "calls_per_decode_step": 32, "max_abs_err": max_abs,
-              "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, bias, causal), iters=50),
-              "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, bias, causal),
-                                  iters=20),
-              "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                                           attn_mask=mask),
-                                    iters=50)}
-    decode["bound_ms"], decode["bound_by"] = bound(b, tq, tk, nh, hd, causal, 2)
-    emit({"phase": "kernel_case", **decode})
-    del q, k, v, qt, kt, vt, mask
+    decode = _decode_cases(fa, gen, device)
 
     f32_errs = []
     for tq, tk, nh, hd, causal in F32_SHAPES:
@@ -1123,6 +1120,94 @@ def phase_kernels() -> dict:
     return {"sites": sites, "train": train, "decode": decode, "f32_max_abs_err": max(f32_errs)}
 
 
+def _decode_case(fa, gen, device, shape, masked_split: bool) -> dict:
+    """One decode-step attention on flash_decode_sm90.cu (the route's
+    choice) and flash_fwd.cu (forced): q of one row, k/v the layer's
+    cache, valid keys up to each sample's own position (one sample at the
+    cache's last row); with ``masked_split`` the keys of the kernel's
+    second split (of 2 x warps) masked on every row.  Each checked against
+    the plain version (with lse too, and causal), repeated bitwise, and
+    timed by the card's kernel time beside SDPA's and the plain
+    version's."""
+    import torch
+    import torch.nn.functional as F
+    from tdax_torch.runtime import sm_count
+    name, b, tq, tk, nh, hd, causal = shape
+    q, k, v = _case_inputs(gen, b, tq, tk, nh, hd, torch.bfloat16, device, False, False)
+    cur = torch.randint(200, tk, (b,), generator=gen, device=device)
+    cur[0] = tk - 1
+    valid = (torch.arange(tk, device=device)[None] <= cur[:, None]).to(torch.int32)
+    warps = fa._decode_warps(b, nh, tk, sm_count(device.index or 0))
+    slots, at_once = 2 * warps, fa.DECODE_KEYS_AT_ONCE
+    chunk = math.ceil(math.ceil(tk / slots) / at_once) * at_once  # keys a split
+    if masked_split:
+        valid[:, chunk:2 * chunk] = 0
+    route = fa._route(q, k, v)
+    if route != "decode":
+        raise AssertionError(f"bf16 {name}: routed to the {route} kernel, not decode")
+    label = f"bf16 {name}" + (" (split 1 masked)" if masked_split else "")
+    err, lse_err = {}, {}
+    for kernel in ("decode", "mma"):
+        forced = None if kernel == "decode" else "mma"
+        for with_lse, c in ((False, causal), (True, causal), (False, True)):
+            before = (fa.LAUNCHES, fa.LAUNCHES_SM90, fa.LAUNCHES_DECODE)
+            bias, e, _, _, le = _check_case(fa, q, k, v, valid, c, BF16_ATOL, BF16_RTOL,
+                                            f"{label} ({kernel}, lse {with_lse}, causal {c})",
+                                            kernel=forced, with_lse=with_lse)
+            moved = (fa.LAUNCHES - before[0], fa.LAUNCHES_SM90 - before[1],
+                     fa.LAUNCHES_DECODE - before[2])
+            if moved != (1, 0, int(kernel == "decode")):
+                raise AssertionError(f"{label} ({kernel}): launch counters moved {moved}")
+            err[kernel] = max(err.get(kernel, 0.0), e)
+            if le is not None:
+                lse_err[kernel] = le
+    bias = torch.where(valid > 0, 0.0, fa.NEG_INF).to(torch.float32)
+    first = fa.flash_attention(q, k, v, bias, causal, True)
+    again = fa.flash_attention(q, k, v, bias, causal, True)
+    bitwise = bool(torch.equal(first[0], again[0]) and torch.equal(first[1], again[1]))
+    if not bitwise:
+        raise AssertionError(f"{label}: a repeat differs")
+    mask = (valid > 0)[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    case = {"site": name, "shape": [b, tq, tk, nh, hd], "causal": causal, "dtype": "bfloat16",
+            "route": route, "warps": warps, "splits": slots, "keys_a_split": chunk,
+            "masked_split": masked_split, "max_abs_err": err["decode"],
+            "max_abs_err_mma": err["mma"], "lse_max_abs_err": lse_err["decode"],
+            "lse_max_abs_err_mma": lse_err["mma"], "bitwise_repeat": bitwise}
+    if not masked_split:
+        case.update(
+            ms=_device_ms(lambda: fa.flash_attention(q, k, v, bias, causal), 50),
+            ms_mma=_device_ms(lambda: fa.flash_attention(q, k, v, bias, causal,
+                                                         _kernel="mma"), 50),
+            plain_ms=_device_ms(lambda: fa.flash_attention_plain(q, k, v, bias, causal), 10),
+            library_ms=_device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask), 50),
+            ms_events=cuda_ms(lambda: fa.flash_attention(q, k, v, bias, causal), iters=50),
+            timed_by="torch.profiler kernel time (ms_events: CUDA events over back-to-back "
+                     "calls, the wrapper's host time included)")
+        case["bound_ms"], case["bound_by"] = bound(b, tq, tk, nh, hd, causal, 2)
+        case["share_of_bound"] = _share(case["bound_ms"], case["ms"])
+        case["share_of_bound_mma"] = _share(case["bound_ms"], case["ms_mma"])
+    emit({"phase": "kernel_case", **case})
+    del q, k, v, qt, kt, vt, mask
+    return case
+
+
+def _share(bound_ms, ms):
+    return bound_ms / ms if isinstance(ms, float) and ms > 0 else "not measured"
+
+
+def _decode_cases(fa, gen, device) -> dict:
+    """The decode step's attention on flash_decode_sm90.cu: the main path's
+    shape (timed), one split masked, a tp rank's 16 heads (timed)."""
+    main = _decode_case(fa, gen, device, DECODE_SHAPE, False)
+    masked = _decode_case(fa, gen, device, DECODE_SHAPE, True)
+    tp = _decode_case(fa, gen, device, DECODE_TP_SHAPE, False)
+    keys = ("max_abs_err", "max_abs_err_mma", "lse_max_abs_err", "lse_max_abs_err_mma")
+    return {**main, "calls_per_decode_step": 32, "masked_split_case": masked, "tp_case": tp,
+            **{key: max(c[key] for c in (main, masked, tp)) for key in keys}}
+
+
 def qmm_bound(m, k, n, x_bytes):
     """(ms, 'operations' | 'bytes'): 2MNK tensor-core flops; x, q, s read
     once and the output written once."""
@@ -1138,9 +1223,10 @@ def _qmm_check(qm, x, w, label, kernel=None) -> float:
     import torch
     x2 = x.reshape(-1, x.shape[-1])
     route = kernel or qm._route(x2, w["q"], w["s"])
-    before = (qm.LAUNCHES, qm.LAUNCHES_SM90)
+    before = (qm.LAUNCHES, qm.LAUNCHES_SM90, qm.LAUNCHES_DECODE)
     got = qm.quant_matmul(x, w["q"], w["s"], _kernel=kernel)
-    if (qm.LAUNCHES, qm.LAUNCHES_SM90) != (before[0] + 1, before[1] + (route == "sm90")):
+    if (qm.LAUNCHES, qm.LAUNCHES_SM90, qm.LAUNCHES_DECODE) != (
+            before[0] + 1, before[1] + (route == "sm90"), before[2] + (route == "decode")):
         raise AssertionError(f"qmm {label}: the launch counters did not move as the {route} "
                              "kernel says")
     want = qm.quant_matmul_plain(x, w["q"], w["s"])
@@ -1163,6 +1249,14 @@ def _qmm_check(qm, x, w, label, kernel=None) -> float:
     return max_abs
 
 
+def _qmm_repeat(qm, x, w, label: str) -> bool:
+    """Two launches on the same inputs give the same bits."""
+    import torch
+    if not torch.equal(qm.quant_matmul(x, w["q"], w["s"]), qm.quant_matmul(x, w["q"], w["s"])):
+        raise AssertionError(f"qmm {label}: a repeat differs")
+    return True
+
+
 def _qmm_grad_check(qm, x, w, label: str) -> dict:
     """x's gradient through ``qmm`` with grad on (QuantMatmul): present,
     one kernel launch counted as the route says, and within QMM_GRAD_TOL
@@ -1171,16 +1265,17 @@ def _qmm_grad_check(qm, x, w, label: str) -> dict:
     import torch
     route = qm._route(x.reshape(-1, x.shape[-1]), w["q"], w["s"])
     xg = x.detach().clone().requires_grad_()
-    before = (qm.LAUNCHES, qm.LAUNCHES_SM90)
+    before = (qm.LAUNCHES, qm.LAUNCHES_SM90, qm.LAUNCHES_DECODE)
     out = qm.qmm(xg, w["q"], w["s"])
-    launched = [qm.LAUNCHES - before[0], qm.LAUNCHES_SM90 - before[1]]
+    launched = [qm.LAUNCHES - before[0], qm.LAUNCHES_SM90 - before[1],
+                qm.LAUNCHES_DECODE - before[2]]
     dy = torch.randn(out.shape, generator=torch.Generator(device=x.device).manual_seed(7),
                      device=x.device, dtype=out.dtype)
     out.backward(dy)
     xp = x.detach().clone().requires_grad_()
     qm.quant_matmul_plain(xp, w["q"], w["s"]).backward(dy)
     torch.cuda.synchronize()
-    if xg.grad is None or launched != [1, int(route == "sm90")]:
+    if xg.grad is None or launched != [1, int(route == "sm90"), int(route == "decode")]:
         raise AssertionError(f"qmm grad {label}: x.grad {xg.grad is not None}, launches "
                              f"{launched} on {route}")
     err = (xg.grad.float() - xp.grad.float()).abs_()
@@ -1203,7 +1298,7 @@ def phase_qmm() -> dict:
     import torch
     from tdax_torch.models.qwen_vl.quantize import quantize_weight
     from tdax_torch.ops import quant_matmul as qm
-    from tdax_torch.runtime import get_device
+    from tdax_torch.runtime import get_device, sm_count
 
     device = get_device()
     gen = torch.Generator(device=device).manual_seed(2468)
@@ -1226,6 +1321,18 @@ def phase_qmm() -> dict:
                        "max_abs_err": _qmm_check(qm, x, w, f"ragged {(m, k, n)}"),
                        "max_abs_err_mma": _qmm_check(qm, x, w, f"ragged {(m, k, n)} (mma)",
                                                      kernel="mma")})
+    for m, k, n in QMM_DECODE_RAGGED_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=device, dtype=torch.bfloat16)
+        w = quantize_weight(torch.randn((k, n), generator=gen, device=device) / math.sqrt(k))
+        route = qm._route(x, w["q"], w["s"])
+        if route != "decode":
+            raise AssertionError(f"qmm ragged {(m, k, n)}: routed to {route}, not decode")
+        ragged.append({"shape": [m, k, n], "route": route,
+                       "split": list(qm._decode_split(k, n, sm_count(device.index or 0))),
+                       "max_abs_err": _qmm_check(qm, x, w, f"ragged {(m, k, n)}"),
+                       "max_abs_err_mma": _qmm_check(qm, x, w, f"ragged {(m, k, n)} (mma)",
+                                                     kernel="mma"),
+                       "bitwise_repeat": _qmm_repeat(qm, x, w, f"ragged {(m, k, n)}")})
     emit({"phase": "kernel_qmm_ragged", "cases": ragged,
           "tolerance": f"{QMM_BF16_RTOL} |plain| + {QMM_BF16_ATOL_OF_MAX} max|plain|"})
 
@@ -1234,25 +1341,37 @@ def phase_qmm() -> dict:
         x = torch.randn((m, k), generator=gen, device=device, dtype=torch.bfloat16)
         w = quantize_weight(torch.randn((k, n), generator=gen, device=device) / math.sqrt(k))
         route = qm._route(x, w["q"], w["s"])
-        want_route = "sm90" if m >= qm.SM90_MIN_M and name != "vit.patch_w" else "mma"
+        want_route = ("mma" if name == "vit.patch_w" else "sm90" if m >= qm.SM90_MIN_M
+                      else "decode" if m <= qm.DECODE_MAX_M else "mma")
         if route != want_route:
             raise AssertionError(f"qmm {name}: routed to {route}, expected {want_route}")
         max_abs = _qmm_check(qm, x, w, name)
         dense = (w["q"].float() * w["s"]).to(torch.bfloat16)  # the library's operand
-        iters = 50 if m <= 64 else 10
+        # a decode product takes microseconds, less than the wrapper's host
+        # time: it is timed by the card's kernel time (torch.profiler)
+        decode = route == "decode"
+        timed = ((lambda fn, iters: _device_ms(fn, iters)) if decode else
+                 (lambda fn, iters: cuda_ms(fn, iters=iters)))
+        iters = 50 if decode else 10
         site = {"site": name, "shape": [m, k, n], "dtype": "bfloat16", "route": route,
                 "calls_per_capture_batch": per_batch, "calls_per_decode_step": per_step,
                 "max_abs_err": max_abs,
-                "ms": cuda_ms(lambda: qm.quant_matmul(x, w["q"], w["s"]), iters=iters)}
-        if route == "sm90":
+                "ms": timed(lambda: qm.quant_matmul(x, w["q"], w["s"]), iters),
+                "timed_by": "torch.profiler kernel time" if decode else "CUDA events"}
+        if route in ("sm90", "decode"):
             site["max_abs_err_mma"] = _qmm_check(qm, x, w, f"{name} (mma)", kernel="mma")
-            site["ms_mma"] = cuda_ms(lambda: qm.quant_matmul(x, w["q"], w["s"], _kernel="mma"),
-                                     iters=iters)
+            site["ms_mma"] = timed(lambda: qm.quant_matmul(x, w["q"], w["s"], _kernel="mma"),
+                                   iters)
         else:
             site["max_abs_err_mma"], site["ms_mma"] = max_abs, site["ms"]
-        site["plain_ms"] = cuda_ms(lambda: qm.quant_matmul_plain(x, w["q"], w["s"]), iters=3)
-        site["library_ms"] = cuda_ms(lambda: torch.matmul(x, dense), iters=iters)
+        if decode:
+            site["split"] = list(qm._decode_split(k, n, sm_count(device.index or 0)))
+            site["bitwise_repeat"] = _qmm_repeat(qm, x, w, name)
+            site["ms_events"] = cuda_ms(lambda: qm.quant_matmul(x, w["q"], w["s"]), iters=50)
+        site["plain_ms"] = timed(lambda: qm.quant_matmul_plain(x, w["q"], w["s"]), 3)
+        site["library_ms"] = timed(lambda: torch.matmul(x, dense), iters)
         site["bound_ms"], site["bound_by"] = qmm_bound(m, k, n, 2)
+        site["share_of_bound"] = _share(site["bound_ms"], site["ms"])
         site["achieved_tflops"] = 2.0 * m * n * k / (site["ms"] * 1e-3) / 1e12
         site["achieved_weight_gb_per_s"] = k * n / (site["ms"] * 1e-3) / 1e9
         emit({"phase": "kernel_case", "kernel": "qmm", **site})
@@ -1261,9 +1380,9 @@ def phase_qmm() -> dict:
             grads.append(_qmm_grad_check(qm, x, w, name))
         del x, w, dense
         torch.cuda.empty_cache()
-    if [g["route"] for g in grads] != ["sm90", "mma"]:
+    if [g["route"] for g in grads] != ["sm90", "decode"]:
         raise AssertionError(f"qmm grad: routes {[g['route'] for g in grads]}, expected one "
-                             "site on each kernel")
+                             "site on qmm_sm90.cu and one on qmm_decode_sm90.cu")
     emit({"phase": "kernel_qmm_grad", "sites": grads,
           "tolerance": f"{QMM_GRAD_TOL} (1 + |plain|)"})
     errs = [s["max_abs_err"] for s in sites] + [r["max_abs_err"] for r in ragged]
@@ -2751,8 +2870,8 @@ def _kernel_counters() -> dict:
     import tdax_torch.ops.quant_matmul as qm
     import tdax_torch.ops.sqdist as sq
     return {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": getattr(mod, name)
-            for mod in (fa, qm, sq) for name in dir(mod) if name.endswith("LAUNCHES")
-            or name.endswith("LAUNCHES_SM90")}
+            for mod in (fa, qm, sq) for name in dir(mod)
+            if name.endswith(("LAUNCHES", "LAUNCHES_SM90", "LAUNCHES_DECODE"))}
 
 
 def _subsample_silhouette(emb, labels) -> float:
@@ -3240,7 +3359,7 @@ def _device_time_by_kind(prof) -> dict:
     kinds = {"qmm": 0.0, "flash": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
              "gemm": 0.0, "other": 0.0}
     top = []
-    qmm_sm90_us = int8_us = 0.0
+    qmm_sm90_us = qmm_decode_us = flash_decode_us = int8_us = 0.0
     ranges = {}
     for ev in prof.key_averages():
         # a record_function range (torch.optim's "Optimizer.step#...", the
@@ -3256,20 +3375,24 @@ def _device_time_by_kind(prof) -> dict:
         us = getattr(ev, "self_device_time_total", 0.0)
         name = ev.key.lower()
         kind = ("qmm" if "qmm_" in name else
-                "flash" if "flash_fwd" in name else
+                "flash" if ("flash_fwd" in name or "flash_decode" in name) else
                 "flash_bwd_dq" if "bwd_dq_" in name else
                 "flash_bwd_dkv" if "bwd_dkv_" in name else
                 "gemm" if any(w in name for w in ("gemm", "nvjet", "cutlass", "xmma")) else
                 "other")
         kinds[kind] += us / 1e3
         qmm_sm90_us += us if "qmm_sm90" in name else 0.0
+        qmm_decode_us += us if "qmm_decode" in name else 0.0
+        flash_decode_us += us if "flash_decode" in name else 0.0
         int8_us += us if kind == "gemm" and any(w in name for w in ("s8", "i8", "imma")) else 0
         top.append((us / 1e3, ev.count, ev.key[:90]))
     top.sort(reverse=True)
-    # qmm_ms holds both qmm kernels; qmm_sm90_ms the Hopper one's share of it;
-    # int8_gemm_ms the int8 x int8 GEMMs' share of gemm_ms
+    # qmm_ms holds every qmm kernel, qmm_sm90_ms and qmm_decode_ms each Hopper
+    # one's share of it; flash_decode_ms the decode kernel's share of
+    # flash_ms; int8_gemm_ms the int8 x int8 GEMMs' share of gemm_ms
     out = {"busy_ms": sum(kinds.values()), **{f"{k}_ms": v for k, v in kinds.items()},
-           "qmm_sm90_ms": qmm_sm90_us / 1e3, "int8_gemm_ms": int8_us / 1e3,
+           "qmm_sm90_ms": qmm_sm90_us / 1e3, "qmm_decode_ms": qmm_decode_us / 1e3,
+           "flash_decode_ms": flash_decode_us / 1e3, "int8_gemm_ms": int8_us / 1e3,
            "top_kernels_ms_count_name": top[:12]}
     if ranges:
         out["ranges"] = ranges
@@ -3439,14 +3562,16 @@ def _generate_inputs(state: dict) -> dict:
 def _launches() -> dict:
     import tdax_torch.ops.flash_attention as fa
     import tdax_torch.ops.quant_matmul as qm
-    return {"qmm": qm.LAUNCHES, "qmm_sm90": qm.LAUNCHES_SM90, "int8_mm": qm.LAUNCHES_INT8,
-            "flash_fwd": fa.LAUNCHES, "flash_fwd_sm90": fa.LAUNCHES_SM90}
+    return {"qmm": qm.LAUNCHES, "qmm_sm90": qm.LAUNCHES_SM90, "qmm_decode": qm.LAUNCHES_DECODE,
+            "int8_mm": qm.LAUNCHES_INT8, "flash_fwd": fa.LAUNCHES,
+            "flash_fwd_sm90": fa.LAUNCHES_SM90, "flash_decode": fa.LAUNCHES_DECODE}
 
 
 def _zero_launches() -> None:
     import tdax_torch.ops.flash_attention as fa
     import tdax_torch.ops.quant_matmul as qm
     fa.LAUNCHES = fa.LAUNCHES_SM90 = qm.LAUNCHES = qm.LAUNCHES_SM90 = qm.LAUNCHES_INT8 = 0
+    fa.LAUNCHES_DECODE = qm.LAUNCHES_DECODE = 0
 
 
 def _generate_run(params, cfg, inp: dict, kv_int8: bool, expected: dict, label: str) -> dict:
@@ -3553,13 +3678,16 @@ def phase_generate(smi: str, state: dict, fingerprint: list) -> dict:
     inp = _generate_inputs(state)
     n_steps = GEN_NEW_TOKENS - 1
     # the prefill's attention on the sm90 kernel, the decode steps' (Tq = 1)
-    # on the mma kernel; the prefill's int8 products as a capture batch's
-    # (358 on qmm_sm90.cu), its lm_head on the 16 last rows and every decode
-    # step's (M = 16) on qmm.cu
+    # on flash_decode_sm90.cu; the prefill's int8 products as a capture
+    # batch's (358 on qmm_sm90.cu, the patch embedding on qmm.cu), its
+    # lm_head on the 16 last rows and every decode step's (M = 16) on
+    # qmm_decode_sm90.cu
     expected = {"qmm": QMM_PER_CAPTURE_BATCH + 1 + n_steps * QMM_PER_DECODE_STEP,
-                "qmm_sm90": QMM_SM90_PER_CAPTURE_BATCH, "int8_mm": 0,
+                "qmm_sm90": QMM_SM90_PER_CAPTURE_BATCH,
+                "qmm_decode": 1 + n_steps * QMM_PER_DECODE_STEP, "int8_mm": 0,
                 "flash_fwd": cfg.visual.layers + 1 + cfg.num_layers + n_steps * cfg.num_layers,
-                "flash_fwd_sm90": cfg.visual.layers + 1 + cfg.num_layers}
+                "flash_fwd_sm90": cfg.visual.layers + 1 + cfg.num_layers,
+                "flash_decode": n_steps * cfg.num_layers}
     runs = {kv_int8: _generate_run(params, cfg, inp, kv_int8, expected, "generate")
             for kv_int8 in (False, True)}
 
@@ -3799,8 +3927,9 @@ def phase_w8a8(tmp: Path, smi: str, state: dict, qmm: dict) -> dict:
         acts, _ = _check_capture(out_path, metadata, results, "w8a8 capture")
         n_batches = math.ceil(len(metadata) / ecfg.batch_size)
         flash = n_batches * (cfg.visual.layers + 1 + cfg.num_layers)
-        expected = {"qmm": 0, "qmm_sm90": 0, "int8_mm": n_batches * QMM_PER_CAPTURE_BATCH,
-                    "flash_fwd": flash, "flash_fwd_sm90": flash}
+        expected = {"qmm": 0, "qmm_sm90": 0, "qmm_decode": 0,
+                    "int8_mm": n_batches * QMM_PER_CAPTURE_BATCH,
+                    "flash_fwd": flash, "flash_fwd_sm90": flash, "flash_decode": 0}
         ref = state["int8_acts"].astype(np.float64)
         got = acts.astype(np.float64)
         cos = (ref * got).sum(-1) / (np.linalg.norm(ref, axis=-1)
@@ -3835,11 +3964,12 @@ def phase_w8a8(tmp: Path, smi: str, state: dict, qmm: dict) -> dict:
         # generate with bf16 caches
         inp = _generate_inputs(state)
         n_steps = GEN_NEW_TOKENS - 1
-        expected = {"qmm": 0, "qmm_sm90": 0,
+        expected = {"qmm": 0, "qmm_sm90": 0, "qmm_decode": 0,
                     "int8_mm": QMM_PER_CAPTURE_BATCH + 1 + n_steps * QMM_PER_DECODE_STEP,
                     "flash_fwd": cfg.visual.layers + 1 + cfg.num_layers
                     + n_steps * cfg.num_layers,
-                    "flash_fwd_sm90": cfg.visual.layers + 1 + cfg.num_layers}
+                    "flash_fwd_sm90": cfg.visual.layers + 1 + cfg.num_layers,
+                    "flash_decode": n_steps * cfg.num_layers}
         run = _generate_run(params, cfg, inp, False, expected, "w8a8 generate")
         cache_err, cache_agree = _cached_vs_uncached(params, cfg, inp, run)
         _check_first_tokens(run, "w8a8 generate")
@@ -5688,13 +5818,14 @@ def _md_sharded(local, cfg, batches, device, mesh, timed: bool) -> dict:
                 out["capture"].update(timed_batch_s=time.perf_counter() - t0,
                                       all_reduce_s=tc.total("all_reduce")["seconds"],
                                       all_reduces=tc.total("all_reduce")["count"])
-    fa.LAUNCHES = fa.LAUNCHES_SM90 = 0
+    fa.LAUNCHES = fa.LAUNCHES_SM90 = fa.LAUNCHES_DECODE = 0
     with flash_sharding(mesh, "dp", "tp"):
         t0 = time.perf_counter()
         out["generation"] = _md_generation(local, cfg, batches[0], device, mesh)
         torch.cuda.synchronize()
     out["generate"] = {"wall_s": time.perf_counter() - t0,
-                       "launches": {"flash_fwd": fa.LAUNCHES, "flash_fwd_sm90": fa.LAUNCHES_SM90}}
+                       "launches": {"flash_fwd": fa.LAUNCHES, "flash_fwd_sm90": fa.LAUNCHES_SM90,
+                                    "flash_decode": fa.LAUNCHES_DECODE}}
     out["acts"] = acts
     return out
 
@@ -5898,6 +6029,13 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
     heads = ([(cfg.visual.heads // 2, "sm90")] * cfg.visual.layers
              + [(cfg.visual.resampler_heads // 2, "sm90")]
              + [(cfg.num_heads // 2, "sm90")] * cfg.num_layers) * 3
+    # a rank's generation: three prefills (two generates and the prefill's
+    # logits) on the sm90 kernel, two generates' decode steps on
+    # flash_decode_sm90.cu at its 16 heads
+    prefill = cfg.visual.layers + 1 + cfg.num_layers
+    decode = 2 * (MD_NEW_TOKENS - 1) * cfg.num_layers
+    md_generate = {"flash_fwd": 3 * prefill + decode, "flash_fwd_sm90": 3 * prefill,
+                   "flash_decode": decode}
     calls_ok = {name: all([(h, route) for _, h, route in r[name]["capture"]["calls"]] == heads
                           for r in ranks) for name in ("snapshot", "init")}
     b = ranks[0]
@@ -5988,6 +6126,10 @@ def phase_multidevice(tmp: Path, smi: str, capture_dir: Path, capture_wall_s: fl
             if got != {"flash_fwd": len(heads), "flash_fwd_sm90": len(heads)}:
                 raise AssertionError(f"multidevice (b) {name}: capture launches {got}, expected "
                                      f"{len(heads)}, all sm90, a rank")
+            got = r[name]["generate"]["launches"]
+            if got != md_generate:
+                raise AssertionError(f"multidevice (b) {name}: generate launches {got}, "
+                                     f"expected {md_generate} a rank")
         t = r["tiny"]
         if not (t["capture_within_tol"] and t["tokens_equal"] and t["int8_logits_within_tol"]):
             raise AssertionError(f"multidevice (b) tiny: {t}")
@@ -6244,6 +6386,27 @@ def _qmm_totals(sites, calls_key) -> dict:
     return out
 
 
+def _flash_split(launches: dict) -> dict:
+    """A path's forward launches by kernel."""
+    decode = launches.get("flash_decode", 0)
+    return {"sm90": launches["flash_fwd_sm90"], "decode": decode,
+            "mma": launches["flash_fwd"] - launches["flash_fwd_sm90"] - decode}
+
+
+def _generate_paths(gen: dict, w8: dict, md: dict) -> list:
+    """(path, launches) of every generate: phase generate's two runs, W8A8's,
+    and rank 0's dp=2 tp=2 generation on the snapshot and on the init."""
+    return [*((f"generate{'_kv_int8' if run['kv_int8'] else ''}", run["launches"])
+              for run in gen["runs"]),
+            ("w8a8_generate", w8["generate"]["launches"]),
+            *((f"multidevice_dp2_tp2_{name}_generate_rank0",
+               md["gloo_dp2_tp2"][name]["generate"]["launches"]) for name in ("snapshot", "init"))]
+
+
+def _per_step(value, calls: int):
+    return value * calls if isinstance(value, float) else value
+
+
 def _train_paths(train: dict, md: dict) -> list:
     """(path, flash launches) of every training run: phase train's five
     timed steps, the NCCL world's plain and FSDP steps, rank 0's dp=2 tp=2
@@ -6327,6 +6490,8 @@ def main(argv=None) -> int:
         return sum(s[key] * s["calls_per_batch"] for s in kern["sites"])
 
     dec = next(s for s in fbwd["sites"] if s["site"] == "decoder")
+    dcd = kern["decode"]
+    qdec = [s for s in qmm["sites"] if s["route"] == "decode"]
     calls = dec["calls_per_train_step"]
     by_ops = sum(s["bound_ms"] * s["calls_per_batch"] for s in kern["sites"]
                  if s["bound_by"] == "operations")
@@ -6346,13 +6511,8 @@ def main(argv=None) -> int:
             "int8_capture": {"sm90": int8["launches"]["flash_fwd_sm90"],
                              "mma": int8["launches"]["flash_fwd"]
                              - int8["launches"]["flash_fwd_sm90"]},
-            "generate": {"sm90": gen["runs"][0]["launches"]["flash_fwd_sm90"],
-                         "mma": gen["runs"][0]["launches"]["flash_fwd"]
-                         - gen["runs"][0]["launches"]["flash_fwd_sm90"]},
-            **{path: {"sm90": rec["launches"]["flash_fwd_sm90"],
-                      "mma": rec["launches"]["flash_fwd"] - rec["launches"]["flash_fwd_sm90"]}
-               for path, rec in (("w8a8_capture", w8["capture"]),
-                                 ("w8a8_generate", w8["generate"]))},
+            **{path: _flash_split(launches) for path, launches in _generate_paths(gen, w8, md)},
+            "w8a8_capture": _flash_split(w8["capture"]["launches"]),
             **{path: {"sm90": launches["flash_fwd_sm90"],
                       "mma": launches["flash_fwd"] - launches["flash_fwd_sm90"]}
                for path, launches in _train_paths(train, md)},
@@ -6366,10 +6526,9 @@ def main(argv=None) -> int:
                                   md["gloo_dp2_tp2"]["extraction"]),
                                  ("multidevice_hybrid_capture_rank0",
                                   md["gloo_hybrid_capture_by_rank"][0]),
-                                 *((f"multidevice_dp2_tp2_{name}_{what}_rank0",
-                                    md["gloo_dp2_tp2"][name][what])
-                                   for name in ("snapshot", "init")
-                                   for what in ("capture", "generate")))}},
+                                 *((f"multidevice_dp2_tp2_{name}_capture_rank0",
+                                    md["gloo_dp2_tp2"][name]["capture"])
+                                   for name in ("snapshot", "init")))}},
         "max_abs_err": max(s["max_abs_err"] for s in kern["sites"] + [tr]),
         "ms": total("ms"),
         "ms_mma": total("ms_mma"),
@@ -6379,12 +6538,35 @@ def main(argv=None) -> int:
         "library_ms": total("library_ms"),
         "per": "one batch of 16: 48 ViT + 1 resampler + 32 decoder calls, bf16, on the sm90 "
                "kernel the route picks; ms_mma is flash_fwd.cu at the same calls",
-        "decode_step": {"kernel": "mma", **{k: kern["decode"][k] for k in (
-            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "calls_per_decode_step")}},
         "train_step_with_lse": {k: tr[k] for k in ("shape", "ms", "ms_mma", "plain_ms",
                                                    "bound_ms", "bound_by", "library_ms",
                                                    "lse_max_abs_err", "calls_per_train_step")},
+    }, {
+        "name": "flash_decode",
+        "route": "cuda",
+        "source": "tdax_torch/ops/csrc/flash_decode_sm90.cu",
+        "replaces": "tdax/ops/flash_attention.py:164",
+        "launches": gen["runs"][0]["launches"]["flash_decode"],
+        "launches_by_path": {path: launches["flash_decode"]
+                             for path, launches in _generate_paths(gen, w8, md)},
+        "max_abs_err": dcd["max_abs_err"],
+        "max_abs_err_mma": dcd["max_abs_err_mma"],
+        "lse_max_abs_err": dcd["lse_max_abs_err"],
+        **{key: _per_step(dcd[key], dcd["calls_per_decode_step"])
+           for key in ("ms", "ms_mma", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": dcd["bound_by"],
+        "share_of_bound": dcd["share_of_bound"],
+        "per_call": {key: dcd[key] for key in (
+            "shape", "warps", "splits", "ms", "ms_mma", "ms_events", "plain_ms", "library_ms",
+            "bound_ms", "share_of_bound", "share_of_bound_mma")},
+        "tp_rank_call": {key: dcd["tp_case"][key] for key in (
+            "shape", "warps", "splits", "ms", "ms_mma", "library_ms", "bound_ms",
+            "share_of_bound")},
+        "per": f"one decode step: {dcd['calls_per_decode_step']} calls at "
+               f"{dcd['shape']} bf16 (the cache's 352 keys, each row valid up to its own "
+               "position) on flash_decode_sm90.cu as routed; ms_mma is flash_fwd.cu at the "
+               "same calls; library_ms SDPA with the boolean key mask; all by "
+               f"{dcd['timed_by']}",
     }, *({
         "name": f"flash_bwd_{kind}",
         "route": "cuda",
@@ -6456,9 +6638,10 @@ def main(argv=None) -> int:
         "launches_by_kernel": {
             "int8_capture": {"sm90": int8["launches"]["qmm_sm90"],
                              "mma": int8["launches"]["qmm"] - int8["launches"]["qmm_sm90"]},
-            "generate": {"sm90": gen["runs"][0]["launches"]["qmm_sm90"],
-                         "mma": gen["runs"][0]["launches"]["qmm"]
-                         - gen["runs"][0]["launches"]["qmm_sm90"]},
+            **{f"generate{'_kv_int8' if run['kv_int8'] else ''}": {
+                "sm90": run["launches"]["qmm_sm90"], "decode": run["launches"]["qmm_decode"],
+                "mma": run["launches"]["qmm"] - run["launches"]["qmm_sm90"]
+                - run["launches"]["qmm_decode"]} for run in gen["runs"]},
             "checkpoint_int8_capture": {
                 "sm90": ckpt["int8_capture"]["launches"]["qmm_sm90"],
                 "mma": ckpt["int8_capture"]["launches"]["qmm"]
@@ -6471,8 +6654,25 @@ def main(argv=None) -> int:
                f"{QMM_SM90_PER_CAPTURE_BATCH} on qmm_sm90.cu and vit.patch_w on qmm.cu, as "
                "the route picks); ms_mma is every call on qmm.cu; library_ms is torch.matmul "
                "on the same weight pre-converted to bf16",
-        "decode_step": {"calls": QMM_PER_DECODE_STEP,
-                        **_qmm_totals(qmm["sites"], "calls_per_decode_step")},
+    }, {
+        "name": "qmm_decode",
+        "route": "cuda",
+        "source": "tdax_torch/ops/csrc/qmm_decode_sm90.cu",
+        "replaces": "tdax/ops/quant_matmul.py:40",
+        "launches": gen["runs"][0]["launches"]["qmm_decode"],
+        "launches_by_path": {f"generate{'_kv_int8' if run['kv_int8'] else ''}":
+                             run["launches"]["qmm_decode"] for run in gen["runs"]},
+        "max_abs_err": max(s["max_abs_err"] for s in qdec),
+        "max_abs_err_mma": max(s["max_abs_err_mma"] for s in qdec),
+        **_qmm_totals(qdec, "calls_per_decode_step"),
+        "sites": {s["site"]: {key: s[key] for key in (
+            "shape", "split", "ms", "ms_mma", "ms_events", "library_ms", "bound_ms",
+            "share_of_bound", "calls_per_decode_step")} for s in qdec},
+        "ragged": [r for r in qmm["ragged"] if r["route"] == "decode"],
+        "per": f"one decode step ({QMM_PER_DECODE_STEP} calls at M = 16 over the five sites, "
+               "each weighted by its calls) on qmm_decode_sm90.cu as routed; ms_mma is every "
+               "call on qmm.cu; library_ms torch.matmul on the weight pre-converted to bf16; "
+               "all by the card's kernel time (torch.profiler)",
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,9 +28,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tdax_torch"
 
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_fwd_sm90": "flash_fwd_sm90.cu",
+           "flash_decode_sm90": "flash_decode_sm90.cu",
            "flash_bwd": "flash_bwd.cu", "flash_bwd_sm90": "flash_bwd_sm90.cu",
            "sqdist": "sqdist.cu", "sqdist_sm90": "sqdist_sm90.cu", "qmm": "qmm.cu",
-           "qmm_sm90": "qmm_sm90.cu"}
+           "qmm_sm90": "qmm_sm90.cu", "qmm_decode_sm90": "qmm_decode_sm90.cu"}
 _INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -9,12 +9,15 @@ diagonal skipped, f32 running max / denominator / accumulator, and no
 [Tq, Tk] tensor in device memory.  ``csrc/flash_fwd_sm90.cu`` (TMA, an
 mbarrier ring, wgmma, a producer warp and two consumer warpgroups) takes
 bf16 inputs that TMA can read with at least ``SM90_MIN_TQ`` query rows;
-``csrc/flash_fwd.cu`` (``mma.sync``) takes the rest: f32, the decode
-step, hd not a multiple of 8, misaligned views.  ``_route`` decides from
-the shapes, strides and type alone, before any launch; a failed launch
-raises.  On an H100 the tensor cores bound the forward at the ViT's
-shape and memory at the decoder's and resampler's (the notes at the top
-of the CUDA sources give the bound and the designs).
+``csrc/flash_decode_sm90.cu`` (split-KV over a block's half-warps, f32 on
+the CUDA cores, the splits merged in the block) takes the same bf16
+inputs at one query row, the decode step; ``csrc/flash_fwd.cu``
+(``mma.sync``) takes the rest: f32, 2 to 63 query rows, hd not a
+multiple of 8, misaligned views.  ``_route`` decides from the shapes,
+strides and type alone, before any launch; a failed launch raises.  On
+an H100 the tensor cores bound the forward at the ViT's shape and memory
+at the decoder's, the resampler's and the decode step's (the notes at
+the top of the CUDA sources give the bound and the designs).
 
 Two pairs of backward kernels replace tdax's ``_bwd_dq_kernel`` and
 ``_bwd_dkv_kernel`` (driven by ``_flash_bwd_impl``): each recomputes p =
@@ -51,13 +54,13 @@ row-parallel sites read the tp group from the context.  With
 sequence, and ``mha`` runs the ring (``ring_attention``), each of its
 steps on the kernels above.
 
-``LAUNCHES`` (both forward kernels), ``LAUNCHES_SM90`` (the Hopper one
-alone), ``BWD_DQ_LAUNCHES`` and ``BWD_DKV_LAUNCHES`` (both backward
-kernels of each pair) and ``BWD_DQ_LAUNCHES_SM90`` and
-``BWD_DKV_LAUNCHES_SM90`` (the Hopper ones alone) count kernel launches
-(one per successful launch, and nowhere else), so a run can show that
-its attention and its gradients went through the kernels, and which
-kernel carried each path.
+``LAUNCHES`` (every forward kernel), ``LAUNCHES_SM90`` and
+``LAUNCHES_DECODE`` (each Hopper one alone), ``BWD_DQ_LAUNCHES`` and
+``BWD_DKV_LAUNCHES`` (both backward kernels of each pair) and
+``BWD_DQ_LAUNCHES_SM90`` and ``BWD_DKV_LAUNCHES_SM90`` (the Hopper ones
+alone) count kernel launches (one per successful launch, and nowhere
+else), so a run can show that its attention and its gradients went
+through the kernels, and which kernel carried each path.
 """
 
 from __future__ import annotations
@@ -69,10 +72,13 @@ import math
 
 import torch
 
+from tdax_torch.runtime import sm_count
+
 NEG_INF = -1e30  # finite: a fully masked tile must not produce NaN
 
 LAUNCHES = 0
 LAUNCHES_SM90 = 0
+LAUNCHES_DECODE = 0
 BWD_DQ_LAUNCHES = 0
 BWD_DKV_LAUNCHES = 0
 BWD_DQ_LAUNCHES_SM90 = 0
@@ -83,6 +89,9 @@ _C_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] 
                + _C_TAIL + [ctypes.c_void_p, ctypes.c_void_p])  # lse, stream
 _C_SM90_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 10
                     + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+_C_DECODE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
+                      + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_void_p])
 _C_BWD_DQ_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 16
                       + _C_TAIL + [ctypes.c_void_p])
 _C_BWD_DKV_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 16
@@ -95,6 +104,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # keys): below it a 128-row block is mostly padding (the decode step has
 # one row)
 SM90_MIN_TQ = 64
+# flash_decode_sm90.cu: keys a half-warp loads at once (its U), and the
+# warps a block may have (one block per (batch, head))
+DECODE_KEYS_AT_ONCE = 4
+DECODE_WARPS = (4, 8, 16)
 
 
 # Active (mesh, batch_axis, head_axis, seq_axis) of a multi-device run;
@@ -288,15 +301,28 @@ def _vectorizable(*tensors) -> bool:
 
 
 def _route(q, k, v) -> str:
-    """Which forward kernel takes these inputs: ``"sm90"`` for bf16 q/k/v
-    that TMA can read (``_vectorizable``: hd, the bases and the strides
-    16-byte aligned; no stride 0) with at least ``SM90_MIN_TQ`` query
-    rows, ``"mma"`` for everything else."""
-    if q.shape[1] < SM90_MIN_TQ or not _vectorizable(q, k, v):
+    """Which forward kernel takes these inputs: for bf16 q/k/v that the
+    Hopper kernels read with 16-byte loads or TMA (``_vectorizable``: hd,
+    the bases and the strides 16-byte aligned; no stride 0) ``"decode"``
+    at one query row and ``"sm90"`` at ``SM90_MIN_TQ`` or more; ``"mma"``
+    for everything else."""
+    if not _vectorizable(q, k, v) or any(s == 0 for x in (q, k, v) for s in x.stride()[:3]):
         return "mma"
-    if any(s == 0 for x in (q, k, v) for s in x.stride()[:3]):
-        return "mma"
-    return "sm90"
+    if q.shape[1] == 1:
+        return "decode"
+    return "sm90" if q.shape[1] >= SM90_MIN_TQ else "mma"
+
+
+@functools.cache
+def _decode_warps(b: int, nh: int, tk: int, sms: int) -> int:
+    """Warps a block of flash_decode_sm90.cu (one block per (batch, head),
+    two key splits a warp): the fewest of ``DECODE_WARPS`` that give the
+    card's ``sms`` SMs 8 warps of loads each, but no more than let every
+    split load its keys in one group of ``DECODE_KEYS_AT_ONCE``."""
+    warps = next((w for w in DECODE_WARPS if b * nh * w >= 8 * sms), DECODE_WARPS[-1])
+    enough = next((w for w in DECODE_WARPS if 2 * w * DECODE_KEYS_AT_ONCE >= tk),
+                  DECODE_WARPS[-1])
+    return min(warps, enough)
 
 
 def _bwd_route(q, k, v, do) -> str:
@@ -342,6 +368,19 @@ def _sm90_library() -> ctypes.CDLL:
     lib = load("flash_fwd_sm90")
     lib.tdax_flash_fwd_sm90.argtypes = _C_SM90_ARGTYPES
     lib.tdax_flash_fwd_sm90.restype = ctypes.c_int
+    lib.tdax_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.tdax_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _decode_library() -> ctypes.CDLL:
+    """The built decode-step library, with its C signatures declared."""
+    from tdax_torch.ops._build import load
+
+    lib = load("flash_decode_sm90")
+    lib.tdax_flash_decode_sm90.argtypes = _C_DECODE_ARGTYPES
+    lib.tdax_flash_decode_sm90.restype = ctypes.c_int
     lib.tdax_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tdax_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -397,9 +436,9 @@ def flash_attention(q, k, v, bias, causal: bool, return_lse: bool = False, *,
     ``return_lse`` also lse [B, nh, Tq] f32 (see
     ``flash_attention_plain``).  ``_route`` picks the kernel; the private
     ``_kernel="mma"`` forces ``flash_fwd.cu`` (to time and check it at
-    the shapes the Hopper kernel takes).  Raises on any input the kernel
+    the shapes the Hopper kernels take).  Raises on any input the kernel
     does not take."""
-    global LAUNCHES, LAUNCHES_SM90
+    global LAUNCHES, LAUNCHES_SM90, LAUNCHES_DECODE
     _check(q, k, v, bias)
     route = _route(q, k, v)
     if _kernel not in (None, "mma", route):
@@ -411,6 +450,19 @@ def flash_attention(q, k, v, bias, causal: bool, return_lse: bool = False, *,
     lse = (torch.empty((b, nh, tq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     lse_ptr = None if lse is None else lse.data_ptr()
+    if route == "decode":
+        lib = _decode_library()
+        warps = _decode_warps(b, nh, tk, sm_count(q.device.index))
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            rc = lib.tdax_flash_decode_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                b, tk, nh, hd, q.stride(0), q.stride(2), *k.stride()[:3], *v.stride()[:3],
+                bias.stride(0), int(causal), 1.0 / math.sqrt(hd), lse_ptr, warps, stream)
+        _raise_on(rc, lib, "flash_attention (decode)")
+        LAUNCHES += 1
+        LAUNCHES_DECODE += 1
+        return (out, lse) if return_lse else out
     if route == "sm90":
         lib = _sm90_library()
         with torch.cuda.device(q.device):

@@ -11,12 +11,15 @@ mbarrier ring, the conversion in shared memory, wgmma, a producer
 warpgroup and two consumer warpgroups) takes bf16 products of at least
 ``SM90_MIN_M`` rows that TMA can read: every int8 product of the capture
 and of ``generate``'s prefill but the ViT's patch embedding (K = 588).
-``csrc/qmm.cu`` (``mma.sync``) takes the rest: f32, the decode step,
-views TMA cannot read.  ``_route`` decides from the type, shapes, strides
-and alignment alone, before any launch.  On an H100 the tensor cores
-bound the product at the capture's row counts and reading the int8
-weight bounds it at decode (see the notes at the top of the CUDA
-sources).
+``csrc/qmm_decode_sm90.cu`` (split K, a TMA ring of int8 tiles,
+``mma.sync``, the splits summed in order by the last block of each column
+tile) takes the same bf16 products at ``DECODE_MAX_M`` rows or fewer:
+every product of a decode step and the prefill's LM head.  ``csrc/qmm.cu``
+(``mma.sync``) takes the rest: f32, 65 to 127 rows, views TMA cannot
+read.  ``_route`` decides from the type, shapes, strides and alignment
+alone, before any launch.  On an H100 the tensor cores bound the product
+at the capture's row counts and reading the int8 weight bounds it at
+decode (see the notes at the top of the CUDA sources).
 
 Where tdax takes the Pallas kernel only when asked (``TDAX_QMM=1`` on a
 TPU, bf16, K and N multiples of 128), the port takes a kernel for every
@@ -26,9 +29,9 @@ a failed build or launch raises, and nothing reroutes it.
 ``quant_matmul_plain`` is the plain PyTorch version (tdax's XLA dequant
 path and the Pallas kernel's function), used for CPU tensors only;
 ``quant_matmul`` launches a kernel on CUDA tensors or raises; ``qmm``
-dispatches on the device.  ``LAUNCHES`` counts launches of both kernels
-and ``LAUNCHES_SM90`` of the Hopper one alone (one per successful
-launch, and nowhere else).
+dispatches on the device.  ``LAUNCHES`` counts launches of every kernel,
+``LAUNCHES_SM90`` and ``LAUNCHES_DECODE`` of each Hopper one alone (one
+per successful launch, and nowhere else).
 
 The product is differentiable in x as tdax's ``quant_matmul`` is (a
 ``jax.custom_vjp`` whose ``_qmm_bwd`` dequantizes the weight and takes
@@ -52,14 +55,25 @@ import functools
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from tdax_torch.runtime import sm_count
+
 LAUNCHES = 0
 LAUNCHES_SM90 = 0
+LAUNCHES_DECODE = 0
 LAUNCHES_INT8 = 0
 
 # the fewest rows qmm_sm90.cu takes (its blocks have 256); below it
 # (decode, M = 16) qmm.cu's 16 x 32 tiling spreads the weight stream over
 # more SMs
 SM90_MIN_M = 128
+# the most rows qmm_decode_sm90.cu takes (four m16 tiles of mma.sync);
+# its blocks own 128 columns and K tiles of 128, at least
+# DECODE_MIN_K_TILES of them a split, about DECODE_BLOCKS_PER_SM blocks an
+# SM a product
+DECODE_MAX_M = 64
+DECODE_TILE = 128
+DECODE_MIN_K_TILES = 4
+DECODE_BLOCKS_PER_SM = 2
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -81,6 +95,21 @@ def _library() -> ctypes.CDLL:
     lib.tdax_qmm.restype = ctypes.c_int
     lib.tdax_qmm_error_string.argtypes = [ctypes.c_int]
     lib.tdax_qmm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _decode_library() -> ctypes.CDLL:
+    """The built decode-step kernel library, with its C signatures declared."""
+    from tdax_torch.ops._build import load
+
+    lib = load("qmm_decode_sm90")
+    lib.tdax_qmm_decode_sm90.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                                         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+                                         + [ctypes.c_void_p] * 3)
+    lib.tdax_qmm_decode_sm90.restype = ctypes.c_int
+    lib.tdax_qmm_decode_sm90_error_string.argtypes = [ctypes.c_int]
+    lib.tdax_qmm_decode_sm90_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -123,24 +152,59 @@ def _check(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> None:
 
 
 def _route(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> str:
-    """Which kernel takes x2 [M, K] @ q [K, N] * s: ``"sm90"`` for bf16
-    with at least ``SM90_MIN_M`` rows that TMA can read (K, x2's row
-    stride and N giving 16-byte strides: K % 8, ldx % 8, N % 16, no
-    stride 0; the x2, q and s bases 16-byte aligned), ``"mma"`` for
-    everything else."""
-    if x2.dtype != torch.bfloat16 or x2.shape[0] < SM90_MIN_M or x2.stride(1) != 1:
+    """Which kernel takes x2 [M, K] @ q [K, N] * s: for bf16 that TMA can
+    read (K, x2's row stride and N giving 16-byte strides: K % 8, ldx % 8,
+    N % 16, no stride 0; the x2, q and s bases 16-byte aligned)
+    ``"decode"`` at ``DECODE_MAX_M`` rows or fewer and ``"sm90"`` at
+    ``SM90_MIN_M`` or more; ``"mma"`` for everything else."""
+    if x2.dtype != torch.bfloat16 or x2.stride(1) != 1:
         return "mma"
     k, n = q.shape
     if k % 8 or n % 16 or x2.stride(0) % 8 or x2.stride(0) < k:
         return "mma"
     if any(t.data_ptr() % 16 for t in (x2, q, s)):
         return "mma"
-    return "sm90"
+    if x2.shape[0] <= DECODE_MAX_M:
+        return "decode"
+    return "sm90" if x2.shape[0] >= SM90_MIN_M else "mma"
+
+
+@functools.cache
+def _decode_split(k: int, n: int, sms: int) -> tuple[int, int]:
+    """(K tiles a split, splits) of qmm_decode_sm90.cu for q [K, N] on a
+    card of ``sms`` SMs: about ``DECODE_BLOCKS_PER_SM`` blocks an SM over
+    the column tiles and splits, at least ``DECODE_MIN_K_TILES`` K tiles a
+    split (or all of them), and no split empty."""
+    k_tiles, n_tiles = -(-k // DECODE_TILE), -(-n // DECODE_TILE)
+    per = max(DECODE_MIN_K_TILES, -(-k_tiles * n_tiles // (DECODE_BLOCKS_PER_SM * sms)))
+    per = min(per, k_tiles)
+    return per, -(-k_tiles // per)
+
+
+# the decode kernel's scratch, per (device, stream), grown as needed: its
+# splits' f32 partial sums, and int32 tickets that are zero between calls
+# (the last block of each column tile resets its own).  Kept across calls:
+# a decode step makes 161 products, and an allocation a call costs the
+# host-bound step more than the kernel's few microseconds.
+_WORKSPACE: dict = {}
+
+
+def _workspace(device: torch.device, stream: int, parts: int,
+               n_tiles: int) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (device.index, stream)
+    part, ticket = _WORKSPACE.get(key, (None, None))
+    if part is None or part.numel() < parts:
+        part = torch.empty(parts, dtype=torch.float32, device=device)
+    if ticket is None or ticket.numel() < n_tiles:
+        ticket = torch.zeros(max(n_tiles, 2048), dtype=torch.int32, device=device)
+    _WORKSPACE[key] = part, ticket
+    return part, ticket
 
 
 def _pick(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor, forced: str | None) -> str:
     """The route, or the private ``_kernel`` choice of the wrapper:
-    ``"mma"`` always takes, ``"sm90"`` only inputs the route sends there."""
+    ``"mma"`` always takes, ``"sm90"`` and ``"decode"`` only inputs the
+    route sends there."""
     route = _route(x2, q, s)
     if forced not in (None, "mma", route):
         raise ValueError(f"quant_matmul: the {forced} kernel does not take these inputs")
@@ -154,9 +218,9 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, *,
     leading dimensions of x collapse to M rows (a view where the strides
     allow, a copy where they do not, as for a broadcast view).  ``_route``
     picks the kernel; the private ``_kernel="mma"`` forces ``qmm.cu`` (to
-    time and check it at the shapes the Hopper kernel takes).  Raises on
+    time and check it at the shapes the Hopper kernels take).  Raises on
     any input the kernel does not take."""
-    global LAUNCHES, LAUNCHES_SM90
+    global LAUNCHES, LAUNCHES_SM90, LAUNCHES_DECODE
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.stride(-1) != 1:
@@ -167,11 +231,21 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, *,
     n = q.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     sm90 = route == "sm90"
-    lib = _sm90_library() if sm90 else _library()
+    lib = {"sm90": _sm90_library, "decode": _decode_library, "mma": _library}[route]()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         args = (x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, n, k, x2.stride(0))
-        if sm90:
+        if route == "decode":
+            per, splits = _decode_split(k, n, sm_count(x.device.index))
+            part = ticket = None
+            if splits > 1:
+                part, ticket = _workspace(x.device, stream, splits * m * n,
+                                          -(-n // DECODE_TILE))
+            rc = lib.tdax_qmm_decode_sm90(*args, per, splits,
+                                          None if part is None else part.data_ptr(),
+                                          None if ticket is None else ticket.data_ptr(), stream)
+            errors = lib.tdax_qmm_decode_sm90_error_string
+        elif sm90:
             rc = lib.tdax_qmm_sm90(*args, stream)
             errors = lib.tdax_qmm_sm90_error_string
         else:
@@ -184,6 +258,7 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, *,
                            f"{errors(rc).decode()} (cudaError {rc})")
     LAUNCHES += 1
     LAUNCHES_SM90 += int(sm90)
+    LAUNCHES_DECODE += int(route == "decode")
     return out.reshape(*lead, n)
 
 

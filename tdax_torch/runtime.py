@@ -15,6 +15,8 @@ without cuBLAS's reduced-precision split-K reductions (tdax's
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -36,6 +38,13 @@ def as_device_f32(x, device=None) -> torch.Tensor:
     if not isinstance(x, torch.Tensor):
         x = np.asarray(x)
     return torch.as_tensor(x, dtype=torch.float32).to(get_device(device))
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index`` (the decode
+    kernels size their grids by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def get_device(device: str | torch.device | None = None) -> torch.device:

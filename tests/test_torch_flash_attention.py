@@ -8,6 +8,8 @@ tensors the CUDA kernel is never launched: its counter stays put and
 the wrapper refuses CPU tensors instead of falling back.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -156,3 +158,96 @@ def test_mha_rejects_additive_masks():
     q = torch.zeros((1, 4, 1, 8))
     with pytest.raises(TypeError):
         fa.mha(q, q, q, torch.zeros((1, 1, 4, 4)))
+
+
+def _split_kv_decode(q, k, v, bias, causal, warps, p_dtype=None):
+    """flash_decode_sm90.cu's arithmetic in PyTorch, f32: per (b, h) the keys
+    cut into 2 x ``warps`` contiguous splits of ceil(Tk / splits) rounded up
+    to DECODE_KEYS_AT_ONCE; each split walks its keys in groups of that
+    many, one running max a group (from NEG_INF), alpha = exp(m - m'), p =
+    exp(s - m') (rounded to ``p_dtype`` for PV, as the kernel rounds to
+    bf16), l and acc rescaled; then the splits merge in split order with
+    w_s = exp(m_s - M), out = sum acc_s w_s / sum l_s w_s (l == 0 -> 1), lse
+    = M + log(L), 0 when M is NEG_INF or L == 0."""
+    b, _, nh, hd = q.shape
+    tk = 1 if causal else k.shape[1]
+    at_once = fa.DECODE_KEYS_AT_ONCE
+    splits = 2 * warps
+    chunk = math.ceil(math.ceil(tk / splits) / at_once) * at_once  # keys a split
+    scale = 1.0 / np.sqrt(hd)
+    s_all = torch.einsum("bhd,bkhd->bhk", q[:, 0].float(), k[:, :tk].float()) * scale
+    s_all = s_all + bias[:, None, :tk]
+    out = torch.empty((b, nh, hd))
+    lse = torch.empty((b, nh))
+    for bi in range(b):
+        for h in range(nh):
+            ms, ls, accs = [], [], []
+            for sp in range(splits):
+                m, l, acc = torch.tensor(fa.NEG_INF), torch.tensor(0.0), torch.zeros(hd)
+                for k0 in range(sp * chunk, min(sp * chunk + chunk, tk), at_once):
+                    keys = range(k0, min(k0 + at_once, sp * chunk + chunk, tk))
+                    sc = s_all[bi, h, list(keys)]
+                    mx = torch.maximum(m, sc.max())
+                    alpha = torch.exp(m - mx)
+                    p = torch.exp(sc - mx)
+                    pv = p.to(p_dtype).float() if p_dtype is not None else p
+                    l = l * alpha + p.sum()
+                    acc = acc * alpha + pv @ v[bi, list(keys), h].float()
+                    m = mx
+                ms.append(m)
+                ls.append(l)
+                accs.append(acc)
+            mm = torch.stack(ms).max()
+            w = torch.exp(torch.stack(ms) - mm)
+            big_l = (torch.stack(ls) * w).sum()
+            out[bi, h] = (torch.stack(accs) * w[:, None]).sum(0) / (1.0 if big_l == 0 else big_l)
+            lse[bi, h] = 0.0 if (big_l == 0 or mm <= fa.NEG_INF) else mm + torch.log(big_l)
+    return out[:, None], lse[..., None]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_the_split_kv_merge_matches_tdax_attention(causal):
+    """The decode kernel's split-KV merge, written out above, against
+    tdax's reference einsum attention (its decode path) at a small decode
+    shape with 8 splits of 8 keys over 40 keys: split 1's keys all masked
+    on every row, splits 5 to 7 empty, one row whose only visible keys sit
+    in split 0 (masked splits must merge to exactly nothing), and the
+    decode step's own mask (each row's keys up to its position).  f32 at
+    tdax's kernel tolerance; lse against the plain version's."""
+    rng = np.random.default_rng(4)
+    b, tk, nh, hd = 3, 40, 2, 16
+    q = rng.normal(size=(b, 1, nh, hd)).astype(np.float32)
+    k = rng.normal(size=(b, tk, nh, hd)).astype(np.float32)
+    v = rng.normal(size=(b, tk, nh, hd)).astype(np.float32)
+    valid = (np.arange(tk)[None] <= np.array([39, 30, 5])[:, None]).astype(np.int32)
+    valid[:, 8:16] = 0
+    warps = 4  # 8 splits of 8 keys: split 1 masked, splits 5-7 empty
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+    bias = torch.where(torch.from_numpy(valid) > 0, 0.0, fa.NEG_INF).to(torch.float32)
+    got, lse = _split_kv_decode(qt, kt, vt, bias, causal, warps)
+
+    jq, jk, jv, jvalid = map(jnp.asarray, (q, k, v, valid))
+    want = np.asarray(_reference_mha(
+        jq, jk, jv, JAttnSpec(kv_valid=jvalid, causal=causal).additive(1, tk, 2)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    _, lse_plain = fa.flash_attention_plain(qt, kt, vt, bias, causal, return_lse=True)
+    np.testing.assert_allclose(lse.numpy(), lse_plain.numpy(), rtol=1e-6, atol=1e-6)
+
+    # with p rounded to bf16 before PV, as the kernel does: within the bf16
+    # plain version's rounding of the probabilities
+    got_bf16, _ = _split_kv_decode(qt, kt, vt, bias, causal, warps, torch.bfloat16)
+    np.testing.assert_allclose(got_bf16.numpy(), want, rtol=1e-2, atol=1e-2)
+
+
+def test_a_row_that_sees_no_key_merges_to_lse_zero():
+    """Every key masked: each split ends at m = NEG_INF, the merge weights
+    are all 1, lse is 0 and the output finite (the plain version's
+    uniform mean over the keys, as a single pass gives)."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               for s in ((2, 1, 2, 16), (2, 24, 2, 16), (2, 24, 2, 16)))
+    bias = torch.full((2, 24), fa.NEG_INF)
+    got, lse = _split_kv_decode(q, k, v, bias, False, 4)
+    want, lse_plain = fa.flash_attention_plain(q, k, v, bias, False, return_lse=True)
+    assert (lse == 0).all() and (lse_plain == 0).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-5, atol=2e-5)

@@ -7,6 +7,8 @@ without the JAX conftest:
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_flash_cuda.py
 """
 
+import math
+
 import pytest
 import torch
 
@@ -128,17 +130,87 @@ def test_rows_that_see_no_key_are_finite_with_lse_zero(device, kernel):
 
 
 def test_route_sends_decode_f32_and_odd_views_to_the_mma_kernel(device):
+    """Named for the kernel the decode step took before
+    flash_decode_sm90.cu: one bf16 query row now takes the decode kernel;
+    f32 and an odd view (hd 20) stay on flash_fwd.cu."""
     gen = torch.Generator(device=device).manual_seed(5)
     q, k, v = _inputs(gen, device, 2, 1, 352, 4, 128)
     bias = torch.zeros((2, 352), device=device)
-    sm90 = fa.LAUNCHES_SM90
+    sm90, decode = fa.LAUNCHES_SM90, fa.LAUNCHES_DECODE
     out = fa.flash_attention(q, k, v, bias, False)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES_SM90 == sm90
+    assert (fa.LAUNCHES_SM90, fa.LAUNCHES_DECODE) == (sm90, decode + 1)
     torch.testing.assert_close(out.float(), fa.flash_attention_plain(q, k, v, bias, False).float(),
                                rtol=2e-2, atol=2e-2)
     with pytest.raises(ValueError, match="sm90"):
         fa.flash_attention(q, k, v, bias, False, _kernel="sm90")
+    for qq, kk, vv in ((q.float(), k.float(), v.float()),
+                       tuple(x[..., :20].contiguous() for x in (q, k, v))):
+        out = fa.flash_attention(qq, kk, vv, bias, False)
+        torch.cuda.synchronize()
+        assert (fa.LAUNCHES_SM90, fa.LAUNCHES_DECODE) == (sm90, decode + 1)
+        want = fa.flash_attention_plain(qq, kk, vv, bias, False)
+        torch.testing.assert_close(out.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+# (name, B, Tk, nh, hd): the decode step, a tp rank's heads, a dp x tp
+# rank's, ragged sizes, the ViT's head dim
+DECODE_CASES = [("main", 16, 352, 32, 128), ("tp16", 16, 352, 16, 128),
+                ("dp8_tp16", 8, 352, 16, 128), ("ragged", 3, 37, 5, 64), ("hd104", 2, 100, 4, 104), ("one_key", 2, 1, 4, 128),
+                ("long", 1, 3000, 2, 128)]
+
+
+@pytest.mark.parametrize("kernel", ["decode", "mma"])
+@pytest.mark.parametrize("case", DECODE_CASES, ids=[c[0] for c in DECODE_CASES])
+@pytest.mark.parametrize("causal", [False, True], ids=["keys", "causal"])
+def test_both_kernels_at_one_query_row(device, case, kernel, causal):
+    """flash_decode_sm90.cu (the route's choice) and flash_fwd.cu (forced)
+    at one query row: k and v one layer of a cache, each row's keys valid
+    up to its own position, the output within the bf16 tolerance and lse
+    within 1e-5 of 1 + |lse|; the decode kernel bitwise on a repeat."""
+    name, b, tk, nh, hd = case
+    gen = torch.Generator(device=device).manual_seed(11)
+    q = torch.randn((b, 1, 3 * nh * hd), generator=gen, device=device,
+                    dtype=torch.bfloat16)[..., :nh * hd].reshape(b, 1, nh, hd)
+    cache = torch.randn((2, 2, b, tk, nh, hd), generator=gen, device=device, dtype=torch.bfloat16)
+    k, v = cache[0, 1], cache[1, 1]
+    assert fa._route(q, k, v) == "decode"
+    cur = torch.randint(0, tk, (b,), generator=gen, device=device)
+    cur[0] = tk - 1
+    bias = torch.where(torch.arange(tk, device=device)[None] <= cur[:, None], 0.0,
+                       fa.NEG_INF).to(torch.float32)
+    total, decode = fa.LAUNCHES, fa.LAUNCHES_DECODE
+    forced = None if kernel == "decode" else "mma"
+    got, lse = fa.flash_attention(q, k, v, bias, causal, True, _kernel=forced)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.LAUNCHES_DECODE) == (total + 1, decode + (kernel == "decode"))
+    want, lse_want = fa.flash_attention_plain(q, k, v, bias, causal, True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    assert ((lse - lse_want).abs() <= 1e-5 * (1 + lse_want.abs())).all()
+    if kernel == "decode":
+        again, lse_again = fa.flash_attention(q, k, v, bias, causal, True)
+        assert torch.equal(again, got) and torch.equal(lse_again, lse)
+
+
+@pytest.mark.parametrize("warps", [4, 8, 16])
+def test_a_split_whose_keys_are_all_masked_merges_to_nothing(device, warps, monkeypatch):
+    """At each block size: split 1's keys masked on every row, and one
+    row whose every key is masked (finite, lse 0)."""
+    monkeypatch.setattr(fa, "_decode_warps", lambda *args: warps)
+    gen = torch.Generator(device=device).manual_seed(12)
+    b, tk, nh, hd = 3, 352, 4, 128
+    q, k, v = _inputs(gen, device, b, 1, tk, nh, hd)
+    at_once = fa.DECODE_KEYS_AT_ONCE
+    chunk = math.ceil(math.ceil(tk / (2 * warps)) / at_once) * at_once  # keys a split
+    bias = torch.zeros((b, tk), device=device)
+    bias[:, chunk:2 * chunk] = fa.NEG_INF
+    bias[2] = fa.NEG_INF
+    got, lse = fa.flash_attention(q, k, v, bias, False, True)
+    want, lse_want = fa.flash_attention_plain(q, k, v, bias, False, True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and (lse[2] == 0).all() and (lse_want[2] == 0).all()
+    torch.testing.assert_close(got[:2].float(), want[:2].float(), rtol=2e-2, atol=2e-2)
+    assert ((lse - lse_want).abs() <= 1e-5 * (1 + lse_want.abs())).all()
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take(device):

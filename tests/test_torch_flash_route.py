@@ -71,11 +71,71 @@ def test_main_path_shapes_take_the_hopper_kernel(make):
     assert fa._route(q, k, v) == "sm90"
 
 
-@pytest.mark.parametrize("make", [_decode, _f32, _hd20, _misaligned, _short],
+@pytest.mark.parametrize("make,want", [(_decode, "decode"), (_f32, "mma"), (_hd20, "mma"),
+                                       (_misaligned, "mma"), (_short, "mma")],
                          ids=["decode", "f32", "hd20", "misaligned", "short"])
-def test_everything_else_takes_the_mma_kernel(make):
+def test_everything_else_takes_the_mma_kernel(make, want):
+    """Everything but the Hopper kernels' shapes takes flash_fwd.cu; the
+    decode step (one query row), which took it before
+    flash_decode_sm90.cu, now takes the decode kernel."""
     q, k, v = make()
-    assert fa._route(q, k, v) == "mma"
+    assert fa._route(q, k, v) == want
+
+
+def _cache_layer(b, t_max, nh, hd, layers=3):
+    """k and v as the decode step reads them: one layer of the caches
+    [L, B, T_max, nh, hd]."""
+    caches = torch.empty((2, layers, b, t_max, nh, hd), dtype=torch.bfloat16)
+    return caches[0, 1], caches[1, 1]
+
+
+def _decode_q(b, nh, hd):  # the rotated q of project_qkv: a new tensor
+    return _plain(b, 1, nh, hd)
+
+
+@pytest.mark.parametrize("make,want", [
+    (lambda: (_decode_q(16, 32, 128), *_cache_layer(16, 352, 32, 128)), "decode"),
+    (lambda: (_decode_q(16, 16, 128), *_cache_layer(16, 352, 16, 128)), "decode"),  # tp rank
+    (lambda: (_decode_q(8, 16, 128), *_cache_layer(8, 352, 16, 128)), "decode"),  # dp x tp
+    (lambda: (_decode_q(8, 32, 128), *_cache_layer(8, 352, 32, 128)), "decode"),  # dp rank
+    (lambda: (_fused(16, 1, 32, 128, 3)[0], *_cache_layer(16, 352, 32, 128)), "decode"),
+    (lambda: (_decode_q(2, 4, 104), *_cache_layer(2, 17, 4, 104)), "decode"),  # hd 104
+    (lambda: tuple(_plain(2, 1, 4, 128, torch.float32) for _ in range(3)), "mma"),
+    (lambda: (_decode_q(2, 4, 20), _plain(2, 40, 4, 20), _plain(2, 40, 4, 20)), "mma"),
+    (lambda: (_plain(2, 2, 4, 128), *_cache_layer(2, 40, 4, 128)), "mma"),  # Tq = 2
+    (lambda: (_plain(2, 63, 4, 128), *_cache_layer(2, 40, 4, 128)), "mma"),
+    (lambda: (torch.empty(2 * 4 * 128 + 8, dtype=torch.bfloat16)[1:1 + 2 * 4 * 128]
+              .view(2, 1, 4, 128), *_cache_layer(2, 40, 4, 128)), "mma"),  # q off 16 bytes
+    (lambda: (_decode_q(2, 4, 128), _plain(2, 40, 4, 132)[..., :128],
+              _plain(2, 40, 4, 128)), "mma"),  # k's strides not multiples of 8
+    (lambda: (_decode_q(3, 4, 128), _plain(1, 40, 4, 128).expand(3, 40, 4, 128),
+              _plain(3, 40, 4, 128)), "mma"),  # k broadcast over the batch: stride 0
+], ids=["main", "tp16", "dp8_tp16", "dp8", "fused_q", "hd104", "f32", "hd20", "tq2", "tq63",
+        "q_misaligned", "k_strided", "k_stride0"])
+def test_the_decode_route_at_the_edges(make, want):
+    q, k, v = make()
+    assert fa._route(q, k, v) == want
+
+
+# warps a block of flash_decode_sm90.cu on a 132-SM H100: the fewest of 4,
+# 8, 16 giving 8 warps an SM, and no more than let every split (2 a warp)
+# load its keys in one group of 4
+DECODE_WARPS = [((16, 32, 352), 4), ((16, 16, 352), 8), ((8, 16, 352), 16), ((8, 32, 352), 8),
+                ((4, 32, 17), 4), ((1, 32, 8192), 16), ((1, 2, 40), 8), ((1, 2, 33), 8),
+                ((1, 2, 32), 4)]
+
+
+@pytest.mark.parametrize("shape,warps", DECODE_WARPS,
+                         ids=["main", "tp16", "dp8_tp16", "dp8", "tiny", "long", "few_keys",
+                              "33_keys", "32_keys"])
+def test_the_decode_kernels_warps_at_each_shape(shape, warps):
+    b, nh, tk = shape
+    got = fa._decode_warps(b, nh, tk, 132)
+    assert got == warps and got in fa.DECODE_WARPS
+    # fewer warps leave a split more than one load of keys where more
+    # warps were taken for the keys' sake
+    assert got == fa.DECODE_WARPS[0] or b * nh * (got // 2) < 8 * 132 or (
+        2 * (got // 2) * fa.DECODE_KEYS_AT_ONCE < tk)
 
 
 def test_a_stride_of_zero_takes_the_mma_kernel():
@@ -121,7 +181,12 @@ def test_library_hash_covers_the_source(tmp_path, monkeypatch):
 
 def test_the_wrapper_refuses_cpu_tensors_before_any_route():
     q = _plain(1, 128, 2, 64)
-    before = (fa.LAUNCHES, fa.LAUNCHES_SM90)
+    before = (fa.LAUNCHES, fa.LAUNCHES_SM90, fa.LAUNCHES_DECODE)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention(q, q, q, torch.zeros((1, 128)), False, _kernel="mma")
-    assert (fa.LAUNCHES, fa.LAUNCHES_SM90) == before
+    q1 = _plain(1, 1, 2, 64)
+    assert fa._route(q1, q, q) == "decode"
+    for forced in (None, "mma"):
+        with pytest.raises(ValueError, match="CUDA"):
+            fa.flash_attention(q1, q, q, torch.zeros((1, 128)), False, _kernel=forced)
+    assert (fa.LAUNCHES, fa.LAUNCHES_SM90, fa.LAUNCHES_DECODE) == before

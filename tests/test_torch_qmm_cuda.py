@@ -124,15 +124,66 @@ def test_hopper_kernel_is_deterministic_and_reads_a_column_slice(device):
 
 
 def test_decode_and_f32_stay_on_the_mma_kernel(device):
+    """Named for the kernel the decode step took before
+    qmm_decode_sm90.cu: a bf16 decode product (M = 16) now takes the
+    decode kernel; f32 and 65 to 127 rows stay on qmm.cu."""
     gen = torch.Generator(device=device).manual_seed(12)
     w = _weight(gen, 4096, 4096, device)
-    sm90 = qm.LAUNCHES_SM90
-    for x in (torch.randn((16, 4096), generator=gen, device=device).to(torch.bfloat16),
-              torch.randn((512, 4096), generator=gen, device=device)):
+    sm90, decode = qm.LAUNCHES_SM90, qm.LAUNCHES_DECODE
+    x = torch.randn((16, 4096), generator=gen, device=device).to(torch.bfloat16)
+    _check(x, w)
+    assert (qm.LAUNCHES_SM90, qm.LAUNCHES_DECODE) == (sm90, decode + 1)
+    for x in (torch.randn((512, 4096), generator=gen, device=device),
+              torch.randn((100, 4096), generator=gen, device=device).to(torch.bfloat16)):
         launches = qm.LAUNCHES
         _check(x, w)
         assert qm.LAUNCHES == launches + 1
-    assert qm.LAUNCHES_SM90 == sm90
+    assert (qm.LAUNCHES_SM90, qm.LAUNCHES_DECODE) == (sm90, decode + 1)
     with pytest.raises(ValueError, match="sm90 kernel does not take"):
-        qm.quant_matmul(x[:16].to(torch.bfloat16), w["q"], w["s"], _kernel="sm90")
+        qm.quant_matmul(x[:16], w["q"], w["s"], _kernel="sm90")
     assert qm.LAUNCHES_SM90 == sm90
+
+
+# (site, M, K, N): a decode step's products, a dp rank's rows, a tp rank's
+# columns, and ragged M, K, N
+DECODE_SHAPES = [("qkv", 16, 4096, 12288), ("attn_proj", 16, 4096, 4096),
+                 ("mlp_w1", 16, 4096, 11008), ("mlp_proj", 16, 11008, 4096),
+                 ("lm_head", 16, 4096, 151936), ("dp8_proj", 8, 4096, 4096),
+                 ("tp_qkv", 8, 4096, 6144), ("ragged40", 40, 4104, 4112), ("m64", 64, 1024, 384),
+                 ("m33", 33, 136, 272), ("m1", 1, 256, 128)]
+
+
+@pytest.mark.parametrize("kernel", [None, "mma"], ids=["decode", "mma_forced"])
+@pytest.mark.parametrize("case", DECODE_SHAPES, ids=[c[0] for c in DECODE_SHAPES])
+def test_decode_shapes_on_both_kernels(device, case, kernel):
+    """The route sends each to qmm_decode_sm90.cu; both kernels match the
+    plain version, the counters move as the choice says, and the decode
+    kernel repeats bitwise (its splits sum in a fixed order)."""
+    _, m, k, n = case
+    gen = torch.Generator(device=device).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+    w = _weight(gen, k, n, device)
+    assert qm._route(x, w["q"], w["s"]) == "decode"
+    before = (qm.LAUNCHES, qm.LAUNCHES_DECODE)
+    _check(x, w, kernel)
+    assert (qm.LAUNCHES, qm.LAUNCHES_DECODE) == (before[0] + 1, before[1] + (kernel is None))
+    if kernel is None:
+        assert torch.equal(qm.quant_matmul(x, w["q"], w["s"]), qm.quant_matmul(x, w["q"], w["s"]))
+
+
+def test_decode_kernel_reads_a_column_slice_and_its_gradient_flows(device):
+    """A 16-byte aligned column slice of a fused projection is read in
+    place; with grad on, one decode launch and x's gradient is tdax's."""
+    gen = torch.Generator(device=device).manual_seed(13)
+    w = _weight(gen, 1024, 2048, device)
+    fused = torch.randn((16, 3 * 1024), generator=gen, device=device).to(torch.bfloat16)
+    x = fused[:, 1024:2048]
+    assert qm._route(x, w["q"], w["s"]) == "decode"
+    _check(x, w)
+    xg = x.detach().clone().requires_grad_()
+    decode = qm.LAUNCHES_DECODE
+    qm.qmm(xg, w["q"], w["s"]).float().sum().backward()
+    assert qm.LAUNCHES_DECODE == decode + 1
+    xp = x.detach().clone().requires_grad_()
+    qm.quant_matmul_plain(xp, w["q"], w["s"]).float().sum().backward()
+    torch.testing.assert_close(xg.grad.float(), xp.grad.float(), rtol=3e-2, atol=3e-2)
