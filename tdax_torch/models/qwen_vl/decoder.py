@@ -42,6 +42,7 @@ from tdax_torch.models.qwen_vl.quantize import is_quantized, layer_at, qdot
 from tdax_torch.models.qwen_vl.tp import seq_scatter, seq_weight, tp_input, tp_row_product
 from tdax_torch.ops.flash_attention import AttnSpec, current_flash_sharding, mha
 from tdax_torch.ops.ring_attention import local_chunk
+from tdax_torch.utils.log import span
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -166,9 +167,10 @@ def decoder_capture(stacked_layers: dict, x: torch.Tensor, cfg: QwenVLConfig,
     cos, sin, spec = _rotary_and_spec(x, cfg, attn_mask)
     rows = torch.arange(x.shape[0], device=x.device)
     captures = []
-    for i in range(cfg.num_layers):
-        x = block(x, layer_at(stacked_layers, i), cfg, cos, sin, spec)
-        captures.append(x[rows, last_token_idx])
+    with span("decoder"):
+        for i in range(cfg.num_layers):
+            x = block(x, layer_at(stacked_layers, i), cfg, cos, sin, spec)
+            captures.append(x[rows, last_token_idx])
     return x, torch.stack(captures)
 
 
@@ -220,12 +222,14 @@ def blocks(stacked_layers, x: torch.Tensor, cfg: QwenVLConfig, cos: torch.Tensor
     """Every block of ``stacked_layers`` in order, whatever its depth
     (``depth``: a pipeline stage holds its [L / pp, ...] slice), on one
     rotary cos / sin and attention spec, as tdax's ``_stage_apply``.
-    ``remat`` and ``seq`` as ``decoder``'s."""
-    for i in range(depth(stacked_layers)):
-        layer = layer_at(stacked_layers, i)
-        if remat:
-            x = torch.utils.checkpoint.checkpoint(block, x, layer, cfg, cos, sin, spec, seq,
-                                                  use_reentrant=False)
-        else:
-            x = block(x, layer, cfg, cos, sin, spec, seq)
+    ``remat`` and ``seq`` as ``decoder``'s.  The loop is the
+    ``tdax.decoder`` span; remat's replays run under the backward's."""
+    with span("decoder"):
+        for i in range(depth(stacked_layers)):
+            layer = layer_at(stacked_layers, i)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(block, x, layer, cfg, cos, sin, spec,
+                                                      seq, use_reentrant=False)
+            else:
+                x = block(x, layer, cfg, cos, sin, spec, seq)
     return x

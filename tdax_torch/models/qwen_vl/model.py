@@ -23,6 +23,7 @@ from tdax_torch.models.qwen_vl.quantize import _QUANT_KEYS, embed_lookup, qdot, 
 from tdax_torch.models.qwen_vl.tp import seq_weight, tp_gather, tp_input
 from tdax_torch.models.qwen_vl.vit import interp_pos_embed, sincos_2d, visual_encode
 from tdax_torch.ops.flash_attention import without_seq_axis
+from tdax_torch.utils.log import span
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -163,8 +164,9 @@ def extract_layer_activations(params: dict, cfg: QwenVLConfig,
                               images: torch.Tensor | None = None,
                               image_positions: torch.Tensor | None = None) -> torch.Tensor:
     """[n_layers, batch, hidden] last-token activation capture."""
-    x = embed_inputs(params, cfg, input_ids, images, image_positions)
-    _, capture = decoder_capture(params["layers"], x, cfg, attn_mask, last_token_idx)
+    with span("capture"):
+        x = embed_inputs(params, cfg, input_ids, images, image_positions)
+        _, capture = decoder_capture(params["layers"], x, cfg, attn_mask, last_token_idx)
     return capture
 
 

@@ -31,6 +31,7 @@ from tdax_torch.models.qwen_vl.config import VisualConfig
 from tdax_torch.models.qwen_vl.quantize import layer_at, qdot
 from tdax_torch.models.qwen_vl.tp import tp_input, tp_row_product
 from tdax_torch.ops.flash_attention import AttnSpec, mha
+from tdax_torch.utils.log import span
 
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
@@ -149,14 +150,15 @@ def visual_encode(images: torch.Tensor, params: dict, cfg: VisualConfig) -> torc
 
     The tower computes in the model's dtype (that of the ln_pre
     weights), not the input images' dtype, as tdax does."""
-    params = fsdp.leaves(params, ("visual",))
-    dtype = params["ln_pre_w"].dtype
-    x = patch_embed(images.to(dtype), params["patch_w"], cfg)
-    x = x + params["pos_embed"].to(x.dtype)
-    x = layer_norm(x, params["ln_pre_w"], params["ln_pre_b"], cfg.layer_norm_eps)
-    blocks = params["blocks"]
-    for i in range(cfg.layers):
-        x = vit_block(x, layer_at(blocks, i), cfg)
-    x = resampler(x, params["resampler"], cfg)
-    x = layer_norm(x, params["ln_post_w"], params["ln_post_b"], cfg.layer_norm_eps)
-    return qdot(x, params["proj"]).to(dtype)
+    with span("visual"):
+        params = fsdp.leaves(params, ("visual",))
+        dtype = params["ln_pre_w"].dtype
+        x = patch_embed(images.to(dtype), params["patch_w"], cfg)
+        x = x + params["pos_embed"].to(x.dtype)
+        x = layer_norm(x, params["ln_pre_w"], params["ln_pre_b"], cfg.layer_norm_eps)
+        blocks = params["blocks"]
+        for i in range(cfg.layers):
+            x = vit_block(x, layer_at(blocks, i), cfg)
+        x = resampler(x, params["resampler"], cfg)
+        x = layer_norm(x, params["ln_post_w"], params["ln_post_b"], cfg.layer_norm_eps)
+        return qdot(x, params["proj"]).to(dtype)

@@ -9,8 +9,10 @@ and a built one is reused.  Only the sources in the
 repository are compiled; a failed build raises with nvcc's output.
 
 ``build(names)`` starts one nvcc per source that still needs building,
-all at once, and waits for them together.  ``build_variants`` does the
-same for edited copies of a source (the probe scripts' variants).
+all at once, and waits for them together; each build's seconds go to
+``BUILD_SECONDS`` and, with ``TDAX_LOG`` set, to a ``kernel_build``
+event.  ``build_variants`` does the same for edited copies of a source
+(the probe scripts' variants).
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from tdax_torch.utils.log import log_event
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tdax_torch"
@@ -87,6 +91,7 @@ def build(names=None) -> dict[str, ctypes.CDLL]:
                 continue
             os.replace(tmp, out)
             BUILD_SECONDS[n] = time.perf_counter() - start
+            log_event("kernel_build", name=n, seconds=round(BUILD_SECONDS[n], 3))
         if failed:
             raise RuntimeError("tdax_torch: kernel build failed\n" + "\n".join(failed))
     for n in names:

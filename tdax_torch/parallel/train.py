@@ -88,6 +88,7 @@ from tdax_torch.ops.flash_attention import current_flash_sharding, flash_shardin
 from tdax_torch.ops.ring_attention import local_chunk
 from tdax_torch.parallel import mesh as pm
 from tdax_torch.runtime import get_device
+from tdax_torch.utils.log import span
 
 # dict nodes whose leaves are stacked over the layer axis
 _STACKED = ("layers", "blocks")
@@ -274,22 +275,23 @@ class OptState:
         total, by_tp, by_dp, by_both = (zero.clone() for _ in range(4))
         tp_flags = [False] * len(grads) if tp is None else tp[1]
         dp_flags = [False] * len(grads) if dp is None else dp[1]
-        for g, t, d in zip(grads, tp_flags, dp_flags):
-            acc = (by_both if d else by_tp) if t else (by_dp if d else total)
-            acc.add_(torch.linalg.vector_norm(g, dtype=torch.float32).square())
-        if tp is not None:
-            total += pm.all_reduce(by_tp, tp[0], "tp")
-        if dp is not None:
-            by_dp += pm.all_reduce(by_both, dp[0], "tp")
-            total += pm.all_reduce(by_dp, dp[0], "dp")
-        if pp is not None:
-            total = pm.all_reduce(total, pp, "pp")
-        norm = total.sqrt()
-        clip = norm >= CLIP_NORM  # optax: keep where |g| < max
-        denom = torch.where(clip, norm, 1.0)
-        mult = torch.where(clip, CLIP_NORM, 1.0)
-        for leaf, g in zip(self.leaves, grads):
-            leaf.grad = g.div_(denom).mul_(mult)
+        with span("clip"):
+            for g, t, d in zip(grads, tp_flags, dp_flags):
+                acc = (by_both if d else by_tp) if t else (by_dp if d else total)
+                acc.add_(torch.linalg.vector_norm(g, dtype=torch.float32).square())
+            if tp is not None:
+                total += pm.all_reduce(by_tp, tp[0], "tp")
+            if dp is not None:
+                by_dp += pm.all_reduce(by_both, dp[0], "tp")
+                total += pm.all_reduce(by_dp, dp[0], "dp")
+            if pp is not None:
+                total = pm.all_reduce(total, pp, "pp")
+            norm = total.sqrt()
+            clip = norm >= CLIP_NORM  # optax: keep where |g| < max
+            denom = torch.where(clip, norm, 1.0)
+            mult = torch.where(clip, CLIP_NORM, 1.0)
+            for leaf, g in zip(self.leaves, grads):
+                leaf.grad = g.div_(denom).mul_(mult)
         self.torch_opt.param_groups[0]["lr"] = self.optimizer.learning_rate(self.count)
         self.torch_opt.step()
         for leaf in self.leaves:
@@ -440,7 +442,8 @@ def make_train_step(cfg: QwenVLConfig, optimizer: AdamW, with_images: bool = Fal
         return masked_ce_parts(logits, b["input_ids"], b["attn_mask"], _offset(b["input_ids"]))
 
     def grads_of(out, leaves):
-        grads = torch.autograd.grad(out, leaves, allow_unused=True)
+        with span("backward"):
+            grads = torch.autograd.grad(out, leaves, allow_unused=True)
         return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
 
     def gathered(names) -> list:
@@ -525,8 +528,9 @@ def make_train_step(cfg: QwenVLConfig, optimizer: AdamW, with_images: bool = Fal
         return out
 
     def step(params, opt_state: OptState, batch: dict):
-        loss, grads = loss_and_grads(params, opt_state, batch)
-        opt_state.update(grads, **shards(opt_state))
+        with span("train_step"):
+            loss, grads = loss_and_grads(params, opt_state, batch)
+            opt_state.update(grads, **shards(opt_state))
         return params, opt_state, loss
 
     step.loss_and_grads = loss_and_grads

@@ -28,11 +28,20 @@ batches, tdax's replicated case, and rank 0 writes.  On a restart every
 rank reads the same checkpoint and skips the same ids.  Every rank
 returns the whole result.  The next batch's images are decoded on a
 host thread while the current batch runs.
+
+Under torch.profiler the loop's stretches are ``tdax.*`` ranges
+(``tdax_torch.utils.log.span``): ``host_prep`` on the image thread,
+``h2d``, the model's ``capture``, ``readout`` and ``write`` (each
+``.tmp.npz``, ``.pt`` and ``.npz`` save).  With ``TDAX_LOG`` set, each
+batch logs an ``extract_batch`` event: the bytes copied to the device
+(``h2d_bytes``) and back (``d2h_bytes``) and the seconds the loop
+waited on the image thread (``wait_s``).
 """
 
 from __future__ import annotations
 
 import os
+import time
 import zipfile
 from concurrent.futures import ThreadPoolExecutor
 
@@ -49,6 +58,7 @@ from tdax_torch.models.qwen_vl.tokenizer import batch_encode, get_tokenizer
 from tdax_torch.ops.flash_attention import flash_sharding
 from tdax_torch.parallel.mesh import barrier, dp_mesh, gather_batch, is_writer
 from tdax_torch.runtime import get_device
+from tdax_torch.utils.log import log_event, span
 
 
 def _round_up(x: int, m: int) -> int:
@@ -147,21 +157,24 @@ def extract_activations(metadata: list[dict], output_path: str,
     row_of = {m["id"]: j for j, m in enumerate(metadata)}
 
     def host_prep(chunk):
-        rows = np.asarray([row_of[m["id"]] for m in chunk]
-                          + [row_of[chunk[0]["id"]]] * (bs - len(chunk)))[share]
-        images = load_image_batch([encoded["image_paths"][r] for r in rows],
-                                  cfg.visual.image_size)
-        return (enc_ids[rows], enc_mask[rows], encoded["last_token_idx"][rows],
-                images, encoded["image_positions"][rows])
+        with span("host_prep"):
+            rows = np.asarray([row_of[m["id"]] for m in chunk]
+                              + [row_of[chunk[0]["id"]]] * (bs - len(chunk)))[share]
+            images = load_image_batch([encoded["image_paths"][r] for r in rows],
+                                      cfg.visual.image_size)
+            return (enc_ids[rows], enc_mask[rows], encoded["last_token_idx"][rows],
+                    images, encoded["image_positions"][rows])
 
-    def run(ids, mask, last_idx, images, img_pos) -> torch.Tensor:
-        def dev(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+    dtypes = (torch.long, torch.int32, torch.long, torch.float32, torch.long)
+
+    def to_device(arrays) -> list[torch.Tensor]:
+        with span("h2d"):
+            return [torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dt)
+                    for a, dt in zip(arrays, dtypes)]
+
+    def run(inputs) -> torch.Tensor:
         with torch.inference_mode():
-            return extract_layer_activations(
-                params, cfg, dev(ids, torch.long), dev(mask, torch.int32),
-                dev(last_idx, torch.long), dev(images, torch.float32),
-                dev(img_pos, torch.long))
+            return extract_layer_activations(params, cfg, *inputs)
 
     collected_ids = list(done_ids)
     collected: list[np.ndarray] = [] if done_acts is None else [done_acts]
@@ -171,15 +184,22 @@ def extract_activations(metadata: list[dict], output_path: str,
     with ThreadPoolExecutor(max_workers=1) as pool:
         fut = pool.submit(host_prep, batches[0]) if batches else None
         for i, chunk in enumerate(batches):
+            t_wait = time.perf_counter()
             args = fut.result()
+            wait_s = time.perf_counter() - t_wait
             fut = pool.submit(host_prep, batches[i + 1]) if i + 1 < len(batches) else None
+            inputs = to_device(args)
             if mesh is None:
-                acts = run(*args).float()
+                acts = run(inputs)
             else:
                 with flash_sharding(mesh, batch_axis="dp"):
-                    acts = gather_batch(run(*args).float(), mesh, dim=1)
-            acts = acts.cpu().numpy()[:, :len(chunk)]
-            collected.append(acts)
+                    acts = gather_batch(run(inputs).float(), mesh, dim=1)
+            with span("readout"):
+                acts = acts.float().cpu().numpy()
+            log_event("extract_batch", batch=i, samples=len(chunk),
+                      h2d_bytes=sum(t.nbytes for t in inputs), d2h_bytes=acts.nbytes,
+                      wait_s=round(wait_s, 6))
+            collected.append(acts[:, :len(chunk)])
             collected_ids.extend(m["id"] for m in chunk)
             since_save += len(chunk)
             if verbose:
@@ -187,7 +207,8 @@ def extract_activations(metadata: list[dict], output_path: str,
             if since_save >= extract_cfg.save_interval:
                 all_acts = np.concatenate(collected, axis=1)
                 if writer:
-                    save_activations_npz(tmp_path, all_acts, collected_ids, metadata)
+                    with span("write"):
+                        save_activations_npz(tmp_path, all_acts, collected_ids, metadata)
                 barrier()
                 collected = [all_acts]
                 since_save = 0
@@ -199,9 +220,10 @@ def extract_activations(metadata: list[dict], output_path: str,
 
     if collected_ids:
         if writer:
-            save_activations(output_path, all_acts, collected_ids, metadata)
-            save_activations_npz(output_path.rsplit(".", 1)[0] + ".npz",
-                                 all_acts, collected_ids, metadata)
+            with span("write"):
+                save_activations(output_path, all_acts, collected_ids, metadata)
+                save_activations_npz(output_path.rsplit(".", 1)[0] + ".npz",
+                                     all_acts, collected_ids, metadata)
             if os.path.exists(tmp_path):
                 os.remove(tmp_path)
         barrier()
