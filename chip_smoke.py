@@ -14,7 +14,8 @@ and runs these phases, printing JSON lines:
             register, spill, C7508 and setmaxnreg lines (and, for the
             Hopper sources, ptxas's wgmma warnings C75xx) and fails if
             flash_fwd_sm90.cu, flash_bwd_sm90.cu, qmm_sm90.cu,
-            sqdist_sm90.cu, flash_decode_sm90.cu or qmm_decode_sm90.cu
+            sqdist_sm90.cu, flash_decode_sm90.cu, qmm_decode_sm90.cu or
+            vit_elementwise_sm90.cu
             spills or has setmaxnreg ignored (C7508).
 2. kernels  each kernel's wrapper against its plain PyTorch version on
             the card.  flash_fwd, both kernels: the route must send the
@@ -64,7 +65,13 @@ and runs these phases, printing JSON lines:
             through qmm (QuantMatmul, tdax's _qmm_bwd) at QMM_GRAD_SITES,
             one on qmm_sm90.cu and one on qmm_decode_sm90.cu: present,
             one launch, within QMM_GRAD_TOL of the plain version's
-            autograd gradient.  Raises on a
+            autograd gradient.  vit_elementwise: vit_ln_rows and
+            vit_bias_epilogue (the tower's LayerNorms and bias / GELU /
+            residual epilogues) at every site of a capture batch
+            (VIT_SITES), bf16 and f32, against their plain versions
+            (LayerNorm, bias and residual bitwise, GELU within one ulp),
+            each launch counted, bf16 timed by the card's
+            kernel time beside the plain version and the bound.  Raises on a
             case outside its tolerance.  Times the kernel, the plain
             version and one PyTorch library call (SDPA; torch.cdist
             against the Euclidean wrapper; torch.matmul on the weight
@@ -77,7 +84,9 @@ and runs these phases, printing JSON lines:
             drawn on the card from a seed, extract_activations at batch
             16.  Checks the [32, 48, 4096] capture, finiteness, the .pt
             and .npz schemas, and that every attention went through the
-            sm90 kernel (both counters = 3 batches x (48 + 1 + 32) = 243),
+            sm90 kernel (both counters = 3 batches x (48 + 1 + 32) = 243)
+            and every LayerNorm and bias epilogue of the tower through
+            vit_ln_rows (3 x 100) and vit_bias_epilogue (3 x 196),
             then times the same capture once more, warm, and each of
             its host stages alone (tokenize, image decode, .npz, .pt).
             Before that, a tiny f32 model's capture on the card is held
@@ -93,8 +102,8 @@ and runs these phases, printing JSON lines:
             extract_activations with ExtractConfig(quantize_int8=True):
             the [32, 48, 4096] capture, finite, tdax's schemas, qmm
             launches 3 x (199 + 160) = 1077, 3 x 358 = 1074 of them on
-            qmm_sm90.cu and the 3 vit.patch_w on qmm.cu, and flash 243,
-            all sm90, minimum
+            qmm_sm90.cu and the 3 vit.patch_w on qmm.cu, flash 243,
+            all sm90, and the tower's 300 + 588 as in capture, minimum
             cosine per captured vector > 0.98 against the bf16 capture;
             the same profile of one batch.
 4c. generate init_params_quantized(QwenVLConfig(), "cuda", seed=0), the
@@ -487,7 +496,8 @@ and runs these phases, printing JSON lines:
             0's), the W8A8 capture's and
             generate's and each scale_sparse call's included; the W8A8
             product is torch._int_mm, a library call, whose times are on
-            the w8a8 line), the nvidia-smi
+            the w8a8 line; vit_elementwise its two kernels' launches on
+            the bf16 and int8 captures and a batch's times), the nvidia-smi
             line, then the last
             line {"ok": true, "device": {...}}.  Kernel times are
             reported, never gated: only correctness and launch counts
@@ -846,6 +856,28 @@ F32_SHAPES = [  # tests/test_flash_attention.py:37-50, batch 2, plus hd 104
 ]
 
 
+# the visual tower's elementwise kernels (vit_elementwise_sm90.cu) at a
+# capture batch's sites: (site, rows, cols, form, calls a batch), 100
+# LayerNorms and 196 epilogues (2 and 4 a block, ln_pre, ln_kv, ln_q,
+# ln_post, the resampler's four bias adds)
+VIT_SITES = [
+    ("ln_pre/ln_1/ln_2", 16 * 1024, 1664, "layer_norm", 97),
+    ("ln_kv", 16 * 1024, 4096, "layer_norm", 1),
+    ("ln_post", 16 * 256, 4096, "layer_norm", 1),
+    ("ln_q", 256, 4096, "layer_norm", 1),
+    ("qkv", 16 * 1024, 4992, "bias", 48),
+    ("fc", 16 * 1024, 8192, "gelu", 48),
+    ("attn_proj/mlp_proj", 16 * 1024, 1664, "residual", 96),
+    ("resampler_k/v", 16 * 1024, 4096, "bias", 2),
+    ("resampler_q/out", 16 * 256, 4096, "bias", 2),
+]
+VIT_LN_PER_BATCH, VIT_EPILOGUE_PER_BATCH = 100, 196
+VIT_EPS = 1e-6
+# the card test's limits (tests/test_torch_vit_elementwise_cuda.py): the
+# LayerNorm (summed in the order of PyTorch's CUDA reduce) and the bias
+# and residual forms bitwise; the GELU within one ulp of the type
+
+
 # the flash backward: (name, B, Tq, Tk, nh, hd, causal, calls per training step)
 BWD_SHAPES = [
     ("decoder", 4, 1024, 1024, 32, 128, True, 32),
@@ -885,7 +917,7 @@ TRAIN_LOSS_TOL = 0.1
 
 # the sources ptxas must compile without a spill and with setmaxnreg kept
 SM90_SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "qmm_sm90", "sqdist_sm90",
-                "flash_decode_sm90", "qmm_decode_sm90")
+                "flash_decode_sm90", "qmm_decode_sm90", "vit_elementwise_sm90")
 
 
 def emit(obj) -> None:
@@ -1117,7 +1149,110 @@ def phase_kernels() -> dict:
         if not torch.isfinite(out).all() or not (lse == 0).all():
             raise AssertionError(f"fully masked rows ({kernel or 'sm90'}): non-finite output "
                                  "or lse not 0")
-    return {"sites": sites, "train": train, "decode": decode, "f32_max_abs_err": max(f32_errs)}
+    del q, k, v, out, lse
+    torch.cuda.empty_cache()
+    vit = _vit_elementwise_cases(device)
+    return {"sites": sites, "train": train, "decode": decode, "f32_max_abs_err": max(f32_errs),
+            "vit": vit}
+
+
+def _ulps(got, want, scale):
+    """The largest |got - want| in units in the last place of got's type
+    at max(scale, |want|) (the smallest normal's at 0)."""
+    import torch
+    mantissa = {torch.bfloat16: 7, torch.float32: 23}[got.dtype]
+    mag = torch.maximum(scale, want.float().abs()).clamp_min_(torch.finfo(got.dtype).tiny)
+    _, e = torch.frexp(mag)
+    ulp = torch.ldexp(torch.ones_like(mag), (e - 1 - mantissa).int())
+    return float(((got.float() - want.float()).abs_() / ulp).max())
+
+
+def _vit_elementwise_case(ve, gen, device, site, dtype) -> dict:
+    """One site of VIT_SITES: the wrapper (layer_norm; bias_epilogue_ on a
+    copy of the product) against the plain version on the same inputs,
+    one launch counted; in bf16 the kernel, the plain version and the
+    bound timed."""
+    import torch
+    name, rows, cols, form, calls = site
+    x = (torch.randn(rows, cols, generator=gen, device=device) * 2 + 0.3).to(dtype)
+    v = (torch.randn(2, cols, generator=gen, device=device) * 0.5).to(dtype)
+    w, b = (v[0] + 1).contiguous(), v[1].contiguous()
+    label = f"vit_elementwise {name} [{rows}, {cols}] {form} {str(dtype)[6:]}"
+    before = (ve.LAUNCHES_LN, ve.LAUNCHES_EPILOGUE)
+    if form == "layer_norm":
+        got = ve.layer_norm(x, w, b, VIT_EPS)
+        want = ve.layer_norm_plain(x, w, b, VIT_EPS)
+        moved = (1, 0)
+        rec = {"bitwise": bool(torch.equal(got, want))}
+        if not rec["bitwise"]:
+            raise AssertionError(f"{label}: {int((got != want).sum())} elements differ from "
+                                 "the plain version's")
+    else:
+        res = (x * 0.5).to(dtype) if form == "residual" else None
+        gelu = form == "gelu"
+        work = x.clone()
+        got = ve.bias_epilogue_(work, b, gelu=gelu, residual=res)
+        want = ve.bias_epilogue_plain(x, b, gelu, res)
+        moved = (0, 1)
+        if got is not work:
+            raise AssertionError(f"{label}: the result is not written over the product")
+        if gelu:
+            rec = {"max_ulps": _ulps(got, want, want.float().abs()), "ulps_limit": 1}
+            if rec["max_ulps"] > 1:
+                raise AssertionError(f"{label}: {rec} against the plain version")
+        else:
+            rec = {"bitwise": bool(torch.equal(got, want))}
+            if not rec["bitwise"]:
+                raise AssertionError(f"{label}: differs from the plain version's bits")
+    torch.cuda.synchronize()
+    if (ve.LAUNCHES_LN - before[0], ve.LAUNCHES_EPILOGUE - before[1]) != moved:
+        raise AssertionError(f"{label}: the launch counters did not move by {moved}")
+    if got.dtype != dtype or got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: {got.dtype} {tuple(got.shape)}, or non-finite")
+    rec = {"site": name, "shape": [rows, cols], "form": form, "dtype": str(dtype)[6:],
+           "calls_per_batch": calls, **rec}
+    if dtype == torch.bfloat16:
+        if form == "layer_norm":
+            fn = lambda: ve.layer_norm_cuda(x, w, b, VIT_EPS)  # noqa: E731
+            plain = lambda: ve.layer_norm_plain(x, w, b, VIT_EPS)  # noqa: E731
+            nbytes = 2 * rows * cols + 2 * cols
+        else:
+            fn = lambda: ve.bias_epilogue_cuda(work, b, gelu, res, in_place=True)  # noqa: E731
+            plain = lambda: ve.bias_epilogue_plain(x, b, gelu, res)  # noqa: E731
+            nbytes = (2 + (res is not None)) * rows * cols + cols
+        rec["ms"] = _device_ms(fn, 30)
+        rec["plain_ms"] = _device_ms(plain, 10)
+        rec["bound_ms"] = 1e3 * nbytes * x.element_size() / HBM_BYTES_PER_S
+        rec["share_of_bound"] = _share(rec["bound_ms"], rec["ms"])
+    emit({"phase": "kernel_case", "kernel": "vit_elementwise", **rec})
+    return rec
+
+
+def _vit_elementwise_cases(device) -> dict:
+    """vit_ln_rows and vit_bias_epilogue at every site of a capture batch
+    (VIT_SITES), bf16 (timed) and f32, against their plain versions; the
+    batch's totals weighted by each site's calls."""
+    import torch
+    import tdax_torch.ops.vit_elementwise as ve
+    gen = torch.Generator(device=device).manual_seed(26)
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for site in VIT_SITES:
+            cases.append(_vit_elementwise_case(ve, gen, device, site, dtype))
+            torch.cuda.empty_cache()
+    timed = [c for c in cases if "ms" in c]
+
+    def total(key):
+        values = [c[key] * c["calls_per_batch"] if isinstance(c[key], float) else None
+                  for c in timed]
+        return sum(values) if None not in values else "not measured"
+
+    return {"cases": cases, "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "gelu_max_ulps": {dt: max(c["max_ulps"] for c in cases
+                                      if c["form"] == "gelu" and c["dtype"] == dt)
+                              for dt in ("bfloat16", "float32")},
+            "bitwise": all(c["bitwise"] for c in cases if "bitwise" in c)}
 
 
 def _decode_case(fa, gen, device, shape, masked_split: bool) -> dict:
@@ -3227,6 +3362,7 @@ def phase_capture(tmp: Path, smi: str):
     import torch
     import tdax_torch.ops.flash_attention as fa
     import tdax_torch.ops.quant_matmul as qm
+    import tdax_torch.ops.vit_elementwise as ve
     from tdax_torch.config import DatasetConfig, ExtractConfig
     from tdax_torch.data.dataset import generate_dataset
     from tdax_torch.data.io import save_activations, save_activations_npz
@@ -3259,12 +3395,14 @@ def phase_capture(tmp: Path, smi: str):
     out_path = str(tmp / "data" / "all_activations.pt")
     torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES = fa.LAUNCHES_SM90 = qm.LAUNCHES = qm.LAUNCHES_SM90 = 0
+    ve.LAUNCHES_LN = ve.LAUNCHES_EPILOGUE = 0
     t0 = time.perf_counter()
     results = extract_activations(metadata, out_path, cfg, ecfg, params=params,
                                   device="cuda", verbose=False)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches, sm90_launches, qmm_launches = fa.LAUNCHES, fa.LAUNCHES_SM90, qm.LAUNCHES
+    vit_launches = {"vit_ln_rows": ve.LAUNCHES_LN, "vit_bias_epilogue": ve.LAUNCHES_EPILOGUE}
     peak = torch.cuda.max_memory_allocated()
 
     acts, ids = _check_capture(out_path, metadata, results, "bf16 capture")
@@ -3274,6 +3412,11 @@ def phase_capture(tmp: Path, smi: str):
         raise AssertionError(f"flash kernels launched {launches} times ({sm90_launches} sm90), "
                              f"expected {expected}, all sm90; qmm {qmm_launches} times, "
                              "expected 0 (fp weights)")
+    vit_expected = {"vit_ln_rows": n_batches * VIT_LN_PER_BATCH,
+                    "vit_bias_epilogue": n_batches * VIT_EPILOGUE_PER_BATCH}
+    if vit_launches != vit_expected:
+        raise AssertionError(f"the tower's elementwise kernels launched {vit_launches}, "
+                             f"expected {vit_expected}")
 
     # the same run again, warm: the difference is first-call set-up
     t0 = time.perf_counter()
@@ -3302,7 +3445,7 @@ def phase_capture(tmp: Path, smi: str):
             "param_dtype": cfg.dtype, "init_s": init_s, "capture_shape": list(acts.shape),
             "finite": True, "flash_launches": launches, "flash_launches_sm90": sm90_launches,
             "expected_launches": expected,
-            "qmm_launches": qmm_launches,
+            "qmm_launches": qmm_launches, "vit_launches": vit_launches,
             "wall_s": wall_s, "max_len": max_len, "tokens": tokens, "tokens_per_s": tokens / wall_s,
             "wall_warm_s": warm_s, "tokens_per_s_warm": tokens / warm_s, "host": host,
             "max_memory_allocated_bytes": peak, "image_path": "PIL"}
@@ -3466,6 +3609,7 @@ def phase_int8_capture(tmp: Path, smi: str, state: dict, bf16_peak: int) -> dict
     import torch
     import tdax_torch.ops.flash_attention as fa
     import tdax_torch.ops.quant_matmul as qm
+    import tdax_torch.ops.vit_elementwise as ve
     from tdax_torch.config import ExtractConfig
     from tdax_torch.models.qwen_vl.config import QwenVLConfig
     from tdax_torch.models.qwen_vl.quantize import quantize_params, quantized_bytes
@@ -3490,13 +3634,15 @@ def phase_int8_capture(tmp: Path, smi: str, state: dict, bf16_peak: int) -> dict
     out_path = str(out_dir / "all_activations.pt")
     torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES = fa.LAUNCHES_SM90 = qm.LAUNCHES = qm.LAUNCHES_SM90 = 0
+    ve.LAUNCHES_LN = ve.LAUNCHES_EPILOGUE = 0
     t0 = time.perf_counter()
     results = extract_activations(metadata, out_path, cfg, ecfg, params=params, device="cuda",
                                   verbose=False)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {"qmm": qm.LAUNCHES, "qmm_sm90": qm.LAUNCHES_SM90, "flash_fwd": fa.LAUNCHES,
-                "flash_fwd_sm90": fa.LAUNCHES_SM90}
+                "flash_fwd_sm90": fa.LAUNCHES_SM90, "vit_ln_rows": ve.LAUNCHES_LN,
+                "vit_bias_epilogue": ve.LAUNCHES_EPILOGUE}
     peak = torch.cuda.max_memory_allocated()
 
     acts, _ = _check_capture(out_path, metadata, results, "int8 capture")
@@ -3504,7 +3650,9 @@ def phase_int8_capture(tmp: Path, smi: str, state: dict, bf16_peak: int) -> dict
     expected = {"qmm": n_batches * QMM_PER_CAPTURE_BATCH,
                 "qmm_sm90": n_batches * QMM_SM90_PER_CAPTURE_BATCH,
                 "flash_fwd": n_batches * (cfg.visual.layers + 1 + cfg.num_layers),
-                "flash_fwd_sm90": n_batches * (cfg.visual.layers + 1 + cfg.num_layers)}
+                "flash_fwd_sm90": n_batches * (cfg.visual.layers + 1 + cfg.num_layers),
+                "vit_ln_rows": n_batches * VIT_LN_PER_BATCH,
+                "vit_bias_epilogue": n_batches * VIT_EPILOGUE_PER_BATCH}
     ref = state["acts"].astype(np.float64)
     got = acts.astype(np.float64)
     cos = (ref * got).sum(-1) / (np.linalg.norm(ref, axis=-1) * np.linalg.norm(got, axis=-1))
@@ -6673,6 +6821,30 @@ def main(argv=None) -> int:
                "each weighted by its calls) on qmm_decode_sm90.cu as routed; ms_mma is every "
                "call on qmm.cu; library_ms torch.matmul on the weight pre-converted to bf16; "
                "all by the card's kernel time (torch.profiler)",
+    }, {
+        "name": "vit_elementwise",
+        "route": "cuda",
+        "source": "tdax_torch/ops/csrc/vit_elementwise_sm90.cu",
+        "kernels": ["vit_ln_rows", "vit_bias_epilogue"],
+        "replaces": "none: tdax/models/qwen_vl/vit.py's layer_norm, gelu_tanh and bias and "
+                    "residual adds are jnp, fused by XLA on the TPU",
+        "launches": capture["vit_launches"],
+        "launches_by_path": {"capture": capture["vit_launches"],
+                             "int8_capture": {k: int8["launches"][k]
+                                              for k in ("vit_ln_rows", "vit_bias_epilogue")}},
+        "gelu_max_ulps": kern["vit"]["gelu_max_ulps"],
+        "layer_norm_bias_and_residual_bitwise": kern["vit"]["bitwise"],
+        "ms": kern["vit"]["ms"],
+        "plain_ms": kern["vit"]["plain_ms"],
+        "bound_ms": kern["vit"]["bound_ms"],
+        "bound_by": "bytes",
+        "sites": {c["site"]: {key: c[key] for key in (
+            "shape", "form", "calls_per_batch", "ms", "plain_ms", "bound_ms", "share_of_bound")}
+            for c in kern["vit"]["cases"] if "ms" in c},
+        "per": f"one capture batch of 16 ({VIT_LN_PER_BATCH} vit_ln_rows and "
+               f"{VIT_EPILOGUE_PER_BATCH} vit_bias_epilogue launches, each site weighted by "
+               "its calls), bf16; bound_ms each input read and each output written once at "
+               "3.35 TB/s; all by the card's kernel time (torch.profiler), L2 not flushed",
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

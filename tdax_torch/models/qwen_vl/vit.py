@@ -8,7 +8,10 @@ positions on both sides, ``ln_post`` and the output projection.
 
 Numerics follow tdax exactly: layer norm with population variance,
 normalized in f32, cast to the model dtype, *then* ``* w + b`` in that
-dtype; GELU is ``jax.nn.gelu``'s default tanh approximation.
+dtype; GELU is ``jax.nn.gelu``'s default tanh approximation.  The layer
+norms and the bias, GELU and residual adds after the products go through
+``tdax_torch.ops.vit_elementwise``: the plain expressions on the CPU,
+fused kernels with the same roundings on the card.
 
 Under tp a block and the resampler hold their rank's heads and MLP
 columns (the head count from the weights' shapes); the row-parallel
@@ -31,19 +34,8 @@ from tdax_torch.models.qwen_vl.config import VisualConfig
 from tdax_torch.models.qwen_vl.quantize import layer_at, qdot
 from tdax_torch.models.qwen_vl.tp import tp_input, tp_row_product
 from tdax_torch.ops.flash_attention import AttnSpec, mha
+from tdax_torch.ops.vit_elementwise import bias_epilogue_, layer_norm
 from tdax_torch.utils.log import span
-
-
-def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)  # population variance
-    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
-
-
-def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu`` (approximate=True) in f32, cast back."""
-    return F.gelu(x.float(), approximate="tanh").to(x.dtype)
 
 
 def patch_embed(images: torch.Tensor, w: torch.Tensor, cfg: VisualConfig) -> torch.Tensor:
@@ -84,16 +76,16 @@ def vit_block(x: torch.Tensor, layer: dict, cfg: VisualConfig) -> torch.Tensor:
     layer = fsdp.leaves(layer, ("visual", "blocks"))
     h = layer_norm(x, layer["ln_1_w"], layer["ln_1_b"], cfg.layer_norm_eps)
     h = _col(h, layer["attn_qkv_w"], 3 * cfg.width)
-    qkv = qdot(h, layer["attn_qkv_w"]) + layer["attn_qkv_b"]
+    qkv = bias_epilogue_(qdot(h, layer["attn_qkv_w"]), layer["attn_qkv_b"])
     q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
     attn = _mha(q, k, v, cfg.width // cfg.heads)
-    attn = _row(attn, layer["attn_proj_w"], cfg.width) + layer["attn_proj_b"]
-    x = x + attn
+    x = bias_epilogue_(_row(attn, layer["attn_proj_w"], cfg.width), layer["attn_proj_b"],
+                       residual=x)
     h = layer_norm(x, layer["ln_2_w"], layer["ln_2_b"], cfg.layer_norm_eps)
-    h = qdot(_col(h, layer["mlp_fc_w"], cfg.mlp_dim), layer["mlp_fc_w"]) + layer["mlp_fc_b"]
-    h = gelu_tanh(h)
-    h = _row(h, layer["mlp_proj_w"], cfg.mlp_dim) + layer["mlp_proj_b"]
-    return x + h
+    h = bias_epilogue_(qdot(_col(h, layer["mlp_fc_w"], cfg.mlp_dim), layer["mlp_fc_w"]),
+                       layer["mlp_fc_b"], gelu=True)
+    return bias_epilogue_(_row(h, layer["mlp_proj_w"], cfg.mlp_dim), layer["mlp_proj_b"],
+                          residual=x)
 
 
 def sincos_2d(grid: int, dim: int) -> np.ndarray:
@@ -138,11 +130,14 @@ def resampler(x: torch.Tensor, params: dict, cfg: VisualConfig) -> torch.Tensor:
     kb = kv + params["kv_pos"].to(x.dtype)
     # qb is a broadcast view (stride 0 over the batch): qdot's int8 path
     # collapses it to rows, copying where it must
-    qh = qdot(_col(qb, params["attn_q_w"], d), params["attn_q_w"]) + params["attn_q_b"]
-    kh = qdot(_col(kb, params["attn_k_w"], d), params["attn_k_w"]) + params["attn_k_b"]
-    vh = qdot(_col(kv, params["attn_v_w"], d), params["attn_v_w"]) + params["attn_v_b"]
+    qh = bias_epilogue_(qdot(_col(qb, params["attn_q_w"], d), params["attn_q_w"]),
+                        params["attn_q_b"])
+    kh = bias_epilogue_(qdot(_col(kb, params["attn_k_w"], d), params["attn_k_w"]),
+                        params["attn_k_b"])
+    vh = bias_epilogue_(qdot(_col(kv, params["attn_v_w"], d), params["attn_v_w"]),
+                        params["attn_v_b"])
     out = _mha(qh, kh, vh, d // cfg.resampler_heads)
-    return _row(out, params["attn_out_w"], d) + params["attn_out_b"]
+    return bias_epilogue_(_row(out, params["attn_out_w"], d), params["attn_out_b"])
 
 
 def visual_encode(images: torch.Tensor, params: dict, cfg: VisualConfig) -> torch.Tensor:

@@ -30,7 +30,8 @@ from tdax_torch.models.qwen_vl import QwenVLConfig, extract_layer_activations, f
 from tdax_torch.models.qwen_vl.convert import params_from_numpy
 from tdax_torch.models.qwen_vl.decoder import decoder_capture
 from tdax_torch.models.qwen_vl.model import embed_inputs, init_params
-from tdax_torch.models.qwen_vl.vit import gelu_tanh, layer_norm, visual_encode
+from tdax_torch.models.qwen_vl.vit import layer_norm, visual_encode
+from tdax_torch.ops.vit_elementwise import gelu_tanh
 
 CFG = QwenVLConfig.tiny(dtype="float32")
 JCFG = JConfig.tiny(dtype="float32")
