@@ -11,6 +11,15 @@ A job is built from a cell, a seed and a device, and offers:
 - ``release()``: frees the program's state once the window has closed;
 - ``check()``: the numbers that decide ``correct``, each with its limit.
 
+A job class also declares what the harness needs of its kind of model:
+
+- ``FAULTS``: the faults that can be planted under its window
+  (``benchmark.faults``);
+- ``tiny(cfg, dtype)``: the configuration its rehearsals run on the CPU
+  in place of ``cfg`` (``benchmark.rehearse``);
+- ``SPANS``: the port's ``tdax.*`` spans (prefix left out) that its
+  traced units hold.
+
 Spans (``span(name)``) wrap the job's calls into the program; they
 record only in a traced run.
 """
@@ -18,8 +27,19 @@ record only in a traced run.
 from __future__ import annotations
 
 import contextlib
+import copy
 
 import torch
+
+# Qwen-VL's rehearsal sizes: the port's ``QwenVLConfig.tiny()``
+TINY = {
+    "hidden_size": 64, "num_hidden_layers": 4, "num_attention_heads": 4, "kv_channels": 16,
+    "intermediate_size": 256, "vocab_size": 512, "layer_norm_epsilon": 1e-06,
+    "rotary_emb_base": 10000, "seq_length": 512,
+    "visual": {"image_size": 56, "patch_size": 14, "width": 32, "layers": 2, "heads": 2,
+               "mlp_ratio": 2.0, "output_dim": 64},
+    "resampler": {"n_queries": 16, "heads": 4},
+}
 
 
 class Spans:
@@ -54,6 +74,13 @@ def qwen_config(cfg: dict):
                         rope_base=float(cfg["rotary_emb_base"]),
                         layer_norm_eps=cfg["layer_norm_epsilon"],
                         seq_length=cfg["seq_length"], visual=visual, dtype=cfg["dtype"])
+
+
+def qwen_tiny(cfg: dict, dtype: str) -> dict:
+    """``TINY`` in ``dtype``, with the configuration's weights where they
+    are served in other numerics than its dtype (int8)."""
+    return {**copy.deepcopy(TINY), "dtype": dtype,
+            "weights": dtype if cfg["weights"] == cfg["dtype"] else cfg["weights"]}
 
 
 def rel_gap(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from benchmark import work
-from benchmark.jobs import Spans, qwen_config, rel_gap
+from benchmark.faults import capture_faults
+from benchmark.jobs import Spans, qwen_config, qwen_tiny, rel_gap
 from benchmark.inputs import CaptureInputs
 from benchmark.reference import numerics
 from benchmark.reference.qwen_vl import Model, exact_f32
@@ -24,6 +25,11 @@ from benchmark.weights import Weights
 
 class Job:
     unit_name = "sample"
+    # extract_layer_activations(params, cfg, ids, mask, last, images, img_pos)
+    FAULTS = capture_faults("tdax_torch.models.qwen_vl.model", "extract_layer_activations",
+                            batch_args=(2, 3, 4, 5, 6))
+    SPANS = ("capture", "visual", "decoder")
+    tiny = staticmethod(qwen_tiny)
 
     def __init__(self, cell, seed: int, device, spans: Spans | None = None):
         self.cell, self.seed, self.device = cell, seed, torch.device(device)

@@ -20,7 +20,8 @@ import statistics
 import torch
 
 from benchmark import work
-from benchmark.jobs import Spans, qwen_config
+from benchmark.faults import train_step_faults
+from benchmark.jobs import Spans, qwen_config, qwen_tiny
 from benchmark.inputs import TokenBatches
 from benchmark.reference import numerics
 from benchmark.reference.qwen_vl import exact_f32
@@ -34,6 +35,9 @@ def _leaf_name(path: str, i) -> str:
 
 class Job:
     unit_name = "sequence"
+    FAULTS = train_step_faults("tdax_torch.parallel", "make_train_step")
+    SPANS = ("train_step", "decoder", "backward", "clip")
+    tiny = staticmethod(qwen_tiny)
 
     def __init__(self, cell, seed: int, device, spans: Spans | None = None):
         self.cell, self.seed, self.device = cell, seed, torch.device(device)

@@ -3,42 +3,34 @@ path of ``benchmark.run`` for tests and for trying a change without the
 card.  The measurement path itself (``python3 -m benchmark.run``) refuses
 to run without a card.
 
-The cell's configuration is replaced by the tiny sizes below (the port's
-``QwenVLConfig.tiny()``) in ``dtype``, its mix by the mix file's
-``rehearse`` overrides; everything else is the cell's own path: the
-job, the port on CPU tensors (the kernels' plain versions), the
-window, the trace readers and the check against the reference with the
-cell's limits.  A number it prints is a CPU number and names no device.
+The cell's configuration is replaced by the tiny sizes its job declares
+(``Job.tiny(cfg, dtype)``), its mix by the mix file's ``rehearse``
+overrides, and the timed window by a fixed number of units, so that a
+loaded CPU runs the same work as an idle one; everything else is the
+cell's own path: the job, the port on CPU tensors (the kernels' plain
+versions), the window, the trace readers and the check against the
+reference with the cell's limits.  A number it prints is a CPU number
+and names no device.
 """
 
 from __future__ import annotations
 
-import copy
 import time
 
 from benchmark import spec
 from benchmark.run import run_cell
 
-TINY = {
-    "hidden_size": 64, "num_hidden_layers": 4, "num_attention_heads": 4, "kv_channels": 16,
-    "intermediate_size": 256, "vocab_size": 512, "layer_norm_epsilon": 1e-06,
-    "rotary_emb_base": 10000, "seq_length": 512,
-    "visual": {"image_size": 56, "patch_size": 14, "width": 32, "layers": 2, "heads": 2,
-               "mlp_ratio": 2.0, "output_dim": 64},
-    "resampler": {"n_queries": 16, "heads": 4},
-}
-
 
 def tiny_cell(workload: str, dtype: str = "float32", root=spec.ROOT) -> spec.Cell:
     cell = spec.cell(workload, root=root)
-    cell.config = {**copy.deepcopy(TINY), "dtype": dtype,
-                   "weights": dtype if cell.config["weights"] == cell.config["dtype"]
-                   else cell.config["weights"]}
+    cell.config = spec.job(cell.job).tiny(cell.config, dtype)
     cell.traffic = {**cell.traffic, **cell.traffic.get("rehearse", {})}
     return cell
 
 
-def rehearse(workload: str, seed: int = 0, seconds: float = 0.5, trace: bool = False,
+def rehearse(workload: str, seed: int = 0, units: int = 2, trace: bool = False,
              dtype: str = "float32", root=spec.ROOT) -> dict:
-    return run_cell(tiny_cell(workload, dtype, root), seed, seconds, trace, "cpu",
-                    t_start=time.perf_counter())
+    """One run of ``workload`` at the tiny size: ``units`` units timed
+    (a traced run traces the mix's ``trace_units``)."""
+    return run_cell(tiny_cell(workload, dtype, root), seed, 0.0, trace, "cpu",
+                    t_start=time.perf_counter(), units=units)

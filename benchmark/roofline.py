@@ -26,11 +26,14 @@ def visible_pairs(tq: int, tk: int, causal: bool) -> int:
     return sum(min(i + 1, tk) for i in range(tq))
 
 
-def attn_fwd_bound(b, tq, tk, nh, hd, causal, itemsize=2) -> float:
-    """One flash forward call: 4 b nh tq tk hd flops (halved when causal);
-    q, k, v, the key bias read and o written once."""
-    flops = 4.0 * b * nh * tq * tk * hd / (2 if causal else 1)
-    nbytes = (2 * b * tq + 2 * b * tk) * nh * hd * itemsize + 4 * b * tk
+def attn_fwd_bound(b, tq, tk, nh, hd, causal, itemsize=2, hd_v=None) -> float:
+    """One flash forward call with q and k of head width ``hd`` and v and
+    o of ``hd_v`` (``hd`` where None; latent attention's differ):
+    2 b nh tq tk (hd + hd_v) flops (halved when causal); q, k, v, the key
+    bias read and o written once."""
+    hd_v = hd if hd_v is None else hd_v
+    flops = 2.0 * b * nh * tq * tk * (hd + hd_v) / (2 if causal else 1)
+    nbytes = (b * tq + b * tk) * nh * (hd + hd_v) * itemsize + 4 * b * tk
     return _seconds(flops, nbytes, BF16_PEAK if itemsize == 2 else F32_PEAK)
 
 

@@ -69,6 +69,16 @@ def measure(job, seconds: float) -> tuple[int, float]:
     return samples, time.perf_counter() - t0
 
 
+def measure_units(job, units: int) -> tuple[int, float]:
+    """(samples, seconds) of exactly ``units`` units, then the device
+    drained: the rehearsals' window."""
+    job.drain()
+    t0 = time.perf_counter()
+    samples = sum(job.unit(i) for i in range(units))
+    job.drain()
+    return samples, time.perf_counter() - t0
+
+
 def traced(job, n_units: int):
     """The mix's traced units under torch.profiler (one unit first,
     outside the window, for the profiler's own start)."""
@@ -87,8 +97,9 @@ def traced(job, n_units: int):
 
 
 def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
-             t_start: float | None = None) -> dict:
-    """One run of ``cell``; returns the result line's object."""
+             t_start: float | None = None, units: int | None = None) -> dict:
+    """One run of ``cell``; returns the result line's object.  The window
+    lasts ``seconds``, or exactly ``units`` units where that is given."""
     t_start = T0 if t_start is None else t_start
     job = spec.job(cell.job)(cell, seed, device, Spans(on=trace))
     job.setup()
@@ -112,8 +123,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
                 result["metrics"][m["name"]] = {"value": value, "unit": m["unit"]}
         device_info.update(busy_s=tr.busy_s(), window_s=tr.window_s)
         result["breakdown"] = {"device_ops": tr.top_ops(10), "idle_gaps": tr.idle_gaps(10)}
-    else:
+    elif units is None:
         samples, window_s = measure(job, seconds)
+    else:
+        samples, window_s = measure_units(job, units)
     window_peak = torch.cuda.max_memory_allocated() if on_card else 0
     result["attempted"] = samples
     if not trace:

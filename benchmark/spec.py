@@ -6,7 +6,8 @@ traffic mix.  Its files:
 - ``benchmark/configs/<config>.json``: the configuration's sizes and
   numerics (the file ``BENCHMARK.json`` names for it);
 - ``benchmark/traffic/<traffic>.json``: the mix's parameters, read by the
-  job the mix names (``benchmark/jobs/<job>.py``);
+  job the mix names (``benchmark/jobs/<job>.py``, which also declares the
+  job's faults, its tiny rehearsal sizes and the spans its units hold);
 - ``benchmark/limits/<cell>.json``: the limits of the numbers that decide
   ``correct``, with the readings they were set from;
 - ``benchmark/layer_metrics/<metric>.py``: one reader per per-layer

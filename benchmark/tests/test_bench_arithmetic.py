@@ -51,3 +51,39 @@ def test_capture_flops_by_part():
 def test_causal_pairs():
     assert roofline.visible_pairs(4, 4, True) == 10
     assert roofline.visible_pairs(4, 6, False) == 24
+
+
+@pytest.mark.parametrize("shape,ms", [
+    ((16, 320, 320, 32, 128, True), None),                   # the captures' decoder
+    ((16, 1024, 1024, 16, 104, False), None),                # the visual tower
+    ((16, 256, 1024, 32, 128, False), None),                 # the resampler
+    ((4, 1024, 1024, 32, 128, True), 0.0401),                # the training call
+])
+def test_value_width_defaults_to_the_head_width(shape, ms):
+    """``hd_v`` left out or equal to ``hd`` gives the bound as before,
+    bitwise: 4 b nh tq tk hd flops, (2 b tq + 2 b tk) nh hd bytes."""
+    b, tq, tk, nh, hd, causal = shape
+    flops = 4.0 * b * nh * tq * tk * hd / (2 if causal else 1)
+    nbytes = (2 * b * tq + 2 * b * tk) * nh * hd * 2 + 4 * b * tk
+    want = max(flops / roofline.BF16_PEAK, nbytes / roofline.HBM_BYTES_PER_S)
+    assert roofline.attn_fwd_bound(*shape) == want
+    assert roofline.attn_fwd_bound(*shape, hd_v=hd) == want
+    if ms is not None:
+        assert want * 1e3 == pytest.approx(ms, abs=5e-5)
+
+
+def test_latent_attention_value_width():
+    """MLA's q.k over 128 + 64 dimensions and v of 128, worked by hand.
+    Prefill, 1 x 4096 causal, 16 heads: 2 x 16 x 4096^2 x (192 + 128) / 2
+    = 85,899,345,920 flops; bytes (4096 + 4096) x 16 x 320 x 2 + 4 x 4096
+    = 83,902,464: compute bound.  Decode, one query over 4096 keys:
+    2 x 16 x 4096 x 320 = 41,943,040 flops; (1 + 4096) x 16 x 320 x 2 +
+    16,384 = 41,969,664 bytes: memory bound."""
+    prefill = roofline.attn_fwd_bound(1, 4096, 4096, 16, 192, True, hd_v=128)
+    assert prefill == 85_899_345_920 / roofline.BF16_PEAK
+    assert prefill * 1e6 == pytest.approx(86.855, abs=5e-4)
+    decode = roofline.attn_fwd_bound(1, 1, 4096, 16, 192, False, hd_v=128)
+    assert decode == 41_969_664 / roofline.HBM_BYTES_PER_S
+    assert decode * 1e6 == pytest.approx(12.528, abs=5e-4)
+    # counting v and o at q's width would count 25% more of both
+    assert roofline.attn_fwd_bound(1, 4096, 4096, 16, 192, True) > 1.19 * prefill

@@ -42,8 +42,8 @@ def test_benchmark_loads_no_jax():
 
 def test_a_whole_run_loads_no_jax():
     code = ("import json, sys\nfrom benchmark.rehearse import rehearse\n"
-            "rehearse('qwen-vl-chat.finetune-text', seed=1, seconds=0.1)\n"
-            "rehearse('qwen-vl-chat-int8.capture', seed=1, seconds=0.1)\n"
+            "rehearse('qwen-vl-chat.finetune-text', seed=1, units=1)\n"
+            "rehearse('qwen-vl-chat-int8.capture', seed=1, units=1)\n"
             "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))")
     assert not FORBIDDEN & set(_run(code))
 

@@ -1,13 +1,13 @@
-"""``benchmark.program_spans`` on synthetic Chrome-trace events, the
-harness's readers unchanged by the port's ``tdax.*`` ranges, and the
-spans' report of each cell on the CPU at the tiny size."""
+"""The port's ``tdax.*`` spans read through ``benchmark.trace.Trace`` on
+synthetic Chrome-trace events (each kernel's launch, the span it belongs
+to, the five span metrics), every reader on traces with and without the
+spans, and each cell's spans on the CPU at the tiny size."""
 
 import types
 
 import pytest
 
 from benchmark import program_spans, spec, work
-from benchmark.program_spans import ProgramSpans
 from benchmark.rehearse import tiny_cell
 from benchmark.trace import Trace
 
@@ -69,74 +69,119 @@ def train_events(with_spans=True) -> list:
     return ev
 
 
-def test_capture_readings():
-    ps = ProgramSpans(capture_events())
-    r = ps.readings(2)
-    assert r["visual_ms"] == pytest.approx(1.0)
-    assert r["decoder_ms"] == pytest.approx(1.7)
-    assert r["backward_ms"] is None and r["clip_ms"] is None
-    # inside [1010, 3990] the device runs from 1500 on
-    assert r["program_idle_ms"] == pytest.approx(0.49)
-    assert ps.kernel_s("capture") == pytest.approx(2 * 100e-6)  # the embedding kernel
-    assert ps.kernel_s(None) == 0  # the copies are no kernels
+# what the five span readers read on the synthetic traces, ms a unit
+SPAN_READINGS = {
+    "capture": {"visual_ms": 1.0, "decoder_ms": 1.7, "backward_ms": None, "clip_ms": None,
+                # inside [1010, 3990] the device runs from 1500 on
+                "program_idle_ms": 0.49},
+    "train": {"visual_ms": None, "decoder_ms": 1.5, "backward_ms": 3.3, "clip_ms": 0.6,
+              # [100, 9000] less [400, 1900], [1900, 1920], [1950, 2000],
+              # [2600, 5900], [6300, 6900] and [7300, 8700]
+              "program_idle_ms": (8900 - 1500 - 20 - 50 - 3300 - 600 - 1400) / 1e3},
+}
 
 
-def test_train_readings_backward_from_another_thread():
-    ps = ProgramSpans(train_events())
-    r = ps.readings(1)
-    assert r["visual_ms"] is None
-    assert r["decoder_ms"] == pytest.approx(1.5)
-    assert r["backward_ms"] == pytest.approx(3.3)
-    assert r["clip_ms"] == pytest.approx(0.6)
-    # [100, 9000] less [400, 1900], [1900, 1920], [1950, 2000], [2600, 5900],
-    # [6300, 6900] and [7300, 8700]
-    assert r["program_idle_ms"] == pytest.approx(
-        (8900 - 1500 - 20 - 50 - 3300 - 600 - 1400) / 1e3)
+def _traces(kind, with_spans=True):
+    md = work.model(spec.cell("qwen-vl-chat.capture").config)
+    if kind == "capture":
+        return Trace(capture_events(with_spans)), work.capture_batch(md, 16, 320), 2
+    return Trace(train_events(with_spans)), work.train_step(md, 4, 1024, True), 1
+
+
+def _read(trace, unit_work, units, names):
+    ctx = types.SimpleNamespace(trace=trace, work=unit_work, units=units)
+    return {m: spec.layer_reader(m).read(ctx) for m in names}
+
+
+@pytest.mark.parametrize("kind", ["capture", "train"])
+def test_span_readers(kind):
+    tr, unit_work, units = _traces(kind)
+    got = _read(tr, unit_work, units, program_spans.READINGS)
+    for metric, want in SPAN_READINGS[kind].items():
+        assert got[metric] == (None if want is None else pytest.approx(want)), metric
+
+
+def test_each_kernel_tied_to_its_launch():
+    tr = Trace(train_events())
+    by_name = {op.name: op for op in tr.ops}
+    bwd = by_name["flash_bwd_dq_sm90"]
+    assert (bwd.launch_at, bwd.launch_tid, bwd.span) == (pytest.approx(2500e-6), AUTOGRAD,
+                                                         "backward")
+    img = by_name["copy_kernel"]
+    assert (img.launch_at, img.launch_tid, img.span) == (pytest.approx(500e-6), IMAGES, None)
+    # every device operation is clipped to the window and keeps its launch
+    assert all(op.launch_at is not None for op in tr.ops)
+
+
+def test_capture_spans():
+    tr = Trace(capture_events())
+    assert tr.span_names() == ["capture", "decoder", "visual"]
+    assert tr.span_kernel_s("visual") == pytest.approx(2 * 1000e-6)
+    assert tr.span_kernel_s("capture") == pytest.approx(2 * 100e-6)  # the embedding kernel
+    assert tr.span_kernel_s(None) == 0  # the copies are no kernels
+    assert tr.span_idle_s("capture") == pytest.approx(2 * 490e-6)
+    assert {n: tr.span_count(n) for n in tr.span_names()} == {
+        "capture": 2, "decoder": 2, "visual": 2}
 
 
 def test_innermost_range_and_the_threads_own_ranges():
-    ps = ProgramSpans(train_events())
+    tr = Trace(train_events())
     # the decoder's kernel is the decoder's, not the step's that holds it;
     # the step holds the kernel between the decoder and the backward, and
     # AdamW's, launched under no nested span
-    assert ps.kernel_s("train_step") == pytest.approx(50e-6 + 1400e-6)
+    assert tr.span_kernel_s("train_step") == pytest.approx(50e-6 + 1400e-6)
     # the image thread's launch belongs to none of the main thread's ranges
-    assert ps.kernel_s(None) == pytest.approx(20e-6)
+    assert tr.span_kernel_s(None) == pytest.approx(20e-6)
+    # the image thread's range is one the window holds
+    assert tr.span_count("host_prep") == 1
+
+
+def test_span_count_is_of_ranges_inside_the_window():
+    ev = [ann("bench.window", 1000, 5000), ann("tdax.decoder", 500, 1000),
+          ann("tdax.decoder", 1500, 1000), ann("tdax.decoder", 2600, 100),
+          ann("tdax.decoder", 5500, 1000)]
+    assert Trace(ev).span_count("decoder") == 2
 
 
 def test_no_spans_read_nothing():
-    for events, units in ((capture_events(False), 2), (train_events(False), 1)):
-        assert set(ProgramSpans(events).readings(units).values()) == {None}
-
-
-def _readers(trace, unit_work, units):
-    ctx = types.SimpleNamespace(trace=trace, work=unit_work, units=units)
-    return {m: spec.layer_reader(m).read(ctx) for m in READERS}
+    for kind in ("capture", "train"):
+        tr, unit_work, units = _traces(kind, with_spans=False)
+        assert tr.span_names() == []
+        assert set(_read(tr, unit_work, units, program_spans.READINGS).values()) == {None}
 
 
 @pytest.mark.parametrize("kind", ["capture", "train"])
 def test_harness_readers_unchanged_by_program_spans(kind):
-    md = work.model(spec.cell("qwen-vl-chat.capture").config)
-    if kind == "capture":
-        make, units, unit_work = capture_events, 2, work.capture_batch(md, 16, 320)
-    else:
-        make, units, unit_work = train_events, 1, work.train_step(md, 4, 1024, True)
-    plain, spanned = Trace(make(False)), Trace(make(True))
-    assert _readers(plain, unit_work, units) == _readers(spanned, unit_work, units)
-    assert any(v is not None for v in _readers(plain, unit_work, units).values())
+    """Every reader on the same events with and without the port's
+    spans: the span readers read nothing without them and the spans with
+    them; every other reader reads the same."""
+    plain, unit_work, units = _traces(kind, with_spans=False)
+    spanned, _, _ = _traces(kind)
+    p = _read(plain, unit_work, units, READERS)
+    s = _read(spanned, unit_work, units, READERS)
+    assert set(program_spans.READINGS) <= set(READERS)
+    for metric in READERS:
+        if metric in program_spans.READINGS:
+            want = SPAN_READINGS[kind][metric]
+            assert p[metric] is None, metric
+            assert s[metric] == (None if want is None else pytest.approx(want)), metric
+        else:
+            assert p[metric] == s[metric], metric
+    assert any(p[m] is not None for m in READERS)
     assert plain.top_ops(10) == spanned.top_ops(10)
     assert plain.idle_gaps(10) == spanned.idle_gaps(10)
     assert (plain.busy_s(), plain.window_s) == (spanned.busy_s(), spanned.window_s)
+    assert plain.kernel_s(None) == spanned.kernel_s(None)
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_spans_on_the_cpu(name):
-    """A cell's traced units at the tiny size: the port's spans are in the
-    trace; with no device operation every reading is None."""
-    out = program_spans.report(tiny_cell(name), 2 ** 31 + 5, "cpu")
-    spans = set(out["kernel_ms_by_span"])
-    want = {"train_step", "decoder", "backward", "clip"} if "finetune" in name else {
-        "capture", "visual", "decoder"}
-    assert want <= spans
+    """A cell's traced units at the tiny size: the spans its job declares
+    are in the trace; with no device operation every reading is None."""
+    cell = tiny_cell(name)
+    out = program_spans.report(cell, 2 ** 31 + 5, "cpu")
+    assert set(spec.job(cell.job).SPANS) <= set(out["kernel_ms_by_span"])
+    assert all(out["ranges_by_span"][n] == cell.traffic["trace_units"]
+               for n in spec.job(cell.job).SPANS)
     assert set(out["program_spans"].values()) == {None}
     assert out["device"] == "cpu" and out["busy_ms"] == 0

@@ -12,7 +12,7 @@ from benchmark.inputs import CaptureInputs, TokenBatches
 from benchmark.reference import numerics
 from benchmark.reference.qwen_vl import Model
 from benchmark.reference.train import TrainReference
-from benchmark.rehearse import TINY
+from benchmark.jobs import TINY
 from benchmark.weights import Weights
 
 CFG = {**TINY, "dtype": "float32", "weights": "float32"}

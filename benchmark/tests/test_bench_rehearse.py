@@ -12,14 +12,23 @@ from benchmark.rehearse import rehearse
 
 CELLS = [w["name"] for w in spec.load()["workloads"]]
 BIG_SEED = 2 ** 31 + 77
+# the port's QwenVLConfig.tiny(): every Qwen-VL rehearsal's sizes
+QWEN_TINY = {
+    "hidden_size": 64, "num_hidden_layers": 4, "num_attention_heads": 4, "kv_channels": 16,
+    "intermediate_size": 256, "vocab_size": 512, "layer_norm_epsilon": 1e-06,
+    "rotary_emb_base": 10000, "seq_length": 512,
+    "visual": {"image_size": 56, "patch_size": 14, "width": 32, "layers": 2, "heads": 2,
+               "mlp_ratio": 2.0, "output_dim": 64},
+    "resampler": {"n_queries": 16, "heads": 4},
+}
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_rehearses(name):
-    result = rehearse(name, seed=BIG_SEED, seconds=0.3)
+    result = rehearse(name, seed=BIG_SEED, units=3)
     cell = spec.cell(name)
     assert result["correct"], result["checks"]
-    assert result["attempted"] > 0 and result["failed"] == 0
+    assert result["attempted"] == 3 * cell.traffic["batch_size"] and result["failed"] == 0
     assert set(result["metrics"]) == {m["name"] for m in cell.end_to_end}
     assert list(result)[-1] == "checks"
     assert set(result["checks"]) == set(cell.limits["limits"])
@@ -29,7 +38,7 @@ def test_cell_rehearses(name):
 
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_rehearses_traced(name):
-    result = rehearse(name, seed=3, seconds=0.3, trace=True)
+    result = rehearse(name, seed=3, trace=True)
     assert result["correct"]
     # no device operation on the CPU: every reader returns nothing
     assert result["metrics"] == {}
@@ -54,6 +63,15 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else [v])
 
 
+@pytest.mark.parametrize("name", [n for n in CELLS if spec.cell(n).job in ("capture", "train")])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_qwen_jobs_rehearse_on_qwen_tiny(name, dtype):
+    from benchmark.rehearse import tiny_cell
+    cfg = spec.cell(name).config
+    weights = dtype if cfg["weights"] == cfg["dtype"] else cfg["weights"]
+    assert tiny_cell(name, dtype).config == {**QWEN_TINY, "dtype": dtype, "weights": weights}
+
+
 def test_measurement_path_refuses_without_card():
     proc = subprocess.run([sys.executable, "-m", "benchmark.run", "--workload", CELLS[0],
                            "--seed", "1", "--seconds", "1", "--trace", "0"],
@@ -64,6 +82,6 @@ def test_measurement_path_refuses_without_card():
 
 
 def test_result_line_is_json_with_checks_last():
-    result = rehearse(CELLS[0], seed=9, seconds=0.2)
+    result = rehearse(CELLS[0], seed=9)
     line = json.dumps(result)
     assert list(json.loads(line))[-1] == "checks"

@@ -56,12 +56,30 @@ def test_metrics_rules():
             assert m["unit"] == "%"
 
 
+def _holds(cfg: dict, key: str) -> bool:
+    """The file holds ``key``: a top-level key, or a dotted path into a
+    nested group."""
+    node = cfg
+    for part in key.split("."):
+        if not isinstance(node, dict) or part not in node:
+            return False
+        node = node[part]
+    return True
+
+
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_files_found(name):
     cell = spec.cell(name)
+    entry = next(c for c in SPEC["configs"] if c["name"] == cell.config_name)
+    cfg = cell.config
     assert cell.chips == 1
-    assert cell.config["name"] == cell.config_name
-    assert cell.config["reduced"] == [] and cell.config["assumed"] == []
+    assert cfg["name"] == cell.config_name
+    assert cfg["reduced"] == entry["reduced"]
+    for key in cfg["reduced"] + cfg["assumed"]:
+        assert _holds(cfg, key), f"{key!r} is not in {entry['file']}"
+    if cfg["reduced"]:
+        assert all(_holds(cfg["published"], key) for key in cfg["reduced"]), cfg["published"]
+        assert cfg["deployment"]
     assert spec.job(cell.job).unit_name in ("sample", "sequence")
     assert cell.per_layer, "every cell reports a per-layer metric"
     assert {"samples_per_s", "setup_s"} <= {m["name"] for m in cell.end_to_end}
@@ -92,5 +110,5 @@ def test_new_mix_is_a_file_and_an_entry(tmp_path):
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     cell = spec.cell("qwen-vl-chat.capture-b8", root=tmp_path)
     assert cell.traffic["batch_size"] == 8
-    result = rehearse("qwen-vl-chat.capture-b8", seed=5, seconds=0.2, root=tmp_path)
+    result = rehearse("qwen-vl-chat.capture-b8", seed=5, root=tmp_path)
     assert result["correct"] and result["attempted"] % 8 == 0
