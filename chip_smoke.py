@@ -33,7 +33,14 @@ and runs these phases, printing JSON lines:
             masked, [8, 1, 352, 16, 128] at a tp rank's 16 heads, a
             bitwise repeat) and on flash_fwd.cu (forced), both timed by
             the card's kernel time (torch.profiler) beside SDPA's and the
-            plain version's.  The mma kernel alone: f32 at the shapes of
+            plain version's.  Latent attention (MLA_SHAPE: Kimi-VL's
+            capture, [16, 320, 16] causal, q.k over 192 columns and v of
+            128, right-padded keys): the route must send it to the sm90
+            kernel flash_fwd_mla_kernel, with and without lse, checked
+            there and on flash_fwd.cu (forced), the counters (LAUNCHES,
+            LAUNCHES_SM90, LAUNCHES_MLA) moving as the route says, timed
+            beside SDPA, the plain version and benchmark.roofline's
+            bound.  The mma kernel alone: f32 at the shapes of
             tests/test_flash_attention.py; fully masked rows on both
             (finite, lse 0).
             sqdist (SQDIST_SHAPES, an aligned strided view,
@@ -841,6 +848,9 @@ MAIN_SHAPES = [
     ("vit", 16, 1024, 1024, 16, 104, False, 48),
     ("resampler", 16, 256, 1024, 32, 128, False, 1),
 ]
+# Kimi-VL's latent attention in a capture batch: (name, B, T, nh, q.k
+# width, v width, calls a batch), causal, one call a decoder layer
+MLA_SHAPE = ("mla", 16, 320, 16, 192, 128, 27)
 # the training step's attention: causal, with lse, 2 x 32 calls a step
 # (forward and remat replay)
 TRAIN_SHAPE = ("train", 4, 1024, 1024, 32, 128, True, 64)
@@ -1126,6 +1136,7 @@ def phase_kernels() -> dict:
         torch.cuda.empty_cache()
 
     decode = _decode_cases(fa, gen, device)
+    mla = _mla_case(fa, gen, device)
 
     f32_errs = []
     for tq, tk, nh, hd, causal in F32_SHAPES:
@@ -1153,7 +1164,70 @@ def phase_kernels() -> dict:
     torch.cuda.empty_cache()
     vit = _vit_elementwise_cases(device)
     return {"sites": sites, "train": train, "decode": decode, "f32_max_abs_err": max(f32_errs),
-            "vit": vit}
+            "vit": vit, "mla": mla}
+
+
+def _mla_case(fa, gen, device) -> dict:
+    """Latent attention at Kimi-VL's capture shape: q and k of 192
+    columns, v of 128 (a view of the second half of each head of one kv
+    product, as the decoder hands it over), causal, rows right-padded to
+    lengths of 200 and more.  The route must pick the sm90 kernel
+    (flash_fwd_mla_kernel); it and flash_fwd.cu (forced) are checked
+    against the plain version with and without lse and timed."""
+    import torch
+    import torch.nn.functional as F
+    from benchmark.roofline import attn_fwd_bound
+
+    name, b, t, nh, hd, hd_v, calls = MLA_SHAPE
+    q, k = (torch.randn((b, t, nh, hd), generator=gen, device=device, dtype=torch.bfloat16)
+            for _ in range(2))
+    v = torch.randn((b, t, nh, 2 * hd_v), generator=gen, device=device,
+                    dtype=torch.bfloat16)[..., hd_v:]
+    lengths = torch.randint(200, t, (b,), generator=gen, device=device)
+    lengths[0] = t
+    valid = (torch.arange(t, device=device)[None] < lengths[:, None]).to(torch.int32)
+    route = fa._route(q, k, v)
+    if route != "sm90":
+        raise AssertionError(f"bf16 {name}: routed to the {route} kernel, not sm90")
+    err, lse_err = {}, {}
+    for kernel in ("sm90", "mma"):
+        for with_lse in (False, True):
+            before = (fa.LAUNCHES, fa.LAUNCHES_SM90, fa.LAUNCHES_MLA)
+            bias, e, n_rows, n_all, le = _check_case(
+                fa, q, k, v, valid, True, BF16_ATOL, BF16_RTOL,
+                f"bf16 {name} ({kernel}, lse {with_lse})",
+                kernel=None if kernel == "sm90" else "mma", with_lse=with_lse)
+            moved = (fa.LAUNCHES - before[0], fa.LAUNCHES_SM90 - before[1],
+                     fa.LAUNCHES_MLA - before[2])
+            on_sm90 = int(kernel == "sm90")
+            if moved != (1, on_sm90, on_sm90):
+                raise AssertionError(f"bf16 {name} ({kernel}): launch counters moved {moved}")
+            err[kernel] = max(err.get(kernel, 0.0), e)
+            if le is not None:
+                lse_err[kernel] = le
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = (valid > 0)[:, None, None, :] & torch.ones((t, t), dtype=torch.bool,
+                                                      device=device).tril()
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+                         iters=20)
+    case = {"site": name, "shape": [b, t, t, nh, hd], "hd_v": hd_v, "causal": True,
+            "dtype": "bfloat16", "route": route, "kernel": "flash_fwd_mla_kernel",
+            "max_abs_err": err["sm90"], "max_abs_err_mma": err["mma"],
+            "lse_max_abs_err": lse_err["sm90"], "lse_max_abs_err_mma": lse_err["mma"],
+            "rows_checked": n_rows, "rows": n_all,
+            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, bias, True), iters=20),
+            "ms_mma": cuda_ms(lambda: fa.flash_attention(q, k, v, bias, True, _kernel="mma"),
+                              iters=10),
+            "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, bias, True), iters=3),
+            "library_ms": library_ms,
+            "bound_ms": 1e3 * attn_fwd_bound(b, t, t, nh, hd, True, 2, hd_v=hd_v),
+            "calls_per_batch": calls}
+    case["share_of_bound"] = _share(case["bound_ms"], case["ms"])
+    case["share_of_bound_mma"] = _share(case["bound_ms"], case["ms_mma"])
+    emit({"phase": "kernel_case", **case})
+    del q, k, v, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    return case
 
 
 def _ulps(got, want, scale):
@@ -6689,6 +6763,30 @@ def main(argv=None) -> int:
         "train_step_with_lse": {k: tr[k] for k in ("shape", "ms", "ms_mma", "plain_ms",
                                                    "bound_ms", "bound_by", "library_ms",
                                                    "lse_max_abs_err", "calls_per_train_step")},
+    }, {
+        "name": "flash_fwd_mla",
+        "route": "cuda",
+        "source": "tdax_torch/ops/csrc/flash_fwd_sm90.cu",
+        "kernel": "flash_fwd_mla_kernel",
+        "sources": {"sm90": "tdax_torch/ops/csrc/flash_fwd_sm90.cu",
+                    "mma": "tdax_torch/ops/csrc/flash_fwd.cu"},
+        "replaces": "none: tdax has no latent attention (Kimi-VL's decoder is the port's own)",
+        "launches_per_capture_batch": kern["mla"]["calls_per_batch"],
+        "max_abs_err": kern["mla"]["max_abs_err"],
+        "max_abs_err_mma": kern["mla"]["max_abs_err_mma"],
+        "lse_max_abs_err": kern["mla"]["lse_max_abs_err"],
+        **{key: _per_step(kern["mla"][key], kern["mla"]["calls_per_batch"])
+           for key in ("ms", "ms_mma", "plain_ms", "library_ms", "bound_ms")},
+        "bound_by": "operations",
+        "share_of_bound": kern["mla"]["share_of_bound"],
+        "per_call": {key: kern["mla"][key] for key in (
+            "shape", "hd_v", "ms", "ms_mma", "plain_ms", "library_ms", "bound_ms",
+            "share_of_bound", "share_of_bound_mma")},
+        "per": f"one Kimi-VL capture batch: {kern['mla']['calls_per_batch']} calls at "
+               f"{kern['mla']['shape']} (q.k 192, v 128) causal bf16 on the sm90 kernel the "
+               "route picks, by CUDA events; ms_mma is flash_fwd.cu at the same calls; "
+               "library_ms SDPA with the boolean causal and key mask; bound_ms "
+               "benchmark.roofline.attn_fwd_bound",
     }, {
         "name": "flash_decode",
         "route": "cuda",

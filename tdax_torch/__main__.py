@@ -6,6 +6,8 @@ experiment, the peak layer's 3-D HTML and the legacy sweep.
   python -m tdax_torch extract --model-dir DIR  # weights and tokenizer of a HF snapshot
   python -m tdax_torch extract --toy            # tiny random model
   python -m tdax_torch extract --int8           # int8 weight-only matmuls
+  python -m tdax_torch extract --model kimi-vl-a3b-instruct
+                                                # Kimi-VL's capture on seeded weights
   python -m tdax_torch extract --device cpu     # on the CPU, when asked
   torchrun --standalone --nproc-per-node 8 -m tdax_torch extract --toy --device cpu
                                                 # dp over 8 ranks (gloo; NCCL on cards)
@@ -25,7 +27,10 @@ torchrun set up (NCCL, ``cuda:LOCAL_RANK``; gloo with ``--device cpu``)
 and split their work over its ranks, as tdax does over its devices:
 ``extract`` each rank's rows of every batch, ``sweep`` each rank's
 share of the layers when the ranks divide them (else every rank runs
-them all); rank 0 alone prints and writes the files.  ``extract`` takes its
+them all); rank 0 alone prints and writes the files.  ``extract`` runs
+Qwen-VL-Chat unless ``--model kimi-vl-a3b-instruct`` asks for Kimi-VL-A3B-
+Instruct, which it draws at random (seed 0; no checkpoint loader, no
+int8 path; ``--toy`` its tiny configuration).  For Qwen-VL it takes its
 weights from ``--model-dir`` (which must hold
 checkpoint shards), else from ``./qwen-vl-chat-local`` when that holds
 them (not with ``--toy``), else draws them at random (seed 0); the
@@ -53,6 +58,9 @@ import argparse
 import os
 
 
+MODELS = ("qwen-vl-chat", "kimi-vl-a3b-instruct")
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(prog="python -m tdax_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -61,6 +69,8 @@ def main(argv=None) -> None:
                    help="write the 720 adversarial image-text pairs of the bound images")
     ext = sub.add_parser("extract", help="capture per-layer last-token activations")
     ext.add_argument("--toy", action="store_true", help="tiny model")
+    ext.add_argument("--model", choices=MODELS, default=MODELS[0],
+                     help="the model to capture (Kimi-VL on seeded weights)")
     ext.add_argument("--int8", action="store_true", help="int8 weight-only matmuls")
     ext.add_argument("--model-dir", default=None,
                      help="HF snapshot to load the weights and tokenizer from")
@@ -81,6 +91,8 @@ def main(argv=None) -> None:
     vis.add_argument("--no-png", action="store_true",
                      help="write no PNG beside the HTML (needs no matplotlib)")
     args = parser.parse_args(argv)
+    if args.command == "extract" and args.model != MODELS[0] and (args.int8 or args.model_dir):
+        parser.error(f"--model {args.model} runs on seeded bf16 weights: no --int8, no --model-dir")
 
     from tdax_torch.config import DatasetConfig
     from tdax_torch.data.io import load_metadata
@@ -125,8 +137,13 @@ def _extract(args, ds, device, say) -> None:
     from tdax_torch.models.qwen_vl.config import QwenVLConfig
     from tdax_torch.pipeline.extract import _has_checkpoint, extract_activations
 
-    cfg = QwenVLConfig.tiny() if args.toy else QwenVLConfig()
-    model_dir = args.model_dir or (None if args.toy else ExtractConfig.model_dir)
+    kimi = args.model == "kimi-vl-a3b-instruct"
+    if kimi:
+        from tdax_torch.models.kimi_vl.config import KimiVLConfig
+        cfg = KimiVLConfig.tiny() if args.toy else KimiVLConfig()
+    else:
+        cfg = QwenVLConfig.tiny() if args.toy else QwenVLConfig()
+    model_dir = args.model_dir or (None if args.toy or kimi else ExtractConfig.model_dir)
     ecfg = ExtractConfig(model_dir=model_dir, quantize_int8=args.int8)
     params = None
     if args.model_dir is not None:
@@ -139,8 +156,8 @@ def _extract(args, ds, device, say) -> None:
                            if args.adversarial else (ds.metadata_path, ds.activations_path))
     say(f"Loading metadata from {meta_path}...")
     metadata = load_metadata(meta_path)
-    say(f"Extracting activations for {len(metadata)} samples "
-        f"({'toy model' if args.toy else 'full model'}, {weights}"
+    say(f"Extracting activations for {len(metadata)} samples ({args.model}, "
+        f"{'toy model' if args.toy else 'full model'}, {weights}"
         f"{', int8' if args.int8 else ''})...")
     results = extract_activations(metadata, out_path, cfg, ecfg, params=params, device=device)
     say(f"\nExtracted activations for {len(results)} samples.")

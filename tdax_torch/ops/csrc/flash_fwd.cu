@@ -18,8 +18,11 @@
 // Layout: q [B, Tq, nh, hd], k/v [B, Tk, nh, hd] read through their
 // strides (the last dimension must be contiguous), so the strided views
 // that the qkv split produces go in without a copy.  bias [B, Tk] f32.
-// Output [B, Tq, nh, hd] contiguous, in q's type.  Any hd <= 128; the
-// ragged hd, Tq and Tk edges are masked here.
+// Output [B, Tq, nh, hd_v] contiguous, in q's type.  Any hd <= 128 with v
+// of the same width; latent attention's v of its own width hd_v <= 128
+// beside q and k of hd <= 192 (Kimi-VL: 192 and 128), through the
+// instantiations with q.k over 192 padded columns and PV over 128.  The
+// ragged hd, hd_v, Tq and Tk edges are masked here.
 //
 // What bounds it on an H100 (989 TFLOP/s bf16, 3.35 TB/s; the ridge is
 // 295 flop/byte): each (batch, head) does 4*Tq*Tk*hd flops (half when
@@ -67,7 +70,7 @@ struct Params {
   const float* bias;
   void* o;
   float* lse;  // [B, nh, Tq] or null
-  int B, Tq, Tk, nh, hd;
+  int B, Tq, Tk, nh, hd, hd_v;
   long long q_sb, q_st, q_sh;
   long long k_sb, k_st, k_sh;
   long long v_sb, v_st, v_sh;
@@ -131,17 +134,19 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int HDP, bool VEC>
+// HDP: q and k's padded width, HDV: v's and o's (HDP where they match)
+template <int HDP, int HDV, bool VEC>
 __global__ void __launch_bounds__(NWARPS * 32)
 flash_fwd_bf16_kernel(Params p) {
   constexpr int LDS = HDP + 8;  // +16 bytes per row: conflict-free fragment loads
+  constexpr int LDSV = HDV + 8;
   constexpr int KSTEPS = HDP / 16;
-  constexpr int DTILES = HDP / 8;
+  constexpr int DTILES = HDV / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + BM * LDS;
   __nv_bfloat16* Vs = Ks + BN * LDS;
-  float* bias_s = reinterpret_cast<float*>(Vs + BN * LDS);
+  float* bias_s = reinterpret_cast<float*>(Vs + BN * LDSV);
 
   const int q0 = blockIdx.x * BM;
   const int h = blockIdx.y;
@@ -189,7 +194,7 @@ flash_fwd_bf16_kernel(Params p) {
     const int k0 = j * BN;
     __syncthreads();  // every warp is done with the previous k/v tile
     load_tile_bf16<HDP, VEC>(Ks, kg + k0 * p.k_st, p.k_st, BN, min(BN, p.Tk - k0), p.hd, tid);
-    load_tile_bf16<HDP, VEC>(Vs, vg + k0 * p.v_st, p.v_st, BN, min(BN, p.Tk - k0), p.hd, tid);
+    load_tile_bf16<HDV, VEC>(Vs, vg + k0 * p.v_st, p.v_st, BN, min(BN, p.Tk - k0), p.hd_v, tid);
     if (tid < BN) bias_s[tid] = (k0 + tid < p.Tk) ? bg[k0 + tid] : NEG_INF;
     __syncthreads();
 
@@ -261,8 +266,8 @@ flash_fwd_bf16_kernel(Params p) {
 #pragma unroll
       for (int dt = 0; dt < DTILES; ++dt) {
         const int d = dt * 8 + g;
-        uint32_t b0 = pack_bf16_raw(Vs[key * LDS + d], Vs[(key + 1) * LDS + d]);
-        uint32_t b1 = pack_bf16_raw(Vs[(key + 8) * LDS + d], Vs[(key + 9) * LDS + d]);
+        uint32_t b0 = pack_bf16_raw(Vs[key * LDSV + d], Vs[(key + 1) * LDSV + d]);
+        uint32_t b1 = pack_bf16_raw(Vs[(key + 8) * LDSV + d], Vs[(key + 9) * LDSV + d]);
         mma_bf16(acc[dt], a, b0, b1);
       }
     }
@@ -279,8 +284,8 @@ flash_fwd_bf16_kernel(Params p) {
 #pragma unroll
     for (int dt = 0; dt < DTILES; ++dt) {
       const int d = dt * 8 + tig * 2;
-      if (d < p.hd) orow[d] = __float2bfloat16(acc[dt][2 * i] / l);
-      if (d + 1 < p.hd) orow[d + 1] = __float2bfloat16(acc[dt][2 * i + 1] / l);
+      if (d < p.hd_v) orow[d] = __float2bfloat16(acc[dt][2 * i] / l);
+      if (d + 1 < p.hd_v) orow[d + 1] = __float2bfloat16(acc[dt][2 * i + 1] / l);
     }
   }
 }
@@ -291,16 +296,17 @@ constexpr int FBM = 32;   // q rows per block
 constexpr int FBN = 32;   // keys per tile
 constexpr int FTHREADS = 128;
 
-template <int HDP>
+template <int HDP, int HDV>
 __global__ void __launch_bounds__(FTHREADS)
 flash_fwd_f32_kernel(Params p) {
   constexpr int LDS = HDP + 1;            // odd row stride: no bank conflicts
-  constexpr int PER = FBM * HDP / FTHREADS;  // accumulator elements per thread
+  constexpr int LDSV = HDV + 1;
+  constexpr int PER = FBM * HDV / FTHREADS;  // accumulator elements per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
   float* Ks = Qs + FBM * LDS;
   float* Vs = Ks + FBN * LDS;
-  float* Ps = Vs + FBN * LDS;             // [FBM][FBN + 1]
+  float* Ps = Vs + FBN * LDSV;            // [FBM][FBN + 1]
   float* bias_s = Ps + FBM * (FBN + 1);   // [FBN]
   float* m_s = bias_s + FBN;              // [FBM]
   float* l_s = m_s + FBM;                 // [FBM]
@@ -310,7 +316,7 @@ flash_fwd_f32_kernel(Params p) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int hd = p.hd;
+  const int hd = p.hd, hd_v = p.hd_v;
 
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -337,9 +343,11 @@ flash_fwd_f32_kernel(Params p) {
     __syncthreads();
     for (int c = tid; c < FBN * HDP; c += FTHREADS) {
       const int r = c / HDP, d = c % HDP;
-      const bool ok = k0 + r < p.Tk && d < hd;
-      Ks[r * LDS + d] = ok ? kg[(k0 + r) * p.k_st + d] : 0.f;
-      Vs[r * LDS + d] = ok ? vg[(k0 + r) * p.v_st + d] : 0.f;
+      Ks[r * LDS + d] = k0 + r < p.Tk && d < hd ? kg[(k0 + r) * p.k_st + d] : 0.f;
+    }
+    for (int c = tid; c < FBN * HDV; c += FTHREADS) {
+      const int r = c / HDV, d = c % HDV;
+      Vs[r * LDSV + d] = k0 + r < p.Tk && d < hd_v ? vg[(k0 + r) * p.v_st + d] : 0.f;
     }
     if (tid < FBN) bias_s[tid] = (k0 + tid < p.Tk) ? bg[k0 + tid] : NEG_INF;
     __syncthreads();
@@ -374,10 +382,10 @@ flash_fwd_f32_kernel(Params p) {
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int e = tid + i * FTHREADS;
-      const int r = e / HDP, d = e % HDP;
+      const int r = e / HDV, d = e % HDV;
       const float* prow = &Ps[r * (FBN + 1)];
       float pv = 0.f;
-      for (int c = 0; c < FBN; ++c) pv = fmaf(prow[c], Vs[c * LDS + d], pv);
+      for (int c = 0; c < FBN; ++c) pv = fmaf(prow[c], Vs[c * LDSV + d], pv);
       acc[i] = acc[i] * alpha_s[r] + pv;
     }
   }
@@ -389,8 +397,8 @@ flash_fwd_f32_kernel(Params p) {
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int e = tid + i * FTHREADS;
-    const int r = e / HDP, d = e % HDP;
-    if (q0 + r < p.Tq && d < hd) {
+    const int r = e / HDV, d = e % HDV;
+    if (q0 + r < p.Tq && d < hd_v) {
       const float l = l_s[r] == 0.f ? 1.f : l_s[r];
       og[(q0 + r) * p.o_st + d] = acc[i] / l;
     }
@@ -407,43 +415,52 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStrea
   return cudaGetLastError();
 }
 
-template <int HDP>
+template <int HDP, int HDV = HDP>
 cudaError_t launch_bf16(const Params& p, bool vec, cudaStream_t stream) {
   dim3 grid((p.Tq + BM - 1) / BM, p.nh, p.B);
-  const size_t smem = (size_t)(BM + 2 * BN) * (HDP + 8) * sizeof(__nv_bfloat16) + BN * sizeof(float);
-  if (vec) return launch(flash_fwd_bf16_kernel<HDP, true>, grid, NWARPS * 32, smem, stream, p);
-  return launch(flash_fwd_bf16_kernel<HDP, false>, grid, NWARPS * 32, smem, stream, p);
+  const size_t smem = ((size_t)(BM + BN) * (HDP + 8) + (size_t)BN * (HDV + 8)) *
+                          sizeof(__nv_bfloat16) + BN * sizeof(float);
+  if (vec) return launch(flash_fwd_bf16_kernel<HDP, HDV, true>, grid, NWARPS * 32, smem, stream, p);
+  return launch(flash_fwd_bf16_kernel<HDP, HDV, false>, grid, NWARPS * 32, smem, stream, p);
 }
 
-template <int HDP>
+template <int HDP, int HDV = HDP>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   dim3 grid((p.Tq + FBM - 1) / FBM, p.nh, p.B);
-  const size_t smem = ((size_t)(FBM + 2 * FBN) * (HDP + 1) + FBM * (FBN + 1) + FBN + 3 * FBM) *
-                      sizeof(float);
-  return launch(flash_fwd_f32_kernel<HDP>, grid, FTHREADS, smem, stream, p);
+  const size_t smem = ((size_t)(FBM + FBN) * (HDP + 1) + (size_t)FBN * (HDV + 1) +
+                       FBM * (FBN + 1) + FBN + 3 * FBM) * sizeof(float);
+  return launch(flash_fwd_f32_kernel<HDP, HDV>, grid, FTHREADS, smem, stream, p);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  vec (bf16 only): 1 when hd and every
-// q/k/v row stride are multiples of 8 and the bases are 16-byte aligned.
+// dtype: 0 = float32, 1 = bfloat16.  hd: q and k's width, hd_v: v's and
+// o's.  vec (bf16 only): 1 when hd, hd_v and every q/k/v row stride are
+// multiples of 8 and the bases are 16-byte aligned.
 // lse: null, or [B, nh, Tq] f32 for the per-row log-normalizer.
 // Returns the cudaError_t of the launch (0 = success).
 int tdax_flash_fwd(const void* q, const void* k, const void* v, const float* bias, void* o,
-                   int B, int Tq, int Tk, int nh, int hd,
+                   int B, int Tq, int Tk, int nh, int hd, int hd_v,
                    long long q_sb, long long q_st, long long q_sh,
                    long long k_sb, long long k_st, long long k_sh,
                    long long v_sb, long long v_st, long long v_sh,
                    long long o_sb, long long o_st, long long o_sh,
                    long long bias_sb, int causal, float scale, int dtype, int vec,
                    float* lse, void* stream) {
-  Params p{q, k, v, bias, o, lse, B, Tq, Tk, nh, hd,
+  Params p{q, k, v, bias, o, lse, B, Tq, Tk, nh, hd, hd_v,
            q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh,
            bias_sb, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd < 1 || hd > 128 || B < 1 || Tq < 1 || Tk < 1 || nh < 1) return (int)cudaErrorInvalidValue;
+  if (hd < 1 || hd_v < 1 || hd_v > 128 || hd > (hd_v == hd ? 128 : 192) || B < 1 || Tq < 1 ||
+      Tk < 1 || nh < 1)
+    return (int)cudaErrorInvalidValue;
+  if (hd_v != hd) {  // latent attention: q.k padded to 192 columns, PV to 128
+    if (dtype == 1) return (int)launch_bf16<192, 128>(p, vec != 0, s);
+    if (dtype == 0) return (int)launch_f32<192, 128>(p, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == 1) {
     if (hd <= 32) return (int)launch_bf16<32>(p, vec != 0, s);
     if (hd <= 64) return (int)launch_bf16<64>(p, vec != 0, s);

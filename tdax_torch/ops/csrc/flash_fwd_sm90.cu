@@ -64,6 +64,16 @@
 //   one thread per row.
 // - Every output row belongs to one block and sums in a fixed order: no
 //   atomics, the result is deterministic.
+//
+// Latent attention (MLA, Kimi-VL's decoder) takes q and k of 192 columns
+// (128 without rotary, 64 with) and v of 128: q.k runs over three
+// 64-column boxes (12 steps of 16), PV over two, and o takes v's width.
+// Its kernel, flash_fwd_mla_kernel, is the same body with a ring of
+// STAGES_MLA = 2 stages, since three stages of a 192-column K and a
+// 128-column V (240 KB with Q) do not fit in the 227 KB a block may
+// hold: 48 KB of Q, 2 x 48 KB of K and 2 x 32 KB of V, 208 KB in all.
+// Its bound on an H100 at Kimi-VL's capture (B = 16, T = 320, 16 heads,
+// causal) is memory's, like the QWen decoder's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,25 +90,31 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int BM = 128;        // q rows per block: two consumer warpgroups of 64
 constexpr int BN = 128;        // keys per stage
 constexpr int STAGES = 3;
+constexpr int STAGES_MLA = 2;  // latent attention: q.k over 192 columns, v of 128
 constexpr int THREADS = 384;   // producer warpgroup + two consumer warpgroups
 constexpr int BOX = 64;        // columns per TMA box (128 bytes of bf16)
 constexpr int CHUNK = 128 * 128;  // bytes of one 128-row, 64-column box
 constexpr uint32_t PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
-// shared memory, as offsets from a 1024-aligned base
-template <int HDP>
+// shared memory, as offsets from a 1024-aligned base: q and k rows of QKB
+// 64-column boxes, v (and o) rows of VB, a ring of STG stages
+template <int QKB, int VB, int STG>
 struct Smem {
-  static constexpr int NCH = HDP / BOX;        // boxes per row
-  static constexpr int TILE = NCH * CHUNK;     // one 128-row tile
+  static constexpr int QK_TILE = QKB * CHUNK;  // one 128-row tile of q or k
+  static constexpr int V_TILE = VB * CHUNK;    // one 128-row tile of v
   static constexpr int Q = 0;
-  static constexpr int K = Q + TILE;
-  static constexpr int V = K + STAGES * TILE;
-  static constexpr int BIAS = V + STAGES * TILE;
-  static constexpr int FLAG = BIAS + STAGES * BN * 4;  // per stage: the bias is not all 0
+  static constexpr int K = Q + QK_TILE;
+  static constexpr int V = K + STG * QK_TILE;
+  static constexpr int BIAS = V + STG * V_TILE;
+  static constexpr int FLAG = BIAS + STG * BN * 4;  // per stage: the bias is not all 0
   static constexpr int BAR = FLAG + 16;
-  static constexpr int BYTES = BAR + (1 + 4 * STAGES) * 8;
+  static constexpr int BYTES = BAR + (1 + 4 * STG) * 8;
   static constexpr int ALLOC = BYTES + 1024;   // room to align the base
 };
+
+// boxes of a q or k row for KSTEPS steps of 16 columns, of a v row for NV
+template <int KSTEPS, int NV, int STG>
+using SmemOf = Smem<(KSTEPS * 16 + BOX - 1) / BOX, NV <= 64 ? 1 : 2, STG>;
 
 struct Params {
   const float* bias;
@@ -257,17 +273,18 @@ __device__ __forceinline__ void pack_p(const float (&sc)[64], uint32_t (&pa)[32]
 }
 
 // (KSTEPS, NV) = (4, 64) for hd <= 64, (7, 104) for hd <= 104 (the ViT's
-// hd), (8, 128) above: QK^T's steps of 16 columns and PV's output columns.
-// Rows of hd <= 64 take one 64-column box, larger ones two.
-template <int KSTEPS, int NV, bool CAUSAL, bool LSE>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
-                      const __grid_constant__ CUtensorMap map_k,
-                      const __grid_constant__ CUtensorMap map_v,
-                      const __grid_constant__ CUtensorMap map_o, const Params p) {
-  constexpr int HDP = NV <= 64 ? 64 : 128;
-  using S = Smem<HDP>;
-  constexpr int NCH = S::NCH;
+// hd), (8, 128) above: QK^T's steps of 16 columns and PV's output columns;
+// (12, 128) for latent attention's q.k over 192 and v of 128.  Rows of up
+// to 64 columns take one 64-column box, larger ones two or three.  The
+// body of both kernels below, with a ring of STG stages.
+template <int KSTEPS, int NV, int STG, bool CAUSAL, bool LSE>
+__device__ __forceinline__ void fwd_body(const CUtensorMap& map_q, const CUtensorMap& map_k,
+                                         const CUtensorMap& map_v, const CUtensorMap& map_o,
+                                         const Params& p) {
+  constexpr int STAGES = STG;
+  using S = SmemOf<KSTEPS, NV, STG>;
+  constexpr int QKB = (KSTEPS * 16 + BOX - 1) / BOX;  // boxes of a q or k row
+  constexpr int VB = NV <= 64 ? 1 : 2;                // boxes of a v or o row
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   float* bias_s = reinterpret_cast<float*>(base + S::BIAS);
@@ -310,8 +327,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     if (tid < 32) {
       const int lane = tid;
       if (lane == 0) {
-        mbar_arrive_expect_tx(q_full, S::TILE);
-        for (int c = 0; c < NCH; ++c)
+        mbar_arrive_expect_tx(q_full, S::QK_TILE);
+        for (int c = 0; c < QKB; ++c)
           tma_load_4d(base + S::Q + c * CHUNK, &map_q, q_full, c * BOX, h, q0, b);
       }
       const float* bias_row = p.bias + (long long)b * p.bias_sb;
@@ -321,16 +338,16 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         const uint32_t parity = ((j / STAGES) & 1) ^ 1;  // round 0 passes at once
         mbar_wait(&k_empty[s], parity);
         if (lane == 0) {
-          mbar_arrive_expect_tx(&k_full[s], S::TILE);
-          for (int c = 0; c < NCH; ++c)
-            tma_load_4d(base + S::K + s * S::TILE + c * CHUNK, &map_k, &k_full[s], c * BOX, h,
+          mbar_arrive_expect_tx(&k_full[s], S::QK_TILE);
+          for (int c = 0; c < QKB; ++c)
+            tma_load_4d(base + S::K + s * S::QK_TILE + c * CHUNK, &map_k, &k_full[s], c * BOX, h,
                         k0, b);
         }
         mbar_wait(&v_empty[s], parity);
         if (lane == 0) {
-          mbar_arrive_expect_tx(&v_full[s], S::TILE);
-          for (int c = 0; c < NCH; ++c)
-            tma_load_4d(base + S::V + s * S::TILE + c * CHUNK, &map_v, &v_full[s], c * BOX, h,
+          mbar_arrive_expect_tx(&v_full[s], S::V_TILE);
+          for (int c = 0; c < VB; ++c)
+            tma_load_4d(base + S::V + s * S::V_TILE + c * CHUNK, &map_v, &v_full[s], c * BOX, h,
                         k0, b);
         }
         // the bias goes in while the tiles are in flight (its slot is free:
@@ -405,9 +422,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_wait(&v_full[sp], ((j - 1) / STAGES) & 1);
       my_turn();
       wgmma_fence();
-      issue_qk<KSTEPS>(sc, q_addr, smem_u32(base + S::K + s * S::TILE));
+      issue_qk<KSTEPS>(sc, q_addr, smem_u32(base + S::K + s * S::QK_TILE));
       wgmma_commit();
-      issue_pv<NV>(o, pa, smem_u32(base + S::V + sp * S::TILE));
+      issue_pv<NV>(o, pa, smem_u32(base + S::V + sp * S::V_TILE));
       wgmma_commit();
       their_turn();
       wgmma_wait<1>();  // S_j is in
@@ -425,7 +442,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       const int sp = (n_tiles - 1) % STAGES;
       mbar_wait(&v_full[sp], ((n_tiles - 1) / STAGES) & 1);
       my_turn();
-      issue_pv<NV>(o, pa, smem_u32(base + S::V + sp * S::TILE));
+      issue_pv<NV>(o, pa, smem_u32(base + S::V + sp * S::V_TILE));
       wgmma_commit();
       their_turn();
       wgmma_wait<0>();
@@ -459,7 +476,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     fence_proxy_async();
     named_barrier_sync(1 + cw, 128);
     if (ctid == 0 && wrow0 < p.Tq) {
-      for (int c = 0; c < NCH; ++c) tma_store_4d(&map_o, ot + c * CHUNK, c * BOX, h, wrow0, b);
+      for (int c = 0; c < VB; ++c) tma_store_4d(&map_o, ot + c * CHUNK, c * BOX, h, wrow0, b);
       tma_store_commit_and_wait();
     }
     if (LSE && t == 0) {  // the quad's four threads hold the same m and l
@@ -474,9 +491,27 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 template <int KSTEPS, int NV, bool CAUSAL, bool LSE>
-cudaError_t launch(const CUtensorMap* maps, const Params& p, int B, cudaStream_t stream) {
-  auto kernel = flash_fwd_sm90_kernel<KSTEPS, NV, CAUSAL, LSE>;
-  const int smem = Smem<NV <= 64 ? 64 : 128>::ALLOC;
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_o, const Params p) {
+  fwd_body<KSTEPS, NV, STAGES, CAUSAL, LSE>(map_q, map_k, map_v, map_o, p);
+}
+
+// latent attention: q.k over 192 columns, v and o of 128, two stages
+template <bool CAUSAL, bool LSE>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_mla_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_o, const Params p) {
+  fwd_body<12, 128, STAGES_MLA, CAUSAL, LSE>(map_q, map_k, map_v, map_o, p);
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, int smem, const CUtensorMap* maps, const Params& p, int B,
+                   cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(p.m_tiles, p.nh, B);
@@ -487,11 +522,23 @@ cudaError_t launch(const CUtensorMap* maps, const Params& p, int B, cudaStream_t
 template <int KSTEPS, int NV>
 cudaError_t launch_hd(const CUtensorMap* maps, const Params& p, int B, bool causal,
                       cudaStream_t stream) {
+  const int smem = SmemOf<KSTEPS, NV, STAGES>::ALLOC;
   if (causal)
-    return p.lse ? launch<KSTEPS, NV, true, true>(maps, p, B, stream)
-                 : launch<KSTEPS, NV, true, false>(maps, p, B, stream);
-  return p.lse ? launch<KSTEPS, NV, false, true>(maps, p, B, stream)
-               : launch<KSTEPS, NV, false, false>(maps, p, B, stream);
+    return p.lse ? launch(flash_fwd_sm90_kernel<KSTEPS, NV, true, true>, smem, maps, p, B, stream)
+                 : launch(flash_fwd_sm90_kernel<KSTEPS, NV, true, false>, smem, maps, p, B, stream);
+  return p.lse ? launch(flash_fwd_sm90_kernel<KSTEPS, NV, false, true>, smem, maps, p, B, stream)
+               : launch(flash_fwd_sm90_kernel<KSTEPS, NV, false, false>, smem, maps, p, B, stream);
+}
+
+cudaError_t launch_mla(const CUtensorMap* maps, const Params& p, int B, bool causal,
+                       cudaStream_t stream) {
+  const int smem = SmemOf<12, 128, STAGES_MLA>::ALLOC;
+  static_assert(SmemOf<12, 128, STAGES_MLA>::ALLOC <= 232448, "MLA tiles exceed shared memory");
+  if (causal)
+    return p.lse ? launch(flash_fwd_mla_kernel<true, true>, smem, maps, p, B, stream)
+                 : launch(flash_fwd_mla_kernel<true, false>, smem, maps, p, B, stream);
+  return p.lse ? launch(flash_fwd_mla_kernel<false, true>, smem, maps, p, B, stream)
+               : launch(flash_fwd_mla_kernel<false, false>, smem, maps, p, B, stream);
 }
 
 }  // namespace
@@ -499,37 +546,41 @@ cudaError_t launch_hd(const CUtensorMap* maps, const Params& p, int B, bool caus
 extern "C" {
 
 // bf16 only.  Strides in elements (batch, token, head); the last
-// dimension contiguous; bases and strides 16-byte aligned, hd a multiple
-// of 8 up to 128.  o is contiguous [B, Tq, nh, hd].  lse: null, or [B, nh,
-// Tq] f32.  Returns the cudaError_t of the map encoding or the launch
-// (0 = success).
+// dimension contiguous; bases and strides 16-byte aligned, hd (q and k) and
+// hd_v (v and o) multiples of 8: hd_v == hd up to 128, or latent
+// attention's hd in 136..192 with hd_v up to 128.  o is contiguous [B, Tq,
+// nh, hd_v].  lse: null, or [B, nh, Tq] f32.  Returns the cudaError_t of
+// the map encoding or the launch (0 = success).
 int tdax_flash_fwd_sm90(const void* q, const void* k, const void* v, const float* bias, void* o,
-                        int B, int Tq, int Tk, int nh, int hd,
+                        int B, int Tq, int Tk, int nh, int hd, int hd_v,
                         long long q_sb, long long q_st, long long q_sh,
                         long long k_sb, long long k_st, long long k_sh,
                         long long v_sb, long long v_st, long long v_sh,
                         long long bias_sb, int causal, float scale, float* lse, void* stream) {
-  if (hd < 8 || hd > 128 || hd % 8 || B < 1 || B > 65535 || Tq < 1 || Tk < 1 || nh < 1 ||
-      nh > 65535)
+  const bool mla = hd_v != hd;
+  if (hd < 8 || hd % 8 || hd_v < 8 || hd_v % 8 || hd_v > 128 || (mla ? hd <= 128 || hd > 192
+                                                                    : hd > 128) ||
+      B < 1 || B > 65535 || Tq < 1 || Tk < 1 || nh < 1 || nh > 65535)
     return (int)cudaErrorInvalidValue;
   CUtensorMap maps[4];
   const void* ptrs[3] = {q, k, v};
   const long long strides[3][3] = {{q_sh, q_st, q_sb}, {k_sh, k_st, k_sb}, {v_sh, v_st, v_sb}};
   for (int i = 0; i < 3; ++i) {
-    const uint64_t dims[4] = {(uint64_t)hd, (uint64_t)nh, (uint64_t)(i == 0 ? Tq : Tk),
-                              (uint64_t)B};
+    const uint64_t dims[4] = {(uint64_t)(i == 2 ? hd_v : hd), (uint64_t)nh,
+                              (uint64_t)(i == 0 ? Tq : Tk), (uint64_t)B};
     const uint64_t bytes[3] = {2ull * strides[i][0], 2ull * strides[i][1], 2ull * strides[i][2]};
     cudaError_t err = encode_bf16_4d(&maps[i], ptrs[i], dims, bytes, BOX, BN);
     if (err != cudaSuccess) return (int)err;
   }
-  const uint64_t odims[4] = {(uint64_t)hd, (uint64_t)nh, (uint64_t)Tq, (uint64_t)B};
-  const uint64_t obytes[3] = {2ull * hd, 2ull * hd * nh, 2ull * hd * nh * Tq};
+  const uint64_t odims[4] = {(uint64_t)hd_v, (uint64_t)nh, (uint64_t)Tq, (uint64_t)B};
+  const uint64_t obytes[3] = {2ull * hd_v, 2ull * hd_v * nh, 2ull * hd_v * nh * Tq};
   cudaError_t err = encode_bf16_4d(&maps[3], o, odims, obytes, BOX, 64);
   if (err != cudaSuccess) return (int)err;
 
   const int m_tiles = (Tq + BM - 1) / BM;
   Params p{bias, lse, Tq, Tk, nh, bias_sb, scale, m_tiles};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mla) return (int)launch_mla(maps, p, B, causal != 0, s);
   if (hd <= 64) return (int)launch_hd<4, 64>(maps, p, B, causal != 0, s);
   if (hd <= 104) return (int)launch_hd<7, 104>(maps, p, B, causal != 0, s);
   return (int)launch_hd<8, 128>(maps, p, B, causal != 0, s);

@@ -36,6 +36,14 @@ launches the dq kernel, then the dk/dv kernel.  ``FlashAttentionLse``
 into the same kernels (delta' = delta - dlse): the ring attention's
 per-step attention.
 
+Latent attention (Kimi-VL's MLA) gives v a width of its own: q and k
+of ``hd`` (192: 128 without rotary, 64 with) and v of ``hd_v`` (128);
+the output takes v's width, the lse and the scale 1 / sqrt(hd) are
+unchanged.  ``flash_fwd_sm90.cu`` runs it as ``flash_fwd_mla_kernel``
+(q.k over three 64-column boxes, two stages), the plain version and
+``flash_fwd.cu`` take any such pair; the decode kernel and the backward
+take v of q's width only.
+
 ``mha`` is what the model calls.  On CPU tensors it takes the plain
 PyTorch versions (``flash_attention_plain``, which materializes the
 [B, nh, Tq, Tk] f32 logits like tdax's ``_reference_mha``, and
@@ -55,7 +63,8 @@ sequence, and ``mha`` runs the ring (``ring_attention``), each of its
 steps on the kernels above.
 
 ``LAUNCHES`` (every forward kernel), ``LAUNCHES_SM90`` and
-``LAUNCHES_DECODE`` (each Hopper one alone), ``BWD_DQ_LAUNCHES`` and
+``LAUNCHES_DECODE`` (each Hopper one alone; ``LAUNCHES_MLA`` the Hopper
+forward's latent-attention kernel among ``LAUNCHES_SM90``), ``BWD_DQ_LAUNCHES`` and
 ``BWD_DKV_LAUNCHES`` (both backward kernels of each pair) and
 ``BWD_DQ_LAUNCHES_SM90`` and ``BWD_DKV_LAUNCHES_SM90`` (the Hopper ones
 alone) count kernel launches (one per successful launch, and nowhere
@@ -79,15 +88,16 @@ NEG_INF = -1e30  # finite: a fully masked tile must not produce NaN
 LAUNCHES = 0
 LAUNCHES_SM90 = 0
 LAUNCHES_DECODE = 0
+LAUNCHES_MLA = 0
 BWD_DQ_LAUNCHES = 0
 BWD_DKV_LAUNCHES = 0
 BWD_DQ_LAUNCHES_SM90 = 0
 BWD_DKV_LAUNCHES_SM90 = 0
 
 _C_TAIL = [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int]  # causal, scale, dtype, vec
-_C_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 13
+_C_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 13
                + _C_TAIL + [ctypes.c_void_p, ctypes.c_void_p])  # lse, stream
-_C_SM90_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 10
+_C_SM90_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 10
                     + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
 _C_DECODE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
@@ -108,6 +118,10 @@ SM90_MIN_TQ = 64
 # warps a block may have (one block per (batch, head))
 DECODE_KEYS_AT_ONCE = 4
 DECODE_WARPS = (4, 8, 16)
+# widest q / k and v head the forward kernels take (v of q's width up to
+# HD_V_MAX; a wider q and k, latent attention's, with v up to HD_V_MAX)
+HD_MAX = 192
+HD_V_MAX = 128
 
 
 # Active (mesh, batch_axis, head_axis, seq_axis) of a multi-device run;
@@ -181,7 +195,7 @@ def _logits(q, k, additive) -> torch.Tensor:
 def _reference_mha(q, k, v, additive) -> torch.Tensor:
     """Full [B, nh, Tq, Tk] f32 logits + softmax (tdax ``_reference_mha``):
     products accumulate in f32, the probabilities are cast to q's type
-    before the PV product, the output is in q's type."""
+    before the PV product, the output is in q's type and v's width."""
     probs = torch.softmax(_logits(q, k, additive), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(q.dtype)
 
@@ -196,8 +210,8 @@ def _additive(bias, causal: bool, tq: int, tk: int) -> torch.Tensor:
 
 def flash_attention_plain(q, k, v, bias, causal: bool, return_lse: bool = False):
     """Plain PyTorch version of the forward kernel's function: q [B, Tq,
-    nh, hd], k/v [B, Tk, nh, hd], bias [B, Tk] f32 -> [B, Tq, nh, hd] in
-    q.dtype; with ``return_lse`` also the per-row log-normalizer [B, nh,
+    nh, hd], k [B, Tk, nh, hd], v [B, Tk, nh, hd_v], bias [B, Tk] f32 ->
+    [B, Tq, nh, hd_v] in q.dtype; with ``return_lse`` also the per-row log-normalizer [B, nh,
     Tq] f32, m + log(l) as tdax's kernel writes it, 0 on a row that sees
     no key (l == 0, or every score masked), whose output is then 0 where
     l == 0."""
@@ -246,17 +260,20 @@ def _check(q, k, v, bias) -> None:
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if bias.dtype != torch.float32:
         raise TypeError(f"flash_attention: bias must be float32, got {bias.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention: expected q [B,Tq,nh,hd] and k = v [B,Tk,nh,hd], "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"flash_attention: expected q [B,Tq,nh,hd], k [B,Tk,nh,hd] and v "
+                         f"[B,Tk,nh,hd_v], got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     b, tq, nh, hd = q.shape
+    hd_v = v.shape[3]
     if k.shape[0] != b or k.shape[2] != nh or k.shape[3] != hd:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     if tuple(bias.shape) != (b, k.shape[1]):
         raise ValueError(f"flash_attention: bias must be [B, Tk] = {(b, k.shape[1])}, "
                          f"got {tuple(bias.shape)}")
-    if not 1 <= hd <= 128:
-        raise ValueError(f"flash_attention: head_dim {hd} is outside 1..128")
+    if not (1 <= hd_v <= HD_V_MAX and 1 <= hd <= (HD_V_MAX if hd == hd_v else HD_MAX)):
+        raise ValueError(f"flash_attention: head_dim {hd} and v's {hd_v} are outside "
+                         f"1..{HD_V_MAX} (or q.k up to {HD_MAX} with v up to {HD_V_MAX})")
     if min(b, tq, nh, k.shape[1]) < 1:
         raise ValueError("flash_attention: empty input")
     if b > 65535 or nh > 65535:  # grid (q tiles, heads, batch)
@@ -279,6 +296,8 @@ def _check_bwd(q, k, v, bias, lse, delta, do) -> None:
                          f"match q {tuple(q.shape)} {q.dtype}")
     if do.stride(-1) != 1:
         raise ValueError("flash_attention backward: dO's last dimension must be contiguous")
+    if v.shape[-1] != q.shape[-1]:
+        raise ValueError("flash_attention backward: the kernels take v of q's width")
     rows = (q.shape[0], q.shape[2], q.shape[1])
     for name, x in (("lse", lse), ("delta", delta)):
         if x.dtype != torch.float32 or tuple(x.shape) != rows or not x.is_contiguous():
@@ -305,11 +324,15 @@ def _route(q, k, v) -> str:
     Hopper kernels read with 16-byte loads or TMA (``_vectorizable``: hd,
     the bases and the strides 16-byte aligned; no stride 0) ``"decode"``
     at one query row and ``"sm90"`` at ``SM90_MIN_TQ`` or more; ``"mma"``
-    for everything else."""
+    for everything else.  v of its own width goes to the Hopper forward's
+    latent-attention kernel where q and k are wider than 128, to
+    ``"mma"`` otherwise."""
     if not _vectorizable(q, k, v) or any(s == 0 for x in (q, k, v) for s in x.stride()[:3]):
         return "mma"
+    if v.shape[-1] != q.shape[-1] and q.shape[-1] <= HD_V_MAX:
+        return "mma"
     if q.shape[1] == 1:
-        return "decode"
+        return "decode" if v.shape[-1] == q.shape[-1] else "mma"
     return "sm90" if q.shape[1] >= SM90_MIN_TQ else "mma"
 
 
@@ -430,23 +453,23 @@ def flash_attention(q, k, v, bias, causal: bool, return_lse: bool = False, *,
                     _kernel: str | None = None):
     """Launch the CUDA flash-attention forward on CUDA tensors.
 
-    q [B, Tq, nh, hd], k/v [B, Tk, nh, hd] (bf16 or f32, any strides
-    with a contiguous last dimension), bias [B, Tk] f32 ->
-    [B, Tq, nh, hd] in q.dtype, on the current stream; with
+    q [B, Tq, nh, hd], k [B, Tk, nh, hd], v [B, Tk, nh, hd_v] (bf16 or
+    f32, any strides with a contiguous last dimension), bias [B, Tk] f32
+    -> [B, Tq, nh, hd_v] in q.dtype, on the current stream; with
     ``return_lse`` also lse [B, nh, Tq] f32 (see
     ``flash_attention_plain``).  ``_route`` picks the kernel; the private
     ``_kernel="mma"`` forces ``flash_fwd.cu`` (to time and check it at
     the shapes the Hopper kernels take).  Raises on any input the kernel
     does not take."""
-    global LAUNCHES, LAUNCHES_SM90, LAUNCHES_DECODE
+    global LAUNCHES, LAUNCHES_SM90, LAUNCHES_DECODE, LAUNCHES_MLA
     _check(q, k, v, bias)
     route = _route(q, k, v)
     if _kernel not in (None, "mma", route):
         raise ValueError(f"flash_attention: the {_kernel} kernel does not take these inputs")
     route = _kernel or route
     b, tq, nh, hd = q.shape
-    tk = k.shape[1]
-    out = torch.empty((b, tq, nh, hd), dtype=q.dtype, device=q.device)
+    tk, hd_v = k.shape[1], v.shape[3]
+    out = torch.empty((b, tq, nh, hd_v), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, nh, tq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     lse_ptr = None if lse is None else lse.data_ptr()
@@ -469,18 +492,19 @@ def flash_attention(q, k, v, bias, causal: bool, return_lse: bool = False, *,
             stream = torch.cuda.current_stream(q.device).cuda_stream
             rc = lib.tdax_flash_fwd_sm90(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                b, tq, tk, nh, hd, *_strides(q, k, v), bias.stride(0), int(causal),
+                b, tq, tk, nh, hd, hd_v, *_strides(q, k, v), bias.stride(0), int(causal),
                 1.0 / math.sqrt(hd), lse_ptr, stream)
         _raise_on(rc, lib, "flash_attention (sm90)")
         LAUNCHES += 1
         LAUNCHES_SM90 += 1
+        LAUNCHES_MLA += int(hd_v != hd)
         return (out, lse) if return_lse else out
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.tdax_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            b, tq, tk, nh, hd,
+            b, tq, tk, nh, hd, hd_v,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -632,7 +656,8 @@ def flash_attention_lse(q, k, v, bias, causal: bool):
 def mha(q, k, v, spec: AttnSpec) -> torch.Tensor:
     """Multi-head attention used by the decoder, the ViT and the resampler.
 
-    q [B, Tq, nh, hd], k/v [B, Tk, nh, hd] -> [B, Tq, nh, hd].  CPU
+    q [B, Tq, nh, hd], k [B, Tk, nh, hd], v [B, Tk, nh, hd_v] -> [B, Tq,
+    nh, hd_v].  CPU
     tensors take the plain versions; CUDA tensors take the kernels.
     ``FlashAttention`` carries the call when autograd will need its
     gradient.  Under ``flash_sharding(..., seq_axis=...)`` q, k and v

@@ -17,6 +17,16 @@ last-token activations.  As in tdax:
     when it holds a checkpoint, and are random (seed 0) and byte-level
     otherwise.
 
+The model is the configuration's: a ``QwenVLConfig`` runs Qwen-VL-Chat,
+a ``KimiVLConfig`` Kimi-VL-A3B-Instruct (``models/kimi_vl``: its seeded
+``init_params``, its image processor's normalization and its
+``extract_layer_activations``, which takes Qwen-VL's arguments; no
+checkpoint loader and no int8 path).  With a ``KimiVLConfig`` and
+``TDAX_LOG`` set, a run whose batches a profiler recorded logs the
+expert layers' load once, as a ``moe_load`` event
+(``ops.moe.LOAD``: per layer the busiest and the idlest expert's routed
+rows over the mean).
+
 Under a ``torch.distributed`` process group of W ranks
 (``tdax_torch.parallel.mesh.init_distributed``, or ``torchrun``), as
 tdax's dp mesh over its devices: when W divides ``batch_size`` each rank
@@ -44,6 +54,7 @@ import os
 import time
 import zipfile
 from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -51,6 +62,7 @@ import torch
 from tdax_torch.config import ExtractConfig
 from tdax_torch.data.io import load_activations_npz, save_activations, save_activations_npz
 from tdax_torch.models.qwen_vl.config import QwenVLConfig
+from tdax_torch.models.kimi_vl.config import KimiVLConfig
 from tdax_torch.models.qwen_vl.model import extract_layer_activations, init_params
 from tdax_torch.models.qwen_vl.quantize import quantize_params
 from tdax_torch.models.qwen_vl.preprocess import load_image_batch
@@ -81,6 +93,33 @@ def load_or_init_params(model_dir: str | None, cfg: QwenVLConfig, device, seed: 
         from tdax_torch.models.qwen_vl.convert import load_qwen_checkpoint
         return load_qwen_checkpoint(model_dir, cfg, device, quantize=quantize)
     return init_params(cfg, device, seed, quantize=quantize)
+
+
+class _Model(NamedTuple):
+    """What the extract loop asks of the configuration's model."""
+    tokenizer_dir: str | None
+    params: Callable  # (device) -> params
+    images: Callable  # (image paths) -> [B, 3, S, S] float32
+    capture: Callable  # extract_layer_activations
+    after_run: Callable  # () -> None, once the batches are done
+
+
+def _family(cfg, extract_cfg: ExtractConfig) -> _Model:
+    """The configuration's model: Qwen-VL-Chat (its checkpoint or seeded
+    weights, int8 on request), or Kimi-VL on seeded bf16 weights."""
+    if isinstance(cfg, KimiVLConfig):
+        from tdax_torch.models.kimi_vl import model, preprocess
+        if extract_cfg.quantize_int8 or _has_checkpoint(extract_cfg.model_dir):
+            raise NotImplementedError("Kimi-VL runs on seeded bf16 weights: the port has no "
+                                      "checkpoint loader and no int8 path for it")
+        return _Model(None, lambda device: model.init_params(cfg, device),
+                      lambda paths: preprocess.load_image_batch(paths, cfg.visual),
+                      model.extract_layer_activations, model.log_expert_load)
+    return _Model(extract_cfg.model_dir,
+                  lambda device: load_or_init_params(extract_cfg.model_dir, cfg, device,
+                                                     quantize=extract_cfg.quantize_int8),
+                  lambda paths: load_image_batch(paths, cfg.visual.image_size),
+                  extract_layer_activations, lambda: None)
 
 
 def _load_checkpoint(tmp_path: str, metadata: list[dict], announce: bool = True):
@@ -125,10 +164,10 @@ def extract_activations(metadata: list[dict], output_path: str,
     device = get_device(device)
     cfg = cfg or QwenVLConfig()
     extract_cfg = extract_cfg or ExtractConfig()
-    tokenizer = tokenizer or get_tokenizer(extract_cfg.model_dir, cfg)
+    family = _family(cfg, extract_cfg)
+    tokenizer = tokenizer or get_tokenizer(family.tokenizer_dir, cfg)
     if params is None:
-        params = load_or_init_params(extract_cfg.model_dir, cfg, device,
-                                     quantize=extract_cfg.quantize_int8)
+        params = family.params(device)
     elif extract_cfg.quantize_int8:
         params = quantize_params(params)
 
@@ -160,8 +199,7 @@ def extract_activations(metadata: list[dict], output_path: str,
         with span("host_prep"):
             rows = np.asarray([row_of[m["id"]] for m in chunk]
                               + [row_of[chunk[0]["id"]]] * (bs - len(chunk)))[share]
-            images = load_image_batch([encoded["image_paths"][r] for r in rows],
-                                      cfg.visual.image_size)
+            images = family.images([encoded["image_paths"][r] for r in rows])
             return (enc_ids[rows], enc_mask[rows], encoded["last_token_idx"][rows],
                     images, encoded["image_positions"][rows])
 
@@ -174,7 +212,7 @@ def extract_activations(metadata: list[dict], output_path: str,
 
     def run(inputs) -> torch.Tensor:
         with torch.inference_mode():
-            return extract_layer_activations(params, cfg, *inputs)
+            return family.capture(params, cfg, *inputs)
 
     collected_ids = list(done_ids)
     collected: list[np.ndarray] = [] if done_acts is None else [done_acts]
@@ -217,6 +255,7 @@ def extract_activations(metadata: list[dict], output_path: str,
 
     all_acts = np.concatenate(collected, axis=1) if collected else np.zeros(
         (cfg.num_layers, 0, cfg.hidden_size), np.float32)
+    family.after_run()
 
     if collected_ids:
         if writer:

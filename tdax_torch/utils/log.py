@@ -52,9 +52,15 @@ def log_event(event: str, **fields) -> None:
         pass
 
 
+def recording() -> bool:
+    """Whether a profiler records, on any thread (not only this one's):
+    the test behind ``span`` and the port's counters that cost a launch."""
+    return _profiler._is_profiler_enabled
+
+
 def span(name: str):
     """A ``tdax.<name>`` ``record_function`` range while a profiler
     records; otherwise a shared no-op context (no allocation, no sync)."""
-    if _profiler._is_profiler_enabled:  # any thread's profiler, not only this thread's
+    if recording():
         return torch.profiler.record_function("tdax." + name)
     return _OFF

@@ -145,8 +145,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         bias = torch.zeros((2, 8))
     elif case == "bias_dtype":
         bias = bias.double()
-    elif case == "kv_shape":
-        v = torch.zeros((2, 12, 2, 8))
+    elif case == "kv_shape":  # v may be narrower than k (latent attention), not shorter
+        v = torch.zeros((2, 10, 2, 16))
     else:
         q = torch.zeros((2, 8, 2, 32))[..., ::2]
     with pytest.raises((ValueError, TypeError)) as info:
